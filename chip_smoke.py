@@ -23,7 +23,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 6. paged vs dense — one greedy request's per-step paged decode logits
              (through the kernel) and the dense bf16 forward over the full
              context, both against an fp32 dense forward of the same
-             weights: the paged path may be at most 1.5x further from it.
+             weights: the paged path may be at most 1.5x further from it;
+7. flash   — the three flash-attention kernels (forward, dq, dk/dv)
+             against their plain versions at gpt-1b (B=2, S=2048, 16/16
+             heads, D=128) and llama-8b-gqa (S=1024, 32 q over 8 kv heads)
+             geometry: causal and packed rows through the differentiable
+             flash_attention, and the raw _fwd/_bwd_impl pair with
+             positions restarting per document; fp32 (out/lse 1e-5,
+             gradients 1e-4 of their max) and bf16 (2e-2 of the max; lse
+             1e-4); every CUDA call counted at its kernel;
+8. adamw   — the fused AdamW kernel bitwise equal to its plain version on
+             every gpt-1b leaf shape, fp32 and bf16 moments, with and
+             without decay, clip scale < 1;
+9. train timing — CUDA-event times of the three flash kernels at the
+             training shape (micro-batch x 2048, bf16, causal) and of one
+             AdamW update of every gpt-1b leaf, beside their plain versions,
+             SDPA / torch._fused_adamw_ and their bounds;
+10. train  — the port's training path: TrainingEngine trains gpt-1b at
+             full width and depth (24 layers, H=2048, vocab 50304; random
+             fp32 masters from seed 42, synthetic data, S=2048, fused AdamW
+             warmed up over 2 steps, selective remat) for 8 steps and saves
+             a checkpoint to a temporary directory; the loss is finite and
+             falls, and each kernel's launches equal what the code implies;
+             then the checkpoint is restored (step, data cursor, state) and
+             one step through the kernels agrees with one through the plain
+             versions within 1e-2.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} record. Without a CUDA card, or without the rest of the
@@ -419,6 +443,476 @@ def paged_against_dense(torch, mods, served: dict, steps: int = 16) -> dict:
             "same_as_served": same_as_served}
 
 
+# -- phase 7: the flash kernels against plain --------------------------------
+
+# (name, B, S, Nq, Nkv, D): gpt-1b, and llama-8b-gqa for the GQA fold
+FLASH_GEOMS = (("gpt-1b", 2, 2048, 16, 16, 128),
+               ("llama-8b-gqa", 2, 1024, 32, 8, 128))
+# fp32: out/lse absolute, gradients relative to their max; bf16: every
+# output relative to its max (the kernels round p and ds to bf16 where the
+# plain version does, so the rest is summation order), lse of live rows
+# absolute (fp32 sums of exact bf16 products)
+FLASH_TOL = {"float32": {"out": 1e-5, "lse": 1e-5, "grad": 1e-4},
+             "bfloat16": {"out": 2e-2, "lse": 1e-4, "grad": 2e-2}}
+
+
+def flash_inputs(torch, B, S, Nq, Nkv, D, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(B, S, n, D, generator=g, device="cuda").to(dtype)
+                 for n in (Nq, Nkv, Nkv, Nq))            # q, k, v, dO
+
+
+def packed_rows(torch, B, S):
+    """Three documents a row (segment ids 1..3) whose positions restart at
+    0, and a padded tail (segment 0) on the last row."""
+    cut = [0, S // 3, S // 3 + S // 4, S]
+    segs = torch.zeros(B, S, dtype=torch.int32, device="cuda")
+    pos = torch.zeros(B, S, dtype=torch.int32, device="cuda")
+    for i in range(3):
+        segs[:, cut[i]:cut[i + 1]] = i + 1
+        pos[:, cut[i]:cut[i + 1]] = torch.arange(
+            cut[i + 1] - cut[i], dtype=torch.int32, device="cuda")
+    segs[-1, -(S // 16):] = 0
+    return segs, pos
+
+
+class FlashErrors:
+    """Compares kernel outputs with plain ones, fails past the tolerance,
+    and keeps the worst absolute error per kernel."""
+
+    def __init__(self):
+        self.worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0,
+                      "flash_bwd_dkv": 0.0}
+
+    def __call__(self, kernel, what, got, ref, dtype, label):
+        tol = FLASH_TOL[dtype]
+        got, ref = got.float(), ref.float()
+        if what == "lse":                 # empty rows: NEG_INF in both
+            live = ref > -1e37
+            check(bool((got[~live] == ref[~live]).all()),
+                  f"{label}: lse of empty rows differs")
+            got, ref = got[live], ref[live]
+        err = (got - ref).abs().max().item()
+        scale = 1.0
+        if what == "grad" or (what == "out" and dtype == "bfloat16"):
+            scale = max(ref.abs().max().item(), 1e-30)
+        limit = tol[what] * scale
+        self.worst[kernel] = max(self.worst[kernel], err)
+        check(err <= limit, f"{label}: {kernel} {what} max_abs_err {err:.3e}"
+              f" > {limit:.3e}")
+        return err, limit
+
+
+def flash_against_plain(torch, fa, fac) -> dict:
+    errs = FlashErrors()
+    kernels = (fac.flash_fwd, fac.flash_bwd_dq, fac.flash_bwd_dkv)
+    for name, B, S, Nq, Nkv, D in FLASH_GEOMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).removeprefix("torch.")
+            q, k, v, do = flash_inputs(torch, B, S, Nq, Nkv, D, dtype,
+                                       seed=S + Nq)
+            segs, pos = packed_rows(torch, B, S)
+            # the public, differentiable entry point: causal, and packed
+            # rows kept apart by their segment ids
+            for kind, seg_arg in (("causal", None), ("packed", segs)):
+                label = f"{name} {dt} {kind}"
+                res = {}
+                for impl in ("kernel", "plain"):
+                    before = [kn.launches for kn in kernels]
+                    qs, ks, vs = (t.clone().requires_grad_(True)
+                                  for t in (q, k, v))
+                    out = fa.flash_attention(qs, ks, vs, segment_ids=seg_arg,
+                                             impl=impl)
+                    out.backward(do)
+                    torch.cuda.synchronize()
+                    res[impl] = (out.detach(), qs.grad, ks.grad, vs.grad)
+                    grew = [kn.launches - b for kn, b in zip(kernels, before)]
+                    check(grew == ([1, 1, 1] if impl == "kernel"
+                                   else [0, 0, 0]),
+                          f"{label}: launches {grew} through impl={impl}")
+                (o, dq, dk, dv), (po, pdq, pdk, pdv) = res["kernel"], \
+                    res["plain"]
+                e_o = errs("flash_fwd", "out", o, po, dt, label)
+                e_q = errs("flash_bwd_dq", "grad", dq, pdq, dt, label)
+                e_k = errs("flash_bwd_dkv", "grad", dk, pdk, dt, label)
+                e_v = errs("flash_bwd_dkv", "grad", dv, pdv, dt, label)
+                print(f"flash vs plain  {label:30s} out {e_o[0]:.2e} "
+                      f"(tol {e_o[1]:.1e})  dq {e_q[0]:.2e} (tol "
+                      f"{e_q[1]:.1e})  dk {e_k[0]:.2e} (tol {e_k[1]:.1e})  "
+                      f"dv {e_v[0]:.2e} (tol {e_v[1]:.1e})", flush=True)
+            # the raw pair on the folded layout, positions restarting per
+            # document (as ring attention drives it)
+            label = f"{name} {dt} raw restart"
+            qf, kf, vf, sq, pq, sk, pk, _ = fa.fold_gqa(q, k, v, segs, pos)
+            dof = fa.fold_gqa(do, k, v, segs, pos)[0]
+            scale = 1.0 / D ** 0.5
+            ok, lk = fa._fwd(qf, kf, vf, sq, sk, pq, pk, True, 512, 512,
+                             scale, impl="kernel")
+            op, lp = fa._fwd(qf, kf, vf, sq, sk, pq, pk, True, 512, 512,
+                             scale, impl="plain")
+            delta = (dof.float() * op.float()).sum(-1, keepdim=True)
+            grads = [fa._bwd_impl(qf, kf, vf, sq, sk, pq, pk, dof, lp, delta,
+                                  True, 512, 512, scale, impl=impl)
+                     for impl in ("kernel", "plain")]
+            torch.cuda.synchronize()
+            e_o = errs("flash_fwd", "out", ok, op, dt, label)
+            e_l = errs("flash_fwd", "lse", lk, lp, dt, label)
+            e_g = [errs(kn, "grad", a, b, dt, label) for kn, a, b in zip(
+                ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv"),
+                grads[0], grads[1])]
+            print(f"flash vs plain  {label:30s} out {e_o[0]:.2e} lse "
+                  f"{e_l[0]:.2e} (tol {e_l[1]:.1e})  dq/dk/dv "
+                  + "/".join(f"{e[0]:.2e}" for e in e_g), flush=True)
+            del q, k, v, do, qf, kf, vf, dof, grads
+            torch.cuda.empty_cache()
+    return errs.worst
+
+
+# -- phase 8: the AdamW kernel against plain ---------------------------------
+
+GPT1B_LEAVES = ((2048, 2048), (2048, 5632), (5632, 2048), (50304, 2048),
+                (2048, 50304))
+
+
+def adamw_against_plain(torch, fu, kernel) -> float:
+    count = torch.tensor(6, dtype=torch.int32, device="cuda")
+    lr = torch.tensor(3e-4, device="cuda")
+    clip = torch.tensor(0.37, device="cuda")           # a clipping step
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = 0
+    for i, shape in enumerate(GPT1B_LEAVES):
+        for mdt, ndt in ((f32, f32), (bf16, f32), (bf16, bf16)):
+            for wd in (0.0, 0.1):
+                g = torch.Generator(device="cuda").manual_seed(i)
+                p = torch.randn(shape, generator=g, device="cuda")
+                grad = torch.randn(shape, generator=g, device="cuda") * 1e-2
+                mu = (torch.randn(shape, generator=g, device="cuda")
+                      * 1e-3).to(mdt)
+                nu = (torch.rand(shape, generator=g, device="cuda")
+                      * 1e-5).to(ndt)
+                kp, kmu, knu = p.clone(), mu.clone(), nu.clone()
+                kw = dict(lr=lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=wd,
+                          decay_mask=[True], clip_scale=clip)
+                before = kernel.launches
+                fu.fused_adamw_apply([kp], [grad], [kmu], [knu], count, **kw)
+                torch.cuda.synchronize()
+                check(kernel.launches == before + 1,
+                      f"adamw {shape}: the leaf did not reach the kernel")
+                fu.fused_adamw_apply([p], [grad], [mu], [nu], count,
+                                     use_kernel=False, **kw)
+                same = (torch.equal(kp, p), torch.equal(kmu, mu),
+                        torch.equal(knu, nu))
+                check(all(same), f"adamw {shape} mu {mdt} nu {ndt} wd {wd}: "
+                      f"p/mu/nu bitwise equal {same}")
+                cases += 1
+        print(f"adamw vs plain  leaf {shape}: p, mu, nu bitwise equal "
+              f"(fp32/fp32, bf16/fp32, bf16/bf16 moments; wd 0 and 0.1; "
+              f"clip 0.37)", flush=True)
+    print(f"adamw: {cases} cases bitwise equal", flush=True)
+    return 0.0
+
+
+# -- phase 9: kernel timing ----------------------------------------------------
+
+def flash_timing(torch, F, fa, fac, cfg, B: int) -> dict:
+    """The three flash kernels at the training shape (B x 2048, bf16,
+    causal), beside their plain versions, SDPA and their bounds."""
+    S, Nq, Nkv, D = 2048, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v, do = flash_inputs(torch, B, S, Nq, Nkv, D, torch.bfloat16, 11)
+    segs = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
+    qf, kf, vf, sq, pq, sk, pk, _ = fa.fold_gqa(q, k, v, segs, pos)
+    dof = fa.fold_gqa(do, k, v, segs, pos)[0]
+    scale = 1.0 / D ** 0.5
+    out, lse = fa._fwd(qf, kf, vf, sq, sk, pq, pk, True, 512, 512, scale,
+                       impl="kernel")
+    delta = (dof.float() * out.float()).sum(-1, keepdim=True)
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        flush_buf.zero_()
+
+    fwd_args = (qf, kf, vf, sq, sk, pq, pk, True, scale)
+    bwd_args = (qf, kf, vf, sq, sk, pq, pk, dof, lse, delta, True, scale)
+    saved = [kn.launches for kn in (fac.flash_fwd, fac.flash_bwd_dq,
+                                    fac.flash_bwd_dkv)]
+    t = {
+        "flash_fwd": time_ms(torch, lambda: fac.flash_fwd(*fwd_args),
+                             flush=flush),
+        "flash_bwd_dq": time_ms(torch, lambda: fac.flash_bwd_dq(*bwd_args),
+                                flush=flush),
+        "flash_bwd_dkv": time_ms(torch, lambda: fac.flash_bwd_dkv(*bwd_args),
+                                 flush=flush),
+    }
+    for kn, n in zip((fac.flash_fwd, fac.flash_bwd_dq, fac.flash_bwd_dkv),
+                     saved):
+        kn.launches = n             # timing launches are not the main path
+    plain = {
+        "flash_fwd": time_ms(torch, lambda: fa._fwd_plain(*fwd_args),
+                             iters=10, flush=flush),
+        "flash_bwd_dq": time_ms(torch, lambda: fa._bwd_dq_plain(*bwd_args),
+                                iters=10, flush=flush),
+        "flash_bwd_dkv": time_ms(torch, lambda: fa._bwd_dkv_plain(*bwd_args),
+                                 iters=10, flush=flush),
+    }
+    plain_bwd = time_ms(torch, lambda: fa._bwd_plain(*bwd_args), iters=10,
+                        flush=flush)
+    # library yardstick: SDPA (flash backend) on [B, N, S, D]
+    ql, kl, vl, dol = (t_.transpose(1, 2).contiguous()
+                       for t_ in (q, k, v, do))
+    gqa = dict(enable_gqa=True) if Nq != Nkv else {}
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, is_causal=True, **gqa), flush=flush)
+    qr, kr, vr = (t_.detach().requires_grad_(True) for t_ in (ql, kl, vl))
+    lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                             **gqa)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qr, kr, vr), dol, retain_graph=True), flush=flush)
+    ref = fa.flash_attention(q, k, v)              # the kernel, unfolded
+    lib_err = (lib_out.detach().transpose(1, 2).float()
+               - ref.float()).abs().max().item()
+    fac.flash_fwd.launches = saved[0]
+
+    # the bound: causal pairs of this run (every row attends row + 1 keys)
+    pairs = B * Nq * S * (S + 1) // 2
+    item = 2
+    qkv = (q.numel() + k.numel() + v.numel()) * item
+    rows = (sq.numel() + pq.numel() + sk.numel() + pk.numel()) * 4
+    lse_b = lse.numel() * 4
+    work = {
+        "flash_fwd": (4 * D * pairs, qkv + q.numel() * item + lse_b + rows),
+        "flash_bwd_dq": (6 * D * pairs, qkv + 2 * q.numel() * item
+                         + 2 * lse_b + rows),
+        "flash_bwd_dkv": (8 * D * pairs, qkv + q.numel() * item
+                          + 2 * k.numel() * item + 2 * lse_b + rows),
+    }
+    res = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = {"ms": t[name], "plain_ms": plain[name],
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "library_ms": None, "ops": ops,
+                     "bytes": nbytes}
+    res["flash_fwd"]["library_ms"] = lib_fwd
+    res["backward"] = {"kernels_ms": t["flash_bwd_dq"] + t["flash_bwd_dkv"],
+                       "plain_ms": plain_bwd, "library_ms": lib_bwd,
+                       "bound_ms": res["flash_bwd_dq"]["bound_ms"]
+                       + res["flash_bwd_dkv"]["bound_ms"]}
+    res["shape"] = {"B": B, "S": S, "Nq": Nq, "Nkv": Nkv, "D": D,
+                    "dtype": "bfloat16", "causal": True}
+    res["library_vs_kernel_max_abs_err"] = lib_err
+    for name in work:
+        r = res[name]
+        lib = ("none alone" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        print(f"{name} (B={B}, S={S}, {Nq}/{Nkv} heads, D={D}, bf16): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) -> "
+              f"{r['bound_ms'] / r['ms']:.1%} of bound, "
+              f"{r['ops'] / r['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+    b = res["backward"]
+    print(f"flash backward (dq + dkv kernels) {b['kernels_ms']:.4f} ms, plain "
+          f"{b['plain_ms']:.4f} ms, SDPA backward {b['library_ms']:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms; SDPA forward vs kernel max_abs_err "
+          f"{lib_err:.3e}", flush=True)
+    return res
+
+
+def adamw_timing(torch, gpt, fu, kernel, cfg) -> dict:
+    """One update of every kernel-eligible gpt-1b leaf (fp32 p, g, mu, nu):
+    the kernel path, the plain path, torch._fused_adamw_ and the bound."""
+    meta = gpt.GPT(cfg, device="meta")
+    shapes = [tuple(p.shape) for p in meta.parameters()
+              if p.dim() >= 2 and p.numel() >= fu.KERNEL_MIN_ELEMENTS]
+    g = torch.Generator(device="cuda").manual_seed(21)
+    P = [torch.randn(s, generator=g, device="cuda") for s in shapes]
+    G = [torch.randn(s, generator=g, device="cuda") * 1e-2 for s in shapes]
+    M = [torch.randn(s, generator=g, device="cuda") * 1e-3 for s in shapes]
+    V = [torch.rand(s, generator=g, device="cuda") * 1e-5 for s in shapes]
+    count = torch.tensor(6, dtype=torch.int32, device="cuda")
+    lr = torch.tensor(3e-4, device="cuda")
+    clip = torch.tensor(0.37, device="cuda")
+    kw = dict(lr=lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+              decay_mask=[True] * len(shapes), clip_scale=clip)
+    saved = kernel.launches
+    k_ms = time_ms(torch, lambda: fu.fused_adamw_apply(P, G, M, V, count,
+                                                       **kw), iters=10,
+                   warmup=2)
+    kernel.launches = saved
+    p_ms = time_ms(torch, lambda: fu.fused_adamw_apply(
+        P, G, M, V, count, use_kernel=False, **kw), iters=5, warmup=1)
+    steps = [torch.full((), 6.0, device="cuda") for _ in shapes]
+    inv_clip = (1.0 / clip).reshape(1)
+
+    def lib():
+        torch._fused_adamw_(P, G, M, V, [], steps, lr=3e-4, beta1=0.9,
+                            beta2=0.95, weight_decay=0.1, eps=1e-8,
+                            amsgrad=False, maximize=False,
+                            grad_scale=inv_clip, found_inf=None)
+    l_ms = time_ms(torch, lib, iters=10, warmup=2)
+    n = sum(p.numel() for p in P)
+    nbytes = 28 * n                 # read p, g, mu, nu; write p, mu, nu
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 20 * n / PEAK_OPS["float32"] * 1e3     # ~20 fp32 ops a param
+    res = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "leaves": len(shapes), "params": n, "bytes": nbytes}
+    print(f"adamw over {len(shapes)} gpt-1b leaves ({n} params, fp32 "
+          f"moments): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+          f"torch._fused_adamw_ {l_ms:.3f} ms, bound {res['bound_ms']:.3f} ms "
+          f"({res['bound_by']}, {nbytes} B) -> {res['bound_ms'] / k_ms:.1%} "
+          f"of bound", flush=True)
+    del P, G, M, V
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 10: train gpt-1b at full width and depth ---------------------------
+
+TRAIN_MICRO_BATCH = 4          # sequences of 2048 per step (accumulation 1)
+TRAIN_STEPS = 8
+STEP_AGREEMENT = 1e-2          # kernels vs plain step, relative (bf16)
+
+
+def train_cfg(mods, ckdir: str, **training):
+    return mods["load_run_config"](cli_overrides={
+        "model": {"name": "gpt-1b"},
+        "parallel": {"global_batch_size": TRAIN_MICRO_BATCH,
+                     "activation_checkpoint": "selective"},
+        "data": {"train": "synthetic", "val": "synthetic",
+                 "max_length": 2048},
+        # the default AdamW; a warmup of 2 steps (not 100), so that 8 steps
+        # show the synthetic stream being learnt
+        "optimizer": {"scheduler": {"warmup_steps": 2}},
+        "checkpoint": {"path": ckdir, "interval_steps": 10 ** 9},
+        "training": {"max_steps": TRAIN_STEPS, "log_interval": 1,
+                     "eval_interval": 10 ** 9, **training}}, environ={})
+
+
+def checksum(torch, state) -> list[float]:
+    opt = state.opt_state
+    return [float(t.detach().double().sum()) for t in (
+        state.model.lm_head, state.model.blocks[-1].down, opt.mu[-1],
+        opt.nu[0])]
+
+
+def train_main_path(torch, mods, kernels: dict, card: str) -> dict:
+    import gc
+    import shutil
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="llmctl-smoke-") as ckdir:
+        print(f"checkpoints to {ckdir} "
+              f"({shutil.disk_usage(ckdir).free / 1e9:.1f} GB free)",
+              flush=True)
+        cfg = train_cfg(mods, ckdir)
+        log: list[dict] = []
+
+        def observer(event, payload):
+            if event == "train_step":
+                log.append(dict(payload))
+        eng = mods["TrainingEngine"](cfg, observer=observer)
+        check(eng.attn_impl == "flash", f"attn_impl {eng.attn_impl}")
+        mc = cfg.model
+        eng.initialize(resume=False)
+        model = eng.state.model
+        eligible = sum(1 for p in model.parameters() if p.dim() >= 2
+                       and p.numel() >= mods["KERNEL_MIN_ELEMENTS"])
+        print(f"gpt-1b: {mc.num_layers} layers, H={mc.hidden_size}, "
+              f"{mc.num_heads}/{mc.num_kv_heads} heads, D={mc.head_dim}, "
+              f"F={mc.ffn_size}, vocab {mc.vocab_size}, tied "
+              f"{mc.tie_word_embeddings}; "
+              f"{sum(p.numel() for p in model.parameters()) / 1e9:.4f}B "
+              f"params; micro-batch {TRAIN_MICRO_BATCH} x "
+              f"{cfg.data.max_length}; {eligible} kernel-eligible leaves",
+              flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kn in kernels.values():
+            kn.launches = 0                      # the main path starts
+        t0 = time.time()
+        final = eng.train(resume=False)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {name: kn.launches for name, kn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = [m["loss"] for m in log]
+        check(len(losses) == TRAIN_STEPS, f"{len(losses)} logged steps")
+        check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+        check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+        expected = {"flash_fwd": 2 * mc.num_layers * TRAIN_STEPS,
+                    "flash_bwd_dq": mc.num_layers * TRAIN_STEPS,
+                    "flash_bwd_dkv": mc.num_layers * TRAIN_STEPS,
+                    "adamw": eligible * TRAIN_STEPS}
+        print(f"kernel launches on the training path: {launches}; expected "
+              f"{expected} (per step: flash fwd 2 x {mc.num_layers} layers "
+              f"under selective remat, dq and dkv {mc.num_layers}, adamw "
+              f"{eligible} leaves)", flush=True)
+        for name, n in expected.items():
+            check(launches[name] == n, f"{name} launches {launches[name]} "
+                  f"!= {n}")
+        rates = sorted(m["tokens_per_sec"] for m in log[1:])
+        tok_s = rates[len(rates) // 2]
+        mfu = tok_s * mods["flops_per_token"](mc, cfg.data.max_length) \
+            / (cfg.hardware.peak_bf16_tflops * 1e12)
+        step_s = TRAIN_MICRO_BATCH * cfg.data.max_length / tok_s
+        print(f"trained {TRAIN_STEPS} steps in {wall:.1f}s (save included): "
+              f"loss {' '.join(f'{x:.4f}' for x in losses)}; grad_norm "
+              f"{log[0]['grad_norm']:.3f} -> {log[-1]['grad_norm']:.3f}; "
+              f"median over steps 2..{TRAIN_STEPS}: {step_s * 1e3:.1f} ms "
+              f"per step, {tok_s:.0f} tok/s, MFU {mfu:.1%} of "
+              f"{cfg.hardware.peak_bf16_tflops:.0f} TF/s; peak "
+              f"max_memory_allocated {peak:.2f} GB [{card}]", flush=True)
+        trained = checksum(torch, eng.state)
+        del eng, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # from the saved state: one step through the kernels, one through
+        # the plain versions; restore puts back step, data cursor, state
+        step_res = {}
+        for label, attn, fused in (("kernels", "flash", True),
+                                   ("plain", "xla", False)):
+            c = train_cfg(mods, ckdir, attn_impl=attn)
+            c.optimizer.fused = fused
+            e = mods["TrainingEngine"](c)
+            start = e.initialize(resume=True)
+            check(start == TRAIN_STEPS and e.state.step == TRAIN_STEPS
+                  and e.train_data.state_dict()["step"] == TRAIN_STEPS,
+                  f"resume: start {start}, step {e.state.step}, data "
+                  f"{e.train_data.state_dict()}")
+            check(checksum(torch, e.state) == trained,
+                  "restored state differs from the trained one")
+            before = {name: kn.launches for name, kn in kernels.items()}
+            batch = e._device_batch(next(e.train_data))
+            _, m = e.train_step(e.state, batch)
+            step_res[label] = (float(m["loss"]), float(m["grad_norm"]))
+            grew = {name: kn.launches - before[name]
+                    for name, kn in kernels.items()}
+            check(all((n > 0) == fused for n in grew.values()),
+                  f"{label} step launched {grew}")
+            del e, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        (lk, gk), (lp, gp) = step_res["kernels"], step_res["plain"]
+        d_loss, d_gn = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+        print(f"resumed at step {TRAIN_STEPS} (data cursor "
+              f"{TRAIN_STEPS}, state checksums equal); step "
+              f"{TRAIN_STEPS + 1} kernels vs plain: loss {lk:.5f} vs "
+              f"{lp:.5f} (rel {d_loss:.2e}), grad_norm {gk:.4f} vs {gp:.4f} "
+              f"(rel {d_gn:.2e}), limit {STEP_AGREEMENT:.0e}", flush=True)
+        check(d_loss <= STEP_AGREEMENT and d_gn <= STEP_AGREEMENT,
+              "kernel and plain steps disagree")
+    return {"launches": launches, "expected": expected, "losses": losses,
+            "steps": log, "tokens_per_sec": tok_s, "mfu": mfu,
+            "step_ms": step_s * 1e3, "wall_s": wall,
+            "peak_memory_allocated_gb": peak, "final": final,
+            "micro_batch": TRAIN_MICRO_BATCH, "kernel_vs_plain_step":
+            {"kernels": step_res["kernels"], "plain": step_res["plain"]}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements here (JSON)")
@@ -452,10 +946,28 @@ def main() -> int:
         import InferenceEngine, InferenceServer
     from distributed_llm_training_and_inference_system_tpu_torch.serve.\
         decode import decode_step_forward
+    from distributed_llm_training_and_inference_system_tpu_torch.config.\
+        loader import load_run_config
+    from distributed_llm_training_and_inference_system_tpu_torch.exec \
+        import fused_update as fu
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import \
+        attention as fa, attention_cuda as fac
+    from distributed_llm_training_and_inference_system_tpu_torch.ops.\
+        adamw_cuda import adamw_kernel
+    from distributed_llm_training_and_inference_system_tpu_torch.runtime.\
+        engine import TrainingEngine
     mods = {"ServeConfig": ServeConfig, "get_model_config": get_model_config,
             "gpt": gpt, "InferenceEngine": InferenceEngine,
             "InferenceServer": InferenceServer,
-            "decode_step_forward": decode_step_forward}
+            "decode_step_forward": decode_step_forward,
+            "load_run_config": load_run_config,
+            "TrainingEngine": TrainingEngine,
+            "KERNEL_MIN_ELEMENTS": fu.KERNEL_MIN_ELEMENTS,
+            "flops_per_token": gpt.flops_per_token}
+    train_kernels = {"flash_fwd": fac.flash_fwd,
+                     "flash_bwd_dq": fac.flash_bwd_dq,
+                     "flash_bwd_dkv": fac.flash_bwd_dkv,
+                     "adamw": adamw_kernel}
 
     t0 = time.time()
     record: dict = {}
@@ -488,11 +1000,52 @@ def main() -> int:
         served = serve_main_path(torch, mods, paged_attention_kernel, smi)
 
         phase("6 paged against dense", t0)
-        dense = paged_against_dense(torch, mods, served)
+        with torch.inference_mode():          # serving is gradient-free
+            dense = paged_against_dense(torch, mods, served)
+        for key in ("params", "tokenizer", "cfg"):   # free the 8B weights
+            served.pop(key, None)
+        torch.cuda.empty_cache()
+
+        phase("7 flash kernels against plain", t0)
+        flash_err = flash_against_plain(torch, fa, fac)
+
+        phase("8 adamw kernel against plain", t0)
+        adamw_err = adamw_against_plain(torch, fu, adamw_kernel)
+
+        phase("9 training kernel timing", t0)
+        cfg1b = get_model_config("gpt-1b")
+        train_timing = flash_timing(torch, F, fa, fac, cfg1b,
+                                    TRAIN_MICRO_BATCH)
+        train_timing["adamw"] = adamw_timing(torch, gpt, fu, adamw_kernel,
+                                             cfg1b)
+
+        phase("10 train gpt-1b at full width and depth", t0)
+        trained = train_main_path(torch, mods, train_kernels, smi)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+
+    src = f"{PORT}/csrc/"
+    jax_pkg = "distributed_llm_training_and_inference_system_tpu/"
+    replaces = {"flash_fwd": "ops/attention.py:92",
+                "flash_bwd_dq": "ops/attention.py:186",
+                "flash_bwd_dkv": "ops/attention.py:219",
+                "adamw": "exec/fused_update.py:55"}
+    errors = dict(flash_err, adamw=adamw_err)
+    train_records = []
+    for name, where in replaces.items():
+        tm = train_timing[name]
+        train_records.append({
+            "name": name, "route": "cuda",
+            "source": src + ("adamw.cu" if name == "adamw"
+                             else "flash_attention.cu"),
+            "replaces": jax_pkg + where,
+            "launches": trained["launches"][name],
+            "max_abs_err": errors[name],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"]})
 
     kernels = [{
         "name": "paged_attention",
@@ -507,12 +1060,11 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
-    }]
+    }] + train_records
     if args.out:
-        for key in ("params", "tokenizer", "cfg"):
-            served.pop(key, None)
         record.update(kernels=kernels, timing=timing, serve=served,
-                      paged_vs_dense=dense, seconds=time.time() - t0)
+                      paged_vs_dense=dense, train_timing=train_timing,
+                      train=trained, seconds=time.time() - t0)
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1, default=str))
     print(f"== done in {time.time() - t0:.1f}s")

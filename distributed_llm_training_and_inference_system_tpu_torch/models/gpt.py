@@ -5,17 +5,26 @@ pytree whose layer leaves are stacked on a leading ``[L, ...]`` axis; here
 each layer is a ``Block`` module in ``GPT.blocks`` (``weights.params_from_
 jax`` unstacks the JAX tree). Parameter conventions are the JAX ones:
 projection weights are ``[in, out]`` (``x @ w``) and a norm scale ``s`` is
-applied as ``1 + s``. The model is an inference model: parameters do not
-require gradients.
+applied as ``1 + s``.
+
+Parameters are trainable fp32 masters (or bf16 for a serving model).
+``forward`` casts every block leaf to the compute dtype once, outside the
+layer loop (``precast_params``), so autograd returns fp32 gradients to the
+masters; ``remat`` wraps each block in ``torch.utils.checkpoint``. Serving
+calls ``forward`` under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from .layers import attention_block, cast, mlp_block, rms_norm, \
@@ -23,12 +32,12 @@ from .layers import attention_block, cast, mlp_block, rms_norm, \
 
 
 def _param(*shape, device, dtype) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, device=device, dtype=dtype),
-                        requires_grad=False)
+    return nn.Parameter(torch.zeros(shape, device=device, dtype=dtype))
 
 
 class Block(nn.Module):
-    """One pre-norm transformer block (dense FFN)."""
+    """One pre-norm transformer block's parameters (dense FFN); the block
+    itself is ``_block_fn`` over these or their precast copies."""
 
     def __init__(self, cfg, device=None, dtype=torch.float32):
         super().__init__()
@@ -49,16 +58,18 @@ class Block(nn.Module):
         self.up = _param(H, Fs, **kw)
         self.down = _param(Fs, H, **kw)
 
-    def forward(self, x, cfg, positions, segment_ids, inv_freq,
-                kv_cache=None, cache_offset=None):
-        """Returns (x, updated kv_cache or None)."""
-        h = rms_norm(x, cast(self.attn_norm, x.dtype), cfg.norm_eps)
-        attn_out, new_cache = attention_block(
-            h, self, cfg, positions, segment_ids, inv_freq,
-            kv_cache=kv_cache, cache_offset=cache_offset)
-        x = x + attn_out
-        h = rms_norm(x, cast(self.mlp_norm, x.dtype), cfg.norm_eps)
-        return x + mlp_block(h, self, cfg), new_cache
+
+def _block_fn(layer, x, cfg, positions, segment_ids, inv_freq,
+              kv_cache=None, cache_offset=None, attn_impl="xla"):
+    """One pre-norm block over ``layer`` (a ``Block`` or its precast
+    leaves). Returns (x, updated kv_cache or None)."""
+    h = rms_norm(x, cast(layer.attn_norm, x.dtype), cfg.norm_eps)
+    attn_out, new_cache = attention_block(
+        h, layer, cfg, positions, segment_ids, inv_freq,
+        kv_cache=kv_cache, cache_offset=cache_offset, attn_impl=attn_impl)
+    x = x + attn_out
+    h = rms_norm(x, cast(layer.mlp_norm, x.dtype), cfg.norm_eps)
+    return x + mlp_block(h, layer, cfg), new_cache
 
 
 class GPT(nn.Module):
@@ -132,21 +143,103 @@ def init(cfg, generator: Optional[torch.Generator] = None, device=None,
 # Forward
 # ---------------------------------------------------------------------------
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """2-D ``a @ b`` with an fp32 result accumulated in fp32 from
+    operands of one dtype. On a card, bf16 operands go to the tensor cores
+    with an fp32 output (``torch.mm(out_dtype=float32)``); on the CPU the
+    operands are widened first (products of bf16 values are exact in fp32,
+    so this is the same sum up to its order)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``x @ w`` -> fp32, as the JAX einsum with
+    ``preferred_element_type=float32``. The backward products take the
+    fp32 cotangent rounded to the operands' dtype, with fp32
+    accumulation, and return gradients in the operands' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(g.to(w.dtype), w.t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(x.t(), g.to(x.dtype)).to(w.dtype)
+        return dx, dw
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[..., K] @ [K, N] -> [..., N] fp32 with an fp32 accumulator
+    (differentiable)."""
+    lead = x.shape[:-1]
+    out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*lead, w.shape[-1])
+
+
+def head_weight(model: GPT, dtype: torch.dtype) -> torch.Tensor:
+    """The LM head as [H, V] in ``dtype`` (the embedding transposed when
+    tied)."""
+    if model.cfg.tie_word_embeddings:
+        return cast(model.embed, dtype).t()
+    return cast(model.lm_head, dtype)
+
+
 def unembed(model: GPT, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Final RMSNorm + LM head (tied or untied); fp32 logits.
-
-    The product runs in the compute dtype and is widened to fp32 after:
-    in fp32 this is the JAX computation; in bf16 the logits carry the bf16
-    rounding of the product, where JAX keeps the fp32 accumulator."""
+    """Final RMSNorm + LM head (tied or untied); fp32 logits from the fp32
+    accumulator of the head product, as the JAX ``unembed``."""
     x = rms_norm(x, cast(model.final_norm, x.dtype), cfg.norm_eps)
-    if cfg.tie_word_embeddings:
-        logits = x @ cast(model.embed, x.dtype).t()
-    else:
-        logits = x @ cast(model.lm_head, x.dtype)
-    return logits.float()
+    return matmul_f32(x, head_weight(model, x.dtype))
 
 
-@torch.no_grad()
+def precast_params(model: GPT, dtype: torch.dtype) -> list[SimpleNamespace]:
+    """Every block's leaves in ``dtype``, cast once (a no-op for leaves
+    already in it). Casting inside the layer loop would read the fp32
+    masters again at every recompute."""
+    return [SimpleNamespace(**{n: cast(p, dtype)
+                               for n, p in blk.named_parameters()})
+            for blk in model.blocks]
+
+
+# matmul outputs: what "selective" keeps resident (the JAX policy
+# dots_with_no_batch_dims_saveable); everything else is recomputed
+_SAVED_OPS = frozenset({torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default})
+
+
+def _selective_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, policy: str):
+    """Wrap the block per the activation-checkpoint policy: "none",
+    "full" (recompute everything in backward) or "selective" (keep the
+    matmul outputs, recompute the rest, the flash forward included)."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "selective":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _selective_policy))
+    raise NotImplementedError(
+        f"remat {policy!r} is not ported yet (none|selective|full; "
+        f"selective_attn waits in ROADMAP queue 1 item 4)")
+
+
 def forward(
     model: GPT,
     tokens: torch.Tensor,
@@ -156,12 +249,18 @@ def forward(
     segment_ids: Optional[torch.Tensor] = None,
     kv_cache: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     cache_offset: Optional[torch.Tensor] = None,
+    attn_impl: str = "xla",
+    remat: str = "none",
     unembed_positions: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
 ):
     """Logits [B, S, V] (fp32), or with ``return_hidden`` the final-normed
-    hidden states [B, S, H].
+    hidden states [B, S, H] in the compute dtype (for the chunked loss).
 
+    - ``segment_ids`` [B, S] packs several documents per row (0 = pad).
+    - ``attn_impl`` "xla" (plain masked attention) or "flash"
+      (``ops.attention.flash_attention``: the kernels on a card).
+    - ``remat`` "none" | "selective" | "full" (training only).
     - ``kv_cache`` ([L, B, Smax, Nkv, D], [L, B, Smax, Nkv, D]) with
       ``cache_offset`` [B] runs incremental attention; the cache is
       updated in place and returned as ``(logits, kv_cache)``.
@@ -181,16 +280,19 @@ def forward(
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope.base,
                                 cfg.rope.scaling, cfg.rope.scaling_factor,
                                 device=dev)
+    layers = precast_params(model, dt)
     new_cache = None
     if kv_cache is None:
-        for blk in model.blocks:
-            x, _ = blk(x, cfg, positions, segment_ids, inv_freq)
+        block = _remat_wrap(_block_fn, remat)
+        for layer in layers:
+            x, _ = block(layer, x, cfg, positions, segment_ids, inv_freq,
+                         None, None, attn_impl)
     else:
         k_cache, v_cache = kv_cache
-        for i, blk in enumerate(model.blocks):
-            x, _ = blk(x, cfg, positions, segment_ids, inv_freq,
-                       kv_cache=(k_cache[i], v_cache[i]),
-                       cache_offset=cache_offset)
+        for i, layer in enumerate(layers):
+            x, _ = _block_fn(layer, x, cfg, positions, segment_ids,
+                             inv_freq, (k_cache[i], v_cache[i]),
+                             cache_offset)
         new_cache = (k_cache, v_cache)
 
     if unembed_positions is not None:
@@ -204,6 +306,25 @@ def forward(
     if kv_cache is not None:
         return out, new_cache
     return out
+
+
+def entry(device=None):
+    """(fn, example_args): a gpt-1b forward of one [1, 1024] row in bf16
+    with flash attention, the port's counterpart of the JAX package's
+    ``__graft_entry__.entry``. Weights are random (seed 0), made on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    from ..config import get_model_config
+    cfg = get_model_config("gpt-1b")
+    dev = resolve_device(device)
+    model = init(cfg, torch.Generator(device=dev).manual_seed(0),
+                 device=dev, dtype=torch.bfloat16)
+
+    def fn(model, tokens):
+        with torch.inference_mode():
+            return forward(model, tokens, cfg, attn_impl="flash")
+
+    tokens = torch.ones((1, 1024), dtype=torch.int64, device=dev)
+    return fn, (model, tokens)
 
 
 # ---------------------------------------------------------------------------

@@ -127,8 +127,14 @@ def attention_block(
     inv_freq: torch.Tensor,
     kv_cache: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     cache_offset: Optional[torch.Tensor] = None,
+    attn_impl: str = "xla",
 ) -> tuple[torch.Tensor, Optional[tuple[torch.Tensor, torch.Tensor]]]:
     """Self-attention sublayer (pre-norm residual outside).
+
+    ``attn_impl``: "xla" is the plain masked attention below; "flash" is
+    ``ops.attention.flash_attention`` (the kernels on a card, their plain
+    version on the CPU), called without positions exactly as the JAX
+    package calls it (packed rows are kept apart by the segment ids).
 
     With ``kv_cache=(k_cache, v_cache)`` of shape [B, S_max, Nkv, D] and
     ``cache_offset`` [B], the new K/V are written at each row's offset —
@@ -165,6 +171,13 @@ def attention_block(
         mask = ((positions[..., :, None] >= kv_positions[..., None, :])
                 & valid[:, None, :])
         out = dot_product_attention(q, k_cache.to(dt), v_cache.to(dt), mask)
+    elif attn_impl == "flash":
+        from ..ops.attention import flash_attention
+        out = flash_attention(q, k, v, segment_ids=segment_ids, causal=True)
+    elif attn_impl != "xla":
+        raise NotImplementedError(
+            f"attn_impl {attn_impl!r} is not ported (xla|flash; ring and "
+            f"ulysses wait for ROADMAP queue 1 item 7)")
     else:
         mask = attention_mask(positions, positions, segment_ids, segment_ids)
         out = dot_product_attention(q, k, v, mask)

@@ -23,7 +23,7 @@ from ..ops.paged_attention import (paged_attention_multi,
 from .sampling import gumbel_noise, sample_tokens
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def extend_step_forward(
     model,
     tokens: torch.Tensor,           # [B, T] — T new tokens per slot
@@ -104,7 +104,7 @@ def decode_step_forward(model, tokens, positions, k_pages, v_pages,
     return logits[:, 0], k_pages, v_pages
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def decode_scan(model, tokens, positions, k_pages, v_pages, block_tables,
                 stop_positions, seeds, temperature, top_k, top_p, cfg,
                 num_steps: int):

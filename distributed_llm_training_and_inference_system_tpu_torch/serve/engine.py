@@ -254,7 +254,7 @@ class InferenceEngine:
                 to_device(np.array([position]), dev),
                 self.cfg.vocab_size))[0]
 
-    @torch.no_grad()
+    @torch.inference_mode()
     def _prefill_dense(self, tokens: np.ndarray, n: int,
                        entries: np.ndarray) -> torch.Tensor:
         """Dense prefill of one bucket-padded prompt, then a scatter of its
@@ -283,7 +283,7 @@ class InferenceEngine:
         self.kv.v_pages[:, idx] = paged(vd)
         return logits[:, 0]
 
-    @torch.no_grad()
+    @torch.inference_mode()
     def _prefill_extend(self, tokens: np.ndarray, cached: int, m: int,
                         table_row: np.ndarray) -> torch.Tensor:
         """Suffix prefill over a cached paged prefix: the ``m`` un-cached
@@ -595,6 +595,7 @@ class InferenceEngine:
         if self.on_finish is not None:
             self.on_finish(req)
 
+    @torch.inference_mode()
     def step(self) -> int:
         """One engine iteration: admit + prefill, then one decode dispatch
         for all running slots. Returns the number of requests in slots.

@@ -13,11 +13,13 @@ copies of the knobs (no device synchronisation):
 
 A categorical draw is ``argmax(logits + gumbel)``, the Gumbel-max form of
 ``jax.random.categorical``. The noise is an argument, so a test can feed
-both packages the same draws. The engine's noise is ``gumbel_noise``: a
-counter-based hash of (seed, position, token id), so a request's sampled
-stream depends only on its seed and never on which slot or batch it
-shares. It is not JAX's threefry stream: seeded sampling is reproducible
-within the port, not bit-equal to the JAX package.
+both packages the same draws. The engine's noise is ``gumbel_noise``: the
+bits of JAX's threefry2x32 generator, computed with integer tensor
+arithmetic. A request seeded ``s`` keys its token at position ``p`` with
+``fold_in(PRNGKey(s), p)`` and draws one uniform in [tiny, 1) per vocab
+entry from ``random_bits`` (the partitionable counter layout, the JAX
+default), so a seeded request gets the JAX engine's tokens, whatever slot
+or batch it shares.
 
 The JAX package's 256-candidate ``lax.top_k`` tier (an optimisation with the
 same kept set) is not ported yet.
@@ -34,31 +36,75 @@ from ..device import to_device
 from ..models.layers import NEG_INF
 
 _M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_TINY = float(np.finfo(np.float32).tiny)
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer finaliser on int64 tensors holding uint32 values
-    (products are masked back to 32 bits; the int64 wrap keeps the low
-    bits exact)."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x846CA68B) & _M32
-    return x ^ (x >> 16)
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                 x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32 with 20 rounds (JAX's ``threefry2x32_p``) on int64
+    tensors holding uint32 values; keys and counters broadcast."""
+    k2 = k0 ^ k1 ^ 0x1BD11BDA
+    ks = (k0, k1, k2)
+    x0 = (x0 + k0) & _M32
+    x1 = (x1 + k1) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def prng_key(seeds: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.random.key_data(PRNGKey(seed))`` per seed: (0, seed mod 2^32)
+    (JAX without x64 keeps the low 32 bits of a Python int seed)."""
+    seeds = seeds.long()
+    return torch.zeros_like(seeds), seeds & _M32
+
+
+def fold_in(key: tuple[torch.Tensor, torch.Tensor], data: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.random.fold_in``: threefry of the counter pair (0, data)."""
+    data = data.long() & _M32
+    return threefry2x32(key[0], key[1], torch.zeros_like(data), data)
+
+
+def random_bits(key: tuple[torch.Tensor, torch.Tensor], n: int
+                ) -> torch.Tensor:
+    """[B, n] uint32 values (in int64) of ``jax.random.bits`` for a [n]
+    draw from each of B keys: the partitionable layout hashes the counter
+    pair (hi, lo) of each flat index and xors the two words."""
+    idx = torch.arange(n, dtype=torch.int64, device=key[0].device)[None, :]
+    b0, b1 = threefry2x32(key[0][:, None], key[1][:, None], idx >> 32,
+                          idx & _M32)
+    return b0 ^ b1
+
+
+def uniform(key: tuple[torch.Tensor, torch.Tensor], n: int,
+            minval: float = 0.0) -> torch.Tensor:
+    """[B, n] fp32 ``jax.random.uniform(key, (n,), minval=minval)``: the
+    top 23 bits as the mantissa of a float in [1, 2), minus 1, scaled to
+    [minval, 1)."""
+    bits = random_bits(key, n)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    floats = (floats - 1.0) * (1.0 - minval) + minval
+    return torch.clamp(floats, min=minval)
 
 
 def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor,
                  vocab_size: int) -> torch.Tensor:
-    """[B, V] fp32 standard Gumbel noise keyed on (seed, position, token
-    id). ``seeds`` and ``positions`` are [B] integer tensors on the device
-    the noise is made on; the same keys give the same noise on the CPU and
-    on a card."""
-    seeds = seeds.long()
-    key = _mix32(seeds & _M32) ^ _mix32(((seeds >> 32) & _M32) ^ 0x85EBCA6B)
-    key = _mix32(key ^ ((positions.long() * 0x9E3779B1) & _M32))
-    idx = torch.arange(vocab_size, device=seeds.device, dtype=torch.int64)
-    h = _mix32(_mix32(idx[None, :] ^ key[:, None]) ^ (key[:, None] >> 3))
-    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))        # (0, 1)
+    """[B, V] fp32 standard Gumbel noise of JAX's ``categorical`` for the
+    keys ``fold_in(PRNGKey(seed), position)``: ``-log(-log(u))`` with u
+    uniform in [tiny, 1). ``seeds`` and ``positions`` are [B] integer
+    tensors on the device the noise is made on."""
+    key = fold_in(prng_key(seeds), positions)
+    u = uniform(key, vocab_size, minval=_TINY)
     return -torch.log(-torch.log(u))
 
 

@@ -26,6 +26,13 @@ from distributed_llm_training_and_inference_system_tpu_torch.weights import (
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def _no_autograd():
+    """The parameters are trainable; these comparisons need no graph."""
+    with torch.no_grad():
+        yield
+
+
 def _np_params(cfg, seed=0):
     """JAX init params as numpy, with every leaf (norm scales and biases
     included, which init leaves at zero) perturbed so each one matters."""
@@ -184,7 +191,7 @@ def test_init_distributions():
     tied = tgpt.init(dataclasses.replace(cfg, tie_word_embeddings=True),
                      device="cpu")
     assert tied.lm_head is None
-    assert not any(p.requires_grad for p in m.parameters())
+    assert all(p.requires_grad for p in m.parameters())   # trainable
     # same seed, same weights
     again = tgpt.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(again.blocks[1].down, m.blocks[1].down)
