@@ -623,17 +623,15 @@ int launch_dkv(const void* q, const void* k, const void* v, const int* qseg,
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. Head dims 32, 64, 128. Returns the CUDA error
+// dtype: 0 = fp32, 1 = bf16. Head dims 64 and 128. Returns the CUDA error
 // code of the launch (0 = launched); cudaErrorInvalidValue for a head dim
 // or dtype the kernels do not take.
 #define FLASH_DISPATCH(FN, ...)                                             \
   do {                                                                      \
     if (dtype == 1) {                                                       \
-      if (D == 32) return FN<bf16, 32>(__VA_ARGS__);                        \
       if (D == 64) return FN<bf16, 64>(__VA_ARGS__);                        \
       if (D == 128) return FN<bf16, 128>(__VA_ARGS__);                      \
     } else if (dtype == 0) {                                                \
-      if (D == 32) return FN<float, 32>(__VA_ARGS__);                       \
       if (D == 64) return FN<float, 64>(__VA_ARGS__);                       \
       if (D == 128) return FN<float, 128>(__VA_ARGS__);                     \
     }                                                                       \

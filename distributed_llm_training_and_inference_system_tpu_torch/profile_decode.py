@@ -22,22 +22,12 @@ import time
 import torch
 
 from .config import ServeConfig, get_model_config
+from .profiling import device_breakdown, print_breakdown
 from .serve import InferenceEngine, Request, SamplingParams
 
 PROMPTS = (2000, 64, 1500, 300, 1200, 128, 700, 900)
-
-
-def _category(name: str) -> str:
-    n = name.lower()
-    if "paged_attention" in n:
-        return "paged_attention kernel"
-    if any(k in n for k in ("gemm", "cutlass", "nvjet", "sm90_xmma", "gemv")):
-        return "matmul (cuBLAS)"
-    if "sort" in n or "radix" in n:
-        return "sort (sampling)"
-    if "memcpy" in n or "memset" in n:
-        return "copies"
-    return "other elementwise/reduction"
+KERNELS = ((("paged_attention",), "paged_attention kernel"),
+           (("sort", "radix"), "sort (sampling)"))
 
 
 def main() -> None:
@@ -92,20 +82,7 @@ def main() -> None:
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
     steps = n_disp * K
-    by_kernel, by_cat = {}, {}
-    from torch.autograd import DeviceType
-    for ev in prof.key_averages():
-        # kernels and copies only: an aten op's device time is its
-        # kernels' time again
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us <= 0:
-            continue
-        by_kernel[ev.key] = (dev_us / 1e3 / steps, ev.count / steps)
-        cat = _category(ev.key)
-        by_cat[cat] = by_cat.get(cat, 0.0) + dev_us / 1e3 / steps
+    by_cat, top = device_breakdown(prof, steps, KERNELS)
     device_ms = sum(by_cat.values())
     if not eng.active.all():
         raise SystemExit("profile_decode: a request ended inside the window")
@@ -118,20 +95,13 @@ def main() -> None:
         "device_ms_per_step": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
         "device_ms_per_step_by_category": by_cat,
-        "top_kernels": sorted(
-            ({"name": k[:90], "ms_per_step": v[0], "calls_per_step": v[1]}
-             for k, v in by_kernel.items()),
-            key=lambda d: -d["ms_per_step"])[:15],
+        "top_kernels": top,
     }
     print(f"{cfg.name}, {args.slots} slots, contexts {lengths}: "
           f"{wall_ms:.2f} ms/step wall ({1e3 / wall_ms * args.slots:.1f} "
           f"tok/s), device busy {device_ms:.2f} ms/step, idle share "
           f"{res['device_idle_share']:.1%}")
-    for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        print(f"  {cat:30s} {ms:8.3f} ms/step")
-    for k in res["top_kernels"]:
-        print(f"  {k['ms_per_step']:8.3f} ms  x{k['calls_per_step']:6.1f}  "
-              f"{k['name']}")
+    print_breakdown(by_cat, top)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

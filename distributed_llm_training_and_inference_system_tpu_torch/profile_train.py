@@ -27,22 +27,12 @@ import torch
 from .config.loader import load_run_config
 from .models.gpt import flops_per_token
 from .models.loss import chunked_next_token_loss
+from .profiling import device_breakdown, print_breakdown
 from .runtime.engine import TrainingEngine
 
-
-def _category(name: str) -> str:
-    n = name.lower()
-    if "flash_fwd" in n:
-        return "flash forward kernel"
-    if "flash_bwd" in n:
-        return "flash backward kernels"
-    if "adamw_kernel" in n:
-        return "adamw kernel"
-    if any(k in n for k in ("gemm", "cutlass", "nvjet", "sm90_xmma", "gemv")):
-        return "matmul (cuBLAS)"
-    if "memcpy" in n or "memset" in n:
-        return "copies"
-    return "other elementwise/reduction"
+KERNELS = ((("flash_fwd",), "flash forward kernel"),
+           (("flash_bwd",), "flash backward kernels"),
+           (("adamw_kernel",), "adamw kernel"))
 
 
 def _loss_ms(engine, batch, iters: int = 5) -> float:
@@ -108,25 +98,11 @@ def main() -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             steps(args.steps)
             torch.cuda.synchronize()
-        by_kernel, by_cat = {}, {}
-        for ev in prof.key_averages():
-            # kernels and copies only: an aten op's device time is its
-            # kernels' time again
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            dev_us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
-            if dev_us <= 0:
-                continue
-            ms = dev_us / 1e3 / args.steps
-            by_kernel[ev.key] = (ms, ev.count / args.steps)
-            cat = _category(ev.key)
-            by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        by_cat, top = device_breakdown(prof, args.steps, KERNELS)
         loss_ms = _loss_ms(engine, batch)
 
     device_ms = sum(by_cat.values())
@@ -144,23 +120,16 @@ def main() -> None:
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
         "device_ms_per_step_by_category": by_cat,
         "chunked_loss_fwd_bwd_ms": loss_ms,
-        "top_kernels": sorted(
-            ({"name": k[:90], "ms_per_step": v[0], "calls_per_step": v[1]}
-             for k, v in by_kernel.items()),
-            key=lambda d: -d["ms_per_step"])[:15],
+        "top_kernels": top,
     }
     print(f"{cfg.model.name}, micro-batch {args.micro_batch} x "
           f"{args.seq_len}: {wall_ms:.1f} ms/step wall ({tok_s:.0f} tok/s, "
           f"MFU {res['mfu']:.1%}), device busy {device_ms:.1f} ms/step, idle "
           f"share {res['device_idle_share']:.1%}, peak "
           f"max_memory_allocated {peak_gb:.2f} GB")
-    for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        print(f"  {cat:30s} {ms:8.2f} ms/step")
+    print_breakdown(by_cat, top)
     print(f"  chunked loss alone (fwd + bwd, head products included) "
           f"{loss_ms:.2f} ms")
-    for k in res["top_kernels"]:
-        print(f"  {k['ms_per_step']:8.3f} ms  x{k['calls_per_step']:6.1f}  "
-              f"{k['name']}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

@@ -173,18 +173,36 @@ def _rel(a, b):
             / b.float().abs().max().clamp(min=1e-30)).item()
 
 
+def _assert_bf16_close(a, b):
+    """bf16 kernel output ``a`` against plain ``b``: within 2e-2 of the max;
+    each element within one bf16 rounding of itself (2^-7 of |b|) plus
+    2.5e-2 of its row's rms over D, the row's rms taken as at least 0.1 of
+    the tensor's (a row left by cancellation is near zero); the tensor's
+    rms error within 5e-3 of its rms."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    rms = b.pow(2).mean().sqrt()
+    row = b.pow(2).mean(-1, keepdim=True).sqrt().clamp(min=0.1 * rms)
+    excess = (diff - 2.0 ** -7 * b.abs()).clamp(min=0.0)
+    assert _rel(a, b) <= 2e-2
+    worst = (excess - 2.5e-2 * row).max().item()
+    assert worst <= 0.0, f"{worst} past the row limit"
+    rms_err = (diff.pow(2).mean().sqrt() / rms.clamp(min=1e-30)).item()
+    assert rms_err <= 5e-3, f"rms error {rms_err}"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("geom", [
     (2, 200, 4, 4, 64),      # B, S, Nq, Nkv, D: a ragged tail
     (1, 256, 8, 2, 128),     # GQA
-    (2, 96, 2, 1, 32),
+    (2, 96, 2, 1, 64),
 ])
 def test_flash_kernels_match_plain(geom, packed, dtype):
     """Forward (out, lse) and the gradients through both backward kernels
     against the plain version on the same inputs. fp32: out 1e-5 abs,
-    grads 1e-4 of their max; bf16: 2e-2 of the max."""
+    grads 1e-4 of their max; bf16: ``_assert_bf16_close``."""
     _need_card()
     B, S, Nq, Nkv, D = geom
     q, k, v, segs, pos = _flash_case(B, S, Nq, Nkv, D, dtype, packed)
@@ -207,9 +225,9 @@ def test_flash_kernels_match_plain(geom, packed, dtype):
         for a, b in zip(*grads):
             assert _rel(a, b) <= 1e-4
     else:
-        assert _rel(outs[0], outs[1]) <= 2e-2
+        _assert_bf16_close(outs[0], outs[1])
         for a, b in zip(*grads):
-            assert _rel(a, b) <= 2e-2
+            _assert_bf16_close(a, b)
 
 
 @pytest.mark.gpu
@@ -225,14 +243,16 @@ def test_flash_raw_entry_points_with_restarting_positions(dtype):
     scale = 1.0 / D ** 0.5
     res = [fa._fwd(qf, kf, vf, sq, sk, pq, pk, True, 512, 512, scale, impl=i)
            for i in ("kernel", "plain")]
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
     (ok, lk), (op, lp) = res
     assert bool(torch.isfinite(lk).all()) and bool(torch.isfinite(ok.float()).all())
     live = lp > fa.NEG_INF / 2                 # rows with at least one key
     assert torch.equal(lk[~live], lp[~live])   # NEG_INF on the empty ones
     lse_tol = 1e-5 if dtype == torch.float32 else 1e-4
     assert (lk[live] - lp[live]).abs().max().item() <= lse_tol
-    assert _rel(ok, op) <= tol
+    if dtype == torch.float32:
+        assert (ok - op).abs().max().item() <= 1e-5
+    else:
+        _assert_bf16_close(ok, op)
     do = torch.randn_like(qf)
     delta = (do.float() * op.float()).sum(-1, keepdim=True)
     gk = fa._bwd_impl(qf, kf, vf, sq, sk, pq, pk, do, lp, delta, True, 512,
@@ -240,7 +260,10 @@ def test_flash_raw_entry_points_with_restarting_positions(dtype):
     gp = fa._bwd_impl(qf, kf, vf, sq, sk, pq, pk, do, lp, delta, True, 512,
                       512, scale, impl="plain")
     for a, b in zip(gk, gp):
-        assert _rel(a, b) <= (1e-4 if dtype == torch.float32 else 2e-2)
+        if dtype == torch.float32:
+            assert _rel(a, b) <= 1e-4
+        else:
+            _assert_bf16_close(a, b)
 
 
 @pytest.mark.gpu
