@@ -50,7 +50,34 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              falls, and each kernel's launches equal what the code implies;
              then the checkpoint is restored (step, data cursor, state) and
              one step through the kernels agrees with one through the plain
-             versions within 1e-2.
+             versions within 1e-2;
+11. quantized kernels — paged attention over int8 and int4 pages at phase
+             3's geometry (fp32 1e-5; bf16 2e-2 and phase 7's row-scaled
+             limits); the W8A16 whole-reduction and k-split kernels and the
+             W4A16 kernel (group 128, channel scales not all ones) at every
+             llama-8b-gqa projection shape, rows 1, 8 and 64, against their
+             plain versions (each bf16 element within one bf16 rounding of
+             itself plus 1e-2 of its row's rms; fp32 out 1e-4 of the row's
+             rms); the k-split kernel twice with identical bits; RMSNorm at
+             [8, 4096], [4096, 4096] and the entry forward's [1, 1024, 2048];
+12. quantized timing — CUDA-event times, L2 flushed, beside bound and
+             library call: W8 and W4 at 8 rows for 4096 -> 14336 and
+             14336 -> 4096 (library: x @ the dequantized bf16 weight, which
+             reads 2 bytes a weight), paged attention over int8/int4 pages
+             at phase 4's decode shape, RMSNorm;
+13. serve quantized — llama-8b-gqa at full width and depth from phase 5's
+             bf16 weights, twice: A = int8 weights through the W8 kernels
+             (int8_pallas_matmul) with int8 KV pages, B = int4 weights with
+             int4 KV pages; phase 5's traffic; every kernel's launches
+             against what the code implies (224 matmul launches per decode
+             step, 192 whole-reduction + 32 k-split in A; 32 paged launches
+             per step); /health reports the quantization and the pool's
+             bytes per kind; one decode step through the kernels against
+             the same step through the dequant route and the gather
+             attention, within 0.1 of the largest logit;
+14. RMSNorm on a path — the port's entry() forward (gpt-1b, [1, 1024],
+             bf16, flash attention) with every norm through the kernel
+             (2L + 1 launches) against the same forward without it.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} record. Without a CUDA card, or without the rest of the
@@ -975,6 +1002,576 @@ def train_main_path(torch, mods, kernels: dict, card: str) -> dict:
             {"kernels": step_res["kernels"], "plain": step_res["plain"]}}
 
 
+
+# -- phase 11: the quantized-serving kernels against plain --------------------
+
+# [in, out] of llama-8b-gqa's projections: q/o, k/v, gate/up, down
+LLAMA_PROJECTIONS = ((4096, 4096), (4096, 1024), (4096, 14336),
+                     (14336, 4096))
+MATMUL_ROWS = (1, 8, 64)
+# a matmul kernel and its plain version sum the same products in another
+# order: a bf16 output may differ by one rounding of itself (BF16_ULP) plus
+# this share of its row's rms; an fp32 output by MATMUL_F32_TOL of it
+MATMUL_ROW_TOL = 1e-2
+MATMUL_F32_TOL = 1e-4
+RMSNORM_SHAPES = ((8, 4096), (4096, 4096), (1, 1024, 2048))
+ENTRY_NORM_SHAPE = (1, 1024, 2048)      # what entry() gives the norm
+
+
+def quantize_pages(qm, kind: str, pages):
+    tq, pa = qm["tq"], qm["pa"]
+    if kind == "int8":
+        return pa.QuantPages(*tq.quantize_int8_rows(pages))
+    qv, sc = tq.quantize_int4_rows(pages)
+    return pa.Int4Pages(tq.pack_int4_rows(qv, axis=-2), sc)
+
+
+def w8_case(torch, tq, rows, n_in, n_out, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(n_in, n_out, generator=g, device="cuda") * 0.02
+    x = torch.randn(rows, n_in, generator=g, device="cuda").to(dtype)
+    values, scale = tq.quantize_int8(w)
+    return x, values, scale
+
+
+def w4_case(torch, tq, rows, n_in, n_out, dtype, seed, group=128):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(n_in, n_out, generator=g, device="cuda") * 0.02
+    x = torch.randn(rows, n_in, generator=g, device="cuda").to(dtype)
+    act = torch.rand(n_in, generator=g, device="cuda") + 0.25
+    packed, scale, chan = tq.quantize_int4_groupwise(w, group, act_scale=act)
+    check(bool((chan != 1).any()), "the channel scales are all ones")
+    return x, packed, scale, chan
+
+
+def matmul_error(torch, out, ref, dtype, label) -> float:
+    """Holds a matmul kernel's output to its plain version's, row by row;
+    returns the largest absolute difference."""
+    check(out.dtype == ref.dtype and out.shape == ref.shape,
+          f"{label}: {out.dtype} {tuple(out.shape)} against {ref.dtype} "
+          f"{tuple(ref.shape)}")
+    check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite")
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        worst = row_scaled_error(diff, ref.float()).max().item()
+        limit = MATMUL_ROW_TOL
+    else:
+        rms = ref.float().pow(2).mean(-1, keepdim=True).sqrt()
+        worst = (diff / rms.clamp(min=1e-30)).max().item()
+        limit = MATMUL_F32_TOL
+    check(worst <= limit, f"{label}: {worst:.3e} of the row's rms > "
+          f"{limit:.0e}")
+    return diff.max().item()
+
+
+def quant_kernels_against_plain(torch, qm) -> dict:
+    pa, w8, w4, tq = qm["pa"], qm["w8"], qm["w4"], qm["tq"]
+    kn = qm["kernels"]
+    worst = dict.fromkeys(("paged_attention_int8", "paged_attention_int4",
+                           "int8_matmul", "int8_matmul_ksplit",
+                           "int4_matmul", "rmsnorm"), 0.0)
+    # 1b: phase 3's geometry over quantized pages
+    for kind in ("int8", "int4"):
+        name = f"paged_attention_{kind}"
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).removeprefix("torch.")
+            for T in (1, 4, 128):
+                q, kp, vp, tables, starts, _ = paged_case(
+                    torch, T, torch.float32, seed=T)
+                q = q.to(dtype)
+                kq = quantize_pages(qm, kind, kp)
+                vq = quantize_pages(qm, kind, vp)
+                before = kn[name].launches
+                out = pa.paged_attention_multi(q, kq, vq, tables, starts)
+                torch.cuda.synchronize()
+                check(kn[name].launches == before + 1,
+                      f"{name}: a CUDA tensor did not go through the kernel")
+                ref = pa.paged_attention_multi(q, kq, vq, tables, starts,
+                                               impl="gather")
+                check(bool(torch.isfinite(out.float()).all()),
+                      f"{name}: non-finite output ({dt}, T={T})")
+                err = (out.float() - ref.float()).abs().max().item()
+                line = (f"{name} vs plain  {dt:8s} T={T:<4d} "
+                        f"max_abs_err={err:.3e}  tol={TOL[dt]:.0e}")
+                check(err <= TOL[dt], f"{name} disagrees with plain ({dt}, "
+                      f"T={T}): {err} > {TOL[dt]}")
+                if dtype == torch.bfloat16:
+                    # the gather version rounds the dequantized pages and
+                    # the probabilities to bf16, the kernel keeps both in
+                    # fp32 (as the TPU kernel does); the row-scaled limits
+                    # hold the kernel to the gather version over the pages
+                    # dequantized in fp32, which repeats its arithmetic
+                    exact = pa.paged_attention_multi(
+                        q, kq.dequant(torch.float32),
+                        vq.dequant(torch.float32), tables, starts,
+                        impl="gather").float()
+                    diff = (out.float() - exact).abs()
+                    row = row_scaled_error(diff, exact).max().item()
+                    rms = (diff.pow(2).mean().sqrt()
+                           / exact.pow(2).mean().sqrt()).item()
+                    line += (f"  row {row:.1e} (tol {FLASH_ROW_TOL:.1e})  "
+                             f"rms {rms:.1e} (tol {FLASH_RMS_TOL:.0e})")
+                    check(row <= FLASH_ROW_TOL and rms <= FLASH_RMS_TOL,
+                          f"{name} ({dt}, T={T}): row error {row:.3e}, rms "
+                          f"error {rms:.3e}")
+                print(line, flush=True)
+                worst[name] = max(worst[name], err)
+    # rows 7-9 at every projection shape
+    for n_in, n_out in LLAMA_PROJECTIONS:
+        route = w8.w8_route(n_in, n_out)
+        errs = dict.fromkeys(("int8_matmul", "int8_matmul_ksplit",
+                              "int4_matmul"), 0.0)
+        for rows in MATMUL_ROWS:
+            for dtype in (torch.bfloat16, torch.float32):
+                dt = str(dtype).removeprefix("torch.")
+                label = f"[{rows}x{n_in}] x [{n_in}x{n_out}] {dt}"
+                x, values, scale = w8_case(torch, tq, rows, n_in, n_out,
+                                           dtype, seed=rows + n_out)
+                ref = w8.matmul_w8_plain(x, values, scale)
+                for name in ("int8_matmul", "int8_matmul_ksplit"):
+                    before = kn[name].launches
+                    out = kn[name](x, values, scale)
+                    torch.cuda.synchronize()
+                    check(kn[name].launches == before + 1,
+                          f"{name} {label}: launch not counted")
+                    errs[name] = max(errs[name], matmul_error(
+                        torch, out, ref, dtype, f"{name} {label}"))
+                again = kn["int8_matmul_ksplit"](x, values, scale)
+                check(torch.equal(again, out),
+                      f"int8_matmul_ksplit {label}: two calls differ in bits")
+                before = [kn[n].launches for n in ("int8_matmul",
+                                                   "int8_matmul_ksplit")]
+                routed = w8.matmul_w8(x, values, scale)
+                grew = [kn[n].launches - b for n, b in zip(
+                    ("int8_matmul", "int8_matmul_ksplit"), before)]
+                check(grew == ([0, 1] if route == "ksplit" else [1, 0]),
+                      f"matmul_w8 {label}: launches {grew} on route {route}")
+                check(torch.equal(routed, out if route == "ksplit"
+                                  else kn["int8_matmul"](x, values, scale)),
+                      f"matmul_w8 {label}: the routed result differs")
+                x, packed, s4, chan = w4_case(torch, tq, rows, n_in, n_out,
+                                              dtype, seed=rows + n_in)
+                ref = w4.matmul_w4_plain(x, packed, s4, chan, 128)
+                before = kn["int4_matmul"].launches
+                out = w4.matmul_w4(x, packed, s4, chan, 128)
+                torch.cuda.synchronize()
+                check(kn["int4_matmul"].launches == before + 1,
+                      f"int4_matmul {label}: launch not counted")
+                errs["int4_matmul"] = max(errs["int4_matmul"], matmul_error(
+                    torch, out, ref, dtype, f"int4_matmul {label}"))
+                del x, values, scale, packed, s4, chan, ref, out
+        print(f"matmul kernels vs plain  in={n_in:<6d} out={n_out:<6d} rows "
+              f"{MATMUL_ROWS} bf16+fp32 (JAX route {route}): max_abs_err "
+              + "  ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f"; row limits bf16 {MATMUL_ROW_TOL:.0e} past one rounding, "
+              f"fp32 {MATMUL_F32_TOL:.0e}; k-split bits repeat", flush=True)
+        for n, e in errs.items():
+            worst[n] = max(worst[n], e)
+        torch.cuda.empty_cache()
+    # row 5
+    layers, rn = qm["layers"], qm["rn"]
+    for shape in RMSNORM_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype).removeprefix("torch.")
+            g = torch.Generator(device="cuda").manual_seed(shape[-1])
+            x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
+            sc = (torch.randn(shape[-1], generator=g, device="cuda")
+                  * 0.1).to(dtype)
+            before = rn.rmsnorm_kernel.launches
+            out = layers.rms_norm(x, sc, 1e-5, impl="cuda")
+            torch.cuda.synchronize()
+            check(rn.rmsnorm_kernel.launches == before + 1,
+                  f"rmsnorm {shape}: launch not counted")
+            ref = layers.rms_norm(x, sc, 1e-5)
+            diff = (out.float() - ref.float()).abs()
+            err = diff.max().item()
+            # fp32: the order of the sum of squares; bf16: one rounding of
+            # the output either way
+            if dtype == torch.float32:
+                ok, lim = err <= 2e-5, "2e-5"
+            else:
+                ok = bool((diff <= BF16_ULP * ref.float().abs() + 1e-30)
+                          .all())
+                lim = "one bf16 rounding"
+            print(f"rmsnorm vs plain  {str(shape):16s} {dt:8s} "
+                  f"max_abs_err={err:.3e}  tol {lim}", flush=True)
+            check(ok, f"rmsnorm {shape} {dt}: {err} past {lim}")
+            worst["rmsnorm"] = max(worst["rmsnorm"], err)
+    return worst
+
+
+# -- phase 12: timing of the quantized-serving kernels ------------------------
+
+def bound_record(k_ms, p_ms, l_ms, nbytes, ops, peak) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def quant_kernel_timing(torch, F, qm) -> dict:
+    pa, w8, w4, tq = qm["pa"], qm["w8"], qm["w4"], qm["tq"]
+    layers, rn = qm["layers"], qm["rn"]
+    kn = qm["kernels"]
+    saved = {n: k.launches for n, k in kn.items()}
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        flush_buf.zero_()
+
+    res = {}
+    bf16 = torch.bfloat16
+    rows = 8
+    # rows 7-9 at the decode batch; the record of each kernel is the shape
+    # the JAX route gives it on the main path
+    for n_in, n_out in ((4096, 14336), (14336, 4096)):
+        x, values, scale = w8_case(torch, tq, rows, n_in, n_out, bf16, 5)
+        name = ("int8_matmul_ksplit" if w8.w8_route(n_in, n_out) == "ksplit"
+                else "int8_matmul")
+        w_bf16 = tq.dequantize_int8(values, scale, bf16)
+        nbytes = (values.numel() + scale.numel() * 4 + x.numel() * 2
+                  + rows * n_out * 2)
+        r = bound_record(
+            time_ms(torch, lambda: kn[name](x, values, scale), flush=flush),
+            time_ms(torch, lambda: w8.matmul_w8_plain(x, values, scale),
+                    iters=10, flush=flush),
+            time_ms(torch, lambda: x @ w_bf16, flush=flush),
+            nbytes, 2 * rows * n_in * n_out, PEAK_OPS["bfloat16"])
+        r["shape"] = {"rows": rows, "in": n_in, "out": n_out}
+        res[name] = r
+        del w_bf16
+        x, packed, s4, chan = w4_case(torch, tq, rows, n_in, n_out, bf16, 6)
+        w_bf16 = tq.dequantize_int4_groupwise(packed, s4, chan, 128, bf16)
+        nbytes = (packed.numel() + s4.numel() * 4 + chan.numel() * 4
+                  + x.numel() * 2 + rows * n_out * 2)
+        r4 = bound_record(
+            time_ms(torch, lambda: w4.matmul_w4(x, packed, s4, chan, 128),
+                    flush=flush),
+            time_ms(torch, lambda: w4.matmul_w4_plain(x, packed, s4, chan,
+                                                      128),
+                    iters=10, flush=flush),
+            time_ms(torch, lambda: x @ w_bf16, flush=flush),
+            nbytes, 2 * rows * n_in * n_out, PEAK_OPS["bfloat16"])
+        r4["shape"] = {"rows": rows, "in": n_in, "out": n_out}
+        res["int4_matmul" if n_in == 4096 else "int4_matmul_down"] = r4
+        del w_bf16, x, values, scale, packed, s4, chan
+        for nm, rr in ((name, r), ("int4_matmul", r4)):
+            print(f"{nm} ({rows} x {n_in} -> {n_out}, bf16): kernel "
+                  f"{rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} ms, library "
+                  f"(x @ dequantized bf16 weight, 2 bytes a weight) "
+                  f"{rr['library_ms']:.4f} ms, bound {rr['bound_ms']:.4f} ms "
+                  f"({rr['bound_by']}, {rr['bytes']} B) -> "
+                  f"{rr['bound_ms'] / rr['ms']:.1%} of bound", flush=True)
+        torch.cuda.empty_cache()
+    # row 1b at phase 4's decode shape
+    q, kp, vp, tables, starts, lengths = paged_case(torch, 1, torch.float32,
+                                                    seed=99)
+    q = q.to(bf16)
+    B, T, Nq, D = q.shape
+    Nkv = kp.shape[1]
+    live = sum(lengths)
+    for kind, row_bytes in (("int8", D + 4), ("int4", D // 2 + 4)):
+        kq, vq = quantize_pages(qm, kind, kp), quantize_pages(qm, kind, vp)
+        nbytes = (2 * q.numel() * 2 + 2 * live * Nkv * row_bytes
+                  + tables.numel() * 4 + starts.numel() * 4)
+        r = bound_record(
+            time_ms(torch, lambda: pa.paged_attention_multi(
+                q, kq, vq, tables, starts), flush=flush),
+            time_ms(torch, lambda: pa.paged_attention_multi(
+                q, kq, vq, tables, starts, impl="gather"), flush=flush),
+            None, nbytes, 4 * Nq * D * live, PEAK_OPS["bfloat16"])
+        r["shape"] = {"B": B, "T": T, "Nq": Nq, "Nkv": Nkv, "D": D,
+                      "lengths": lengths}
+        res[f"paged_attention_{kind}"] = r
+        print(f"paged_attention_{kind} (B=8, T=1, bf16 q, lengths "
+              f"{lengths}): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library none, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes} B) -> "
+              f"{r['bound_ms'] / r['ms']:.1%} of bound", flush=True)
+    # row 5; the record is the entry forward's shape
+    for shape in ((8, 4096), (8192, 4096), ENTRY_NORM_SHAPE):
+        g = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.randn(shape, generator=g, device="cuda").to(bf16)
+        sc = (torch.randn(shape[-1], generator=g, device="cuda") * 0.1
+              ).to(bf16)
+        weight = 1 + sc
+        n = x.numel()
+        r = bound_record(
+            time_ms(torch, lambda: layers.rms_norm(x, sc, 1e-5, impl="cuda"),
+                    flush=flush),
+            time_ms(torch, lambda: layers.rms_norm(x, sc, 1e-5), flush=flush),
+            time_ms(torch, lambda: F.rms_norm(x, (shape[-1],), weight, 1e-5),
+                    flush=flush),
+            2 * n * 2 + shape[-1] * 2, 4 * n, PEAK_OPS["float32"])
+        r["shape"] = list(shape)
+        res["rmsnorm" if shape == ENTRY_NORM_SHAPE
+            else f"rmsnorm_{shape[0]}x{shape[1]}"] = r
+        print(f"rmsnorm {shape} bf16: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library (F.rms_norm) "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) -> {r['bound_ms'] / r['ms']:.1%} of bound",
+              flush=True)
+    for n, k in kn.items():
+        k.launches = saved[n]       # timing launches are not the main path
+    return res
+
+
+# -- phase 13: quantized serving at full width and depth ----------------------
+
+QUANT_CONFIGS = {
+    "A": dict(quantization="int8", kv_quantization="int8",
+              int8_pallas_matmul=True),
+    "B": dict(quantization="int4", kv_quantization="int4",
+              int8_pallas_matmul=False),
+}
+QUANT_STEP_LIMIT = 0.1      # kernel step vs dequant/gather step, share of
+                            # the largest logit (bf16 roundings placed
+                            # differently through 32 layers)
+
+
+def serve_quantized(torch, mods, qm, cfg, model, name: str, card: str,
+                    **settings) -> dict:
+    kn = qm["kernels"]
+    L = cfg.num_layers
+    scfg = mods["ServeConfig"](model=cfg.name, host="127.0.0.1", port=0,
+                               **settings)
+    t_init = time.time()
+    srv = mods["InferenceServer"](cfg, scfg, params=model, seed=0)
+    torch.cuda.synchronize()
+    eng = srv.engine
+    init_s = time.time() - t_init
+    bf16_bytes = model.weight_bytes()
+    print(f"config {name}: {settings}; weights {bf16_bytes / 1e9:.2f} GB "
+          f"bf16 -> {eng.params.weight_bytes() / 1e9:.2f} GB, quantized in "
+          f"{init_s:.1f}s; KV pool {eng.kv.num_pages} pages, "
+          f"{eng.kv.hbm_bytes() / 1e9:.3f} GB", flush=True)
+    port = srv.start()
+    max_tokens = 32
+    rng = random.Random(0)
+    shared = text(rng, 256)
+    lengths = [1500, 64, 900, 300, 1200, 128, 700]
+    bodies = []
+    for i, n in enumerate(lengths):
+        sampled = i % 2 == 1
+        bodies.append({"prompt": text(rng, n), "max_tokens": max_tokens,
+                       "temperature": 0.8 if sampled else 0.0,
+                       "top_k": 40 if sampled else 0,
+                       "top_p": 0.95 if sampled else 1.0, "seed": 100 + i})
+    bodies[3]["prompt"] = shared + text(rng, 300 - len(shared))
+    first = {"prompt": shared + text(rng, 140), "max_tokens": max_tokens,
+             "temperature": 0.0}
+    try:
+        post(port, {"prompt": "warm up", "max_tokens": 4,
+                    "temperature": 0.0})            # set-up, not measured
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = {k: getattr(eng, k) for k in (
+            "total_dispatched_steps", "total_extend_prefills",
+            "total_prefix_cached_tokens")}
+        for k in kn.values():
+            k.launches = 0                           # the main path starts
+        t1 = time.time()
+        results = [post(port, first)]                # publishes the prefix
+        out = [None] * len(bodies)
+
+        def worker(i):
+            out[i] = post(port, bodies[i])
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(bodies))]
+        t2 = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        t3 = time.time()
+        launches = {n: k.launches for n, k in kn.items()}  # the path ended
+        check(all(r is not None for r in out), "a request did not return")
+        results += out
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.stop()
+    check(health["status"] == "healthy", f"/health: {health['status']}")
+    st = health["engine"]
+    eos = srv.tokenizer.eos_token_id
+    for r in results:
+        toks = r["choices"][0]["token_ids"]
+        reason = r["choices"][0]["finish_reason"]
+        check(all(0 <= t < cfg.vocab_size for t in toks), "token out of range")
+        check(len(toks) == max_tokens or (reason == "stop"
+                                          and toks[-1] == eos),
+              f"request ended after {len(toks)} tokens ({reason})")
+    check(st["nonfinite_logits"] == 0,
+          f"{st['nonfinite_logits']} logits tensors held NaN/inf")
+    # what /health says of the quantization and the pool
+    kv = settings["kv_quantization"]
+    D, Nkv, PS = cfg.head_dim, cfg.num_kv_heads, eng.kv.page_size
+    row_bytes = {"int8": D + 4, "int4": D // 2 + 4}[kv]
+    want_bytes = 2 * L * eng.kv.num_pages * Nkv * PS * row_bytes
+    bf16_pool = 2 * L * eng.kv.num_pages * Nkv * PS * D * 2
+    check(st["quantization"] == settings["quantization"]
+          and st["kv"]["kv_quantization"] == kv,
+          f"/health reports {st['quantization']}/"
+          f"{st['kv']['kv_quantization']}")
+    check(st["kv"]["num_pages"] == scfg.max_batch_size
+          * (scfg.max_seq_len // PS) + 1,
+          f"KV pool of {st['kv']['num_pages']} pages")
+    check(st["kv"]["hbm_bytes"] == want_bytes,
+          f"pool bytes {st['kv']['hbm_bytes']} != {want_bytes}")
+    check(st["weight_bytes"] < 0.6 * bf16_bytes,
+          f"weights {st['weight_bytes']} B, bf16 {bf16_bytes} B")
+    # every kernel's launches against what the code implies
+    steps = eng.total_dispatched_steps - before["total_dispatched_steps"]
+    extends = eng.total_extend_prefills - before["total_extend_prefills"]
+    cached = (eng.total_prefix_cached_tokens
+              - before["total_prefix_cached_tokens"])
+    check(extends == 1 and cached >= 128,
+          f"{extends} suffix prefills, {cached} prefix-cached tokens")
+    # the suffix prefill goes to the matmul kernels only at <= 64 rows
+    suffix = out[3]["usage"]["prompt_tokens"] - cached
+    kernel_passes = steps + (1 if eng._suffix_bucket(suffix) <= 64 else 0)
+    per_layer = {"q": (4096, 4096), "k": (4096, 1024), "v": (4096, 1024),
+                 "o": (4096, 4096), "gate": (4096, 14336),
+                 "up": (4096, 14336), "down": (14336, 4096)}
+    n_split = sum(qm["w8"].w8_route(*s) == "ksplit"
+                  for s in per_layer.values())
+    a = settings["int8_pallas_matmul"]
+    w4 = settings["quantization"] == "int4"
+    expected = {
+        "paged_attention": 0,
+        "paged_attention_int8": L * (steps + extends) if kv == "int8" else 0,
+        "paged_attention_int4": L * (steps + extends) if kv == "int4" else 0,
+        "int8_matmul": L * (7 - n_split) * kernel_passes if a else 0,
+        "int8_matmul_ksplit": L * n_split * kernel_passes if a else 0,
+        "int4_matmul": L * 7 * kernel_passes if w4 else 0,
+        "rmsnorm": 0,
+    }
+    print(f"config {name} launches on the main path: {launches}; expected "
+          f"{expected} ({steps} decode steps, {extends} suffix prefill of "
+          f"{suffix} tokens in a bucket of {eng._suffix_bucket(suffix)}; per "
+          f"step and layer 7 matmuls, {n_split} of them k-split, and 1 paged "
+          f"attention)", flush=True)
+    check(launches == expected, f"config {name}: launches {launches} != "
+          f"{expected}")
+    ttfts = sorted(r["metrics"]["ttft_ms"] for r in results)
+    gen = sum(r["usage"]["completion_tokens"] for r in results)
+    conc = sum(r["usage"]["completion_tokens"] for r in out)
+    per_req = sorted(
+        (r["usage"]["completion_tokens"] - 1)
+        / ((r["metrics"]["latency_ms"] - r["metrics"]["ttft_ms"]) / 1e3)
+        for r in results)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = {
+        "settings": settings, "requests": len(results),
+        "completion_tokens": gen, "ttft_p50_ms": ttfts[len(ttfts) // 2],
+        "ttft_max_ms": ttfts[-1], "concurrent_phase_s": t3 - t2,
+        "concurrent_tok_per_s": conc / (t3 - t2),
+        "per_request_decode_tok_per_s_p50": per_req[len(per_req) // 2],
+        "first_request_s": t2 - t1, "peak_memory_allocated_gb": peak,
+        "launches": launches, "expected": expected, "decode_steps": steps,
+        "extend_prefills": extends, "engine": st, "init_s": init_s,
+        "weight_bytes": st["weight_bytes"], "bf16_weight_bytes": bf16_bytes,
+        "kv_hbm_bytes": st["kv"]["hbm_bytes"],
+        "kv_share_of_bf16_pool": st["kv"]["hbm_bytes"] / bf16_pool,
+    }
+    print(f"config {name} served {len(results)} requests, {gen} tokens: TTFT "
+          f"p50 {res['ttft_p50_ms']:.1f} ms (max {res['ttft_max_ms']:.1f}), "
+          f"{res['concurrent_tok_per_s']:.1f} tok/s over the 7 concurrent "
+          f"requests, per-request decode p50 "
+          f"{res['per_request_decode_tok_per_s_p50']:.1f} tok/s, peak "
+          f"max_memory_allocated {peak:.2f} GB (the bf16 source weights, "
+          f"{bf16_bytes / 1e9:.2f} GB, included); weights "
+          f"{st['weight_bytes'] / 1e9:.2f} GB, KV pool "
+          f"{st['kv']['hbm_bytes'] / 1e9:.3f} GB = "
+          f"{res['kv_share_of_bf16_pool']:.3f} of a bf16 pool [{card}]",
+          flush=True)
+
+    # one decode step over a prefilled prompt: the kernels against the
+    # dequant route and the gather attention, on the same pages
+    with torch.inference_mode():
+        prompt = srv.tokenizer.encode(first["prompt"])
+        n = len(prompt)
+        eng.kv.allocate(0, n + 1)
+        bucket = eng._bucket(n)
+        entries = np.zeros(bucket // PS, np.int64)
+        used = eng.kv.pages_needed(n)
+        entries[:used] = eng.kv.block_tables[0, :used]
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :n] = prompt
+        tok = eng._prefill_dense(tokens, n, entries).argmax(-1)
+        tables = torch.from_numpy(eng.kv.block_tables[:1].copy()).cuda()
+        pos = torch.tensor([n], device="cuda")
+        counts = {k: f.launches for k, f in kn.items()}
+        fast = mods["decode_step_forward"](
+            eng.params, tok, pos, eng.kv.k_pages, eng.kv.v_pages, tables,
+            cfg, w8_kernel_ok=a)[0]
+        grew = {k: f.launches - counts[k] for k, f in kn.items()}
+        check(grew == {k: (v // kernel_passes if "matmul" in k
+                           else v // (steps + extends))
+                       for k, v in expected.items()},
+              f"config {name}: one decode step launched {grew}")
+        slow = mods["decode_step_forward"](
+            eng.params, tok, pos, eng.kv.k_pages, eng.kv.v_pages, tables,
+            cfg, w4_kernel_ok=False, w8_kernel_ok=False,
+            attn_impl="gather")[0]
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(fast).all()), "non-finite decode logits")
+    diff = (fast - slow).abs().max().item()
+    top = slow.abs().max().item()
+    same = int(fast.argmax(-1)) == int(slow.argmax(-1))
+    print(f"config {name} decode step at position {n}: kernels vs dequant "
+          f"route + gather attention max |dlogit| {diff:.4f} = "
+          f"{diff / top:.2%} of max |logit| {top:.3f} (limit "
+          f"{QUANT_STEP_LIMIT:.0%}); same greedy token: {same}", flush=True)
+    check(diff <= QUANT_STEP_LIMIT * top, f"config {name}: the kernel step "
+          f"is {diff} from the dequant step, over {QUANT_STEP_LIMIT} x {top}")
+    res["step_vs_dequant"] = {"max_abs_diff": diff, "max_abs_logit": top,
+                              "same_greedy_token": same}
+    eng.release()
+    del srv, eng
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 14: the RMSNorm kernel on the entry forward ------------------------
+
+NORM_PATH_LIMIT = 2e-2      # share of the largest logit (a norm output that
+                            # rounds the other way, carried through 24 layers)
+
+
+def rmsnorm_on_entry(torch, gpt, qm) -> dict:
+    kernel = qm["rn"].rmsnorm_kernel
+    fn, (model, tokens) = gpt.entry(norm_impl="cuda")
+    cfg = model.cfg
+    kernel.launches = 0                              # the main path starts
+    logits = fn(model, tokens)
+    torch.cuda.synchronize()
+    launches = kernel.launches                       # the main path ended
+    want = 2 * cfg.num_layers + 1
+    with torch.inference_mode():
+        ref = gpt.forward(model, tokens, cfg, attn_impl="flash")
+    check(kernel.launches == launches, "the plain forward launched the norm "
+          "kernel")
+    check(tuple(logits.shape) == (1, 1024, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"entry logits {tuple(logits.shape)}")
+    diff = (logits - ref).abs().max().item()
+    top = ref.abs().max().item()
+    print(f"entry forward (gpt-1b, [1, 1024], bf16) with norm_impl=cuda: "
+          f"{launches} rmsnorm launches (expected 2 x {cfg.num_layers} + 1 = "
+          f"{want}); max |dlogit| against the plain norms {diff:.4f} = "
+          f"{diff / top:.2%} of max |logit| {top:.3f} (limit "
+          f"{NORM_PATH_LIMIT:.0%})", flush=True)
+    check(launches == want, f"rmsnorm launches {launches} != {want}")
+    check(diff <= NORM_PATH_LIMIT * top, "the norm kernel moved the logits")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_diff": diff, "max_abs_logit": top}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements here (JSON)")
@@ -1018,6 +1615,21 @@ def main() -> int:
         adamw_cuda import adamw_kernel
     from distributed_llm_training_and_inference_system_tpu_torch.runtime.\
         engine import TrainingEngine
+    from distributed_llm_training_and_inference_system_tpu_torch.models \
+        import layers
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int4_matmul as w4, int8_matmul as w8, paged_attention_cuda as pac,
+        quantization as tq, rmsnorm as rn)
+    qmods = {"pa": pa, "pac": pac, "w4": w4, "w8": w8, "tq": tq, "rn": rn,
+             "layers": layers,
+             "kernels": {
+                 "paged_attention": paged_attention_kernel,
+                 "paged_attention_int8": pac.paged_attention_int8_kernel,
+                 "paged_attention_int4": pac.paged_attention_int4_kernel,
+                 "int8_matmul": w8.int8_matmul_kernel,
+                 "int8_matmul_ksplit": w8.int8_matmul_ksplit_kernel,
+                 "int4_matmul": w4.int4_matmul_kernel,
+                 "rmsnorm": rn.rmsnorm_kernel}}
     mods = {"ServeConfig": ServeConfig, "get_model_config": get_model_config,
             "gpt": gpt, "InferenceEngine": InferenceEngine,
             "InferenceServer": InferenceServer,
@@ -1064,8 +1676,10 @@ def main() -> int:
         phase("6 paged against dense", t0)
         with torch.inference_mode():          # serving is gradient-free
             dense = paged_against_dense(torch, mods, served)
-        for key in ("params", "tokenizer", "cfg"):   # free the 8B weights
-            served.pop(key, None)
+        # phase 13 quantizes from these weights: they wait on the host
+        bf16_model = served.pop("params").to("cpu")
+        served.pop("tokenizer", None)
+        llama_cfg = served.pop("cfg")
         torch.cuda.empty_cache()
 
         phase("7 flash kernels against plain", t0)
@@ -1083,6 +1697,24 @@ def main() -> int:
 
         phase("10 train gpt-1b at full width and depth", t0)
         trained = train_main_path(torch, mods, train_kernels, smi)
+
+        phase("11 quantized kernels against plain", t0)
+        quant_err = quant_kernels_against_plain(torch, qmods)
+
+        phase("12 quantized kernel timing", t0)
+        quant_timing = quant_kernel_timing(torch, F, qmods)
+
+        phase("13 serve quantized llama-8b-gqa at full width and depth", t0)
+        bf16_model = bf16_model.to("cuda")
+        quant_served = {
+            name: serve_quantized(torch, mods, qmods, llama_cfg, bf16_model,
+                                  name, smi, **settings)
+            for name, settings in QUANT_CONFIGS.items()}
+        del bf16_model
+        torch.cuda.empty_cache()
+
+        phase("14 RMSNorm on the entry forward", t0)
+        norm_path = rmsnorm_on_entry(torch, gpt, qmods)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -1123,7 +1755,37 @@ def main() -> int:
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
     }] + train_records
+    quant_replaces = {
+        "paged_attention_int8": ("paged_attention.cu",
+                                 "ops/paged_attention_pallas.py:47"),
+        "paged_attention_int4": ("paged_attention.cu",
+                                 "ops/paged_attention_pallas.py:47"),
+        "int4_matmul": ("int4_matmul.cu", "ops/int4_matmul_pallas.py:45"),
+        "int8_matmul": ("int8_matmul.cu", "ops/int8_matmul_pallas.py:44"),
+        "int8_matmul_ksplit": ("int8_matmul.cu",
+                               "ops/int8_matmul_pallas.py:54"),
+        "rmsnorm": ("rmsnorm.cu", "ops/rmsnorm.py:20")}
+    quant_launches = {"rmsnorm": norm_path["launches"]}
+    for res in quant_served.values():
+        for name, n in res["launches"].items():
+            if name in quant_replaces and n:
+                quant_launches[name] = quant_launches.get(name, 0) + n
+    for name, (source, where) in quant_replaces.items():
+        tm = quant_timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": jax_pkg + where,
+            "launches": quant_launches.get(name, 0),
+            "max_abs_err": quant_err[name],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"]})
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was never launched on its "
+              f"main path")
     if args.out:
+        record.update(quant_max_abs_err=quant_err, quant_timing=quant_timing,
+                      serve_quantized=quant_served, rmsnorm_path=norm_path)
         record.update(kernels=kernels, timing=timing, serve=served,
                       paged_vs_dense=dense, flash_vs_plain=flash,
                       adamw_max_abs_err=adamw_err, train_timing=train_timing,

@@ -2,13 +2,23 @@
 //
 // Replaces the TPU kernel `_extend_kernel` of the JAX package
 // (distributed_llm_training_and_inference_system_tpu/ops/
-// paged_attention_pallas.py), fp pages: T consecutive query tokens per
-// slot; query token j of slot b sits at position starts[b] + j and attends
-// causally over positions [0, starts[b] + j] of the slot's pages, found
-// through its row of the block table. Online softmax in fp32 (running max
-// m, running sum l, accumulator acc), with the TPU kernel's guards: a row
-// whose running max is still NEG_INF contributes p = 0 and rescales by 1,
-// and the output divides by l only where l > 0. Output is in q's dtype.
+// paged_attention_pallas.py), all three page kinds: T consecutive query
+// tokens per slot; query token j of slot b sits at position starts[b] + j
+// and attends causally over positions [0, starts[b] + j] of the slot's
+// pages, found through its row of the block table. Online softmax in fp32
+// (running max m, running sum l, accumulator acc), with the TPU kernel's
+// guards: a row whose running max is still NEG_INF contributes p = 0 and
+// rescales by 1, and the output divides by l only where l > 0. Output is
+// in q's dtype.
+//
+// Page kinds (template parameter KIND): fp pages in q's dtype; int8 pages
+// (values int8 [NP, Nkv, PS, D], scale fp32 [NP, Nkv, PS]); int4 pages
+// (values uint8 [NP, Nkv, PS/2, D], two page slots per byte, slot 2i in
+// the low nibble as 4-bit two's complement, the same scale tile). A
+// quantized K or V row crosses device memory and shared memory at its
+// stored width and is dequantized in registers, float(value) * scale[row]
+// in fp32, right before the dot; its scale is read through the same table
+// entry as its page.
 //
 // Design (not carried over block by block):
 // - No head folding. The TPU kernel folds every kv head into one masked
@@ -20,8 +30,9 @@
 //   K/V row once, from shared memory.
 // - The block walks keys [0, min(start + j_last + 1, maxP*PS)) in tiles of
 //   kKeys positions (one page when PS == 64), reads each page id from the
-//   table itself, and copies that kv head's K and V rows into shared
-//   memory with cp.async, in their own dtype: the copy of tile t+1 is in
+//   table itself, and copies that kv head's K and V rows (and, for
+//   quantized pages, their scales) into shared memory with cp.async, as
+//   they are stored: the copy of tile t+1 is in
 //   flight while tile t is computed (two stages where shared memory allows,
 //   one otherwise). Pages past the live length are never touched.
 // - Per tile: scores with one thread per key; the online-softmax update
@@ -131,12 +142,82 @@ __device__ __forceinline__ void load_cols(const T* src, float* dst) {
     }
 }
 
+constexpr int kFp = 0, kInt8 = 1, kInt4 = 2;     // page kinds
+
+// How one kind of page stores a K/V row. kVec: values per 16 stored bytes;
+// kSlots: page slots per stored row (int4 packs two); widen: 16 stored
+// bytes -> kVec dequantized fp32 values; cols: CW adjacent head-dim
+// columns of a row. `hi` picks the high nibble (odd slot) of int4 bytes.
+template <typename T, int KIND> struct Page;
+
+template <typename T> struct Page<T, kFp> {
+    static constexpr int kVec = Vec<T>::kN;
+    static constexpr int kSlots = 1;
+    static constexpr int kElem = (int)sizeof(T);
+    static __device__ __forceinline__ void widen(const unsigned char* src,
+                                                 int, float, float* dst) {
+        Vec<T>::widen(reinterpret_cast<const T*>(src), dst);
+    }
+    template <int CW>
+    static __device__ __forceinline__ void cols(const unsigned char* row,
+                                                int col, int, float,
+                                                float* dst) {
+        load_cols<T, CW>(reinterpret_cast<const T*>(row) + col, dst);
+    }
+};
+
+__device__ __forceinline__ float int8_value(unsigned b) {
+    return (float)(int)(signed char)(b & 0xffu);
+}
+// 4-bit two's complement: (n ^ 8) - 8 maps 0..7 -> 0..7 and 8..15 -> -8..-1
+__device__ __forceinline__ float int4_value(unsigned b, int hi) {
+    const int n = (int)((b >> (4 * hi)) & 0xfu);
+    return (float)((n ^ 8) - 8);
+}
+
+template <typename T, int KIND> struct PageQ {      // int8 and int4
+    static constexpr int kVec = 16;
+    static constexpr int kSlots = KIND == kInt4 ? 2 : 1;
+    static constexpr int kElem = 1;
+    static __device__ __forceinline__ float value(unsigned b, int hi) {
+        return KIND == kInt4 ? int4_value(b, hi) : int8_value(b);
+    }
+    static __device__ __forceinline__ void widen(const unsigned char* src,
+                                                 int hi, float scale,
+                                                 float* dst) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src);
+        const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                dst[4 * i + j] = value(w[i] >> (8 * j), hi) * scale;
+    }
+    template <int CW>
+    static __device__ __forceinline__ void cols(const unsigned char* row,
+                                                int col, int hi, float scale,
+                                                float* dst) {
+#pragma unroll
+        for (int e = 0; e < CW; ++e)
+            dst[e] = value(row[col + e], hi) * scale;
+    }
+};
+template <typename T> struct Page<T, kInt8> : PageQ<T, kInt8> {};
+template <typename T> struct Page<T, kInt4> : PageQ<T, kInt4> {};
+
 // 16-byte global->shared copy that bypasses registers; src_bytes = 0 fills
 // the destination with zeros (the tail of the last tile)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(src_bytes));
+}
+// 4-byte copy (one fp32 scale); src_bytes = 0 fills with zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(s), "l"(src), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -158,63 +239,103 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// fp32 part: q rows, scores/p, m, l, alpha; then nstage x (K, V) tiles
-size_t smem_bytes(int D, int elem, int nstage) {
+// fp32 part: q rows, scores/p, m, l, alpha; then nstage x (K, V) tiles of
+// kKeys / slots stored rows (never less than the final [kWarps][kRows][D]
+// fp32 reduction that reuses the region), then nstage x (K, V) x kKeys
+// scales
+__host__ __device__ inline size_t tile_bytes(int D, int elem, int slots,
+                                             int nstage) {
+    const size_t ld = (size_t)D * elem + kPadBytes;
+    const size_t tiles = (size_t)nstage * 2 * (kKeys / slots) * ld;
+    const size_t red = sizeof(float) * kWarps * kRows * D;
+    return tiles > red ? tiles : red;
+}
+size_t smem_bytes(int D, int elem, int slots, int nstage) {
     const size_t f32 = (size_t)kRows * (D + kQPad) + kRows * kKeys + 3 * kRows;
-    const size_t ldr = D + kPadBytes / elem;
-    return sizeof(float) * f32 + (size_t)nstage * 2 * kKeys * ldr * elem;
+    return sizeof(float) * f32 + tile_bytes(D, elem, slots, nstage)
+           + sizeof(float) * nstage * 2 * kKeys;
 }
 
-template <typename T, int CW>
+template <typename T, int KIND, int CW>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q,        // [B, T, Nq, D]
-                       const T* __restrict__ k_pages,  // [NP, Nkv, PS, D]
-                       const T* __restrict__ v_pages,
+                       const unsigned char* __restrict__ k_pages,
+                       const unsigned char* __restrict__ v_pages,
+                       const float* __restrict__ k_scale,  // [NP, Nkv, PS]
+                       const float* __restrict__ v_scale,  // (quantized)
                        const int* __restrict__ tables, // [B, maxP]
                        const int* __restrict__ starts, // [B]
                        T* __restrict__ out,            // [B, T, Nq, D]
                        int Tq, int Nq, int Nkv, int D, int PS, int maxP,
                        float scale, int nstage) {
     extern __shared__ __align__(16) float smem[];
-    constexpr int V = Vec<T>::kN;
+    using P = Page<T, KIND>;
+    constexpr int V = P::kVec;
+    constexpr int kSlots = P::kSlots;
+    constexpr int kTileRows = kKeys / kSlots;   // stored rows per tile
+    constexpr bool kQuant = KIND != kFp;
     const int G = Nq / Nkv;
     const int row0 = blockIdx.x * kRows;
     const int kvh = blockIdx.y;
     const int b = blockIdx.z;
     const int R = min(kRows, Tq * G - row0);
     const int ldq = D + kQPad;
-    const int ldr = D + kPadBytes / (int)sizeof(T);
+    const int ldr = D * P::kElem + kPadBytes;   // bytes per stored row
+    const size_t stage_bytes = (size_t)2 * kTileRows * ldr;
     float* q_s = smem;                      // [kRows][ldq]
     float* p_s = q_s + kRows * ldq;         // [kRows][kKeys] scores, then p
     float* m_s = p_s + kRows * kKeys;       // [kRows] running max
     float* l_s = m_s + kRows;               // [kRows] running sum
     float* a_s = l_s + kRows;               // [kRows] this tile's rescale
-    T* tiles = reinterpret_cast<T*>(a_s + kRows);  // [nstage][2][kKeys][ldr]
+    // [nstage][2][kTileRows][ldr] bytes, then [nstage][2][kKeys] scales
+    unsigned char* tiles = reinterpret_cast<unsigned char*>(a_s + kRows);
+    float* scales = reinterpret_cast<float*>(
+        tiles + tile_bytes(D, P::kElem, kSlots, nstage));
     const int tid = threadIdx.x;
     const int start = starts[b];
     const int j_last = (row0 + R - 1) / G;  // last query token of the tile
     const int n_keys = min(start + j_last + 1, maxP * PS);
     const int n_tiles = (n_keys + kKeys - 1) / kKeys;
     const int* table = tables + (size_t)b * maxP;
-    const int vecs = D / V;
+    const int vecs = D / V;                 // 16-byte pieces per stored row
 
-    // copy tile t's K and V rows into stage buf (page ids from the table)
+    // copy tile t's K and V rows (and scales) into stage buf; page ids
+    // come from the table. Stored row sr holds page slots sr * kSlots ..;
+    // PS and kKeys are multiples of kSlots, so a stored row never spans
+    // two pages or two tiles.
     auto issue = [&](int t, int buf) {
         const int t0 = t * kKeys;
         const int nk = min(kKeys, n_keys - t0);
-        T* kb = tiles + (size_t)buf * 2 * kKeys * ldr;
-        T* vb = kb + kKeys * ldr;
-        for (int i = tid; i < kKeys * vecs; i += kThreads) {
-            const int kk = i / vecs, c = (i % vecs) * V;
+        unsigned char* kb = tiles + (size_t)buf * stage_bytes;
+        unsigned char* vb = kb + (size_t)kTileRows * ldr;
+        for (int i = tid; i < kTileRows * vecs; i += kThreads) {
+            const int sr = i / vecs, c = (i % vecs) * 16;   // c in bytes
+            const int kk = sr * kSlots;
             size_t off = 0;
             if (kk < nk) {
                 const int pos = t0 + kk;
                 const int phys = __ldg(table + pos / PS);
-                off = (((size_t)phys * Nkv + kvh) * PS + pos % PS) * D + c;
+                off = (((size_t)phys * Nkv + kvh) * (PS / kSlots)
+                       + (pos % PS) / kSlots) * ((size_t)D * P::kElem) + c;
             }
             const int bytes = kk < nk ? 16 : 0;
-            cp_async16(kb + kk * ldr + c, k_pages + off, bytes);
-            cp_async16(vb + kk * ldr + c, v_pages + off, bytes);
+            cp_async16(kb + sr * ldr + c, k_pages + off, bytes);
+            cp_async16(vb + sr * ldr + c, v_pages + off, bytes);
+        }
+        if (kQuant) {
+            float* ks = scales + (size_t)buf * 2 * kKeys;
+            float* vs = ks + kKeys;
+            for (int kk = tid; kk < kKeys; kk += kThreads) {
+                size_t off = 0;
+                if (kk < nk) {
+                    const int pos = t0 + kk;
+                    const int phys = __ldg(table + pos / PS);
+                    off = ((size_t)phys * Nkv + kvh) * PS + pos % PS;
+                }
+                const int bytes = kk < nk ? 4 : 0;
+                cp_async4(ks + kk, k_scale + off, bytes);
+                cp_async4(vs + kk, v_scale + off, bytes);
+            }
         }
         cp_async_commit();
     };
@@ -253,8 +374,10 @@ paged_attention_kernel(const T* __restrict__ q,        // [B, T, Nq, D]
             cp_async_wait<0>();
         }
         __syncthreads();
-        const T* kb = tiles + (size_t)buf * 2 * kKeys * ldr;
-        const T* vb = kb + kKeys * ldr;
+        const unsigned char* kb = tiles + (size_t)buf * stage_bytes;
+        const unsigned char* vb = kb + (size_t)kTileRows * ldr;
+        const float* ks = scales + (size_t)buf * 2 * kKeys;
+        const float* vs = ks + kKeys;
 
         // scores: thread -> one key, every kRowGroups-th row
         {
@@ -262,10 +385,11 @@ paged_attention_kernel(const T* __restrict__ q,        // [B, T, Nq, D]
             float s[kRowsPerThread];
 #pragma unroll
             for (int i = 0; i < kRowsPerThread; ++i) s[i] = 0.f;
-            const T* krow = kb + kk * ldr;
+            const unsigned char* krow = kb + (kk / kSlots) * ldr;
+            const float kscale = kQuant ? ks[kk] : 1.f;
             for (int c = 0; c < D; c += V) {
                 float kf[V];
-                Vec<T>::widen(krow + c, kf);
+                P::widen(krow + c * P::kElem, kk % kSlots, kscale, kf);
 #pragma unroll
                 for (int i = 0; i < kRowsPerThread; ++i) {
                     const int r = rg + kRowGroups * i;
@@ -328,7 +452,8 @@ paged_attention_kernel(const T* __restrict__ q,        // [B, T, Nq, D]
             }
             for (int kk = warp; kk < nk; kk += kWarps) {
                 float v[CW];
-                load_cols<T, CW>(vb + kk * ldr + lane * CW, v);
+                P::template cols<CW>(vb + (kk / kSlots) * ldr, lane * CW,
+                                     kk % kSlots, kQuant ? vs[kk] : 1.f, v);
 #pragma unroll
                 for (int r = 0; r < kRows; ++r) {
                     if (r < R) {
@@ -368,67 +493,83 @@ paged_attention_kernel(const T* __restrict__ q,        // [B, T, Nq, D]
     }
 }
 
-template <typename T, int CW>
+template <typename T, int KIND, int CW>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
+                   const void* k_scale, const void* v_scale,
                    const void* tables, const void* starts, void* out,
                    int B, int Tq, int Nq, int Nkv, int D, int PS, int maxP,
                    float scale, cudaStream_t stream) {
-    const int elem = (int)sizeof(T);
-    const int nstage = smem_bytes(D, elem, 2) <= (size_t)kMaxSmem ? 2 : 1;
-    const size_t smem = smem_bytes(D, elem, nstage);
+    using P = Page<T, KIND>;
+    const int nstage =
+        smem_bytes(D, P::kElem, P::kSlots, 2) <= (size_t)kMaxSmem ? 2 : 1;
+    const size_t smem = smem_bytes(D, P::kElem, P::kSlots, nstage);
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T, CW>,
+        paged_attention_kernel<T, KIND, CW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const int G = Nq / Nkv;
     const dim3 grid((Tq * G + kRows - 1) / kRows, Nkv, B);
-    paged_attention_kernel<T, CW><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k_pages),
-        static_cast<const T*>(v_pages), static_cast<const int*>(tables),
+    paged_attention_kernel<T, KIND, CW><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q),
+        static_cast<const unsigned char*>(k_pages),
+        static_cast<const unsigned char*>(v_pages),
+        static_cast<const float*>(k_scale),
+        static_cast<const float*>(v_scale), static_cast<const int*>(tables),
         static_cast<const int*>(starts), static_cast<T*>(out),
         Tq, Nq, Nkv, D, PS, maxP, scale, nstage);
     return cudaGetLastError();
 }
 
+#define PAGED_ARGS q, k_pages, v_pages, k_scale, v_scale, tables, starts, \
+                   out, B, Tq, Nq, Nkv, D, PS, maxP, scale, s
+
 // a lane's head-dim columns: the power of two CW with 32 * CW >= D
-template <typename T>
+template <typename T, int KIND>
 cudaError_t launch_d(const void* q, const void* k_pages, const void* v_pages,
+                     const void* k_scale, const void* v_scale,
                      const void* tables, const void* starts, void* out,
                      int B, int Tq, int Nq, int Nkv, int D, int PS, int maxP,
                      float scale, cudaStream_t s) {
-    if (D <= 32)
-        return launch<T, 1>(q, k_pages, v_pages, tables, starts, out, B, Tq,
-                            Nq, Nkv, D, PS, maxP, scale, s);
-    if (D <= 64)
-        return launch<T, 2>(q, k_pages, v_pages, tables, starts, out, B, Tq,
-                            Nq, Nkv, D, PS, maxP, scale, s);
-    if (D <= 128)
-        return launch<T, 4>(q, k_pages, v_pages, tables, starts, out, B, Tq,
-                            Nq, Nkv, D, PS, maxP, scale, s);
-    return launch<T, 8>(q, k_pages, v_pages, tables, starts, out, B, Tq, Nq,
-                        Nkv, D, PS, maxP, scale, s);
+    if (D <= 32) return launch<T, KIND, 1>(PAGED_ARGS);
+    if (D <= 64) return launch<T, KIND, 2>(PAGED_ARGS);
+    if (D <= 128) return launch<T, KIND, 4>(PAGED_ARGS);
+    return launch<T, KIND, 8>(PAGED_ARGS);
+}
+
+template <typename T>
+cudaError_t launch_kind(int kind, const void* q, const void* k_pages,
+                        const void* v_pages, const void* k_scale,
+                        const void* v_scale, const void* tables,
+                        const void* starts, void* out, int B, int Tq, int Nq,
+                        int Nkv, int D, int PS, int maxP, float scale,
+                        cudaStream_t s) {
+    if (kind == kFp) return launch_d<T, kFp>(PAGED_ARGS);
+    if (kind == kInt8) return launch_d<T, kInt8>(PAGED_ARGS);
+    return launch_d<T, kInt4>(PAGED_ARGS);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
+// dtype (q and out): 0 = float32, 1 = bfloat16. kind: 0 = pages in q's
+// dtype (k_scale, v_scale unused), 1 = int8 pages, 2 = packed int4 pages.
+// Returns a cudaError_t (0 = success).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
-                                   const void* v_pages, const void* tables,
+                                   const void* v_pages, const void* k_scale,
+                                   const void* v_scale, const void* tables,
                                    const void* starts, void* out, int B,
                                    int Tq, int Nq, int Nkv, int D, int PS,
-                                   int maxP, float scale, int dtype,
+                                   int maxP, float scale, int dtype, int kind,
                                    void* stream) {
     if (B <= 0 || Tq <= 0) return cudaSuccess;
     if (D % 8 != 0 || D > kMaxD || Nkv <= 0 || Nq % Nkv != 0 || PS <= 0
-        || maxP <= 0)
+        || maxP <= 0 || kind < kFp || kind > kInt4)
         return cudaErrorInvalidValue;
+    if (kind != kFp && (D % 16 != 0 || k_scale == nullptr
+                        || v_scale == nullptr))
+        return cudaErrorInvalidValue;
+    if (kind == kInt4 && PS % 2 != 0) return cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0)
-        return launch_d<float>(q, k_pages, v_pages, tables, starts, out, B,
-                               Tq, Nq, Nkv, D, PS, maxP, scale, s);
-    if (dtype == 1)
-        return launch_d<__nv_bfloat16>(q, k_pages, v_pages, tables, starts,
-                                       out, B, Tq, Nq, Nkv, D, PS, maxP,
-                                       scale, s);
+    if (dtype == 0) return launch_kind<float>(kind, PAGED_ARGS);
+    if (dtype == 1) return launch_kind<__nv_bfloat16>(kind, PAGED_ARGS);
     return cudaErrorInvalidValue;
 }

@@ -12,6 +12,12 @@ Parameters are trainable fp32 masters (or bf16 for a serving model).
 layer loop (``precast_params``), so autograd returns fp32 gradients to the
 masters; ``remat`` wraps each block in ``torch.utils.checkpoint``. Serving
 calls ``forward`` under ``torch.inference_mode()``.
+
+A serving model's block kernels may be quantized: ``with_block_leaves``
+builds a model whose blocks hold ``ops.quantization`` ``QuantTensor`` /
+``Quant4Tensor`` leaves in place of parameters. ``forward`` dequantizes
+those one layer at a time, so only one layer's full-precision weights
+exist at once.
 """
 
 from __future__ import annotations
@@ -27,8 +33,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..ops.quantization import QuantTensor, Quant4Tensor
 from .layers import attention_block, cast, mlp_block, rms_norm, \
     rope_frequencies
+
+_QUANT = (QuantTensor, Quant4Tensor)
 
 
 def _param(*shape, device, dtype) -> nn.Parameter:
@@ -58,17 +67,39 @@ class Block(nn.Module):
         self.up = _param(H, Fs, **kw)
         self.down = _param(Fs, H, **kw)
 
+    LEAF_NAMES = ("attn_norm", "q", "k", "v", "o", "q_bias", "k_bias",
+                  "v_bias", "mlp_norm", "gate", "up", "down")
+
+    def leaves(self) -> dict:
+        """name -> leaf: a parameter, or a quantized weight."""
+        return {n: getattr(self, n) for n in self.LEAF_NAMES
+                if hasattr(self, n)}
+
+    @classmethod
+    def from_leaves(cls, leaves: dict) -> "Block":
+        """A block over existing leaves, allocating nothing: parameters
+        are shared with their owner, quantized weights are plain
+        attributes."""
+        blk = cls.__new__(cls)
+        nn.Module.__init__(blk)
+        for name, leaf in leaves.items():
+            setattr(blk, name, leaf)
+        return blk
+
 
 def _block_fn(layer, x, cfg, positions, segment_ids, inv_freq,
-              kv_cache=None, cache_offset=None, attn_impl="xla"):
+              kv_cache=None, cache_offset=None, attn_impl="xla",
+              norm_impl="xla"):
     """One pre-norm block over ``layer`` (a ``Block`` or its precast
     leaves). Returns (x, updated kv_cache or None)."""
-    h = rms_norm(x, cast(layer.attn_norm, x.dtype), cfg.norm_eps)
+    h = rms_norm(x, cast(layer.attn_norm, x.dtype), cfg.norm_eps,
+                 impl=norm_impl)
     attn_out, new_cache = attention_block(
         h, layer, cfg, positions, segment_ids, inv_freq,
         kv_cache=kv_cache, cache_offset=cache_offset, attn_impl=attn_impl)
     x = x + attn_out
-    h = rms_norm(x, cast(layer.mlp_norm, x.dtype), cfg.norm_eps)
+    h = rms_norm(x, cast(layer.mlp_norm, x.dtype), cfg.norm_eps,
+                 impl=norm_impl)
     return x + mlp_block(h, layer, cfg), new_cache
 
 
@@ -94,6 +125,29 @@ class GPT(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def with_block_leaves(self, blocks: list) -> "GPT":
+        """A model over this one's embedding, final norm and LM head (the
+        same parameters, not copies) and ``blocks``: one ``{name: leaf}``
+        dict per layer, whose kernels may be quantized."""
+        model = GPT.__new__(GPT)
+        nn.Module.__init__(model)
+        model.cfg = self.cfg
+        model.embed = self.embed
+        model.blocks = nn.ModuleList(Block.from_leaves(b) for b in blocks)
+        model.final_norm = self.final_norm
+        model.lm_head = self.lm_head
+        return model
+
+    def weight_bytes(self) -> int:
+        """Device bytes of the weights (a quantized leaf counts its stored
+        values and scales)."""
+        tensors = list(self.parameters())
+        for blk in self.blocks:
+            for leaf in blk.leaves().values():
+                if isinstance(leaf, _QUANT):
+                    tensors += leaf.tensors()
+        return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -194,20 +248,32 @@ def head_weight(model: GPT, dtype: torch.dtype) -> torch.Tensor:
     return cast(model.lm_head, dtype)
 
 
-def unembed(model: GPT, x: torch.Tensor, cfg) -> torch.Tensor:
+def unembed(model: GPT, x: torch.Tensor, cfg,
+            norm_impl: str = "xla") -> torch.Tensor:
     """Final RMSNorm + LM head (tied or untied); fp32 logits from the fp32
     accumulator of the head product, as the JAX ``unembed``."""
-    x = rms_norm(x, cast(model.final_norm, x.dtype), cfg.norm_eps)
+    x = rms_norm(x, cast(model.final_norm, x.dtype), cfg.norm_eps,
+                 impl=norm_impl)
     return matmul_f32(x, head_weight(model, x.dtype))
 
 
+def _dequantized(layer: SimpleNamespace, dtype) -> SimpleNamespace:
+    """``layer`` with its quantized leaves dequantized to ``dtype`` (the
+    same object when it has none)."""
+    if not any(isinstance(v, _QUANT) for v in vars(layer).values()):
+        return layer
+    return SimpleNamespace(**{
+        n: v.dequant(dtype) if isinstance(v, _QUANT) else v
+        for n, v in vars(layer).items()})
+
+
 def precast_params(model: GPT, dtype: torch.dtype) -> list[SimpleNamespace]:
-    """Every block's leaves in ``dtype``, cast once (a no-op for leaves
-    already in it). Casting inside the layer loop would read the fp32
-    masters again at every recompute."""
-    return [SimpleNamespace(**{n: cast(p, dtype)
-                               for n, p in blk.named_parameters()})
-            for blk in model.blocks]
+    """Every block's plain leaves in ``dtype``, cast once (a no-op for
+    leaves already in it); quantized leaves stay quantized. Casting inside
+    the layer loop would read the fp32 masters again at every recompute."""
+    return [SimpleNamespace(**{
+        n: leaf if isinstance(leaf, _QUANT) else cast(leaf, dtype)
+        for n, leaf in blk.leaves().items()}) for blk in model.blocks]
 
 
 # matmul outputs: what "selective" keeps resident (the JAX policy
@@ -250,6 +316,7 @@ def forward(
     kv_cache: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     cache_offset: Optional[torch.Tensor] = None,
     attn_impl: str = "xla",
+    norm_impl: str = "xla",
     remat: str = "none",
     unembed_positions: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
@@ -260,6 +327,8 @@ def forward(
     - ``segment_ids`` [B, S] packs several documents per row (0 = pad).
     - ``attn_impl`` "xla" (plain masked attention) or "flash"
       (``ops.attention.flash_attention``: the kernels on a card).
+    - ``norm_impl`` "xla" (plain RMSNorm) or "cuda" (``ops.rmsnorm``: the
+      kernel on a card; forward only, so not for training).
     - ``remat`` "none" | "selective" | "full" (training only).
     - ``kv_cache`` ([L, B, Smax, Nkv, D], [L, B, Smax, Nkv, D]) with
       ``cache_offset`` [B] runs incremental attention; the cache is
@@ -285,14 +354,16 @@ def forward(
     if kv_cache is None:
         block = _remat_wrap(_block_fn, remat)
         for layer in layers:
+            layer = _dequantized(layer, dt)      # this layer only
             x, _ = block(layer, x, cfg, positions, segment_ids, inv_freq,
-                         None, None, attn_impl)
+                         None, None, attn_impl, norm_impl)
     else:
         k_cache, v_cache = kv_cache
         for i, layer in enumerate(layers):
+            layer = _dequantized(layer, dt)      # this layer only
             x, _ = _block_fn(layer, x, cfg, positions, segment_ids,
                              inv_freq, (k_cache[i], v_cache[i]),
-                             cache_offset)
+                             cache_offset, norm_impl=norm_impl)
         new_cache = (k_cache, v_cache)
 
     if unembed_positions is not None:
@@ -300,19 +371,21 @@ def forward(
                                                              x.shape[-1])
         x = torch.gather(x, 1, idx)
     if return_hidden:
-        out = rms_norm(x, cast(model.final_norm, x.dtype), cfg.norm_eps)
+        out = rms_norm(x, cast(model.final_norm, x.dtype), cfg.norm_eps,
+                       impl=norm_impl)
     else:
-        out = unembed(model, x, cfg)
+        out = unembed(model, x, cfg, norm_impl=norm_impl)
     if kv_cache is not None:
         return out, new_cache
     return out
 
 
-def entry(device=None):
+def entry(device=None, norm_impl: str = "xla"):
     """(fn, example_args): a gpt-1b forward of one [1, 1024] row in bf16
     with flash attention, the port's counterpart of the JAX package's
     ``__graft_entry__.entry``. Weights are random (seed 0), made on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU);
+    ``norm_impl="cuda"`` sends every RMSNorm through the kernel."""
     from ..config import get_model_config
     cfg = get_model_config("gpt-1b")
     dev = resolve_device(device)
@@ -321,7 +394,8 @@ def entry(device=None):
 
     def fn(model, tokens):
         with torch.inference_mode():
-            return forward(model, tokens, cfg, attn_impl="flash")
+            return forward(model, tokens, cfg, attn_impl="flash",
+                           norm_impl=norm_impl)
 
     tokens = torch.ones((1, 1024), dtype=torch.int64, device=dev)
     return fn, (model, tokens)

@@ -32,8 +32,16 @@ def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm with the reduction in fp32 whatever the activation dtype."""
+             eps: float = 1e-5, impl: str = "xla") -> torch.Tensor:
+    """RMSNorm with the reduction in fp32 whatever the activation dtype.
+    ``impl``: "xla" is the plain version below; "cuda" is
+    ``ops.rmsnorm.rms_norm_fused`` (the hand-written kernel on a card,
+    forward only; this plain version for a CPU tensor)."""
+    if impl == "cuda":
+        from ..ops.rmsnorm import rms_norm_fused
+        return rms_norm_fused(x, scale, eps)
+    if impl != "xla":
+        raise ValueError(f"unknown norm impl {impl!r} (xla|cuda)")
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)

@@ -4,8 +4,8 @@ Each kernel is one ``csrc/*.cu`` file with a plain ``extern "C"`` launcher,
 compiled by ``nvcc`` into a shared library and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Libraries go to
 ``build/kernels/`` at the root of the checkout, named by a hash of the
-source and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. Nothing is built when a module is imported: the first
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. Nothing is built when a module is imported: the first
 ``load`` of a kernel builds it, and ``build`` starts one ``nvcc`` per source,
 all at once.
 """
@@ -24,7 +24,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {"paged_attention": "paged_attention.cu",
            "flash_attention": "flash_attention.cu",
-           "adamw": "adamw.cu"}
+           "adamw": "adamw.cu",
+           "int8_matmul": "int8_matmul.cu",
+           "int4_matmul": "int4_matmul.cu",
+           "rmsnorm": "rmsnorm.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +49,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):    # shared by several sources
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -1,13 +1,15 @@
-"""Wrapper of the hand-written Hopper paged-attention kernel.
+"""Wrappers of the hand-written Hopper paged-attention kernel.
 
 The kernel (``csrc/paged_attention.cu``) replaces the TPU kernel
 ``_extend_kernel`` of the JAX package's ``ops/paged_attention_pallas.py``
-for fp pages. This wrapper checks what it is given, allocates the output,
-and launches on the current stream; ``paged_attention_kernel.launches``
-counts its launches (a plain integer that callers may reset), so a run can
-show that the serving path went through the kernel. It never falls back:
-a launch that is refused raises. The plain PyTorch version of the same
-function is ``ops.paged_attention.paged_attention_multi(impl="gather")``.
+for its three page kinds: pages in q's dtype, int8 pages (``QuantPages``)
+and packed-int4 pages (``Int4Pages``), the quantized ones dequantized in
+the kernel. One wrapper per kind checks what it is given, allocates the
+output, and launches on the current stream; each counts its launches in
+``.launches`` (a plain integer that callers may reset), so a run can show
+which kernel the serving path went through. None falls back: a launch that
+is refused raises. The plain PyTorch version of the same function is
+``ops.paged_attention.paged_attention_multi(impl="gather")``.
 """
 
 from __future__ import annotations
@@ -19,13 +21,15 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KIND_FP, _KIND_INT8, _KIND_INT4 = 0, 1, 2
 
 
 def _fn():
     f = build.load("paged_attention").paged_attention_fwd
     if f.argtypes is None:      # first use: pointers must not pass as int32
-        f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        f.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p])
         f.restype = ctypes.c_int
     return f
 
@@ -33,6 +37,64 @@ def _fn():
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"paged_attention_kernel: {msg}")
+
+
+def _launch(kind, q, k_vals, v_vals, k_scale, v_scale, PS, block_tables,
+            start_positions) -> torch.Tensor:
+    """Checks shared by the three kinds, then the launch. ``k_vals`` /
+    ``v_vals`` are the stored value tensors; ``PS`` the logical page
+    size."""
+    quant = kind != _KIND_FP
+    tensors = [q, k_vals, v_vals, block_tables, start_positions]
+    if quant:
+        tensors += [k_scale, v_scale]
+    _check(all(t.is_cuda for t in tensors), "every tensor must be on CUDA")
+    _check(len({t.device for t in tensors}) == 1, "tensors on two devices")
+    _check(q.dtype in _DTYPES, f"q dtype {q.dtype} (float32|bfloat16)")
+    _check(block_tables.dtype == torch.int32
+           and start_positions.dtype == torch.int32, "int32 tables/starts")
+    _check(q.dim() == 4 and k_vals.dim() == 4, "q [B,T,Nq,D], pages "
+           "[NP,Nkv,PS,D]")
+    B, T, Nq, D = q.shape
+    NP, Nkv, rows, Dk = k_vals.shape
+    _check(v_vals.shape == k_vals.shape, "k/v pages differ in shape")
+    _check(rows * (2 if kind == _KIND_INT4 else 1) == PS,
+           f"{rows} stored rows per page for a page size of {PS}")
+    _check(Dk == D, f"head dim {D} vs pages {Dk}")
+    _check(D % 8 == 0 and 0 < D <= 256, f"head dim {D} (multiple of 8, "
+           "at most 256)")
+    _check(Nq % Nkv == 0, f"Nq {Nq} not a multiple of Nkv {Nkv}")
+    _check(block_tables.dim() == 2 and block_tables.shape[0] == B
+           and start_positions.shape == (B,), "tables [B,maxP], starts [B]")
+    if quant:
+        _check(D % 16 == 0, f"head dim {D} of quantized pages (multiple "
+               "of 16)")
+        _check(k_scale.dtype == torch.float32
+               and v_scale.dtype == torch.float32, "fp32 page scales")
+        _check(tuple(k_scale.shape) == (NP, Nkv, PS)
+               and tuple(v_scale.shape) == (NP, Nkv, PS),
+               f"scales must be [NP,Nkv,PS] = {(NP, Nkv, PS)}")
+        _check(all(t.data_ptr() % 4 == 0 for t in (k_scale, v_scale)),
+               "scales must be 4-byte aligned")
+    _check(all(t.is_contiguous() for t in tensors), "contiguous tensors")
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k_vals, v_vals)),
+           "q and pages must be 16-byte aligned")
+    maxP = block_tables.shape[1]
+    out = torch.empty_like(q)
+    if B == 0 or T == 0:
+        return None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _fn()(q.data_ptr(), k_vals.data_ptr(), v_vals.data_ptr(),
+                   k_scale.data_ptr() if quant else None,
+                   v_scale.data_ptr() if quant else None,
+                   block_tables.data_ptr(), start_positions.data_ptr(),
+                   out.data_ptr(), B, T, Nq, Nkv, D, PS, maxP,
+                   1.0 / float(D) ** 0.5, _DTYPES[q.dtype], kind, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"paged_attention kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def paged_attention_kernel(
@@ -44,43 +106,69 @@ def paged_attention_kernel(
 ) -> torch.Tensor:
     """[B, T, Nq, D] in q's dtype: query j of slot b attends causally over
     positions [0, start_b + j] through the slot's pages."""
-    tensors = (q, k_pages, v_pages, block_tables, start_positions)
-    _check(all(t.is_cuda for t in tensors), "every tensor must be on CUDA")
-    _check(len({t.device for t in tensors}) == 1, "tensors on two devices")
-    _check(q.dtype in _DTYPES, f"q dtype {q.dtype} (float32|bfloat16)")
-    _check(k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
-           "pages must have q's dtype (quantized pages are not ported yet)")
-    _check(block_tables.dtype == torch.int32
-           and start_positions.dtype == torch.int32, "int32 tables/starts")
-    _check(q.dim() == 4 and k_pages.dim() == 4, "q [B,T,Nq,D], pages "
-           "[NP,Nkv,PS,D]")
-    B, T, Nq, D = q.shape
-    _NP, Nkv, PS, Dk = k_pages.shape
-    _check(v_pages.shape == k_pages.shape, "k/v pages differ in shape")
-    _check(Dk == D, f"head dim {D} vs pages {Dk}")
-    _check(D % 8 == 0 and 0 < D <= 256, f"head dim {D} (multiple of 8, "
-           "at most 256)")
-    _check(Nq % Nkv == 0, f"Nq {Nq} not a multiple of Nkv {Nkv}")
-    _check(block_tables.dim() == 2 and block_tables.shape[0] == B
-           and start_positions.shape == (B,), "tables [B,maxP], starts [B]")
-    _check(all(t.is_contiguous() for t in tensors), "contiguous tensors")
-    _check(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
-           "q and pages must be 16-byte aligned")
-    maxP = block_tables.shape[1]
-    out = torch.empty_like(q)
-    if B == 0 or T == 0:
-        return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                   block_tables.data_ptr(), start_positions.data_ptr(),
-                   out.data_ptr(), B, T, Nq, Nkv, D, PS, maxP,
-                   1.0 / float(D) ** 0.5, _DTYPES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"paged_attention kernel launch failed: CUDA error {rc}")
+    _check(isinstance(k_pages, torch.Tensor)
+           and isinstance(v_pages, torch.Tensor)
+           and k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
+           "pages must be tensors of q's dtype (quantized pages go through "
+           "paged_attention_int8_kernel / paged_attention_int4_kernel)")
+    out = _launch(_KIND_FP, q, k_pages, v_pages, None, None,
+                  k_pages.shape[2] if k_pages.dim() == 4 else 0,
+                  block_tables, start_positions)
+    if out is None:
+        return torch.empty_like(q)
     paged_attention_kernel.launches += 1
     return out
 
 
+def paged_attention_int8_kernel(q, k_pages, v_pages, block_tables,
+                                start_positions) -> torch.Tensor:
+    """The same function over ``QuantPages``: values int8 [NP, Nkv, PS, D],
+    scale fp32 [NP, Nkv, PS]."""
+    from .paged_attention import Int4Pages, QuantPages
+    _check(all(isinstance(p, QuantPages) and not isinstance(p, Int4Pages)
+               for p in (k_pages, v_pages)), "k/v pages must be QuantPages")
+    _check(k_pages.values.dtype == torch.int8
+           and v_pages.values.dtype == torch.int8, "int8 page values")
+    out = _launch(_KIND_INT8, q, k_pages.values, v_pages.values,
+                  k_pages.scale, v_pages.scale, k_pages.shape[2],
+                  block_tables, start_positions)
+    if out is None:
+        return torch.empty_like(q)
+    paged_attention_int8_kernel.launches += 1
+    return out
+
+
+def paged_attention_int4_kernel(q, k_pages, v_pages, block_tables,
+                                start_positions) -> torch.Tensor:
+    """The same function over ``Int4Pages``: values uint8 [NP, Nkv, PS/2,
+    D] (two page slots per byte), scale fp32 [NP, Nkv, PS]."""
+    from .paged_attention import Int4Pages
+    _check(all(isinstance(p, Int4Pages) for p in (k_pages, v_pages)),
+           "k/v pages must be Int4Pages")
+    _check(k_pages.values.dtype == torch.uint8
+           and v_pages.values.dtype == torch.uint8, "uint8 page values")
+    out = _launch(_KIND_INT4, q, k_pages.values, v_pages.values,
+                  k_pages.scale, v_pages.scale, k_pages.shape[2],
+                  block_tables, start_positions)
+    if out is None:
+        return torch.empty_like(q)
+    paged_attention_int4_kernel.launches += 1
+    return out
+
+
 paged_attention_kernel.launches = 0
+paged_attention_int8_kernel.launches = 0
+paged_attention_int4_kernel.launches = 0
+
+
+def paged_attention_launch(q, k_pages, v_pages, block_tables,
+                           start_positions) -> torch.Tensor:
+    """The wrapper for the kind of pages given (Int4Pages tested first)."""
+    from .paged_attention import Int4Pages, QuantPages
+    if isinstance(k_pages, Int4Pages):
+        fn = paged_attention_int4_kernel
+    elif isinstance(k_pages, QuantPages):
+        fn = paged_attention_int8_kernel
+    else:
+        fn = paged_attention_kernel
+    return fn(q, k_pages, v_pages, block_tables, start_positions)

@@ -2,9 +2,13 @@
 
     python -m distributed_llm_training_and_inference_system_tpu_torch.profile_decode \
         [--model llama-8b-gqa] [--slots 8] [--steps 24] [--out profile.json]
+        [--quantization int8|int4] [--kv-quantization int8|int4]
+        [--int8-kernel]
 
 Builds the serving engine at full width (random bf16 weights from seed 0,
-default ServeConfig), admits one greedy request per slot with prompts of
+default ServeConfig but for the quantization settings: ``--int8-kernel``
+is ``int8_pallas_matmul``, the W8 kernels in place of the dequant route),
+admits one greedy request per slot with prompts of
 64-2000 tokens, runs until every slot decodes, then measures decode
 dispatches: wall time per step (host clock around work that ends in a
 synchronise, profiler off) and, in a second window under
@@ -27,6 +31,8 @@ from .serve import InferenceEngine, Request, SamplingParams
 
 PROMPTS = (2000, 64, 1500, 300, 1200, 128, 700, 900)
 KERNELS = ((("paged_attention",), "paged_attention kernel"),
+           (("int8_matmul",), "int8_matmul kernels"),
+           (("int4_matmul",), "int4_matmul kernel"),
            (("sort", "radix"), "sort (sampling)"))
 
 
@@ -36,13 +42,22 @@ def main() -> None:
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--steps", type=int, default=24,
                     help="decode steps measured (multiple of 8)")
+    ap.add_argument("--quantization", default="none",
+                    choices=("none", "int8", "int4"))
+    ap.add_argument("--kv-quantization", default="none",
+                    choices=("none", "int8", "int4"))
+    ap.add_argument("--int8-kernel", action="store_true",
+                    help="int8 weights through the W8 kernels")
     ap.add_argument("--out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA card")
 
     cfg = get_model_config(args.model)
-    scfg = ServeConfig(model=cfg.name, max_batch_size=args.slots)
+    scfg = ServeConfig(model=cfg.name, max_batch_size=args.slots,
+                       quantization=args.quantization,
+                       kv_quantization=args.kv_quantization,
+                       int8_pallas_matmul=args.int8_kernel)
     eng = InferenceEngine(cfg, scfg, seed=0)
     K = scfg.decode_steps_per_dispatch
     # outlives the admission steps (which decode too) and both windows
@@ -88,6 +103,11 @@ def main() -> None:
         raise SystemExit("profile_decode: a request ended inside the window")
     res = {
         "model": cfg.name, "slots": args.slots, "steps": steps,
+        "quantization": args.quantization,
+        "kv_quantization": args.kv_quantization,
+        "int8_kernel": args.int8_kernel,
+        "weight_bytes": eng.stats()["weight_bytes"],
+        "kv_hbm_bytes": eng.kv.hbm_bytes(),
         "context_lengths": lengths,
         "card": torch.cuda.get_device_name(0),
         "wall_ms_per_step": wall_ms,
@@ -97,7 +117,8 @@ def main() -> None:
         "device_ms_per_step_by_category": by_cat,
         "top_kernels": top,
     }
-    print(f"{cfg.name}, {args.slots} slots, contexts {lengths}: "
+    print(f"{cfg.name} (weights {args.quantization}, kv "
+          f"{args.kv_quantization}), {args.slots} slots, contexts {lengths}: "
           f"{wall_ms:.2f} ms/step wall ({1e3 / wall_ms * args.slots:.1f} "
           f"tok/s), device busy {device_ms:.2f} ms/step, idle share "
           f"{res['device_idle_share']:.1%}")

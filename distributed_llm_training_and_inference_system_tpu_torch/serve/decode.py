@@ -7,20 +7,61 @@ first (in place), then attends through ``ops.paged_attention_multi``:
 on a card that is the hand-written kernel, on the CPU its plain version.
 ``decode_scan`` is a Python loop of decode+sample steps whose tokens and
 positions stay on the device, so a dispatch of K steps needs one host fetch
-at its end. The quantized-weight (W4/W8) matmul branch is not ported yet.
+at its end.
+
+Block kernels may be quantized (``ops.quantization``): every projection
+goes through ``mm``, which sends a W4 weight, and a W8 weight when the
+engine opts in, to the in-kernel-dequant matmuls (``ops.int4_matmul``,
+``ops.int8_matmul``) where the shapes allow it, and otherwise dequantizes
+the weight and takes the plain product. That choice is made from shapes
+and the tensor's device before any launch; a kernel that fails raises.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..models.gpt import compute_dtype, unembed
 from ..models.layers import apply_rope, cast, mlp_block, rms_norm, \
     rope_frequencies
+from ..ops.int4_matmul import matmul_w4
+from ..ops.int8_matmul import matmul_w8
 from ..ops.paged_attention import (paged_attention_multi,
                                    write_token_to_pages,
                                    write_window_to_pages)
+from ..ops.quantization import QuantTensor, Quant4Tensor
 from .sampling import gumbel_noise, sample_tokens
+
+
+KERNEL_MAX_ROWS = 64      # decode and verify windows; longer goes dequant
+
+
+def mm(a: torch.Tensor, w, dtype: torch.dtype, w4_kernel_ok: bool = True,
+       w8_kernel_ok: bool = False) -> torch.Tensor:
+    """``a @ w`` for a plain or quantized ``w`` [in, out], as the JAX
+    package's decode routes it. A quantized weight goes to its kernel when
+    the activations lie on a card, ``rows <= 64`` and ``out % 128 == 0``
+    (W4 also ``in % group == 0``; W8 only with ``w8_kernel_ok``, the
+    engine's ``int8_pallas_matmul``); every other case (suffix prefill,
+    odd shapes, a CPU tensor) dequantizes to ``dtype`` and multiplies."""
+    rows = math.prod(a.shape[:-1])
+    if isinstance(w, QuantTensor):
+        if (w8_kernel_ok and a.is_cuda and rows <= KERNEL_MAX_ROWS
+                and w.shape[-1] % 128 == 0):
+            y = matmul_w8(a.reshape(rows, a.shape[-1]), w.values, w.scale)
+            return y.reshape(*a.shape[:-1], y.shape[-1])
+        w = w.dequant(dtype)
+    elif isinstance(w, Quant4Tensor):
+        n_in, n_out = w.shape[-2], w.shape[-1]
+        if (w4_kernel_ok and a.is_cuda and rows <= KERNEL_MAX_ROWS
+                and n_out % 128 == 0 and n_in % w.group == 0):
+            y = matmul_w4(a.reshape(rows, a.shape[-1]), w.packed, w.scale,
+                          w.chan, group=w.group)
+            return y.reshape(*a.shape[:-1], y.shape[-1])
+        w = w.dequant(dtype)
+    return a @ cast(w, dtype)
 
 
 @torch.inference_mode()
@@ -28,11 +69,14 @@ def extend_step_forward(
     model,
     tokens: torch.Tensor,           # [B, T] — T new tokens per slot
     start_positions: torch.Tensor,  # [B] — position of tokens[:, 0]
-    k_pages: torch.Tensor,          # [L, NP, Nkv, PS, D] — updated in place
-    v_pages: torch.Tensor,
+    k_pages,                        # [L, NP, Nkv, PS, D] — updated in place
+    v_pages,                        # (tensors, QuantPages or Int4Pages)
     block_tables: torch.Tensor,     # [B, maxP]
     cfg,
     write_ok=None,                  # [B, T] bool — False rows write nowhere
+    w4_kernel_ok: bool = True,
+    w8_kernel_ok: bool = False,     # opt-in: ServeConfig.int8_pallas_matmul
+    attn_impl: str = "auto",        # ops.paged_attention: auto|cuda|gather
 ):
     """Returns (logits [B, T, V] fp32, k_pages, v_pages).
 
@@ -53,6 +97,9 @@ def extend_step_forward(
     tables = block_tables.to(torch.int32).contiguous()
     starts = start.to(torch.int32)
     use_window_write = T <= k_pages.shape[-2]
+
+    def proj(a, w):
+        return mm(a, w, dt, w4_kernel_ok, w8_kernel_ok)
     if not use_window_write:
         flat_pos = positions.reshape(B * T)
         flat_tables = tables.repeat_interleave(T, dim=0)
@@ -65,9 +112,9 @@ def extend_step_forward(
     for i, blk in enumerate(model.blocks):
         kp, vp = k_pages[i], v_pages[i]
         h = rms_norm(x, cast(blk.attn_norm, dt), cfg.norm_eps)
-        q = (h @ cast(blk.q, dt)).reshape(B, T, Nq, D)
-        k = (h @ cast(blk.k, dt)).reshape(B, T, Nkv, D)
-        v = (h @ cast(blk.v, dt)).reshape(B, T, Nkv, D)
+        q = proj(h, blk.q).reshape(B, T, Nq, D)
+        k = proj(h, blk.k).reshape(B, T, Nkv, D)
+        v = proj(h, blk.v).reshape(B, T, Nkv, D)
         if cfg.attention_bias:
             q = q + cast(blk.q_bias, dt).reshape(Nq, D)
             k = k + cast(blk.k_bias, dt).reshape(Nkv, D)
@@ -83,31 +130,35 @@ def extend_step_forward(
                                  flat_pos, flat_ok)
             write_token_to_pages(vp, v.reshape(B * T, Nkv, D), flat_tables,
                                  flat_pos, flat_ok)
-        attn = paged_attention_multi(q, kp, vp, tables, starts)
+        attn = paged_attention_multi(q, kp, vp, tables, starts,
+                                     impl=attn_impl)
         attn = attn.reshape(B, T, Nq * D)
-        x = x + (attn @ cast(blk.o, dt)).to(x.dtype)
+        x = x + proj(attn, blk.o).to(x.dtype)
         h = rms_norm(x, cast(blk.mlp_norm, dt), cfg.norm_eps)
-        x = x + mlp_block(h, blk, cfg).to(x.dtype)
+        x = x + mlp_block(h, blk, cfg, matmul=proj).to(x.dtype)
 
     return unembed(model, x, cfg), k_pages, v_pages
 
 
 def decode_step_forward(model, tokens, positions, k_pages, v_pages,
-                        block_tables, cfg, active=None):
+                        block_tables, cfg, active=None, w4_kernel_ok=True,
+                        w8_kernel_ok=False, attn_impl="auto"):
     """One token per slot (tokens, positions [B]); inactive rows write
     nowhere. Returns (logits [B, V], k_pages, v_pages): the T = 1 case of
     ``extend_step_forward``."""
     write_ok = None if active is None else active[:, None]
     logits, k_pages, v_pages = extend_step_forward(
         model, tokens[:, None], positions, k_pages, v_pages, block_tables,
-        cfg, write_ok=write_ok)
+        cfg, write_ok=write_ok, w4_kernel_ok=w4_kernel_ok,
+        w8_kernel_ok=w8_kernel_ok, attn_impl=attn_impl)
     return logits[:, 0], k_pages, v_pages
 
 
 @torch.inference_mode()
 def decode_scan(model, tokens, positions, k_pages, v_pages, block_tables,
                 stop_positions, seeds, temperature, top_k, top_p, cfg,
-                num_steps: int):
+                num_steps: int, w4_kernel_ok: bool = True,
+                w8_kernel_ok: bool = False):
     """``num_steps`` decode+sample iterations, with tokens and positions
     kept on the device between steps. Rows at or past ``stop_positions``
     write nowhere and re-emit their previous token. The Gumbel noise of a
@@ -126,7 +177,8 @@ def decode_scan(model, tokens, positions, k_pages, v_pages, block_tables,
         act = pos < stop_positions
         logits, _, _ = decode_step_forward(
             model, toks, pos, k_pages, v_pages, block_tables, cfg,
-            active=act)
+            active=act, w4_kernel_ok=w4_kernel_ok,
+            w8_kernel_ok=w8_kernel_ok)
         nonfinite = nonfinite + (~torch.isfinite(logits).all()).long()
         nxt = sample_tokens(
             logits, temperature, top_k, top_p,

@@ -15,6 +15,12 @@ serving path:
   and are fetched once. At half-full batches or more, one group stays in
   flight: the next group is enqueued, chained on the previous group's
   device-resident tokens, before the previous one is fetched.
+- **Quantization**: ``quantization`` int8 | int4 quantizes the block
+  kernels at construction (W8A16 / group-wise W4A16; embedding, LM head
+  and norms keep full precision), and ``kv_quantization`` int8 | int4
+  stores the KV pages quantized, each token quantized as it is written.
+  Decode sends W4 weights, and W8 weights with ``int8_pallas_matmul``, to
+  the in-kernel-dequant matmuls; prefill dequantizes one layer at a time.
 - **Admission**: on demand by default (pages for one dispatch of lookahead;
   chains grow as decode advances, and the newest resident request is
   preempted, recompute-style, when the pool runs dry).
@@ -36,6 +42,11 @@ import torch
 
 from ..device import resolve_device, to_device
 from ..models import gpt
+from ..ops.paged_attention import (Int4Pages, QuantPages, quantize_kv_token,
+                                   quantize_kv_token_int4)
+from ..ops.quantization import (QuantTensor, Quant4Tensor, int4_group_for,
+                                pack_int4_rows, quantize_int4_groupwise,
+                                quantize_int8)
 from .decode import decode_scan, extend_step_forward
 from .kv_cache import PagedKVCache, prefix_page_hashes
 from .sampling import gumbel_noise, sample_tokens
@@ -50,10 +61,8 @@ _NOT_PORTED = (
      "queue 1 item 6 (serve/speculative.py)"),
     (lambda c: c.chunked_prefill_tokens > 0, "chunked_prefill_tokens > 0",
      "queue 1 item 6 (chunked prefill)"),
-    (lambda c: c.quantization != "none", "quantization",
-     "queue 1 item 5 (quantized serving)"),
-    (lambda c: c.kv_quantization != "none", "kv_quantization",
-     "queue 1 item 5 and queue 2 row 1 (int8/int4 KV pages)"),
+    (lambda c: c.quantization == "int4-awq", "quantization='int4-awq'",
+     "queue 1 item 5 (AWQ calibration, ops/quantization.py)"),
     (lambda c: c.tensor_parallel > 1, "tensor_parallel > 1",
      "queue 1 item 7 (multi-GPU)"),
     (lambda c: c.preemption == "swap", "preemption='swap'",
@@ -61,6 +70,44 @@ _NOT_PORTED = (
     (lambda c: bool(c.artifact), "artifact loading",
      "queue 1 item 5 (artifact loading, io/export.py)"),
 )
+
+
+QUANT_MIN_SIZE = 4096    # elements of the stacked [L, in, out] kernel
+
+
+@torch.no_grad()
+def quantize_blocks(model: gpt.GPT, kind: str, free_source: bool = False
+                    ) -> gpt.GPT:
+    """A model over ``model``'s embedding, norms and head with its block
+    kernels quantized: the per-layer result of the JAX engine's
+    ``quantize_tree_int8(blocks, min_ndim=3)`` (``kind`` "int8") or
+    ``quantize_tree_int4`` ("int4") over the stacked tree. A kernel
+    [in, out] quantizes when the stacked leaf would (L * in * out >=
+    ``QUANT_MIN_SIZE``); int4 takes the largest group up to 128 that
+    divides ``in`` and falls back to int8 where none does. Biases and norm
+    scales stay as they are. Leaf by leaf, on the model's device; with
+    ``free_source`` each full-precision kernel is dropped from ``model`` as
+    soon as it is quantized, so the two copies never coexist."""
+    L = len(model.blocks)
+    blocks = []
+    for blk in model.blocks:
+        leaves = {}
+        for name, p in blk.leaves().items():
+            if (isinstance(p, (QuantTensor, Quant4Tensor)) or p.dim() != 2
+                    or L * p.numel() < QUANT_MIN_SIZE):
+                leaves[name] = p
+                continue
+            group = int4_group_for(p.shape[0]) if kind == "int4" else 0
+            if group:
+                leaves[name] = Quant4Tensor(
+                    *quantize_int4_groupwise(p.detach(), group=group),
+                    group=group)
+            else:
+                leaves[name] = QuantTensor(*quantize_int8(p.detach()))
+            if free_source:
+                delattr(blk, name)
+        blocks.append(leaves)
+    return model.with_block_leaves(blocks)
 
 
 class InferenceEngine:
@@ -83,9 +130,12 @@ class InferenceEngine:
         self.serve_cfg = serve_cfg
         self.eos_token_id = eos_token_id
         self.cfg = model_cfg
-        self.quantization = "none"
+        # the effective quantization: what the weights are, which a
+        # pre-quantized ``params`` decides whatever the config asks for
+        self.quantization = serve_cfg.quantization
         dtype = getattr(torch, serve_cfg.dtype)
-        if params is None:
+        own_params = params is None
+        if own_params:
             # random init from the seed (no artifact: random weights keep
             # smoke and benchmark paths self-contained)
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -97,7 +147,23 @@ class InferenceEngine:
         elif params.device != self.device:
             raise ValueError(f"params live on {params.device}, the engine "
                              f"on {self.device}")
+        kinds = {type(leaf) for blk in params.blocks
+                 for leaf in blk.leaves().values()}
+        if Quant4Tensor in kinds or QuantTensor in kinds:
+            self.quantization = "int4" if Quant4Tensor in kinds else "int8"
+            logger.info("serving pre-quantized weights (%s)",
+                        self.quantization)
+        elif serve_cfg.quantization in ("int8", "int4"):
+            # the caller's model is left as it is; a model this engine made
+            # gives up each full-precision kernel as it is quantized
+            params = quantize_blocks(params, serve_cfg.quantization,
+                                     free_source=own_params)
+            logger.info("serving with %s block weights",
+                        serve_cfg.quantization)
         self.params = params
+        # the int8 kernels are opt-in, as in the JAX engine (the int4
+        # kernel is always on: nothing here shards a weight)
+        self._w8_kernel_ok = bool(serve_cfg.int8_pallas_matmul)
 
         S = serve_cfg.max_batch_size
         self.kv = PagedKVCache(
@@ -105,7 +171,7 @@ class InferenceEngine:
             page_size=serve_cfg.kv_block_size,
             num_pages=serve_cfg.kv_num_blocks,
             hbm_budget_gb=serve_cfg.kv_hbm_budget_gb, dtype=dtype,
-            device=self.device)
+            device=self.device, quantized=serve_cfg.kv_quantization)
 
         self._req_slot: dict[str, int] = {}
         # pages promised to admitted-but-not-yet-prefilled requests, per
@@ -274,13 +340,26 @@ class InferenceEngine:
             unembed_positions=to_device(np.array([n - 1]), dev))
         idx = to_device(entries, dev, torch.int64)
 
-        def paged(dense):     # [L, 1, bucket, Nkv, D] -> [L, nP, Nkv, PS, D]
-            return dense[:, 0].reshape(
+        def scatter(pages, dense):
+            # [L, 1, bucket, Nkv, D] -> [L, nP, Nkv, PS, D], quantized per
+            # (token, kv head) for quantized pages (int4: then packed along
+            # the page-slot axis), written at the bucket's table entries
+            dense = dense[:, 0].reshape(
                 cfg.num_layers, n_pages, PS, cfg.num_kv_heads,
                 cfg.head_dim).transpose(2, 3)
+            if isinstance(pages, Int4Pages):
+                qv, sc = quantize_kv_token_int4(dense)
+                pages.values[:, idx] = pack_int4_rows(qv, axis=-2)
+                pages.scale[:, idx] = sc
+            elif isinstance(pages, QuantPages):
+                qv, sc = quantize_kv_token(dense)
+                pages.values[:, idx] = qv
+                pages.scale[:, idx] = sc
+            else:
+                pages[:, idx] = dense
 
-        self.kv.k_pages[:, idx] = paged(kd)
-        self.kv.v_pages[:, idx] = paged(vd)
+        scatter(self.kv.k_pages, kd)
+        scatter(self.kv.v_pages, vd)
         return logits[:, 0]
 
     @torch.inference_mode()
@@ -297,7 +376,7 @@ class InferenceEngine:
             self.params, to_device(tokens, dev, torch.int64),
             to_device(np.array([cached]), dev), self.kv.k_pages,
             self.kv.v_pages, to_device(table_row[None], dev), self.cfg,
-            write_ok=write_ok)
+            write_ok=write_ok, w8_kernel_ok=self._w8_kernel_ok)
         return logits[:, m - 1]
 
     def _prefill(self, req: Request):
@@ -440,7 +519,8 @@ class InferenceEngine:
             self.params, tokens, positions, self.kv.k_pages,
             self.kv.v_pages, shared["tables"], shared["stops"],
             shared["seeds"], shared["temperature"], shared["top_k"],
-            shared["top_p"], self.cfg, self._decode_unit_len)
+            shared["top_p"], self.cfg, self._decode_unit_len,
+            w8_kernel_ok=self._w8_kernel_ok)
         self._nonfinite = self._nonfinite + nonfinite
         self.total_dispatched_steps += self._decode_unit_len
         return {
@@ -695,10 +775,8 @@ class InferenceEngine:
 
     def stats(self) -> dict:
         steps = max(self.total_decode_steps, 1)
-        weight_bytes = sum(p.numel() * p.element_size()
-                           for p in self.params.parameters())
         return {
-            "weight_bytes": weight_bytes,
+            "weight_bytes": self.params.weight_bytes(),
             "quantization": self.quantization,
             **self.scheduler.stats(),
             "kv": self.kv.stats(),

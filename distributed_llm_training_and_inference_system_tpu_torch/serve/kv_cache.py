@@ -1,9 +1,11 @@
 """Paged KV cache: device-resident pages + host-side page allocator.
 
-Counterpart of the JAX package's ``serve/kv_cache.py`` (fp pages):
+Counterpart of the JAX package's ``serve/kv_cache.py``:
 
-- All layers' pages live in two tensors [L, num_pages, Nkv, page_size, D]
-  on the device, allocated once.
+- All layers' pages live in two buffers [L, num_pages, Nkv, page_size, D]
+  on the device, allocated once: plain tensors in the compute dtype, or
+  with ``quantized="int8"`` / ``"int4"`` the ``QuantPages`` / ``Int4Pages``
+  of ``ops.paged_attention`` (values and per-token scales).
 - Page 0 is reserved scratch: every unused block-table entry points at it,
   so a decode step can run over ALL slots; inactive slots read garbage
   that their length mask hides and write nowhere that matters.
@@ -26,6 +28,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..ops.paged_attention import Int4Pages, QuantPages
 
 
 def prefix_page_hashes(tokens, page_size: int) -> list[bytes]:
@@ -53,17 +57,42 @@ class PagedKVCache:
         hbm_budget_gb: float = 4.0,
         dtype=torch.bfloat16,
         device=None,
+        quantized=False,        # False|"none" | True|"int8" | "int4"
     ):
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_seq_len = max_seq_len
         self.page_size = page_size
         self.max_pages_per_slot = math.ceil(max_seq_len / page_size)
+        # normalise the quantization kind: a bare True means int8
+        if quantized is True:
+            kind = "int8"
+        elif not quantized or quantized == "none":
+            kind = "none"
+        else:
+            kind = str(quantized)
+        if kind not in ("none", "int8", "int4"):
+            raise ValueError(f"unknown KV quantization {quantized!r} "
+                             "(none|int8|int4)")
+        if kind == "int4" and page_size % 2:
+            raise ValueError(
+                f"int4 KV pages pack two page slots per byte; page_size "
+                f"{page_size} must be even")
+        self.quant_kind = kind
+        self.quantized = kind != "none"
         if num_pages <= 0:
-            # auto-size from the device-memory budget (K and V, all layers)
-            itemsize = torch.empty((), dtype=dtype).element_size()
+            # auto-size from the device-memory budget (K and V, all
+            # layers); a quantized row is its values (D or D/2 bytes) plus
+            # one fp32 scale per (token, kv head)
+            if kind == "int4":
+                row_bytes = cfg.head_dim // 2 + 4
+            elif kind == "int8":
+                row_bytes = cfg.head_dim + 4
+            else:
+                row_bytes = (cfg.head_dim
+                             * torch.empty((), dtype=dtype).element_size())
             bytes_per_page = (2 * cfg.num_layers * page_size
-                              * cfg.num_kv_heads * cfg.head_dim * itemsize)
+                              * cfg.num_kv_heads * row_bytes)
             num_pages = max(int(hbm_budget_gb * 1e9 // bytes_per_page), 2)
         # never more than every slot fully resident (+1 scratch)
         num_pages = min(num_pages, num_slots * self.max_pages_per_slot + 1)
@@ -73,8 +102,8 @@ class PagedKVCache:
 
         shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size,
                  cfg.head_dim)
-        self.k_pages = torch.zeros(shape, dtype=dtype, device=device)
-        self.v_pages = torch.zeros(shape, dtype=dtype, device=device)
+        self.k_pages = self._new_pages(shape)
+        self.v_pages = self._new_pages(shape)
 
         # host-side state; page 0 is scratch and never allocated
         self._free: list[int] = list(range(1, num_pages))
@@ -91,6 +120,22 @@ class PagedKVCache:
         self.prefix_hits = 0          # pages served from cache
         self.prefix_queries = 0       # full pages looked up
 
+    def _new_pages(self, shape):
+        """A zeroed page buffer of the cache's kind. ``shape`` is the
+        LOGICAL [L, NP, Nkv, PS, D]; the int4 buffer stores PS/2 bytes along
+        the page-slot axis and the full per-slot scale tile."""
+        dev = self.device
+        if self.quant_kind == "int4":
+            return Int4Pages(
+                torch.zeros((*shape[:-2], shape[-2] // 2, shape[-1]),
+                            dtype=torch.uint8, device=dev),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
+        if self.quant_kind == "int8":
+            return QuantPages(
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
+        return torch.zeros(shape, dtype=self.dtype, device=dev)
+
     # -- accounting ----------------------------------------------------------
 
     @property
@@ -106,8 +151,10 @@ class PagedKVCache:
         return self.pages_needed(num_tokens) <= self.num_pages - 1
 
     def hbm_bytes(self) -> int:
-        return (self.k_pages.numel() * self.k_pages.element_size()
-                + self.v_pages.numel() * self.v_pages.element_size())
+        def one(buf):
+            parts = buf.tensors() if self.quantized else (buf,)
+            return sum(t.numel() * t.element_size() for t in parts)
+        return one(self.k_pages) + one(self.v_pages)
 
     # -- alloc / grow / free -------------------------------------------------
 
@@ -224,7 +271,7 @@ class PagedKVCache:
             "num_pages": self.num_pages,
             "free_pages": self.free_pages,
             "page_size": self.page_size,
-            "kv_quantization": "none",
+            "kv_quantization": self.quant_kind,
             "hbm_bytes": self.hbm_bytes(),
             "slots_resident": len(self._owned),
             "prefix_cached_pages": len(self._hash_to_page),

@@ -6,6 +6,10 @@ accepts — numpy arrays, or JAX arrays handed over by a caller) is
 ["lm_head": {"kernel"}]}`` with every block leaf stacked on a leading
 ``[L, ...]`` axis. ``params_from_jax`` unstacks that axis into the
 per-layer ``Block`` modules, so both packages compute on the same weights.
+A block kernel may be quantized in the JAX tree, as a runtime leaf (an
+object with ``values``/``scale``, or ``packed``/``scale``/``chan``/
+``group``) or as an export-form ``{"__quant__": kind, ...}`` dict; its
+bytes and scales are carried over as they are, read as numpy.
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` across (params,
 AdamW moments and count, step), so both trainers start from one state.
 """
@@ -17,6 +21,7 @@ import torch
 
 from .device import resolve_device
 from .models.gpt import GPT
+from .ops.quantization import QuantTensor, Quant4Tensor
 
 # JAX block path -> Block attribute
 _BLOCK_LEAVES = {
@@ -44,10 +49,51 @@ def _leaf(tree, path):
     return np.array(node, dtype=np.float32)     # a writable host copy
 
 
-def _named_arrays(tree, cfg) -> dict[str, np.ndarray]:
-    """The JAX tree's leaves keyed by the port's parameter names
+def _quant_parts(node):
+    """None for a plain leaf; for a quantized one (kind, stacked numpy
+    parts in the port's constructor order, group)."""
+    if isinstance(node, dict) and "__quant__" in node:
+        kind = node["__quant__"]
+        if kind == "int4":
+            return ("int4", [node["values"], node["scale"], node["chan"]],
+                    int(node.get("group", 128)))
+        if kind == "int8":
+            return "int8", [node["values"], node["scale"]], 0
+        raise ValueError(f"quant marker {kind!r} has no runtime form")
+    if hasattr(node, "packed"):
+        return ("int4", [node.packed, node.scale, node.chan],
+                int(node.group))
+    if hasattr(node, "values") and hasattr(node, "scale"):
+        return "int8", [node.values, node.scale], 0
+    return None
+
+
+def _quant_leaves(tree, cfg, device) -> dict[str, object]:
+    """``blocks.<i>.<leaf>`` -> QuantTensor | Quant4Tensor for every
+    quantized block kernel of the JAX tree, split per layer."""
+    out = {}
+    for path, name in _BLOCK_LEAVES.items():
+        node = tree["blocks"]
+        for p in path:
+            node = node[p]
+        found = _quant_parts(node)
+        if found is None:
+            continue
+        kind, parts, group = found
+        parts = [np.array(a) for a in parts]        # writable host copies
+        for i in range(cfg.num_layers):
+            per = [torch.from_numpy(a[i]).to(device) for a in parts]
+            out[f"blocks.{i}.{name}"] = (
+                Quant4Tensor(*per, group=group) if kind == "int4"
+                else QuantTensor(*per))
+    return out
+
+
+def _named_arrays(tree, cfg, skip=()) -> dict[str, np.ndarray]:
+    """The JAX tree's plain leaves keyed by the port's parameter names
     (``blocks.<i>.<leaf>``, ``embed``, ``final_norm``, ``lm_head``), the
-    stacked block leaves split per layer."""
+    stacked block leaves split per layer; names in ``skip`` (quantized
+    kernels) are left out."""
     leaves = dict(_BLOCK_LEAVES)
     if cfg.attention_bias:
         leaves.update(_BIAS_LEAVES)
@@ -56,6 +102,8 @@ def _named_arrays(tree, cfg) -> dict[str, np.ndarray]:
     if not cfg.tie_word_embeddings:
         out["lm_head"] = _leaf(tree, ("lm_head", "kernel"))
     for path, name in leaves.items():
+        if f"blocks.0.{name}" in skip:
+            continue
         stacked = _leaf(tree["blocks"], path)
         if stacked.shape[0] != cfg.num_layers:
             raise ValueError(
@@ -66,8 +114,11 @@ def _named_arrays(tree, cfg) -> dict[str, np.ndarray]:
     return out
 
 
-def _load_named(model: GPT, arrays: dict[str, np.ndarray]) -> None:
+def _load_named(model: GPT, arrays: dict[str, np.ndarray],
+                skip=()) -> None:
     for name, p in model.named_parameters():
+        if name in skip:
+            continue                # replaced by a quantized leaf
         a = arrays[name]
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {a.shape} != {tuple(p.shape)}")
@@ -76,10 +127,18 @@ def _load_named(model: GPT, arrays: dict[str, np.ndarray]) -> None:
 
 @torch.no_grad()
 def params_from_jax(tree, cfg, device=None, dtype=torch.float32) -> GPT:
-    """Build a ``GPT`` holding the JAX tree's weights (cast to ``dtype``)."""
-    model = GPT(cfg, device=resolve_device(device), dtype=dtype)
-    _load_named(model, _named_arrays(tree, cfg))
-    return model
+    """Build a ``GPT`` holding the JAX tree's weights (plain leaves cast
+    to ``dtype``, quantized kernels as they are)."""
+    dev = resolve_device(device)
+    model = GPT(cfg, device=dev, dtype=dtype)
+    quant = _quant_leaves(tree, cfg, dev)
+    _load_named(model, _named_arrays(tree, cfg, skip=quant), skip=quant)
+    if not quant:
+        return model
+    return model.with_block_leaves(
+        [{n: quant.get(f"blocks.{i}.{n}", leaf)
+          for n, leaf in blk.leaves().items()}
+         for i, blk in enumerate(model.blocks)])
 
 
 @torch.no_grad()

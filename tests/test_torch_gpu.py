@@ -383,3 +383,269 @@ def test_entry_forward_on_card():
     assert logits.shape == (1, 1024, 50304) and logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all())
     assert fac.flash_fwd.launches - before == 24
+
+
+# -- quantized serving: int8/int4 pages, W8/W4 matmuls, RMSNorm ---------------
+#
+# Tolerances: a kernel and its plain version repeat the same arithmetic, so
+# what is left is the order of the fp32 sums: 1e-5 (paged attention, fp32)
+# or 1e-4 of the output's largest value (the matmuls' longer sums); bf16
+# outputs add one rounding of the result, 2e-2 absolute at unit scale
+# (paged attention; its plain version also rounds the dequantized pages to
+# bf16) or 1e-2 of the output's largest value (matmuls).
+
+def _quant_pages(kind, pages):
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        quantization as tq)
+    if kind == "int8":
+        return pa.QuantPages(*tq.quantize_int8_rows(pages))
+    qv, sc = tq.quantize_int4_rows(pages)
+    return pa.Int4Pages(tq.pack_int4_rows(qv, axis=-2), sc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("T", [1, 3, 20])
+@pytest.mark.parametrize("geom", [
+    (32, 8, 128, 64),      # Nq, Nkv, D, PS: llama-8b-gqa
+    (4, 2, 16, 8),         # gpt-test
+    (12, 12, 64, 16),      # MHA, D=64
+    (8, 1, 256, 32),       # MQA, the largest head dim
+])
+def test_quantized_page_kernels_match_plain(geom, T, kind, dtype):
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        paged_attention_cuda as pac)
+    Nq, Nkv, D, PS = geom
+    lengths = [max(n, T) for n in (1, PS, PS + 1, 5 * PS + 3, 300)]
+    q, kp, vp, tables, starts = _case(len(lengths), T, Nq, Nkv, D, PS,
+                                      lengths, torch.float32, seed=T)
+    q = q.to(dtype)
+    kq, vq = _quant_pages(kind, kp), _quant_pages(kind, vp)
+    kernel = getattr(pac, f"paged_attention_{kind}_kernel")
+    before = (kernel.launches, paged_attention_kernel.launches)
+    out = pa.paged_attention_multi(q, kq, vq, tables, starts)
+    torch.cuda.synchronize()
+    assert (kernel.launches, paged_attention_kernel.launches) == (
+        before[0] + 1, before[1])
+    ref = pa.paged_attention_multi(q, kq, vq, tables, starts, impl="gather")
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_quantized_page_kernels_refuse_what_they_cannot_run():
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        paged_attention_cuda as pac)
+    q, kp, vp, tables, starts = _case(2, 1, 8, 2, 128, 16, [40, 7],
+                                      torch.float32)
+    k8, v8 = _quant_pages("int8", kp), _quant_pages("int8", vp)
+    k4 = _quant_pages("int4", kp)
+    with pytest.raises(ValueError):        # fp wrapper, quantized pages
+        paged_attention_kernel(q, k8, v8, tables, starts)
+    with pytest.raises(ValueError):        # int8 wrapper, int4 pages
+        pac.paged_attention_int8_kernel(q, k4, k4, tables, starts)
+    with pytest.raises(ValueError):        # int4 wrapper, int8 pages
+        pac.paged_attention_int4_kernel(q, k8, v8, tables, starts)
+    with pytest.raises(ValueError):        # scales of another dtype
+        pac.paged_attention_int8_kernel(
+            q, pa.QuantPages(k8.values, k8.scale.double()), v8, tables,
+            starts)
+
+
+def _w8_case(rows, n_in, n_out, dtype, seed=0):
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        quantization as tq)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(n_in, n_out, generator=g, device="cuda") * 0.02
+    x = torch.randn(rows, n_in, generator=g, device="cuda").to(dtype)
+    values, scale = tq.quantize_int8(w)
+    return x, values, scale
+
+
+MATMUL_SHAPES = [(256, 128), (4096, 1024), (4096, 14336), (14336, 4096),
+                 (1000, 192)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 8, 20, 64])
+@pytest.mark.parametrize("shape", MATMUL_SHAPES)
+def test_w8_kernels_match_plain(shape, rows, dtype):
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int8_matmul as w8)
+    x, values, scale = _w8_case(rows, *shape, dtype)
+    ref = w8.matmul_w8_plain(x, values, scale).float()
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * ref.abs().max().item()
+    for kernel in (w8.int8_matmul_kernel, w8.int8_matmul_ksplit_kernel):
+        before = kernel.launches
+        out = kernel(x, values, scale)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert out.dtype == dtype and out.shape == (rows, shape[1])
+        assert (out.float() - ref).abs().max().item() <= tol
+    again = w8.int8_matmul_ksplit_kernel(x, values, scale)
+    assert torch.equal(again, out)          # no atomics: identical bits
+    # the dispatcher follows the route predicate
+    counts = (w8.int8_matmul_kernel.launches,
+              w8.int8_matmul_ksplit_kernel.launches)
+    w8.matmul_w8(x, values, scale)
+    grew = (w8.int8_matmul_kernel.launches - counts[0],
+            w8.int8_matmul_ksplit_kernel.launches - counts[1])
+    assert grew == ((0, 1) if w8.w8_route(*shape) == "ksplit" else (1, 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 8, 20, 64])
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("shape", MATMUL_SHAPES[:4] + [(1024, 192)])
+def test_w4_kernel_matches_plain(shape, group, rows, dtype):
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int4_matmul as w4, quantization as tq)
+    n_in, n_out = shape
+    g = torch.Generator(device="cuda").manual_seed(n_in + rows)
+    w = torch.randn(n_in, n_out, generator=g, device="cuda") * 0.02
+    x = torch.randn(rows, n_in, generator=g, device="cuda").to(dtype)
+    act = torch.rand(n_in, generator=g, device="cuda") + 0.25
+    packed, scale, chan = tq.quantize_int4_groupwise(w, group, act_scale=act)
+    assert (chan != 1).any()
+    ref = w4.matmul_w4_plain(x, packed, scale, chan, group).float()
+    before = w4.int4_matmul_kernel.launches
+    out = w4.matmul_w4(x, packed, scale, chan, group)
+    torch.cuda.synchronize()
+    assert w4.int4_matmul_kernel.launches == before + 1
+    assert out.dtype == dtype and out.shape == (rows, n_out)
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_matmul_kernels_refuse_what_they_cannot_run():
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int4_matmul as w4, int8_matmul as w8, quantization as tq)
+    x, values, scale = _w8_case(8, 256, 128, torch.bfloat16)
+    with pytest.raises(ValueError):        # more than 64 rows
+        w8.int8_matmul_kernel(x.repeat(9, 1), values, scale)
+    with pytest.raises(ValueError):        # out not a multiple of the tile
+        w8.int8_matmul_kernel(x, values[:, :100].contiguous(), scale)
+    with pytest.raises(ValueError):        # a CPU tensor
+        w8.int8_matmul_ksplit_kernel(x.cpu(), values, scale)
+    with pytest.raises(ValueError):        # values of another dtype
+        w8.int8_matmul_kernel(x, values.float(), scale)
+    packed, s4, chan = tq.quantize_int4_groupwise(values.float(), 64)
+    with pytest.raises(ValueError):        # group does not divide in
+        w4.int4_matmul_kernel(x, packed, s4, chan, group=96)
+    with pytest.raises(ValueError):
+        w4.int4_matmul_kernel(x.half(), packed, s4, chan, group=64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 4096), (3, 5, 64), (4096, 4096),
+                                   (2, 16384), (7, 2048)])
+def test_rmsnorm_kernel_matches_plain(shape, dtype):
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.models \
+        import layers
+    from distributed_llm_training_and_inference_system_tpu_torch.ops.rmsnorm \
+        import rmsnorm_kernel
+    g = torch.Generator(device="cuda").manual_seed(shape[-1])
+    x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
+    scale = (torch.randn(shape[-1], generator=g, device="cuda") * 0.1
+             ).to(dtype)
+    before = rmsnorm_kernel.launches
+    out = layers.rms_norm(x, scale, 1e-5, impl="cuda")
+    torch.cuda.synchronize()
+    assert rmsnorm_kernel.launches == before + 1
+    ref = layers.rms_norm(x, scale, 1e-5)
+    assert out.dtype == dtype and out.shape == x.shape
+    # fp32: the order of the sum of squares; bf16: one rounding of the
+    # output, 2^-8 relative, on values up to ~12
+    tol = 2e-5 if dtype == torch.float32 else 6e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    with pytest.raises(RuntimeError):       # forward only
+        layers.rms_norm(x.float().requires_grad_(True), scale.float(),
+                        impl="cuda")
+    with pytest.raises(ValueError):         # H not a multiple of 8
+        rmsnorm_kernel(x[..., :60].contiguous(), scale[:60])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantization,kv,w8", [
+    ("int8", "int8", True), ("int4", "int4", False), ("int8", "int4", False),
+    ("none", "int8", False)])
+def test_quantized_engine_on_card_matches_engine_on_cpu(quantization, kv,
+                                                        w8):
+    """A small model whose shapes reach the kernels (out % 128 == 0,
+    D % 16 == 0), fp32: the card engine's launches are what the code
+    implies. With full-precision weights the card engine (page kernel) and
+    the CPU engine (gather version) produce the same greedy tokens. The
+    matmul kernels round activations and weights to bf16 where the dequant
+    route keeps fp32, so there one decode step through the kernels is held
+    to the same step through the dequant route within 3e-2 of the largest
+    logit."""
+    _need_card()
+    import dataclasses
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int4_matmul as w4m, int8_matmul as w8m, paged_attention_cuda as pac)
+    cfg = dataclasses.replace(
+        get_model_config("gpt-test"), num_layers=2, hidden_size=256,
+        ffn_size=512, num_heads=4, num_kv_heads=2, head_dim=64,
+        dtype="float32")
+    scfg = ServeConfig(model=cfg.name, max_batch_size=4, max_seq_len=128,
+                       prefill_chunk=32, kv_block_size=8, dtype="float32",
+                       quantization=quantization, kv_quantization=kv,
+                       int8_pallas_matmul=w8)
+    model = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(5),
+                     device="cuda")
+    cpu_model = gpt.GPT(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    prompts = [list(range(3, 30)), [7, 8, 9], list(range(100, 140))]
+    greedy = SamplingParams(temperature=0.0, max_tokens=10)
+    kernels = {"w8": w8m.int8_matmul_kernel,
+               "w8k": w8m.int8_matmul_ksplit_kernel,
+               "w4": w4m.int4_matmul_kernel,
+               "p8": pac.paged_attention_int8_kernel,
+               "p4": pac.paged_attention_int4_kernel,
+               "pf": paged_attention_kernel}
+    before = {k: f.launches for k, f in kernels.items()}
+    eng = InferenceEngine(cfg, scfg, params=model)
+    out = eng.generate(prompts, greedy)
+    grew = {k: f.launches - before[k] for k, f in kernels.items()}
+    assert all(len(r.generated_tokens) == 10 for r in out)
+    assert eng.stats()["nonfinite_logits"] == 0
+    if quantization == "none":
+        ref = InferenceEngine(cfg, scfg, params=cpu_model, device="cpu"
+                              ).generate(prompts, greedy)
+        assert [r.generated_tokens for r in out] == \
+            [r.generated_tokens for r in ref]
+    else:
+        from distributed_llm_training_and_inference_system_tpu_torch.serve.\
+            decode import decode_step_forward
+        eng.kv.allocate(0, 16)
+        args = (eng.params, torch.tensor([5, 6], device="cuda"),
+                torch.tensor([3, 0], device="cuda"), eng.kv.k_pages,
+                eng.kv.v_pages,
+                torch.from_numpy(eng.kv.block_tables[:2].copy()).cuda(), cfg)
+        saved = {k: f.launches for k, f in kernels.items()}
+        fast = decode_step_forward(*args, w8_kernel_ok=w8)[0]
+        slow = decode_step_forward(*args, w4_kernel_ok=False,
+                                   w8_kernel_ok=False)[0]
+        for k, f in kernels.items():
+            f.launches = saved[k]
+        assert (fast - slow).abs().max() <= 3e-2 * slow.abs().max()
+    steps = eng.total_dispatched_steps
+    paged = {"int8": "p8", "int4": "p4"}[kv]
+    assert grew[paged] == cfg.num_layers * steps
+    assert grew["pf"] == 0
+    mm = 7 * cfg.num_layers * steps
+    assert grew["w4"] == (mm if quantization == "int4" else 0)
+    assert grew["w8"] + grew["w8k"] == (mm if w8 else 0)
+    assert eng.stats()["quantization"] == quantization
+    assert eng.stats()["kv"]["kv_quantization"] == kv

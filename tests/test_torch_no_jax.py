@@ -50,3 +50,28 @@ def test_every_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_walk_covers_the_quantized_serving_modules():
+    names = {str(p.relative_to(ROOT / PORT)) for p in SOURCES[:-1]}
+    for module in ("ops/quantization.py", "ops/int4_matmul.py",
+                   "ops/int8_matmul.py", "ops/rmsnorm.py",
+                   "ops/paged_attention_cuda.py", "profile_decode.py"):
+        assert module in names
+
+
+def test_quantization_keeps_its_own_numpy_helpers():
+    """The JAX module takes its numpy-twin markers from the JAX package's
+    ``analysis.annotations``; the port's copy defines the helpers plainly
+    and imports nothing of that name, relative imports included."""
+    path = ROOT / PORT / "ops" / "quantization.py"
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            assert "annotations" not in (node.module or "")
+            assert "analysis" not in (node.module or "")
+            assert node.level == 0, "quantization.py imports from the package"
+    defined = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert {"delta_encode_planes_np", "delta_decode_planes_np",
+            "unpack_nibbles_np", "pack_nibbles_np", "nibble_delta_encode_np",
+            "nibble_delta_decode_np"} <= defined

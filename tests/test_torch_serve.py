@@ -189,7 +189,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("over", [
     {"speculative": "ngram"}, {"chunked_prefill_tokens": 16},
-    {"quantization": "int8"}, {"kv_quantization": "int8"},
+    {"quantization": "int4-awq"},
+    {"quantization": "int4-awq", "kv_quantization": "int8"},
     {"tensor_parallel": 2}, {"preemption": "swap"},
     {"artifact": "/nonexistent/artifact"},
 ])
