@@ -283,20 +283,14 @@ def post(port: int, body: dict, timeout: float = 600.0) -> dict:
         return json.loads(r.read())
 
 
-def serve_main_path(torch, mods, kernel, card: str) -> dict:
-    cfg = mods["get_model_config"]("llama-8b-gqa")
-    scfg = mods["ServeConfig"](model=cfg.name, host="127.0.0.1", port=0)
-    t_init = time.time()
-    srv = mods["InferenceServer"](cfg, scfg, seed=0)
-    torch.cuda.synchronize()
-    eng = srv.engine
-    init_s = time.time() - t_init
-    print(f"llama-8b-gqa: {cfg.num_layers} layers, H={cfg.hidden_size}, "
-          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, D={cfg.head_dim}, "
-          f"vocab {cfg.vocab_size}; {cfg.param_count / 1e9:.3f}B params "
-          f"random-initialised in {init_s:.1f}s; KV pool "
-          f"{eng.kv.num_pages} pages of {eng.kv.page_size}", flush=True)
-    port = srv.start()
+def drive_traffic(torch, srv, cfg, kernels: dict) -> dict:
+    """The serving traffic of phases 5 and 13: starts the server, then a
+    warm-up, then one greedy request that publishes a 256-token prefix,
+    then 7 concurrent requests (greedy and sampled, one sharing the
+    prefix), 32 new tokens each. Every counter of ``kernels`` is set to 0
+    just before the first measured request and read just after the last.
+    Stops the server; checks every answer and /health."""
+    eng, port = srv.engine, srv.start()
     max_tokens = 32
     rng = random.Random(0)
     shared = text(rng, 256)                         # 256-token prefix
@@ -319,7 +313,8 @@ def serve_main_path(torch, mods, kernel, card: str) -> dict:
         before = {k: getattr(eng, k) for k in (
             "total_dispatched_steps", "total_extend_prefills",
             "total_prefix_cached_tokens")}
-        kernel.launches = 0                          # the main path starts
+        for k in kernels.values():
+            k.launches = 0                           # the main path starts
         t0 = time.time()
         results = [post(port, first)]                # publishes the prefix
         t1 = time.time()
@@ -334,7 +329,7 @@ def serve_main_path(torch, mods, kernel, card: str) -> dict:
         for t in threads:
             t.join(timeout=600)
         t2 = time.time()
-        launches = kernel.launches                   # the main path ended
+        launches = {n: k.launches for n, k in kernels.items()}  # it ended
         check(all(r is not None for r in out), "a request did not return")
         results += out
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
@@ -359,12 +354,6 @@ def serve_main_path(torch, mods, kernel, card: str) -> dict:
     extends = eng.total_extend_prefills - before["total_extend_prefills"]
     cached = (eng.total_prefix_cached_tokens
               - before["total_prefix_cached_tokens"])
-    expected = cfg.num_layers * (steps + extends)
-    print(f"kernel launches on the main path: {launches} = {cfg.num_layers} "
-          f"layers x ({steps} decode steps + {extends} suffix prefills); "
-          f"expected {expected}; prefix-cached tokens {cached}", flush=True)
-    check(launches > 0, "the main path never launched the kernel")
-    check(launches == expected, f"launches {launches} != {expected}")
     check(extends >= 1 and cached >= 128,
           "the shared-prefix request did not hit the prefix cache")
     ttfts = sorted(r["metrics"]["ttft_ms"] for r in results)
@@ -374,7 +363,7 @@ def serve_main_path(torch, mods, kernel, card: str) -> dict:
         (r["usage"]["completion_tokens"] - 1)
         / ((r["metrics"]["latency_ms"] - r["metrics"]["ttft_ms"]) / 1e3)
         for r in results)
-    res = {
+    return {
         "requests": len(results), "completion_tokens": gen,
         "ttft_p50_ms": ttfts[len(ttfts) // 2],
         "ttft_max_ms": ttfts[-1],
@@ -385,17 +374,48 @@ def serve_main_path(torch, mods, kernel, card: str) -> dict:
         "peak_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "decode_steps": steps,
         "extend_prefills": extends, "prefix_cached_tokens": cached,
-        "engine": st, "init_s": init_s,
+        "engine": st,
+        "shared_prefix_prompt_tokens": out[3]["usage"]["prompt_tokens"],
         "greedy": {"prompt": first["prompt"],
                    "tokens": results[0]["choices"][0]["token_ids"]},
     }
-    print(f"served {len(results)} requests, {gen} tokens: TTFT p50 "
-          f"{res['ttft_p50_ms']:.1f} ms (max {res['ttft_max_ms']:.1f}), "
-          f"{res['concurrent_tok_per_s']:.1f} tok/s over the 7 concurrent "
-          f"requests, per-request decode p50 "
-          f"{res['per_request_decode_tok_per_s_p50']:.1f} tok/s, peak "
-          f"max_memory_allocated {res['peak_memory_allocated_gb']:.2f} GB "
-          f"[{card}]", flush=True)
+
+
+def traffic_line(res: dict) -> str:
+    return (f"served {res['requests']} requests, "
+            f"{res['completion_tokens']} tokens: TTFT p50 "
+            f"{res['ttft_p50_ms']:.1f} ms (max {res['ttft_max_ms']:.1f}), "
+            f"{res['concurrent_tok_per_s']:.1f} tok/s over the 7 concurrent "
+            f"requests, per-request decode p50 "
+            f"{res['per_request_decode_tok_per_s_p50']:.1f} tok/s, peak "
+            f"max_memory_allocated {res['peak_memory_allocated_gb']:.2f} GB")
+
+
+def serve_main_path(torch, mods, kernel, card: str) -> dict:
+    cfg = mods["get_model_config"]("llama-8b-gqa")
+    scfg = mods["ServeConfig"](model=cfg.name, host="127.0.0.1", port=0)
+    t_init = time.time()
+    srv = mods["InferenceServer"](cfg, scfg, seed=0)
+    torch.cuda.synchronize()
+    eng = srv.engine
+    init_s = time.time() - t_init
+    print(f"llama-8b-gqa: {cfg.num_layers} layers, H={cfg.hidden_size}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, D={cfg.head_dim}, "
+          f"vocab {cfg.vocab_size}; {cfg.param_count / 1e9:.3f}B params "
+          f"random-initialised in {init_s:.1f}s; KV pool "
+          f"{eng.kv.num_pages} pages of {eng.kv.page_size}", flush=True)
+    res = drive_traffic(torch, srv, cfg, {"paged_attention": kernel})
+    launches = res["launches"] = res["launches"]["paged_attention"]
+    steps, extends = res["decode_steps"], res["extend_prefills"]
+    expected = cfg.num_layers * (steps + extends)
+    print(f"kernel launches on the main path: {launches} = {cfg.num_layers} "
+          f"layers x ({steps} decode steps + {extends} suffix prefills); "
+          f"expected {expected}; prefix-cached tokens "
+          f"{res['prefix_cached_tokens']}", flush=True)
+    check(launches > 0, "the main path never launched the kernel")
+    check(launches == expected, f"launches {launches} != {expected}")
+    res["init_s"] = init_s
+    print(f"{traffic_line(res)} [{card}]", flush=True)
     res["params"] = eng.params
     res["tokenizer"] = srv.tokenizer
     res["cfg"] = cfg
@@ -1347,65 +1367,8 @@ def serve_quantized(torch, mods, qm, cfg, model, name: str, card: str,
           f"bf16 -> {eng.params.weight_bytes() / 1e9:.2f} GB, quantized in "
           f"{init_s:.1f}s; KV pool {eng.kv.num_pages} pages, "
           f"{eng.kv.hbm_bytes() / 1e9:.3f} GB", flush=True)
-    port = srv.start()
-    max_tokens = 32
-    rng = random.Random(0)
-    shared = text(rng, 256)
-    lengths = [1500, 64, 900, 300, 1200, 128, 700]
-    bodies = []
-    for i, n in enumerate(lengths):
-        sampled = i % 2 == 1
-        bodies.append({"prompt": text(rng, n), "max_tokens": max_tokens,
-                       "temperature": 0.8 if sampled else 0.0,
-                       "top_k": 40 if sampled else 0,
-                       "top_p": 0.95 if sampled else 1.0, "seed": 100 + i})
-    bodies[3]["prompt"] = shared + text(rng, 300 - len(shared))
-    first = {"prompt": shared + text(rng, 140), "max_tokens": max_tokens,
-             "temperature": 0.0}
-    try:
-        post(port, {"prompt": "warm up", "max_tokens": 4,
-                    "temperature": 0.0})            # set-up, not measured
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = {k: getattr(eng, k) for k in (
-            "total_dispatched_steps", "total_extend_prefills",
-            "total_prefix_cached_tokens")}
-        for k in kn.values():
-            k.launches = 0                           # the main path starts
-        t1 = time.time()
-        results = [post(port, first)]                # publishes the prefix
-        out = [None] * len(bodies)
-
-        def worker(i):
-            out[i] = post(port, bodies[i])
-        threads = [threading.Thread(target=worker, args=(i,))
-                   for i in range(len(bodies))]
-        t2 = time.time()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        t3 = time.time()
-        launches = {n: k.launches for n, k in kn.items()}  # the path ended
-        check(all(r is not None for r in out), "a request did not return")
-        results += out
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
-                                    timeout=60) as r:
-            health = json.loads(r.read())
-    finally:
-        srv.stop()
-    check(health["status"] == "healthy", f"/health: {health['status']}")
-    st = health["engine"]
-    eos = srv.tokenizer.eos_token_id
-    for r in results:
-        toks = r["choices"][0]["token_ids"]
-        reason = r["choices"][0]["finish_reason"]
-        check(all(0 <= t < cfg.vocab_size for t in toks), "token out of range")
-        check(len(toks) == max_tokens or (reason == "stop"
-                                          and toks[-1] == eos),
-              f"request ended after {len(toks)} tokens ({reason})")
-    check(st["nonfinite_logits"] == 0,
-          f"{st['nonfinite_logits']} logits tensors held NaN/inf")
+    res = drive_traffic(torch, srv, cfg, kn)
+    st, launches = res["engine"], res["launches"]
     # what /health says of the quantization and the pool
     kv = settings["kv_quantization"]
     D, Nkv, PS = cfg.head_dim, cfg.num_kv_heads, eng.kv.page_size
@@ -1424,14 +1387,10 @@ def serve_quantized(torch, mods, qm, cfg, model, name: str, card: str,
     check(st["weight_bytes"] < 0.6 * bf16_bytes,
           f"weights {st['weight_bytes']} B, bf16 {bf16_bytes} B")
     # every kernel's launches against what the code implies
-    steps = eng.total_dispatched_steps - before["total_dispatched_steps"]
-    extends = eng.total_extend_prefills - before["total_extend_prefills"]
-    cached = (eng.total_prefix_cached_tokens
-              - before["total_prefix_cached_tokens"])
-    check(extends == 1 and cached >= 128,
-          f"{extends} suffix prefills, {cached} prefix-cached tokens")
+    steps, extends = res["decode_steps"], res["extend_prefills"]
+    check(extends == 1, f"{extends} suffix prefills")
     # the suffix prefill goes to the matmul kernels only at <= 64 rows
-    suffix = out[3]["usage"]["prompt_tokens"] - cached
+    suffix = res["shared_prefix_prompt_tokens"] - res["prefix_cached_tokens"]
     kernel_passes = steps + (1 if eng._suffix_bucket(suffix) <= 64 else 0)
     per_layer = {"q": (4096, 4096), "k": (4096, 1024), "v": (4096, 1024),
                  "o": (4096, 4096), "gate": (4096, 14336),
@@ -1456,43 +1415,21 @@ def serve_quantized(torch, mods, qm, cfg, model, name: str, card: str,
           f"attention)", flush=True)
     check(launches == expected, f"config {name}: launches {launches} != "
           f"{expected}")
-    ttfts = sorted(r["metrics"]["ttft_ms"] for r in results)
-    gen = sum(r["usage"]["completion_tokens"] for r in results)
-    conc = sum(r["usage"]["completion_tokens"] for r in out)
-    per_req = sorted(
-        (r["usage"]["completion_tokens"] - 1)
-        / ((r["metrics"]["latency_ms"] - r["metrics"]["ttft_ms"]) / 1e3)
-        for r in results)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    res = {
-        "settings": settings, "requests": len(results),
-        "completion_tokens": gen, "ttft_p50_ms": ttfts[len(ttfts) // 2],
-        "ttft_max_ms": ttfts[-1], "concurrent_phase_s": t3 - t2,
-        "concurrent_tok_per_s": conc / (t3 - t2),
-        "per_request_decode_tok_per_s_p50": per_req[len(per_req) // 2],
-        "first_request_s": t2 - t1, "peak_memory_allocated_gb": peak,
-        "launches": launches, "expected": expected, "decode_steps": steps,
-        "extend_prefills": extends, "engine": st, "init_s": init_s,
-        "weight_bytes": st["weight_bytes"], "bf16_weight_bytes": bf16_bytes,
-        "kv_hbm_bytes": st["kv"]["hbm_bytes"],
-        "kv_share_of_bf16_pool": st["kv"]["hbm_bytes"] / bf16_pool,
-    }
-    print(f"config {name} served {len(results)} requests, {gen} tokens: TTFT "
-          f"p50 {res['ttft_p50_ms']:.1f} ms (max {res['ttft_max_ms']:.1f}), "
-          f"{res['concurrent_tok_per_s']:.1f} tok/s over the 7 concurrent "
-          f"requests, per-request decode p50 "
-          f"{res['per_request_decode_tok_per_s_p50']:.1f} tok/s, peak "
-          f"max_memory_allocated {peak:.2f} GB (the bf16 source weights, "
+    bf16_pool_share = st["kv"]["hbm_bytes"] / bf16_pool
+    res.update(settings=settings, expected=expected, init_s=init_s,
+               weight_bytes=st["weight_bytes"], bf16_weight_bytes=bf16_bytes,
+               kv_hbm_bytes=st["kv"]["hbm_bytes"],
+               kv_share_of_bf16_pool=bf16_pool_share)
+    print(f"config {name} {traffic_line(res)} (the bf16 source weights, "
           f"{bf16_bytes / 1e9:.2f} GB, included); weights "
           f"{st['weight_bytes'] / 1e9:.2f} GB, KV pool "
-          f"{st['kv']['hbm_bytes'] / 1e9:.3f} GB = "
-          f"{res['kv_share_of_bf16_pool']:.3f} of a bf16 pool [{card}]",
-          flush=True)
+          f"{st['kv']['hbm_bytes'] / 1e9:.3f} GB = {bf16_pool_share:.3f} of "
+          f"a bf16 pool [{card}]", flush=True)
 
     # one decode step over a prefilled prompt: the kernels against the
     # dequant route and the gather attention, on the same pages
     with torch.inference_mode():
-        prompt = srv.tokenizer.encode(first["prompt"])
+        prompt = srv.tokenizer.encode(res["greedy"]["prompt"])
         n = len(prompt)
         eng.kv.allocate(0, n + 1)
         bucket = eng._bucket(n)

@@ -119,11 +119,10 @@ def int8_matmul_kernel(x: torch.Tensor, values: torch.Tensor,
 
 
 def int8_matmul_ksplit_kernel(x: torch.Tensor, values: torch.Tensor,
-                              scale: torch.Tensor,
-                              split_len: int = KSPLIT_LEN) -> torch.Tensor:
+                              scale: torch.Tensor) -> torch.Tensor:
     """The k-split kernel pair: [B, out] in x's dtype, deterministic."""
     xs, y, B, n_in, n_out = _prepare(x, values, scale)
-    splits = -(-n_in // split_len)
+    splits = -(-n_in // KSPLIT_LEN)
     partial = torch.empty((splits, B, n_out), dtype=torch.float32,
                           device=x.device)
     fn = _lib_fn("int8_matmul_ksplit",
@@ -131,7 +130,7 @@ def int8_matmul_ksplit_kernel(x: torch.Tensor, values: torch.Tensor,
                  + [ctypes.c_void_p])
     with torch.cuda.device(x.device):
         rc = fn(xs.data_ptr(), scale.data_ptr(), values.data_ptr(),
-                partial.data_ptr(), y.data_ptr(), B, n_in, n_out, split_len,
+                partial.data_ptr(), y.data_ptr(), B, n_in, n_out, KSPLIT_LEN,
                 _OUT_DTYPES[x.dtype],
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:

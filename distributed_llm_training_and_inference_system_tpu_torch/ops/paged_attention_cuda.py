@@ -39,11 +39,11 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"paged_attention_kernel: {msg}")
 
 
-def _launch(kind, q, k_vals, v_vals, k_scale, v_scale, PS, block_tables,
-            start_positions) -> torch.Tensor:
-    """Checks shared by the three kinds, then the launch. ``k_vals`` /
-    ``v_vals`` are the stored value tensors; ``PS`` the logical page
-    size."""
+def _launch(wrapper, kind, q, k_vals, v_vals, k_scale, v_scale, PS,
+            block_tables, start_positions) -> torch.Tensor:
+    """Checks shared by the three kinds, then the launch, counted on
+    ``wrapper``. ``k_vals`` / ``v_vals`` are the stored value tensors;
+    ``PS`` the logical page size."""
     quant = kind != _KIND_FP
     tensors = [q, k_vals, v_vals, block_tables, start_positions]
     if quant:
@@ -82,7 +82,7 @@ def _launch(kind, q, k_vals, v_vals, k_scale, v_scale, PS, block_tables,
     maxP = block_tables.shape[1]
     out = torch.empty_like(q)
     if B == 0 or T == 0:
-        return None
+        return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _fn()(q.data_ptr(), k_vals.data_ptr(), v_vals.data_ptr(),
@@ -94,6 +94,7 @@ def _launch(kind, q, k_vals, v_vals, k_scale, v_scale, PS, block_tables,
     if rc != 0:
         raise RuntimeError(
             f"paged_attention kernel launch failed: CUDA error {rc}")
+    wrapper.launches += 1
     return out
 
 
@@ -111,13 +112,9 @@ def paged_attention_kernel(
            and k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
            "pages must be tensors of q's dtype (quantized pages go through "
            "paged_attention_int8_kernel / paged_attention_int4_kernel)")
-    out = _launch(_KIND_FP, q, k_pages, v_pages, None, None,
-                  k_pages.shape[2] if k_pages.dim() == 4 else 0,
-                  block_tables, start_positions)
-    if out is None:
-        return torch.empty_like(q)
-    paged_attention_kernel.launches += 1
-    return out
+    return _launch(paged_attention_kernel, _KIND_FP, q, k_pages, v_pages,
+                   None, None, k_pages.shape[2] if k_pages.dim() == 4 else 0,
+                   block_tables, start_positions)
 
 
 def paged_attention_int8_kernel(q, k_pages, v_pages, block_tables,
@@ -129,13 +126,10 @@ def paged_attention_int8_kernel(q, k_pages, v_pages, block_tables,
                for p in (k_pages, v_pages)), "k/v pages must be QuantPages")
     _check(k_pages.values.dtype == torch.int8
            and v_pages.values.dtype == torch.int8, "int8 page values")
-    out = _launch(_KIND_INT8, q, k_pages.values, v_pages.values,
-                  k_pages.scale, v_pages.scale, k_pages.shape[2],
-                  block_tables, start_positions)
-    if out is None:
-        return torch.empty_like(q)
-    paged_attention_int8_kernel.launches += 1
-    return out
+    return _launch(paged_attention_int8_kernel, _KIND_INT8, q,
+                   k_pages.values, v_pages.values, k_pages.scale,
+                   v_pages.scale, k_pages.shape[2], block_tables,
+                   start_positions)
 
 
 def paged_attention_int4_kernel(q, k_pages, v_pages, block_tables,
@@ -147,13 +141,10 @@ def paged_attention_int4_kernel(q, k_pages, v_pages, block_tables,
            "k/v pages must be Int4Pages")
     _check(k_pages.values.dtype == torch.uint8
            and v_pages.values.dtype == torch.uint8, "uint8 page values")
-    out = _launch(_KIND_INT4, q, k_pages.values, v_pages.values,
-                  k_pages.scale, v_pages.scale, k_pages.shape[2],
-                  block_tables, start_positions)
-    if out is None:
-        return torch.empty_like(q)
-    paged_attention_int4_kernel.launches += 1
-    return out
+    return _launch(paged_attention_int4_kernel, _KIND_INT4, q,
+                   k_pages.values, v_pages.values, k_pages.scale,
+                   v_pages.scale, k_pages.shape[2], block_tables,
+                   start_positions)
 
 
 paged_attention_kernel.launches = 0
