@@ -34,20 +34,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              and bf16 (2e-2 of the max; each element within one bf16
              rounding of itself plus 2.5e-2 of its row's rms; rms error
              5e-3 of the rms; lse 1e-4); every CUDA call counted at its
-             kernel;
+             kernel; the raw bf16 backward run twice gives equal bits;
 8. adamw   — the fused AdamW kernel bitwise equal to its plain version on
              every gpt-1b leaf shape, fp32 and bf16 moments, with and
              without decay, clip scale < 1;
 9. train timing — CUDA-event times of the three flash kernels at the
              training shape (micro-batch x 2048, bf16, causal) and of one
              AdamW update of every gpt-1b leaf, beside their plain versions,
-             SDPA / torch._fused_adamw_ and their bounds;
+             SDPA / torch._fused_adamw_ and their bounds; each backward
+             kernel's share of its bound, the pair over SDPA's backward
+             (printed, not gated) and ptxas's registers and spills of the
+             bf16 backward kernels;
 10. train  — the port's training path: TrainingEngine trains gpt-1b at
              full width and depth (24 layers, H=2048, vocab 50304; random
              fp32 masters from seed 42, synthetic data, S=2048, fused AdamW
              warmed up over 2 steps, selective remat) for 8 steps and saves
              a checkpoint to a temporary directory; the loss is finite and
              falls, and each kernel's launches equal what the code implies;
+             the step time and MFU beside those of the earlier
+             backward kernels (another run);
              then the checkpoint is restored (step, data cursor, state) and
              one step through the kernels agrees with one through the plain
              versions within 1e-2;
@@ -134,6 +139,13 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+# cycles the card spins before each timed call (~1 ms), so that the host
+# has queued the whole call before its start event is reached: the events
+# then time the device alone, not a host slower than the kernels (SDPA's
+# backward goes through autograd's engine and read 0.48-0.94 ms without it)
+HOLD_CYCLES = 2_000_000
+
+
 def time_ms(torch, fn, iters: int = 50, warmup: int = 5, flush=None) -> float:
     """Mean device time of ``fn`` from CUDA events around each call; with
     ``flush`` the L2 cache is overwritten before every timed call (a decode
@@ -145,6 +157,7 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5, flush=None) -> float:
     for _ in range(iters):
         if flush is not None:
             flush()
+        torch.cuda._sleep(HOLD_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -653,6 +666,16 @@ def flash_against_plain(torch, fa, fac) -> dict:
             grads = [fa._bwd_impl(qf, kf, vf, sq, sk, pq, pk, dof, lp, delta,
                                   True, 512, 512, scale, impl=impl)
                      for impl in ("kernel", "plain")]
+            if dtype == torch.bfloat16:     # no atomics: the same bits again
+                again = fa._bwd_impl(qf, kf, vf, sq, sk, pq, pk, dof, lp,
+                                     delta, True, 512, 512, scale,
+                                     impl="kernel")
+                same = [torch.equal(a, b) for a, b in zip(grads[0], again)]
+                check(all(same), f"{label}: a second kernel backward is not "
+                      f"bitwise equal (dq, dk, dv: {same})")
+                print(f"flash determinism {label}: dq, dk, dv of two kernel "
+                      f"calls bitwise equal", flush=True)
+                del again
             torch.cuda.synchronize()
             lines = [errs("flash_fwd", "out", ok, op, dt, label),
                      errs("flash_fwd", "lse", lk, lp, dt, label)]
@@ -724,9 +747,12 @@ def adamw_against_plain(torch, fu, kernel) -> float:
 
 # -- phase 9: kernel timing ----------------------------------------------------
 
-def flash_timing(torch, F, fa, fac, cfg, B: int) -> dict:
+def flash_timing(torch, F, fa, fac, cfg, B: int, build_log: str = "") -> dict:
     """The three flash kernels at the training shape (B x 2048, bf16,
-    causal), beside their plain versions, SDPA and their bounds."""
+    causal), beside their plain versions, SDPA and their bounds; the
+    ptxas figures of the bf16 backward kernels from ``build_log``."""
+    from distributed_llm_training_and_inference_system_tpu_torch import (
+        profile_flash as pf)
     S, Nq, Nkv, D = 2048, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v, do = flash_inputs(torch, B, S, Nq, Nkv, D, torch.bfloat16, 11)
     segs = torch.ones(B, S, dtype=torch.int32, device="cuda")
@@ -783,19 +809,16 @@ def flash_timing(torch, F, fa, fac, cfg, B: int) -> dict:
                - ref.float()).abs().max().item()
     fac.flash_fwd.launches = saved[0]
 
-    # the bound: causal pairs of this run (every row attends row + 1 keys)
+    # the bound: causal pairs of this run (every row attends row + 1 keys);
+    # the backward pair's from profile_flash, which times it alone
     pairs = B * Nq * S * (S + 1) // 2
     item = 2
     qkv = (q.numel() + k.numel() + v.numel()) * item
     rows = (sq.numel() + pq.numel() + sk.numel() + pk.numel()) * 4
-    lse_b = lse.numel() * 4
-    work = {
-        "flash_fwd": (4 * D * pairs, qkv + q.numel() * item + lse_b + rows),
-        "flash_bwd_dq": (6 * D * pairs, qkv + 2 * q.numel() * item
-                         + 2 * lse_b + rows),
-        "flash_bwd_dkv": (8 * D * pairs, qkv + q.numel() * item
-                          + 2 * k.numel() * item + 2 * lse_b + rows),
-    }
+    work = {"flash_fwd": (4 * D * pairs, qkv + q.numel() * item
+                          + lse.numel() * 4 + rows)}
+    for name, w in pf.bwd_work(B, S, Nq, Nkv, D, item).items():
+        work[name] = (w["ops"], w["bytes"])
     res = {}
     for name, (ops, nbytes) in work.items():
         t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
@@ -827,6 +850,24 @@ def flash_timing(torch, F, fa, fac, cfg, B: int) -> dict:
           f"{b['plain_ms']:.4f} ms, SDPA backward {b['library_ms']:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms; SDPA forward vs kernel max_abs_err "
           f"{lib_err:.3e}", flush=True)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        r = res[name]
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        print(f"{name}: {r['share_of_bound']:.1%} of its bound "
+              f"({r['bound_ms']:.4f} / {r['ms']:.4f} ms)", flush=True)
+    b["over_library"] = b["kernels_ms"] / b["library_ms"]
+    print(f"flash backward pair / SDPA backward: {b['over_library']:.2f}x "
+          f"(printed, not gated)", flush=True)
+    figs = pf.bwd_ptxas(build_log, S)
+    for name, f in figs.items():
+        print(f"ptxas {name}: {f.get('registers')} registers, spill "
+              f"stores/loads {f.get('spill_stores')}/{f.get('spill_loads')} "
+              f"B, {f['smem_bytes']} B shared a block at S={S}, "
+              f"{f['resident_blocks']} blocks an SM", flush=True)
+    if not figs:
+        print("ptxas: the build log holds no bf16 backward figures (the "
+              "library was built before this run)", flush=True)
+    res["ptxas"] = figs
     return res
 
 
@@ -883,6 +924,10 @@ def adamw_timing(torch, gpt, fu, kernel, cfg) -> dict:
 # -- phase 10: train gpt-1b at full width and depth ---------------------------
 
 TRAIN_STEPS = 8
+# the step with the earlier backward kernels (scalar B fragments,
+# synchronous tile loads; profile_train.py, H100 80GB HBM3 at 700 W,
+# micro-batch 4)
+EARLIER_STEP_MS, EARLIER_MFU = 441.1, 0.173
 STEP_AGREEMENT = 1e-2          # kernels vs plain step, relative (bf16)
 
 
@@ -974,6 +1019,11 @@ def train_main_path(torch, mods, kernels: dict, card: str) -> dict:
               f"per step, {tok_s:.0f} tok/s, MFU {mfu:.1%} of "
               f"{cfg.hardware.peak_bf16_tflops:.0f} TF/s; peak "
               f"max_memory_allocated {peak:.2f} GB [{card}]", flush=True)
+        print(f"step {step_s * 1e3:.1f} ms, MFU {mfu:.1%} [{card}]; the "
+              f"earlier backward kernels gave {EARLIER_STEP_MS} ms, MFU "
+              f"{EARLIER_MFU:.1%} (profile_train.py, micro-batch "
+              f"{TRAIN_MICRO_BATCH}, another run, maybe on another card)",
+              flush=True)
         trained = checksum(torch, eng.state)
         del eng, model
         gc.collect()
@@ -1594,7 +1644,8 @@ def main() -> int:
                             "cuda": torch.version.cuda}
 
         phase("2 build", t0)
-        for name, log in build.build().items():
+        build_logs = build.build()
+        for name, log in build_logs.items():
             print(f"built {name}: {build.library_path(name).name}")
             for line in log.splitlines():
                 if "ptxas" in line or "error" in line.lower():
@@ -1628,7 +1679,8 @@ def main() -> int:
         phase("9 training kernel timing", t0)
         cfg1b = get_model_config("gpt-1b")
         train_timing = flash_timing(torch, F, fa, fac, cfg1b,
-                                    TRAIN_MICRO_BATCH)
+                                    TRAIN_MICRO_BATCH,
+                                    build_logs.get("flash_attention", ""))
         train_timing["adamw"] = adamw_timing(torch, gpt, fu, adamw_kernel,
                                              cfg1b)
 

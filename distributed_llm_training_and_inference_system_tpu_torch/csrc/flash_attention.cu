@@ -14,21 +14,58 @@
 //
 // What bounds it on an H100: at gpt-1b training shapes (S=2048, D=128)
 // the work is operations (S^2 D per head, intensity far above the 295
-// FLOP/byte ridge). The design keeps the S x S matrix out of device memory
-// (one 64 x 64 tile of scores per block at a time, in registers) and runs
-// the bf16 products on the tensor cores with mma.sync m16n8k16 and fp32
-// accumulation; fp32 inputs take the same fragment layout computed with
-// scalar fp32 FMAs (a verification path, not a fast one). Each warp owns
-// 16 rows of the 64-row tile, so the online-softmax statistics of a row
-// live in the 4 lanes that hold it. No wgmma/TMA yet: that is the next
-// step for speed.
+// FLOP/byte ridge): 2 D flops a live (q, key) pair for each product, three
+// products in dq (s, dp, ds.k) and four in dk/dv (s, dp, p^T.dO, ds^T.q),
+// against 989 TF/s of bf16 tensor cores. The design keeps the S x S matrix
+// out of device memory and runs the bf16 products on the tensor cores with
+// mma.sync m16n8k16 and fp32 accumulation.
 //
-// Tiles are stored in shared memory with padded rows. A block skips a
-// tile pair only when causal and the true minimum kv position of the tile
-// exceeds the true maximum q position of the block (positions may restart
-// inside a packed row, so first/last elements are no bound). The dkv grid
-// is the transpose: each block owns 64 keys, walks the q tiles and keeps
-// dk/dv in registers, so no two blocks write the same output.
+// Forward (the first design): one block of 4 warps per 64 q rows, each warp
+// 16 rows, so the online-softmax statistics of a row live in the 4 lanes
+// that hold it; fragments by 4-byte shared loads, tiles loaded
+// synchronously, p through shared memory.
+//
+// bf16 backward (flash_bwd_*_bf16_kernel): a block of 4 warps keeps 64
+// resident rows (q and dO for dq, K and V for dk/dv, 16 rows a warp) and
+// walks 64-row tiles of the other operand (K, V and their positions and
+// segments for dq; Q, dO, positions, segments, lse and delta for dk/dv)
+// through a two-stage cp.async ring (16-byte copies; 4-byte ones for the
+// per-row arrays): right after a tile's one block barrier the next live
+// tile's copies are issued, and they land while this tile's products run.
+// Every operand reaches the tensor cores by ldmatrix.x4 (.trans for the
+// operands stored [k][n]: K in ds.k, dO in p^T.dO, Q in ds^T.q) from
+// tiles padded to D + 8 elements a row, which ldmatrix reads without bank
+// conflicts. The s and dp accumulators become p and ds in registers: two
+// adjacent m16n8 accumulator tiles, rounded to bf16, are an m16n8k16 A
+// fragment, so p and ds never touch shared memory. Before the walk the
+// warps classify every streamed tile against the block's rows from true
+// position and segment min/max (positions restart inside packed rows and
+// inside the GQA fold, so first/last elements are no bound), one byte a
+// tile in shared memory, behind the barrier the walk needs anyway: skip
+// (no live pair: not even loaded), all-live (both tiles full, one segment,
+// every key at or before every q: no mask) or mixed (the per-element mask
+// from the segment and position arrays). dk/dv blocks own their 64 keys
+// and dq blocks their 64 q rows, so every output element is written by one
+// block, with no atomics: repeated calls give equal bits. exp2 with
+// log2(e) folded into the scale.
+//
+// ptxas -v (sm_90a), 0 spill bytes in all four; shared memory per block at
+// S = 2048 (6 tiles of 64 x (D + 8) bf16, two stages of the per-row arrays,
+// a class byte a tile); resident blocks an SM, registers and shared memory
+// both allowing 2 (8 warps):
+//   dq   D=128: 236 registers, 105,504 B    dq   D=64: 194, 56,352 B
+//   dkv  D=128: 255 registers, 106,528 B    dkv  D=64: 221, 57,376 B
+// On an H100 80GB HBM3 at 700 W, B=4 x 2048, 16/16 heads, D=128, causal:
+// dq 0.50 ms (21% of its 0.104 ms bound), dk/dv 0.65 ms (21% of 0.139).
+// What comes next: wgmma with TMA-fed tiles and warp specialisation, and
+// the two-pass recompute of s and dp (seven products where one fused pass
+// with dq by atomics would take five).
+//
+// fp32 (a verification path, not a fast one) keeps the first design for
+// all three: the same fragment layout computed with scalar fp32 FMAs, 32 q
+// rows a dk/dv tile, synchronous tile loads. A block skips a tile pair
+// only when causal and the true minimum kv position of the tile exceeds
+// the true maximum q position of the block.
 //
 // Numerics follow the TPU kernels: scores are (q.k)*scale in fp32; masked
 // scores are NEG_INF = -0.7 * FLT_MAX; p = exp(s - m) is 0 while the
@@ -47,8 +84,9 @@ namespace {
 constexpr float kNegInf = (float)(-0.7 * 3.4028234663852886e38);
 constexpr int kThreads = 128;     // 4 warps
 constexpr int kRows = 64;         // q rows (fwd, dq) or keys (dkv) per block
+                                  // (fwd and the fp32 backward)
 constexpr int kKeys = 64;         // keys per kv tile (fwd, dq)
-constexpr int kQDkv = 32;         // q rows per q tile in the dkv kernel
+constexpr int kQDkv = 32;         // q rows per q tile in the fp32 dkv kernel
 
 typedef __nv_bfloat16 bf16;
 
@@ -125,6 +163,208 @@ template <> struct Mma<float> {
     }
   }
 };
+
+// ---------------------------------------------------------------------------
+// Fragment helpers of the bf16 backward: ldmatrix loads of mma.sync
+// m16n8k16 operands from padded shared tiles (rows of D + 8 elements: the
+// eight 16-byte rows an 8x8 matrix reads fall in eight distinct bank
+// groups, so no load conflicts), cp.async copies global -> shared, and
+// the accumulator -> A-fragment repack.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// four 8x8 b16 matrices; lane l gives the address of row l & 7 of matrix
+// l >> 3 and receives, of matrix j, row l / 4, columns 2 (l % 4) and +1 in
+// r[j] (.trans: column l / 4, rows 2 (l % 4) and +1)
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// A fragment of rows [0, 16) x columns [0, 16) of a row-major tile
+__device__ __forceinline__ void ldsm_a(uint32_t a[4], const bf16* tile, int ld,
+                                       int lane) {
+  ldsm_x4(a, tile + (lane & 15) * ld + (lane >> 4) * 8);
+}
+// B fragments of two n-tiles from a tile stored [n][k] (rows n, n + 16 x
+// columns k, k + 16): n-tile 0 in (b[0], b[1]), n-tile 1 in (b[2], b[3])
+__device__ __forceinline__ void ldsm_b_nk(uint32_t b[4], const bf16* tile,
+                                          int ld, int lane) {
+  ldsm_x4(b, tile + ((lane >> 4) * 8 + (lane & 7)) * ld
+                 + ((lane >> 3) & 1) * 8);
+}
+// the same from a tile stored [k][n] (rows k .. k + 16, columns n .. n + 16)
+__device__ __forceinline__ void ldsm_b_kn(uint32_t b[4], const bf16* tile,
+                                          int ld, int lane) {
+  ldsm_x4_trans(b, tile + (((lane >> 3) & 1) * 8 + (lane & 7)) * ld
+                       + (lane >> 4) * 8);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values rounded to bf16 and packed (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The m16n8 accumulators of n-tiles 2j and 2j + 1 hold a 16 x 16 block in
+// the m16n8k16 A layout once rounded: the next product's A fragment j.
+__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
+                                         const float c1[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// 16 bytes global -> shared, bypassing L1; zeros where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+// 4 bytes global -> shared; zero where !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [row0, row0 + R) of a [nrows, D] bf16 tensor into a padded shared
+// tile by cp.async; rows past the end are zero
+template <int D, int R>
+__device__ __forceinline__ void copy_rows(bf16* s, const bf16* src, int row0,
+                                          int nrows) {
+  constexpr int VPR = D / 8, LD = D + 8;
+  static_assert(R * VPR % kThreads == 0, "whole 16-byte chunks per thread");
+#pragma unroll
+  for (int it = 0; it < R * VPR / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / VPR, c = (i % VPR) * 8;
+    const bool ok = row0 + r < nrows;
+    cp_async16(s + r * LD + c, src + (ok ? (size_t)(row0 + r) * D + c : 0),
+               ok);
+  }
+}
+
+// [n] values of a [len] 4-byte array from element i0 into shared memory by
+// the threads [t0, t0 + n); zero past the end
+template <typename V>
+__device__ __forceinline__ void copy_vals(V* s, const V* src, int i0, int len,
+                                          int t0, int n) {
+  const int i = threadIdx.x - t0;
+  if (i >= 0 && i < n) {
+    const bool ok = i0 + i < len;
+    cp_async4(s + i, src + (ok ? i0 + i : 0), ok);
+  }
+}
+
+__device__ __forceinline__ int warp_min(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// True position and segment min/max of the valid rows [r0, min(r0 + n,
+// len)) of one head's arrays, reduced by one warp with shuffles (every lane
+// gets the result). Positions restart inside packed rows and inside the
+// GQA fold, so first/last elements are no bound.
+struct Span {
+  int pmin, pmax, smin, smax;
+};
+__device__ __forceinline__ Span warp_span(const int* pos, const int* seg,
+                                          int r0, int n, int len, int lane) {
+  Span sp{INT_MAX, INT_MIN, INT_MAX, INT_MIN};
+  for (int r = r0 + lane; r < r0 + n && r < len; r += 32) {
+    const int p = pos[r], s = seg[r];
+    sp.pmin = min(sp.pmin, p);
+    sp.pmax = max(sp.pmax, p);
+    sp.smin = min(sp.smin, s);
+    sp.smax = max(sp.smax, s);
+  }
+  return Span{warp_min(sp.pmin), warp_max(sp.pmax), warp_min(sp.smin),
+              warp_max(sp.smax)};
+}
+
+// A (q rows, keys) tile pair is skipped when no pair can be live, all-live
+// when every pair is (both tiles full, one nonzero segment, and under a
+// causal mask every key position <= every q position), else mixed (the
+// per-element mask).
+enum : unsigned char { kSkip = 0, kLive = 1, kMixed = 2 };
+__device__ __forceinline__ unsigned char tile_class(const Span& q,
+                                                    const Span& k, bool full,
+                                                    int causal) {
+  if (causal && k.pmin > q.pmax) return kSkip;
+  if (max(max(q.smin, k.smin), 1) > min(q.smax, k.smax)) return kSkip;
+  if (full && q.smin == q.smax && k.smin == k.smax && q.smin == k.smin
+      && (!causal || q.pmin >= k.pmax))
+    return kLive;
+  return kMixed;
+}
+
+// Classes of the streamed tiles [0, nt) of one head against the block's
+// span (the q rows' when mine_is_q, else the keys'), the tiles dealt to
+// the warps round robin; one byte each into cls. The caller's next
+// __syncthreads makes them visible.
+__device__ __forceinline__ void classify_tiles(
+    unsigned char* cls, const int* pos, const int* seg, int len, int tile,
+    const Span& mine, bool mine_is_q, bool mine_full, int causal, int warp,
+    int lane) {
+  const int nt = (len + tile - 1) / tile;
+  for (int j = warp; j < nt; j += kThreads / 32) {
+    const Span sp = warp_span(pos, seg, j * tile, tile, len, lane);
+    const bool full = mine_full && (j + 1) * tile <= len;
+    const unsigned char c = mine_is_q ? tile_class(mine, sp, full, causal)
+                                      : tile_class(sp, mine, full, causal);
+    if (lane == 0) cls[j] = c;
+  }
+}
+
+__device__ __forceinline__ int next_live(const unsigned char* cls, int j,
+                                         int nt) {
+  while (j < nt && cls[j] == kSkip) ++j;
+  return j;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// lse in base 2 for exp2; an empty row's NEG_INF (which would overflow) is
+// never used unmasked, so it becomes 0
+__device__ __forceinline__ float lse_log2(float l) {
+  return l > kNegInf * 0.5f ? l * kLog2e : 0.f;
+}
 
 // C[16 x 8*NT] += A[16 x K] * B over K in steps of 16 (A and B in shared
 // memory; see Mma for the B layouts).
@@ -555,6 +795,322 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward pair. A block of 4 warps keeps 64 resident rows (q rows
+// for dq, keys for dk/dv), 16 a warp, and walks the 64-row tiles of the
+// other operand through a two-stage cp.async ring: the next live tile's
+// copies are issued right after the one block barrier of a tile and land
+// while its products run. Every operand reaches the tensor cores by
+// ldmatrix; s/dp stay in registers and become p/ds A fragments without a
+// trip through shared memory. Each tile was classified once, before the
+// walk (skip / all-live / mixed); only mixed tiles read the mask.
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 64;
+
+// shared memory: 2 resident tiles, 2 stages of 2 tiles and `ints` 4-byte
+// values of 64, one class byte per streamed tile
+template <int D>
+size_t bwd_bf16_smem(int ints, int streamed_rows) {
+  const int nt = (streamed_rows + kTile - 1) / kTile;
+  return (size_t)6 * kTile * (D + 8) * sizeof(bf16)
+         + (size_t)2 * ints * kTile * 4 + (size_t)(nt + 15) / 16 * 16;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ qseg,
+    const int* __restrict__ kseg, const int* __restrict__ qpos,
+    const int* __restrict__ kpos, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int Sq, int Skv, int causal, float scale) {
+  constexpr int LD = D + 8, NK = kTile / 8, ND = D / 8, T = kTile * LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sO = sQ + T;                  // dO
+  bf16* sKV = sO + T;                 // stage s: K at 2 s T, V at (2 s + 1) T
+  int* sKi = reinterpret_cast<int*>(sKV + 4 * T);   // stage s: kpos, kseg
+  unsigned char* sCls = reinterpret_cast<unsigned char*>(sKi + 4 * kTile);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;   // heavy tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Skv * D;
+  const int *qp_h = qpos + (size_t)bh * Sq, *qs_h = qseg + (size_t)bh * Sq;
+  const int *kp_h = kpos + (size_t)bh * Skv, *ks_h = kseg + (size_t)bh * Skv;
+
+  copy_rows<D, kTile>(sQ, q + qoff, q0, Sq);
+  copy_rows<D, kTile>(sO, dout + qoff, q0, Sq);
+  cp_async_commit();
+  auto issue = [&](int j, int st) {
+    bf16* dst = sKV + 2 * st * T;
+    copy_rows<D, kTile>(dst, k + koff, j * kTile, Skv);
+    copy_rows<D, kTile>(dst + T, v + koff, j * kTile, Skv);
+    int* di = sKi + 2 * st * kTile;
+    copy_vals(di, kp_h, j * kTile, Skv, 0, kTile);
+    copy_vals(di + kTile, ks_h, j * kTile, Skv, kTile, kTile);
+  };
+
+  int row[2], qp[2], qs[2];
+  bool ok_row[2];
+  float l2[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = q0 + warp * 16 + g + 8 * i;
+    ok_row[i] = row[i] < Sq;
+    const size_t r = (size_t)bh * Sq + row[i];
+    qp[i] = ok_row[i] ? qpos[r] : 0;
+    qs[i] = ok_row[i] ? qseg[r] : -1;
+    l2[i] = ok_row[i] ? lse_log2(lse[r]) : 0.f;
+    dr[i] = ok_row[i] ? delta[r] : 0.f;
+  }
+  const Span mine = warp_span(qp_h, qs_h, q0, kTile, Sq, lane);
+  const int nt = (Skv + kTile - 1) / kTile;
+  classify_tiles(sCls, kp_h, ks_h, Skv, kTile, mine, true, q0 + kTile <= Sq,
+                 causal, warp, lane);
+  __syncthreads();                    // the classes
+  int j = next_live(sCls, 0, nt);
+  if (j < nt) issue(j, 0);
+  cp_async_commit();
+
+  const float sl2 = scale * kLog2e;
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; j < nt; ++it) {
+    cp_async_wait_all();
+    // tile j is visible, and every warp is done with the other stage
+    __syncthreads();
+    const int jn = next_live(sCls, j + 1, nt);
+    if (jn < nt) issue(jn, (it + 1) & 1);
+    cp_async_commit();
+    const bf16* sK = sKV + 2 * (it & 1) * T;
+    const bf16* sV = sK + T;
+    const int* sKp = sKi + 2 * (it & 1) * kTile;
+    const int* sKs = sKp + kTile;
+
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t aq[4], ao[4];
+      ldsm_a(aq, sQ + warp * 16 * LD + kc * 16, LD, lane);
+      ldsm_a(ao, sO + warp * 16 * LD + kc * 16, LD, lane);
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t b[4];
+        ldsm_b_nk(b, sK + np * 16 * LD + kc * 16, LD, lane);
+        mma_bf16(s[2 * np], aq, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], aq, b[2], b[3]);
+        ldsm_b_nk(b, sV + np * 16 * LD + kc * 16, LD, lane);
+        mma_bf16(dp[2 * np], ao, b[0], b[1]);
+        mma_bf16(dp[2 * np + 1], ao, b[2], b[3]);
+      }
+    }
+    const bool mixed = sCls[j] == kMixed;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = n * 8 + 2 * t + (e & 1);
+        float p = exp2f(fmaf(s[n][e], sl2, -l2[i]));
+        if (mixed) {
+          const int ks = sKs[c];
+          const bool ok = qs[i] == ks && ks != 0
+                          && (!causal || qp[i] >= sKp[c]);
+          p = ok ? p : 0.f;
+        }
+        s[n][e] = p * (dp[n][e] - dr[i]) * scale;        // ds
+      }
+    }
+    uint32_t ads[NK / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) acc_to_a(ads[kk], s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) {
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        uint32_t b[4];
+        ldsm_b_kn(b, sK + kk * 16 * LD + np * 16, LD, lane);
+        mma_bf16(acc[2 * np], ads[kk], b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], ads[kk], b[2], b[3]);
+      }
+    }
+    j = jn;
+  }
+  cp_async_wait_all();                // nothing in flight at exit
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!ok_row[i]) continue;
+    bf16* dst = dq + qoff + (size_t)row[i] * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+          __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ qseg,
+    const int* __restrict__ kseg, const int* __restrict__ qpos,
+    const int* __restrict__ kpos, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv,
+    int causal, float scale) {
+  constexpr int LD = D + 8, NQ = kTile / 8, ND = D / 8, T = kTile * LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + T;
+  bf16* sQO = sV + T;                 // stage s: Q at 2 s T, dO at (2 s + 1) T
+  int* sQi = reinterpret_cast<int*>(sQO + 4 * T);   // stage s: qpos, qseg, lse, delta
+  unsigned char* sCls = reinterpret_cast<unsigned char*>(sQi + 8 * kTile);
+
+  const int bh = blockIdx.x, k0 = blockIdx.y * kTile;   // early keys: most work
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Skv * D;
+  const int *qp_h = qpos + (size_t)bh * Sq, *qs_h = qseg + (size_t)bh * Sq;
+  const int *kp_h = kpos + (size_t)bh * Skv, *ks_h = kseg + (size_t)bh * Skv;
+  const float *l_h = lse + (size_t)bh * Sq, *d_h = delta + (size_t)bh * Sq;
+
+  copy_rows<D, kTile>(sK, k + koff, k0, Skv);
+  copy_rows<D, kTile>(sV, v + koff, k0, Skv);
+  cp_async_commit();
+  auto issue = [&](int j, int st) {
+    bf16* dst = sQO + 2 * st * T;
+    copy_rows<D, kTile>(dst, q + qoff, j * kTile, Sq);
+    copy_rows<D, kTile>(dst + T, dout + qoff, j * kTile, Sq);
+    int* di = sQi + 4 * st * kTile;
+    copy_vals(di, qp_h, j * kTile, Sq, 0, kTile);
+    copy_vals(di + kTile, qs_h, j * kTile, Sq, kTile, kTile);
+    float* df = reinterpret_cast<float*>(di + 2 * kTile);
+    copy_vals(df, l_h, j * kTile, Sq, 0, kTile);
+    copy_vals(df + kTile, d_h, j * kTile, Sq, kTile, kTile);
+  };
+
+  int key[2], kp[2], ks[2];
+  bool ok_key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key[i] = k0 + warp * 16 + g + 8 * i;
+    ok_key[i] = key[i] < Skv;
+    kp[i] = ok_key[i] ? kp_h[key[i]] : 0;
+    ks[i] = ok_key[i] ? ks_h[key[i]] : 0;       // 0: never live
+  }
+  const Span mine = warp_span(kp_h, ks_h, k0, kTile, Skv, lane);
+  const int nt = (Sq + kTile - 1) / kTile;
+  classify_tiles(sCls, qp_h, qs_h, Sq, kTile, mine, false, k0 + kTile <= Skv,
+                 causal, warp, lane);
+  __syncthreads();                    // the classes
+  int j = next_live(sCls, 0, nt);
+  if (j < nt) issue(j, 0);
+  cp_async_commit();
+
+  const float sl2 = scale * kLog2e;
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = 0; j < nt; ++it) {
+    cp_async_wait_all();
+    __syncthreads();                  // as in the dq kernel
+    const int jn = next_live(sCls, j + 1, nt);
+    if (jn < nt) issue(jn, (it + 1) & 1);
+    cp_async_commit();
+    const bf16* sQ = sQO + 2 * (it & 1) * T;
+    const bf16* sO = sQ + T;
+    const int* sQp = sQi + 4 * (it & 1) * kTile;
+    const int* sQs = sQp + kTile;
+    const float* sL = reinterpret_cast<const float*>(sQs + kTile);
+    const float* sDl = sL + kTile;
+
+    // s^T = K Q^T and dp^T = V dO^T (keys as rows)
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t ak[4], av[4];
+      ldsm_a(ak, sK + warp * 16 * LD + kc * 16, LD, lane);
+      ldsm_a(av, sV + warp * 16 * LD + kc * 16, LD, lane);
+#pragma unroll
+      for (int np = 0; np < NQ / 2; ++np) {
+        uint32_t b[4];
+        ldsm_b_nk(b, sQ + np * 16 * LD + kc * 16, LD, lane);
+        mma_bf16(s[2 * np], ak, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], ak, b[2], b[3]);
+        ldsm_b_nk(b, sO + np * 16 * LD + kc * 16, LD, lane);
+        mma_bf16(dp[2 * np], av, b[0], b[1]);
+        mma_bf16(dp[2 * np + 1], av, b[2], b[3]);
+      }
+    }
+    const bool mixed = sCls[j] == kMixed;
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = n * 8 + 2 * t + (e & 1);
+        float p = exp2f(fmaf(s[n][e], sl2, -lse_log2(sL[c])));
+        if (mixed) {
+          const bool ok = sQs[c] == ks[i] && ks[i] != 0
+                          && (!causal || sQp[c] >= kp[i]);
+          p = ok ? p : 0.f;
+        }
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - sDl[c]) * scale;      // ds^T
+      }
+    }
+    uint32_t ap[NQ / 2][4], ads[NQ / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < NQ / 2; ++kk) {
+      acc_to_a(ap[kk], s[2 * kk], s[2 * kk + 1]);
+      acc_to_a(ads[kk], dp[2 * kk], dp[2 * kk + 1]);
+    }
+    // dv += p^T dO, dk += ds^T Q
+#pragma unroll
+    for (int kk = 0; kk < NQ / 2; ++kk) {
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        uint32_t b[4];
+        ldsm_b_kn(b, sO + kk * 16 * LD + np * 16, LD, lane);
+        mma_bf16(dva[2 * np], ap[kk], b[0], b[1]);
+        mma_bf16(dva[2 * np + 1], ap[kk], b[2], b[3]);
+        ldsm_b_kn(b, sQ + kk * 16 * LD + np * 16, LD, lane);
+        mma_bf16(dka[2 * np], ads[kk], b[0], b[1]);
+        mma_bf16(dka[2 * np + 1], ads[kk], b[2], b[3]);
+      }
+    }
+    j = jn;
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!ok_key[i]) continue;
+    const size_t off = koff + (size_t)key[i] * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
+          __floats2bfloat162_rn(dka[n][2 * i], dka[n][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
+          __floats2bfloat162_rn(dva[n][2 * i], dva[n][2 * i + 1]);
+    }
+  }
+}
+
 template <typename T, int D>
 size_t fwd_smem() {
   return (size_t)(kRows + 2 * kKeys) * (D + 8) * sizeof(T)
@@ -593,15 +1149,28 @@ int launch_dq(const void* q, const void* k, const void* v, const int* qseg,
               const void* dout, const float* lse, const float* delta, void* dq,
               int BH, int Sq, int Skv, int causal, float scale,
               cudaStream_t st) {
-  const size_t smem = dq_smem<T, D>();
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid(BH, (Sq + kRows - 1) / kRows);
-  kern<<<grid, kThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, qseg, kseg, qpos, kpos,
-      (const T*)dout, lse, delta, (T*)dq, Sq, Skv, causal, scale);
-  return (int)cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    const size_t smem = bwd_bf16_smem<D>(2, Skv);
+    auto kern = flash_bwd_dq_bf16_kernel<D>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    dim3 grid(BH, (Sq + kTile - 1) / kTile);
+    kern<<<grid, kThreads, smem, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, qseg, kseg, qpos,
+        kpos, (const bf16*)dout, lse, delta, (bf16*)dq, Sq, Skv, causal,
+        scale);
+    return (int)cudaGetLastError();
+  } else {                            // fp32: the first design
+    const size_t smem = dq_smem<T, D>();
+    auto kern = flash_bwd_dq_kernel<T, D>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    dim3 grid(BH, (Sq + kRows - 1) / kRows);
+    kern<<<grid, kThreads, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, qseg, kseg, qpos, kpos,
+        (const T*)dout, lse, delta, (T*)dq, Sq, Skv, causal, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -610,15 +1179,28 @@ int launch_dkv(const void* q, const void* k, const void* v, const int* qseg,
                const void* dout, const float* lse, const float* delta,
                void* dk, void* dv, int BH, int Sq, int Skv, int causal,
                float scale, cudaStream_t st) {
-  const size_t smem = dkv_smem<T, D>();
-  auto kern = flash_bwd_dkv_kernel<T, D>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid(BH, (Skv + kRows - 1) / kRows);
-  kern<<<grid, kThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, qseg, kseg, qpos, kpos,
-      (const T*)dout, lse, delta, (T*)dk, (T*)dv, Sq, Skv, causal, scale);
-  return (int)cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    const size_t smem = bwd_bf16_smem<D>(4, Sq);
+    auto kern = flash_bwd_dkv_bf16_kernel<D>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    dim3 grid(BH, (Skv + kTile - 1) / kTile);
+    kern<<<grid, kThreads, smem, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, qseg, kseg, qpos,
+        kpos, (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv, Sq, Skv,
+        causal, scale);
+    return (int)cudaGetLastError();
+  } else {                            // fp32: the first design
+    const size_t smem = dkv_smem<T, D>();
+    auto kern = flash_bwd_dkv_kernel<T, D>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    dim3 grid(BH, (Skv + kRows - 1) / kRows);
+    kern<<<grid, kThreads, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, qseg, kseg, qpos, kpos,
+        (const T*)dout, lse, delta, (T*)dk, (T*)dv, Sq, Skv, causal, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace

@@ -198,6 +198,8 @@ def _assert_bf16_close(a, b):
     (2, 200, 4, 4, 64),      # B, S, Nq, Nkv, D: a ragged tail
     (1, 256, 8, 2, 128),     # GQA
     (2, 96, 2, 1, 64),
+    (2, 300, 8, 2, 64),      # GQA fold G=4
+    (2, 300, 8, 2, 128),
 ])
 def test_flash_kernels_match_plain(geom, packed, dtype):
     """Forward (out, lse) and the gradients through both backward kernels
@@ -264,6 +266,117 @@ def test_flash_raw_entry_points_with_restarting_positions(dtype):
             assert _rel(a, b) <= 1e-4
         else:
             _assert_bf16_close(a, b)
+
+
+def _bwd_raw_case(BH, Sq, Skv, D, dtype, qpos=None, kpos=None, qseg=None,
+                  kseg=None, seed=0):
+    """Inputs of the raw backward pair on the folded layout: random q, k,
+    v, dO; segments 1 and positions 0.. unless given; lse from the plain
+    forward; delta = rowsum(dO * O) plus noise, as a ring-attention chunk
+    gets a global delta, so that no row's ds cancels to rounding (a row
+    that sees one key has p = 1 and dp = rowsum(dO * O) exactly)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rows(n):
+        return torch.randn(BH, n, D, generator=g, device="cuda").to(dtype)
+
+    def ints(t, n, fill):
+        if t is None:
+            t = (torch.arange(n, device="cuda") if fill is None
+                 else torch.full((n,), fill, device="cuda"))
+        t = t.to(device="cuda", dtype=torch.int32)
+        return t.expand(BH, n).reshape(BH, 1, n).contiguous()
+    q, k, v, do = rows(Sq), rows(Skv), rows(Skv), rows(Sq)
+    sq, sk = ints(qseg, Sq, 1), ints(kseg, Skv, 1)
+    pq, pk = ints(qpos, Sq, None), ints(kpos, Skv, None)
+    scale = 1.0 / D ** 0.5
+    out, lse = fa._fwd_plain(q, k, v, sq, sk, pq, pk, True, scale)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    delta = delta + torch.randn(delta.shape, generator=g, device="cuda")
+    return (q, k, v, sq, sk, pq, pk, do, lse, delta, True, scale)
+
+
+def _check_bwd_pair(args, dtype):
+    """The dq and dk/dv kernels against their plain versions; returns the
+    kernels' (dq, dk, dv)."""
+    before = (fac.flash_bwd_dq.launches, fac.flash_bwd_dkv.launches)
+    got = (fac.flash_bwd_dq(*args), *fac.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert (fac.flash_bwd_dq.launches, fac.flash_bwd_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = (fa._bwd_dq_plain(*args), *fa._bwd_dkv_plain(*args))
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        if dtype == torch.float32:
+            assert _rel(a, b) <= 1e-4
+        else:
+            _assert_bf16_close(a, b)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 63, 65, 1000])
+def test_flash_bwd_pair_at_tile_edges(S, dtype):
+    """Sequences shorter than, one short of, one past and far from a
+    multiple of the kernels' 64-row tiles."""
+    _need_card()
+    _check_bwd_pair(_bwd_raw_case(3, S, S, 128, dtype, seed=S), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_pair_on_a_ring_chunk(dtype):
+    """Sq != Skv with offset global positions, as ring attention drives
+    _bwd_impl: a q chunk at positions 300.. against a kv chunk at 250..,
+    so some tiles are all live, some mixed and some skipped."""
+    _need_card()
+    Sq, Skv = 320, 200
+    args = _bwd_raw_case(2, Sq, Skv, 64, dtype,
+                         qpos=torch.arange(300, 300 + Sq),
+                         kpos=torch.arange(250, 250 + Skv) * 2, seed=7)
+    got = _check_bwd_pair(args, dtype)
+    via_impl = fa._bwd_impl(*args[:10], True, 512, 512, args[-1],
+                            impl="kernel")
+    for a, b in zip(got, via_impl):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_pair_with_rows_that_see_no_key(dtype):
+    """q rows whose segment no key has (lse NEG_INF): their dq is zero,
+    and they add nothing to dk/dv."""
+    _need_card()
+    S = 200
+    qseg = torch.ones(S, dtype=torch.int32)
+    qseg[70:140] = 5                         # no key is in segment 5
+    args = _bwd_raw_case(2, S, S, 128, dtype, qseg=qseg, seed=3)
+    assert bool((args[8][:, 70:140] < fa.NEG_INF / 2).all())
+    dq, _, _ = _check_bwd_pair(args, dtype)
+    assert not bool(dq[:, 70:140].any())
+
+
+@pytest.mark.gpu
+def test_flash_bwd_pair_at_gpt_1b_shape():
+    """B=1, S=2048, 16 heads, D=128, bf16, causal: the training shape."""
+    _need_card()
+    _check_bwd_pair(_bwd_raw_case(16, 2048, 2048, 128, torch.bfloat16,
+                                  seed=11), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_pair_is_deterministic(dtype):
+    """Two calls on the same inputs give the same bits (no atomics; every
+    output element is written by one block)."""
+    _need_card()
+    args = _bwd_raw_case(4, 700, 700, 128, dtype, seed=13)
+    first = (fac.flash_bwd_dq(*args), *fac.flash_bwd_dkv(*args))
+    second = (fac.flash_bwd_dq(*args), *fac.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
