@@ -34,17 +34,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              and bf16 (2e-2 of the max; each element within one bf16
              rounding of itself plus 2.5e-2 of its row's rms; rms error
              5e-3 of the rms; lse 1e-4); every CUDA call counted at its
-             kernel; the raw bf16 backward run twice gives equal bits;
+             kernel; the raw bf16 forward and backward, each run twice,
+             give equal bits;
 8. adamw   — the fused AdamW kernel bitwise equal to its plain version on
              every gpt-1b leaf shape, fp32 and bf16 moments, with and
              without decay, clip scale < 1;
 9. train timing — CUDA-event times of the three flash kernels at the
              training shape (micro-batch x 2048, bf16, causal) and of one
              AdamW update of every gpt-1b leaf, beside their plain versions,
-             SDPA / torch._fused_adamw_ and their bounds; each backward
-             kernel's share of its bound, the pair over SDPA's backward
-             (printed, not gated) and ptxas's registers and spills of the
-             bf16 backward kernels;
+             SDPA / torch._fused_adamw_ and their bounds; each flash
+             kernel's share of its bound, the forward over SDPA's forward
+             and the backward pair over SDPA's backward (printed, not
+             gated) and ptxas's registers and spills of the bf16 flash
+             kernels;
 10. train  — the port's training path: TrainingEngine trains gpt-1b at
              full width and depth (24 layers, H=2048, vocab 50304; random
              fp32 masters from seed 42, synthetic data, S=2048, fused AdamW
@@ -662,6 +664,15 @@ def flash_against_plain(torch, fa, fac) -> dict:
                              scale, impl="kernel")
             op, lp = fa._fwd(qf, kf, vf, sq, sk, pq, pk, True, 512, 512,
                              scale, impl="plain")
+            if dtype == torch.bfloat16:     # one block a row: the same bits
+                again = fa._fwd(qf, kf, vf, sq, sk, pq, pk, True, 512, 512,
+                                scale, impl="kernel")
+                same = [torch.equal(a, b) for a, b in zip((ok, lk), again)]
+                check(all(same), f"{label}: a second kernel forward is not "
+                      f"bitwise equal (out, lse: {same})")
+                print(f"flash determinism {label}: out, lse of two kernel "
+                      f"forward calls bitwise equal", flush=True)
+                del again
             delta = (dof.float() * op.float()).sum(-1, keepdim=True)
             grads = [fa._bwd_impl(qf, kf, vf, sq, sk, pq, pk, dof, lp, delta,
                                   True, 512, 512, scale, impl=impl)
@@ -750,7 +761,7 @@ def adamw_against_plain(torch, fu, kernel) -> float:
 def flash_timing(torch, F, fa, fac, cfg, B: int, build_log: str = "") -> dict:
     """The three flash kernels at the training shape (B x 2048, bf16,
     causal), beside their plain versions, SDPA and their bounds; the
-    ptxas figures of the bf16 backward kernels from ``build_log``."""
+    ptxas figures of the bf16 flash kernels from ``build_log``."""
     from distributed_llm_training_and_inference_system_tpu_torch import (
         profile_flash as pf)
     S, Nq, Nkv, D = 2048, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -809,16 +820,11 @@ def flash_timing(torch, F, fa, fac, cfg, B: int, build_log: str = "") -> dict:
                - ref.float()).abs().max().item()
     fac.flash_fwd.launches = saved[0]
 
-    # the bound: causal pairs of this run (every row attends row + 1 keys);
-    # the backward pair's from profile_flash, which times it alone
-    pairs = B * Nq * S * (S + 1) // 2
-    item = 2
-    qkv = (q.numel() + k.numel() + v.numel()) * item
-    rows = (sq.numel() + pq.numel() + sk.numel() + pk.numel()) * 4
-    work = {"flash_fwd": (4 * D * pairs, qkv + q.numel() * item
-                          + lse.numel() * 4 + rows)}
-    for name, w in pf.bwd_work(B, S, Nq, Nkv, D, item).items():
-        work[name] = (w["ops"], w["bytes"])
+    # the bound: causal pairs of this run (every row attends row + 1 keys),
+    # counted by profile_flash, which times the kernels alone
+    work = {name: (w["ops"], w["bytes"]) for name, w in dict(
+        flash_fwd=pf.fwd_work(B, S, Nq, Nkv, D),
+        **pf.bwd_work(B, S, Nq, Nkv, D)).items()}
     res = {}
     for name, (ops, nbytes) in work.items():
         t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
@@ -850,22 +856,26 @@ def flash_timing(torch, F, fa, fac, cfg, B: int, build_log: str = "") -> dict:
           f"{b['plain_ms']:.4f} ms, SDPA backward {b['library_ms']:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms; SDPA forward vs kernel max_abs_err "
           f"{lib_err:.3e}", flush=True)
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         r = res[name]
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         print(f"{name}: {r['share_of_bound']:.1%} of its bound "
               f"({r['bound_ms']:.4f} / {r['ms']:.4f} ms)", flush=True)
+    f = res["flash_fwd"]
+    f["over_library"] = f["ms"] / f["library_ms"]
+    print(f"flash forward / SDPA forward: {f['over_library']:.2f}x "
+          f"(printed, not gated)", flush=True)
     b["over_library"] = b["kernels_ms"] / b["library_ms"]
     print(f"flash backward pair / SDPA backward: {b['over_library']:.2f}x "
           f"(printed, not gated)", flush=True)
-    figs = pf.bwd_ptxas(build_log, S)
+    figs = {**pf.fwd_ptxas(build_log, S), **pf.bwd_ptxas(build_log, S)}
     for name, f in figs.items():
         print(f"ptxas {name}: {f.get('registers')} registers, spill "
               f"stores/loads {f.get('spill_stores')}/{f.get('spill_loads')} "
               f"B, {f['smem_bytes']} B shared a block at S={S}, "
               f"{f['resident_blocks']} blocks an SM", flush=True)
     if not figs:
-        print("ptxas: the build log holds no bf16 backward figures (the "
+        print("ptxas: the build log holds no bf16 flash figures (the "
               "library was built before this run)", flush=True)
     res["ptxas"] = figs
     return res

@@ -20,10 +20,27 @@
 // out of device memory and runs the bf16 products on the tensor cores with
 // mma.sync m16n8k16 and fp32 accumulation.
 //
-// Forward (the first design): one block of 4 warps per 64 q rows, each warp
-// 16 rows, so the online-softmax statistics of a row live in the 4 lanes
-// that hold it; fragments by 4-byte shared loads, tiles loaded
-// synchronously, p through shared memory.
+// bf16 forward (flash_fwd_bf16_kernel): a block of 4 warps owns 128 q
+// rows, 32 a warp (two m16 tiles, so every K and V fragment that ldmatrix
+// brings feeds two mma), and the online-softmax statistics of a row live
+// in the 4 lanes that hold it. The Q tile is copied once by cp.async; a
+// warp reads its A fragments from it by ldmatrix at each k-step (with 16
+// rows a warp they fit in registers for the whole walk, but that design
+// ran at 0.36 ms against this one's 0.31). K, V and the keys' positions
+// and segments stream through the backward's two-stage cp.async ring
+// below, one block barrier a tile, each kv tile classified before the
+// walk (skip: never loaded; all-live: no mask; mixed: the per-element
+// mask, with the block's q positions and segments kept in shared memory).
+// A 64-key tile is taken in two steps of 32 keys, so s needs 32
+// accumulator registers, not 64, and nothing spills. A row's running max
+// m is kept raw (the max commutes with the positive scale, so lse = m *
+// scale + log l is the plain version's m), and p = 2^(s c - m c), c =
+// scale * log2(e), is one fma and one ex2.approx (a masked score is
+// NEG_INF, so s c is at most -inf and p is 0; liveness is tested on the
+// raw m, m > NEG_INF / 2). l sums the fp32 p per lane and once over the
+// quad at the end; p, rounded to bf16 once, is the A fragment of p.v,
+// whose B fragments come from V by ldmatrix.trans. out leaves by 4-byte
+// bf16x2 stores, lse from lane t = 0 of each row quad.
 //
 // bf16 backward (flash_bwd_*_bf16_kernel): a block of 4 warps keeps 64
 // resident rows (q and dO for dq, K and V for dk/dv, 16 rows a warp) and
@@ -49,23 +66,30 @@
 // block, with no atomics: repeated calls give equal bits. exp2 with
 // log2(e) folded into the scale.
 //
-// ptxas -v (sm_90a), 0 spill bytes in all four; shared memory per block at
-// S = 2048 (6 tiles of 64 x (D + 8) bf16, two stages of the per-row arrays,
-// a class byte a tile); resident blocks an SM, registers and shared memory
-// both allowing 2 (8 warps):
+// ptxas -v (sm_90a), 0 spill bytes in all six; shared memory per block at
+// S = 2048 (the backward: 6 tiles of 64 x (D + 8) bf16, two stages of the
+// per-row arrays, a class byte a tile; the forward: a Q tile of 128 rows,
+// 4 tiles of 64, the row arrays); resident blocks an SM, registers and
+// shared memory both allowing 2 (8 warps):
+//   fwd  D=128: 255 registers, 106,528 B    fwd  D=64: 215, 57,376 B
 //   dq   D=128: 236 registers, 105,504 B    dq   D=64: 194, 56,352 B
 //   dkv  D=128: 255 registers, 106,528 B    dkv  D=64: 221, 57,376 B
 // On an H100 80GB HBM3 at 700 W, B=4 x 2048, 16/16 heads, D=128, causal:
-// dq 0.50 ms (21% of its 0.104 ms bound), dk/dv 0.65 ms (21% of 0.139).
-// What comes next: wgmma with TMA-fed tiles and warp specialisation, and
-// the two-pass recompute of s and dp (seven products where one fused pass
-// with dq by atomics would take five).
+// fwd 0.31 ms (22% of its 0.0695 ms bound), dq 0.50 ms (21% of its 0.104
+// ms bound), dk/dv 0.65 ms (21% of 0.139). What holds them: mma.sync with
+// a barrier a tile and 8 warps an SM leaves the tensor cores waiting on
+// each warp's chain (products, then the softmax, then the next product).
+// What comes next: wgmma with TMA-fed tiles and warp specialisation (one
+// warpgroup's softmax under another's products), and for the backward the
+// two-pass recompute of s and dp (seven products where one fused pass with
+// dq by atomics would take five).
 //
 // fp32 (a verification path, not a fast one) keeps the first design for
-// all three: the same fragment layout computed with scalar fp32 FMAs, 32 q
-// rows a dk/dv tile, synchronous tile loads. A block skips a tile pair
-// only when causal and the true minimum kv position of the tile exceeds
-// the true maximum q position of the block.
+// all three (one block of 4 warps per 64 q rows or keys, tiles loaded
+// synchronously, p and ds through shared memory): the same fragment
+// layout computed with scalar fp32 FMAs, 32 q rows a dk/dv tile. A block
+// skips a tile pair only when causal and the true minimum kv position of
+// the tile exceeds the true maximum q position of the block.
 //
 // Numerics follow the TPU kernels: scores are (q.k)*scale in fp32; masked
 // scores are NEG_INF = -0.7 * FLT_MAX; p = exp(s - m) is 0 while the
@@ -90,13 +114,8 @@ constexpr int kQDkv = 32;         // q rows per q tile in the fp32 dkv kernel
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Warp-level C[16x8] += A[16x16] * B[16x8] in the mma.sync m16n8k16
 // fragment layout: lane = 4*g + t holds C rows g and g+8, columns 2t and
@@ -105,40 +124,6 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
 // B[n][k] (KN = false, rows of a row-major [n, k] tile) or as B[k][n]
 // (KN = true).
 template <typename T> struct Mma;
-
-template <> struct Mma<bf16> {
-  struct A { uint32_t a[4]; };
-  __device__ __forceinline__ static void load_a(A& f, const bf16* p, int lda,
-                                                int g, int t) {
-    f.a[0] = *reinterpret_cast<const uint32_t*>(p + g * lda + 2 * t);
-    f.a[1] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * lda + 2 * t);
-    f.a[2] = *reinterpret_cast<const uint32_t*>(p + g * lda + 8 + 2 * t);
-    f.a[3] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * lda + 8 + 2 * t);
-  }
-  __device__ __forceinline__ static uint32_t pack(bf16 lo, bf16 hi) {
-    return (uint32_t)__bfloat16_as_ushort(lo)
-           | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-  }
-  template <bool KN>
-  __device__ __forceinline__ static void mma(float c[4], const A& f,
-                                             const bf16* b, int ldb, int g,
-                                             int t) {
-    uint32_t b0, b1;
-    if (KN) {
-      b0 = pack(b[(2 * t) * ldb + g], b[(2 * t + 1) * ldb + g]);
-      b1 = pack(b[(2 * t + 8) * ldb + g], b[(2 * t + 9) * ldb + g]);
-    } else {
-      b0 = *reinterpret_cast<const uint32_t*>(b + g * ldb + 2 * t);
-      b1 = *reinterpret_cast<const uint32_t*>(b + g * ldb + 8 + 2 * t);
-    }
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(f.a[0]), "r"(f.a[1]), "r"(f.a[2]), "r"(f.a[3]), "r"(b0),
-          "r"(b1));
-  }
-};
 
 template <> struct Mma<float> {
   struct A { const float* p; int lda; };
@@ -1111,6 +1096,245 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_bf16_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward. A block of 4 warps owns 128 q rows, 32 a warp (two
+// m16 tiles, so each K and V fragment feeds two mma). The Q tile is copied
+// once by cp.async; each warp reads its A fragments from it by ldmatrix at
+// every k-step of q.k^T. K, V and the keys' positions and segments stream
+// through the backward's two-stage ring, one block barrier a tile, the
+// tiles classified before the walk. A 64-key tile is taken in two steps of
+// 32 keys (s then needs 32 accumulator registers, not 64, and nothing
+// spills): s stays in the mma accumulators, the online softmax runs on the
+// row quads, and p, rounded once, is the A fragment of p.v.
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdRows = 128;         // q rows a block
+constexpr int kFwdStep = 32;          // keys a softmax step
+
+// 2^x by the SFU (ex2.approx.ftz: 2 ulp; p is rounded to bf16 anyway)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// shared memory: the Q tile, 2 stages of K and V tiles and of kpos/kseg,
+// the block's q positions and segments, one class byte per kv tile
+template <int D>
+size_t fwd_bf16_smem(int Skv) {
+  const int nt = (Skv + kTile - 1) / kTile;
+  return (size_t)(kFwdRows + 4 * kTile) * (D + 8) * sizeof(bf16)
+         + (size_t)(4 * kTile + 2 * kFwdRows) * 4
+         + (size_t)(nt + 15) / 16 * 16;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ qseg,
+    const int* __restrict__ kseg, const int* __restrict__ qpos,
+    const int* __restrict__ kpos, bf16* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Skv, int causal, float scale) {
+  constexpr int LD = D + 8, ND = D / 8, KS = D / 16, NS = kFwdStep;
+  constexpr int T = kTile * LD, BR = kFwdRows, MT = BR / 64, WR = 16 * MT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sKV = sQ + BR * LD;           // stage s: K at 2 s T, V at (2 s + 1) T
+  int* sKi = reinterpret_cast<int*>(sKV + 4 * T);   // stage s: kpos, kseg
+  int* sQr = sKi + 4 * kTile;                       // qpos, qseg of the rows
+  unsigned char* sCls = reinterpret_cast<unsigned char*>(sQr + 2 * BR);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;      // heavy tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Skv * D;
+  const int *qp_h = qpos + (size_t)bh * Sq, *qs_h = qseg + (size_t)bh * Sq;
+  const int *kp_h = kpos + (size_t)bh * Skv, *ks_h = kseg + (size_t)bh * Skv;
+
+  // the Q tile, and the rows' positions and segments, read by mixed tiles
+  // only (rows past Sq get segment 0: never live)
+  copy_rows<D, BR>(sQ, q + qoff, q0, Sq);
+  copy_vals(sQr, qp_h, q0, Sq, 0, BR);
+  copy_vals(sQr + BR, qs_h, q0, Sq, 0, BR);
+  cp_async_commit();
+  auto issue = [&](int j, int st) {
+    bf16* dst = sKV + 2 * st * T;
+    copy_rows<D, kTile>(dst, k + koff, j * kTile, Skv);
+    copy_rows<D, kTile>(dst + T, v + koff, j * kTile, Skv);
+    int* di = sKi + 2 * st * kTile;
+    copy_vals(di, kp_h, j * kTile, Skv, 0, kTile);
+    copy_vals(di + kTile, ks_h, j * kTile, Skv, kTile, kTile);
+  };
+
+  const Span mine = warp_span(qp_h, qs_h, q0, BR, Sq, lane);
+  const int nt = (Skv + kTile - 1) / kTile;
+  classify_tiles(sCls, kp_h, ks_h, Skv, kTile, mine, true, q0 + BR <= Sq,
+                 causal, warp, lane);
+  cp_async_wait_all();
+  __syncthreads();                    // the classes, the Q tile, the rows
+  int j = next_live(sCls, 0, nt);
+  if (j < nt) issue(j, 0);
+  cp_async_commit();
+
+  const bf16* sQw = sQ + warp * WR * LD;
+  const float sl2 = scale * kLog2e;
+  float m[MT][2], l[MT][2], o[MT][ND][4];   // m raw; l per lane
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[mt][i] = kNegInf;
+      l[mt][i] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][n][e] = 0.f;
+  }
+
+  for (int it = 0; j < nt; ++it) {
+    cp_async_wait_all();
+    // tile j is visible, and every warp is done with the other stage
+    __syncthreads();
+    const int jn = next_live(sCls, j + 1, nt);
+    if (jn < nt) issue(jn, (it + 1) & 1);
+    cp_async_commit();
+    const bf16* sK = sKV + 2 * (it & 1) * T;
+    const bf16* sV = sK + T;
+    const int* sKp = sKi + 2 * (it & 1) * kTile;
+    const int* sKs = sKp + kTile;
+    const bool mixed = sCls[j] == kMixed;
+
+#pragma unroll
+    for (int h = 0; h < kTile / NS; ++h) {
+      const bf16* sKh = sK + h * NS * LD;
+      const bf16* sVh = sV + h * NS * LD;
+      // s = Q K^T over this step's keys
+      float s[MT][NS / 8][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NS / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < KS; ++kc) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldsm_a(a[mt], sQw + mt * 16 * LD + kc * 16, LD, lane);
+#pragma unroll
+        for (int np = 0; np < NS / 16; ++np) {
+          uint32_t b[4];
+          ldsm_b_nk(b, sKh + np * 16 * LD + kc * 16, LD, lane);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][2 * np], a[mt], b[0], b[1]);
+            mma_bf16(s[mt][2 * np + 1], a[mt], b[2], b[3]);
+          }
+        }
+      }
+
+      // online softmax: m is the raw max (max commutes with the positive
+      // scale), p = 2^(s sl2 - m sl2) by one fma; a masked score is
+      // NEG_INF, and NEG_INF * sl2 is at most -inf, whose exp2 is 0; p = 0
+      // while a row's max is NEG_INF
+      uint32_t ap[MT][NS / 16][4];    // p rounded to bf16: A fragments
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (mixed) {
+#pragma unroll
+          for (int n = 0; n < NS / 8; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = warp * WR + mt * 16 + g + 8 * (e >> 1);
+              const int c = h * NS + n * 8 + 2 * t + (e & 1), ks = sKs[c];
+              const bool ok = sQr[BR + r] == ks && ks != 0
+                              && (!causal || sQr[r] >= sKp[c]);
+              s[mt][n][e] = ok ? s[mt][n][e] : kNegInf;
+            }
+          }
+        }
+        float mcur[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int n = 0; n < NS / 8; ++n) {
+          mcur[0] = fmaxf(mcur[0], fmaxf(s[mt][n][0], s[mt][n][1]));
+          mcur[1] = fmaxf(mcur[1], fmaxf(s[mt][n][2], s[mt][n][3]));
+        }
+        float alpha[2], sub[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float mnew = fmaxf(m[mt][i], quad_max(mcur[i]));
+          const bool live = mnew > kNegInf * 0.5f;
+          alpha[i] = fast_exp2(live ? (m[mt][i] - mnew) * sl2 : 0.f);
+          sub[i] = live ? mnew * sl2 : 0.f;
+          m[mt][i] = mnew;
+        }
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < NS / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = fast_exp2(fmaf(s[mt][n][e], sl2, -sub[e >> 1]));
+            rs[e >> 1] += p;
+            s[mt][n][e] = p;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < NS / 16; ++kk)
+          acc_to_a(ap[mt][kk], s[mt][2 * kk], s[mt][2 * kk + 1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l[mt][i] = alpha[i] * l[mt][i] + rs[i];
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          o[mt][n][0] *= alpha[0];
+          o[mt][n][1] *= alpha[0];
+          o[mt][n][2] *= alpha[1];
+          o[mt][n][3] *= alpha[1];
+        }
+      }
+
+      // o += p V over this step's keys
+#pragma unroll
+      for (int kk = 0; kk < NS / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < ND / 2; ++np) {
+          uint32_t b[4];
+          ldsm_b_kn(b, sVh + kk * 16 * LD + np * 16, LD, lane);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(o[mt][2 * np], ap[mt][kk], b[0], b[1]);
+            mma_bf16(o[mt][2 * np + 1], ap[mt][kk], b[2], b[3]);
+          }
+        }
+      }
+    }
+    j = jn;
+  }
+  cp_async_wait_all();                // nothing in flight at exit
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float lt = quad_sum(l[mt][i]);    // every lane: a warp shuffle
+      const int r = q0 + warp * WR + mt * 16 + g + 8 * i;
+      if (r >= Sq) continue;
+      const float inv = lt > 0.f ? 1.f / lt : 1.f;
+      bf16* dst = out + qoff + (size_t)r * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+            __floats2bfloat162_rn(o[mt][n][2 * i] * inv,
+                                  o[mt][n][2 * i + 1] * inv);
+      if (t == 0)
+        lse[(size_t)bh * Sq + r] =
+            lt > 0.f ? m[mt][i] * scale + logf(lt) : kNegInf;
+    }
+  }
+}
+
 template <typename T, int D>
 size_t fwd_smem() {
   return (size_t)(kRows + 2 * kKeys) * (D + 8) * sizeof(T)
@@ -1132,15 +1356,27 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* qseg,
                const int* kseg, const int* qpos, const int* kpos, void* out,
                float* lse, int BH, int Sq, int Skv, int causal, float scale,
                cudaStream_t st) {
-  const size_t smem = fwd_smem<T, D>();
-  auto kern = flash_fwd_kernel<T, D>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid(BH, (Sq + kRows - 1) / kRows);
-  kern<<<grid, kThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, qseg, kseg, qpos, kpos, (T*)out,
-      lse, Sq, Skv, causal, scale);
-  return (int)cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    const size_t smem = fwd_bf16_smem<D>(Skv);
+    auto kern = flash_fwd_bf16_kernel<D>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    dim3 grid(BH, (Sq + kFwdRows - 1) / kFwdRows);
+    kern<<<grid, kThreads, smem, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, qseg, kseg, qpos,
+        kpos, (bf16*)out, lse, Sq, Skv, causal, scale);
+    return (int)cudaGetLastError();
+  } else {                            // fp32: the first design
+    const size_t smem = fwd_smem<T, D>();
+    auto kern = flash_fwd_kernel<T, D>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    dim3 grid(BH, (Sq + kRows - 1) / kRows);
+    kern<<<grid, kThreads, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, qseg, kseg, qpos, kpos,
+        (T*)out, lse, Sq, Skv, causal, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int D>

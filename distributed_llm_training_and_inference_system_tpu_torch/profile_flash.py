@@ -1,14 +1,16 @@
-"""Device time of the flash-attention backward pair at the training shape.
+"""Device time of the flash-attention kernels at the training shape.
 
     python -m distributed_llm_training_and_inference_system_tpu_torch.profile_flash \
         [--batch 4] [--out flash.json]
 
 gpt-1b's training shape (B x 2048, 16/16 heads, D=128, bf16, causal). It
 builds ``flash_attention.cu`` alone, prints ptxas's registers and spills of
-the bf16 backward kernels, checks the pair once against its plain version,
-and reports each kernel's time (CUDA events, L2 flushed before every call),
-its bound and share of it, and SDPA's backward on the same inputs beside
-the pair, with the card's name and power limit. Needs a CUDA card.
+the bf16 forward and backward kernels with each one's shared memory and
+blocks an SM, checks the forward and the backward pair once against their
+plain versions, and reports each kernel's time (CUDA events, L2 flushed
+before every call), its bound and share of it, and SDPA's forward and
+backward on the same inputs beside the forward and the pair, with the
+card's name and power limit. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,9 +30,29 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_BF16 = 989e12                   # dense tensor-core bf16
 REGS_PER_SM = 65536
 SMEM_PER_SM = 233472                 # 228 KB; 1 KB of it reserved a block
-THREADS = 128                        # the backward kernels' block
+THREADS = 128                        # the bf16 kernels' block
 TILE = 64                            # rows a tile
+FWD_ROWS = 128                       # q rows a forward block
 HOLD_CYCLES = 2_000_000              # ~1 ms of the card's clock
+
+
+def _bound(ops: int, nbytes: int) -> dict:
+    t_ops, t_bytes = ops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def fwd_work(B: int, S: int, Nq: int, Nkv: int, D: int,
+             item: int = 2) -> dict:
+    """Operations and bytes of the forward kernel over a causal B x S
+    attention, and its bound: 2 D flops a live (q, key) pair for each of
+    q.k and p.v; q, k, v, segments and positions read once, out and lse
+    written once."""
+    pairs = B * Nq * S * (S + 1) // 2
+    q_b = B * S * Nq * D * item
+    kv_b = B * S * Nkv * D * item
+    rows = 4 * 2 * B * (Nq + Nkv) * S     # segments and positions, int32
+    return _bound(4 * D * pairs, q_b + 2 * kv_b + q_b + 4 * B * Nq * S + rows)
 
 
 def bwd_work(B: int, S: int, Nq: int, Nkv: int, D: int,
@@ -51,14 +73,7 @@ def bwd_work(B: int, S: int, Nq: int, Nkv: int, D: int,
             "flash_bwd_dkv": (8 * D * pairs,
                               2 * q_b + 2 * kv_b + 2 * kv_b + 2 * lse_b
                               + rows)}
-    res = {}
-    for name, (ops, nbytes) in work.items():
-        t_ops, t_bytes = ops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        res[name] = {"ops": ops, "bytes": nbytes,
-                     "bound_ms": max(t_ops, t_bytes),
-                     "bound_by": "operations" if t_ops >= t_bytes
-                     else "bytes"}
-    return res
+    return {name: _bound(ops, nbytes) for name, (ops, nbytes) in work.items()}
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
@@ -69,7 +84,9 @@ _REGS = re.compile(r"Used (\d+) registers")
 def ptxas_figures(log: str, marker: str = "_bf16_kernel") -> dict:
     """{kernel: {registers, spill_stores, spill_loads}} of the entry
     functions whose mangled name holds ``marker`` in nvcc -Xptxas -v
-    output; the kernel is named by its demangled stem and head dim."""
+    output; the kernel is named by its demangled stem and head dim (nvcc
+    names the anonymous namespace after the file, so the stem is the
+    kernel's own name, which template arguments follow)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = _ENTRY.search(line)
@@ -77,7 +94,8 @@ def ptxas_figures(log: str, marker: str = "_bf16_kernel") -> dict:
             name = m.group(1)
             cur = None
             if marker in name:
-                stem = re.search(r"(flash_\w+?_kernel)", name).group(1)
+                stem = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)\w*?_kernel)I",
+                                 name).group(1)
                 dim = re.search(r"ILi(\d+)E", name)
                 cur = f"{stem}<{dim.group(1) if dim else '?'}>"
                 out[cur] = {}
@@ -102,6 +120,16 @@ def bwd_smem_bytes(D: int, ints: int, streamed_rows: int) -> int:
     return 6 * TILE * (D + 8) * 2 + 2 * ints * TILE * 4 + -(-nt // 16) * 16
 
 
+def fwd_smem_bytes(D: int, kv_rows: int) -> int:
+    """Dynamic shared memory of a bf16 forward block (the launcher's
+    ``fwd_bf16_smem``): the Q tile of FWD_ROWS x (D + 8) bf16, two stages
+    of K and V tiles of 64 x (D + 8) and of kpos/kseg, the block's q
+    positions and segments, one class byte a kv tile."""
+    nt = -(-kv_rows // TILE)
+    return ((FWD_ROWS + 4 * TILE) * (D + 8) * 2
+            + (4 * TILE + 2 * FWD_ROWS) * 4 + -(-nt // 16) * 16)
+
+
 def resident_blocks(registers: int, smem: int) -> int:
     """Blocks of 128 threads an SM holds: registers are given out per
     warp in units of 256, shared memory per block plus 1 KB reserved."""
@@ -111,17 +139,33 @@ def resident_blocks(registers: int, smem: int) -> int:
     return min(by_regs, by_smem, 2048 // THREADS)
 
 
+def _with_smem(figs: dict, prefix: str, smem) -> dict:
+    """The entries of ``figs`` named ``prefix``..., each with its block's
+    shared memory ``smem(name, D)`` and the blocks an SM holds."""
+    out = {}
+    for name, f in figs.items():
+        if not name.startswith(prefix):
+            continue
+        D = int(name.rsplit("<", 1)[1].rstrip(">"))
+        f = dict(f, smem_bytes=smem(name, D))
+        f["resident_blocks"] = resident_blocks(f.get("registers", 255),
+                                               f["smem_bytes"])
+        out[name] = f
+    return out
+
+
 def bwd_ptxas(log: str, S: int = 2048) -> dict:
     """ptxas figures of the bf16 backward kernels in ``log``, each with its
     block's shared memory when S rows are streamed and the blocks an SM
     holds."""
-    figs = ptxas_figures(log)
-    for name, f in figs.items():
-        D = int(name.rsplit("<", 1)[1].rstrip(">"))
-        f["smem_bytes"] = bwd_smem_bytes(D, 2 if "_dq_" in name else 4, S)
-        f["resident_blocks"] = resident_blocks(f.get("registers", 255),
-                                               f["smem_bytes"])
-    return figs
+    return _with_smem(ptxas_figures(log), "flash_bwd", lambda name, D:
+                      bwd_smem_bytes(D, 2 if "_dq_" in name else 4, S))
+
+
+def fwd_ptxas(log: str, S: int = 2048) -> dict:
+    """The same for the bf16 forward kernel over S keys."""
+    return _with_smem(ptxas_figures(log), "flash_fwd",
+                      lambda name, D: fwd_smem_bytes(D, S))
 
 
 def card_line() -> str:
@@ -162,45 +206,54 @@ def measure(B: int = 4, S: int = 2048, N: int = 16, D: int = 128) -> dict:
     qf, kf, vf, sq, pq, sk, pk, _ = fa.fold_gqa(q, k, v, segs, pos)
     dof = fa.fold_gqa(do, k, v, segs, pos)[0]
     scale = 1.0 / D ** 0.5
-    out, lse = fa._fwd(qf, kf, vf, sq, sk, pq, pk, True, 512, 512, scale,
-                       impl="kernel")
+    fwd_args = (qf, kf, vf, sq, sk, pq, pk, True, scale)
+    out, lse = fac.flash_fwd(*fwd_args)
+    ref_out, ref_lse = fa._fwd_plain(*fwd_args)
+    err = {"out": ((out.float() - ref_out.float()).abs().max()
+                   / ref_out.float().abs().max()).item(),
+           "lse": (lse - ref_lse).abs().max().item()}
+    del ref_out, ref_lse
     delta = (dof.float() * out.float()).sum(-1, keepdim=True)
     args = (qf, kf, vf, sq, sk, pq, pk, dof, lse, delta, True, scale)
     got = (fac.flash_bwd_dq(*args), *fac.flash_bwd_dkv(*args))
     ref = (fa._bwd_dq_plain(*args), *fa._bwd_dkv_plain(*args))
-    err = {n: ((a.float() - b.float()).abs().max()
-               / b.float().abs().max()).item()
-           for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
+    err.update({n: ((a.float() - b.float()).abs().max()
+                    / b.float().abs().max()).item()
+                for n, a, b in zip(("dq", "dk", "dv"), got, ref)})
     del ref
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
 
     def flush():
         flush_buf.zero_()
-    t = {"flash_bwd_dq": time_ms(lambda: fac.flash_bwd_dq(*args),
+    t = {"flash_fwd": time_ms(lambda: fac.flash_fwd(*fwd_args), flush=flush),
+         "flash_bwd_dq": time_ms(lambda: fac.flash_bwd_dq(*args),
                                  flush=flush),
          "flash_bwd_dkv": time_ms(lambda: fac.flash_bwd_dkv(*args),
                                   flush=flush)}
     ql, kl, vl, dol = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_fwd = time_ms(lambda: sdpa(ql, kl, vl, is_causal=True), flush=flush)
     qr, kr, vr = (x.requires_grad_(True) for x in (ql, kl, vl))
-    lib_out = torch.nn.functional.scaled_dot_product_attention(
-        qr, kr, vr, is_causal=True)
-    sdpa = time_ms(lambda: torch.autograd.grad(
+    lib_out = sdpa(qr, kr, vr, is_causal=True)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
         lib_out, (qr, kr, vr), dol, retain_graph=True), flush=flush)
     from torch.nn.attention import SDPBackend, sdpa_kernel
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        fl_out = torch.nn.functional.scaled_dot_product_attention(
-            qr, kr, vr, is_causal=True)
+        fl_out = sdpa(qr, kr, vr, is_causal=True)
     sdpa_flash = time_ms(lambda: torch.autograd.grad(
         fl_out, (qr, kr, vr), dol, retain_graph=True), flush=flush)
     res = {"shape": {"B": B, "S": S, "Nq": N, "Nkv": N, "D": D,
                      "dtype": "bfloat16", "causal": True},
-           "max_rel_err_vs_plain": err, "sdpa_backward_ms": sdpa,
+           "max_err_vs_plain": err, "sdpa_forward_ms": sdpa_fwd,
+           "sdpa_backward_ms": sdpa_bwd,
            "sdpa_flash_backend_backward_ms": sdpa_flash}
-    for name, w in bwd_work(B, S, N, N, D).items():
+    work = dict(bwd_work(B, S, N, N, D), flash_fwd=fwd_work(B, S, N, N, D))
+    for name, w in work.items():
         res[name] = dict(w, ms=t[name], share_of_bound=w["bound_ms"] / t[name])
+    res["fwd_over_sdpa_forward"] = t["flash_fwd"] / sdpa_fwd
     pair = t["flash_bwd_dq"] + t["flash_bwd_dkv"]
     res["pair_ms"] = pair
-    res["pair_over_sdpa_backward"] = pair / sdpa
+    res["pair_over_sdpa_backward"] = pair / sdpa_bwd
     return res
 
 
@@ -213,22 +266,25 @@ def main() -> None:
         raise SystemExit("profile_flash: needs a CUDA card")
     card = card_line()
     log = build.build(["flash_attention"])["flash_attention"]
-    figs = bwd_ptxas(log)
+    figs = {**fwd_ptxas(log), **bwd_ptxas(log)}
     for name, f in figs.items():
         print(f"ptxas {name}: {f}", flush=True)
     res = measure(B=a.batch)
     res.update(card=card, ptxas=figs)
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         r = res[name]
         print(f"{name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) -> {r['share_of_bound']:.1%} of bound, "
               f"{r['ops'] / r['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+    print(f"forward {res['flash_fwd']['ms']:.4f} ms, SDPA forward "
+          f"{res['sdpa_forward_ms']:.4f} ms -> "
+          f"{res['fwd_over_sdpa_forward']:.2f}x", flush=True)
     print(f"pair {res['pair_ms']:.4f} ms, SDPA backward "
           f"{res['sdpa_backward_ms']:.4f} ms -> "
           f"{res['pair_over_sdpa_backward']:.2f}x (flash backend forced: "
-          f"{res['sdpa_flash_backend_backward_ms']:.4f} ms); max error "
-          f"against plain "
-          f"(of the max) {res['max_rel_err_vs_plain']}", flush=True)
+          f"{res['sdpa_flash_backend_backward_ms']:.4f} ms)", flush=True)
+    print(f"error against plain: out/dq/dk/dv of the max, lse absolute: "
+          f"{res['max_err_vs_plain']}", flush=True)
     print(f"card: {card}", flush=True)
     if a.out:
         with open(a.out, "w") as f:

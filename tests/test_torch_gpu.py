@@ -379,6 +379,102 @@ def test_flash_bwd_pair_is_deterministic(dtype):
         assert torch.equal(a, b)
 
 
+def _fwd_args(args):
+    """The forward's arguments from a ``_bwd_raw_case``: q, k, v, segments,
+    positions, causal, scale."""
+    return args[:7] + args[10:]
+
+
+def _check_fwd(args, dtype):
+    """The forward kernel against its plain version: out and lse (fp32 1e-5;
+    bf16 ``_assert_bf16_close`` and lse 1e-4), lse exactly NEG_INF and out
+    zero on rows that see no key. Returns the kernel's (out, lse)."""
+    before = fac.flash_fwd.launches
+    out, lse = fac.flash_fwd(*args)
+    torch.cuda.synchronize()
+    assert fac.flash_fwd.launches == before + 1
+    ref_out, ref_lse = fa._fwd_plain(*args)
+    assert out.dtype == dtype and out.shape == ref_out.shape
+    assert lse.dtype == torch.float32 and lse.shape == ref_lse.shape
+    live = ref_lse > fa.NEG_INF / 2
+    assert torch.equal(lse[~live], ref_lse[~live])
+    assert not bool(out[~live[..., 0]].any())
+    if bool(live.any()):
+        lse_tol = 1e-5 if dtype == torch.float32 else 1e-4
+        assert (lse[live] - ref_lse[live]).abs().max().item() <= lse_tol
+    if dtype == torch.float32:
+        assert (out - ref_out).abs().max().item() <= 1e-5
+    else:
+        _assert_bf16_close(out, ref_out)
+    return out, lse
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 63, 65, 1000])
+def test_flash_fwd_at_tile_edges(S, dtype):
+    """The forward at sequences shorter than, one short of, one past and far
+    from a multiple of its 64-row tiles."""
+    _need_card()
+    _check_fwd(_fwd_args(_bwd_raw_case(3, S, S, 128, dtype, seed=S)), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_start", [250, 100])
+def test_flash_fwd_on_a_ring_chunk(kv_start, dtype):
+    """Sq != Skv with offset global positions, as ring attention drives
+    _fwd: a q chunk at positions 300.. against a kv chunk at kv_start..
+    times 2. From 250 the kv tiles are skipped or mixed; from 100 some are
+    all live too."""
+    _need_card()
+    Sq, Skv = 320, 200
+    args = _fwd_args(_bwd_raw_case(
+        2, Sq, Skv, 64, dtype, qpos=torch.arange(300, 300 + Sq),
+        kpos=torch.arange(kv_start, kv_start + Skv) * 2, seed=7))
+    got = _check_fwd(args, dtype)
+    via_impl = fa._fwd(*args[:8], 512, 512, args[-1], impl="kernel")
+    for a, b in zip(got, via_impl):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_with_rows_that_see_no_key(dtype):
+    """q rows whose segment no key has, and padded (segment 0) keys: out
+    zero and lse exactly NEG_INF on the empty rows."""
+    _need_card()
+    S = 200
+    qseg = torch.ones(S, dtype=torch.int32)
+    qseg[70:140] = 5                         # no key is in segment 5
+    kseg = torch.ones(S, dtype=torch.int32)
+    kseg[-30:] = 0                           # a padded tail
+    args = _fwd_args(_bwd_raw_case(2, S, S, 128, dtype, qseg=qseg, kseg=kseg,
+                                   seed=3))
+    _, lse = _check_fwd(args, dtype)
+    assert bool((lse[:, 70:140] == fa.NEG_INF).all())
+
+
+@pytest.mark.gpu
+def test_flash_fwd_at_gpt_1b_shape():
+    """B=1, S=2048, 16 heads, D=128, bf16, causal: the training shape."""
+    _need_card()
+    _check_fwd(_fwd_args(_bwd_raw_case(16, 2048, 2048, 128, torch.bfloat16,
+                                       seed=11)), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_is_deterministic(dtype):
+    """Two forward calls on the same inputs give the same bits."""
+    _need_card()
+    args = _fwd_args(_bwd_raw_case(4, 700, 700, 128, dtype, seed=13))
+    first, second = fac.flash_fwd(*args), fac.flash_fwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_flash_refuses_what_it_cannot_run():
     _need_card()
