@@ -71,7 +71,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              library call: W8 and W4 at 8 rows for 4096 -> 14336 and
              14336 -> 4096 (library: x @ the dequantized bf16 weight, which
              reads 2 bytes a weight), paged attention over int8/int4 pages
-             at phase 4's decode shape, RMSNorm;
+             at phase 4's decode shape, RMSNorm; the W4 kernel's share of
+             its bound and its ratio to x @ w_bf16 at both shapes, and
+             ptxas's registers and spills of its templates (printed, not
+             gated);
 13. serve quantized — llama-8b-gqa at full width and depth from phase 5's
              bf16 weights, twice: A = int8 weights through the W8 kernels
              (int8_pallas_matmul) with int8 KV pages, B = int4 weights with
@@ -1291,7 +1294,12 @@ def bound_record(k_ms, p_ms, l_ms, nbytes, ops, peak) -> dict:
             "bytes": nbytes, "ops": ops}
 
 
-def quant_kernel_timing(torch, F, qm) -> dict:
+def quant_kernel_timing(torch, F, qm, build_log: str = "") -> dict:
+    """The quantized-serving kernels' times beside plain, library and
+    bound; the W4 kernel's share of its bound, its ratio to x @ w_bf16 and
+    ptxas's figures of its templates (from ``build_log``), printed."""
+    from distributed_llm_training_and_inference_system_tpu_torch import (
+        profile_matmul as pm)
     pa, w8, w4, tq = qm["pa"], qm["w8"], qm["w4"], qm["tq"]
     layers, rn = qm["layers"], qm["rn"]
     kn = qm["kernels"]
@@ -1324,8 +1332,7 @@ def quant_kernel_timing(torch, F, qm) -> dict:
         del w_bf16
         x, packed, s4, chan = w4_case(torch, tq, rows, n_in, n_out, bf16, 6)
         w_bf16 = tq.dequantize_int4_groupwise(packed, s4, chan, 128, bf16)
-        nbytes = (packed.numel() + s4.numel() * 4 + chan.numel() * 4
-                  + x.numel() * 2 + rows * n_out * 2)
+        work = pm.w4_work(rows, n_in, n_out, 128)
         r4 = bound_record(
             time_ms(torch, lambda: w4.matmul_w4(x, packed, s4, chan, 128),
                     flush=flush),
@@ -1333,7 +1340,7 @@ def quant_kernel_timing(torch, F, qm) -> dict:
                                                       128),
                     iters=10, flush=flush),
             time_ms(torch, lambda: x @ w_bf16, flush=flush),
-            nbytes, 2 * rows * n_in * n_out, PEAK_OPS["bfloat16"])
+            work["bytes"], work["ops"], PEAK_OPS["bfloat16"])
         r4["shape"] = {"rows": rows, "in": n_in, "out": n_out}
         res["int4_matmul" if n_in == 4096 else "int4_matmul_down"] = r4
         del w_bf16, x, values, scale, packed, s4, chan
@@ -1345,6 +1352,22 @@ def quant_kernel_timing(torch, F, qm) -> dict:
                   f"({rr['bound_by']}, {rr['bytes']} B) -> "
                   f"{rr['bound_ms'] / rr['ms']:.1%} of bound", flush=True)
         torch.cuda.empty_cache()
+    for name in ("int4_matmul", "int4_matmul_down"):
+        r = res[name]
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["over_library"] = r["ms"] / r["library_ms"]
+        print(f"int4_matmul {r['shape']['in']} -> {r['shape']['out']} "
+              f"({rows} rows): {r['share_of_bound']:.1%} of its bound, "
+              f"{r['over_library']:.2f}x x @ w_bf16 (printed, not gated)",
+              flush=True)
+    res["int4_ptxas"] = pm.w4_ptxas(build_log)
+    for name, f in res["int4_ptxas"].items():
+        print(f"ptxas {name}: {f.get('registers')} registers, spill "
+              f"stores/loads {f.get('spill_stores')}/{f.get('spill_loads')} B",
+              flush=True)
+    if not res["int4_ptxas"]:
+        print("ptxas: the build log holds no W4 figures (the library was "
+              "built before this run)", flush=True)
     # row 1b at phase 4's decode shape
     q, kp, vp, tables, starts, lengths = paged_case(torch, 1, torch.float32,
                                                     seed=99)
@@ -1701,7 +1724,8 @@ def main() -> int:
         quant_err = quant_kernels_against_plain(torch, qmods)
 
         phase("12 quantized kernel timing", t0)
-        quant_timing = quant_kernel_timing(torch, F, qmods)
+        quant_timing = quant_kernel_timing(
+            torch, F, qmods, build_logs.get("int4_matmul", ""))
 
         phase("13 serve quantized llama-8b-gqa at full width and depth", t0)
         bf16_model = bf16_model.to("cuda")

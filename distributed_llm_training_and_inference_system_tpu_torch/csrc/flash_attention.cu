@@ -103,6 +103,8 @@
 #include <stdint.h>
 #include <limits.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
 constexpr float kNegInf = (float)(-0.7 * 3.4028234663852886e38);
@@ -149,96 +151,8 @@ template <> struct Mma<float> {
   }
 };
 
-// ---------------------------------------------------------------------------
-// Fragment helpers of the bf16 backward: ldmatrix loads of mma.sync
-// m16n8k16 operands from padded shared tiles (rows of D + 8 elements: the
-// eight 16-byte rows an 8x8 matrix reads fall in eight distinct bank
-// groups, so no load conflicts), cp.async copies global -> shared, and
-// the accumulator -> A-fragment repack.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// four 8x8 b16 matrices; lane l gives the address of row l & 7 of matrix
-// l >> 3 and receives, of matrix j, row l / 4, columns 2 (l % 4) and +1 in
-// r[j] (.trans: column l / 4, rows 2 (l % 4) and +1)
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// A fragment of rows [0, 16) x columns [0, 16) of a row-major tile
-__device__ __forceinline__ void ldsm_a(uint32_t a[4], const bf16* tile, int ld,
-                                       int lane) {
-  ldsm_x4(a, tile + (lane & 15) * ld + (lane >> 4) * 8);
-}
-// B fragments of two n-tiles from a tile stored [n][k] (rows n, n + 16 x
-// columns k, k + 16): n-tile 0 in (b[0], b[1]), n-tile 1 in (b[2], b[3])
-__device__ __forceinline__ void ldsm_b_nk(uint32_t b[4], const bf16* tile,
-                                          int ld, int lane) {
-  ldsm_x4(b, tile + ((lane >> 4) * 8 + (lane & 7)) * ld
-                 + ((lane >> 3) & 1) * 8);
-}
-// the same from a tile stored [k][n] (rows k .. k + 16, columns n .. n + 16)
-__device__ __forceinline__ void ldsm_b_kn(uint32_t b[4], const bf16* tile,
-                                          int ld, int lane) {
-  ldsm_x4_trans(b, tile + (((lane >> 3) & 1) * 8 + (lane & 7)) * ld
-                       + (lane >> 4) * 8);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 values rounded to bf16 and packed (lo in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// The m16n8 accumulators of n-tiles 2j and 2j + 1 hold a 16 x 16 block in
-// the m16n8k16 A layout once rounded: the next product's A fragment j.
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
-                                         const float c1[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// 16 bytes global -> shared, bypassing L1; zeros where !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-// 4 bytes global -> shared; zero where !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// Fragment helpers (ldmatrix, mma.sync, cp.async): tensor_core.cuh.
+using namespace tc;
 
 // rows [row0, row0 + R) of a [nrows, D] bf16 tensor into a padded shared
 // tile by cp.async; rows past the end are zero

@@ -62,7 +62,7 @@ __device__ __forceinline__ void w8_tile(
 
     for (int k0 = k_begin; k0 < k_end; k0 += Tl::kChunk) {
         __syncthreads();                 // the last chunk has been read
-        load_x_chunk<BT, false>(x, scale, B, n_in, k0, k_end, smem);
+        load_x_chunk<BT>(x, scale, B, n_in, k0, k_end, smem);
         __syncthreads();
         const int kbase = k0 + ks * kSlice;
         for (int i0 = 0; i0 < kSlice; i0 += 8) {

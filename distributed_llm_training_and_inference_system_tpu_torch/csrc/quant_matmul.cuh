@@ -1,12 +1,12 @@
-// Shared frame of the W8A16 and W4A16 decode matmuls (int8_matmul.cu,
-// int4_matmul.cu): y[B, out] = x[B, in] . W[in, out] for B <= 64 rows of
-// activations rounded to bf16 and weights stored at 1 or 1/2 byte, fp32
-// accumulation. The per-input-channel factor of either scheme (W8: times
-// the row scale; W4: over the channel scale) is folded into the
-// activations as they are staged, in fp32 and rounded to bf16 once, which
-// is what the JAX wrappers do before their kernels.
+// Frame of the W8A16 decode matmuls (int8_matmul.cu) on CUDA cores: y[B,
+// out] = x[B, in] . W[in, out] for B <= 64 rows of activations rounded to
+// bf16 and int8 weights, fp32 accumulation. The W4A16 kernel
+// (int4_matmul.cu) no longer uses it: it runs on the tensor cores
+// (tensor_core.cuh). The per-input-channel row scale of W8 is folded into
+// the activations as they are staged, in fp32 and rounded to bf16 once,
+// which is what the JAX wrapper does before its kernel.
 //
-// What bounds them: weight bytes. At decode (a few rows) every weight is
+// What bounds it: weight bytes. At decode (a few rows) every weight is
 // used once per row, far below the card's ~295 flop/byte ridge, so the
 // design reads each stored weight byte from device memory exactly once,
 // with 4-byte loads that a half-warp joins into one 64-byte row segment,
@@ -50,12 +50,12 @@ __device__ __forceinline__ float load_in(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
 }
 
-// x[r, k0 .. k0 + chunk) -> xs[k][r]: bf16(x * fold[k]), or with kDivide
-// bf16(x / fold[k]) (IEEE division), widened to fp32 again; rows >= B and
-// channels >= k_end are zero, so whatever weight meets them adds nothing
-template <int BT, bool kDivide, typename XT>
+// x[r, k0 .. k0 + chunk) -> xs[k][r]: bf16(x * scale[k]) widened to fp32
+// again; rows >= B and channels >= k_end are zero, so whatever weight
+// meets them adds nothing
+template <int BT, typename XT>
 __device__ __forceinline__ void load_x_chunk(
-        const XT* __restrict__ x, const float* __restrict__ fold, int B,
+        const XT* __restrict__ x, const float* __restrict__ scale, int B,
         int n_in, int k0, int k_end, float* xs) {
     constexpr int KC = Tiling<BT>::kChunk;
     for (int idx = threadIdx.x; idx < KC * BT; idx += kThreads) {
@@ -64,9 +64,8 @@ __device__ __forceinline__ void load_x_chunk(
         float v = 0.f;
         if (r < B && k < k_end) {
             const float xv = load_in(x + (size_t)r * n_in + k);
-            const float f = __ldg(fold + k);
             v = __bfloat162float(__float2bfloat16(
-                kDivide ? __fdiv_rn(xv, f) : __fmul_rn(xv, f)));
+                __fmul_rn(xv, __ldg(scale + k))));
         }
         xs[kk * BT + r] = v;
     }

@@ -5,10 +5,12 @@ Counterpart of the JAX package's ``ops/int4_matmul_pallas.py``.
 [B <= 64, in], ``packed`` uint8 [in/2, out] (input channels 2i and 2i+1 in
 the low and high nibble of row i), ``scale`` fp32 [in/group, out] and
 ``chan`` fp32 [in] (``ops.quantization.quantize_int4_groupwise``). The
-channel scales fold into the activations once per call (x / chan in fp32,
-rounded to bf16: the kernel does it as it stages them); a weight is ``float(nibble) * scale`` rounded to bf16;
-the products accumulate in fp32. On a CUDA tensor the wrapper launches the
-hand-written kernel of ``csrc/int4_matmul.cu``, counts the launch in
+channel scales fold into the activations (x / chan in fp32, rounded to
+bf16: the kernel does it as it builds its B fragments); a weight is
+``float(nibble) * scale`` rounded to bf16; the products accumulate in fp32.
+On a CUDA tensor the wrapper launches the hand-written kernel of
+``csrc/int4_matmul.cu`` (bf16 ``mma.sync`` tensor-core products, the
+weights as the A operand, dequantized in registers), counts the launch in
 ``int4_matmul_kernel.launches`` and raises if it is refused; nothing falls
 back. On a CPU tensor ``matmul_w4`` is ``matmul_w4_plain``.
 """
@@ -24,7 +26,7 @@ from .quantization import _unnibble
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROWS = 64
-TILE_COLS = 64          # output columns a block owns
+TILE_COLS = 64          # out must be a multiple of this
 
 
 def fold_chan(x: torch.Tensor, chan: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ import torch
 from .ops import attention as fa
 from .ops import attention_cuda as fac
 from .ops import build
+from .profiling import ptxas_entries
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_BF16 = 989e12                   # dense tensor-core bf16
@@ -76,39 +77,20 @@ def bwd_work(B: int, S: int, Nq: int, Nkv: int, D: int,
     return {name: _bound(ops, nbytes) for name, (ops, nbytes) in work.items()}
 
 
-_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
-_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
-_REGS = re.compile(r"Used (\d+) registers")
-
-
 def ptxas_figures(log: str, marker: str = "_bf16_kernel") -> dict:
     """{kernel: {registers, spill_stores, spill_loads}} of the entry
     functions whose mangled name holds ``marker`` in nvcc -Xptxas -v
     output; the kernel is named by its demangled stem and head dim (nvcc
     names the anonymous namespace after the file, so the stem is the
     kernel's own name, which template arguments follow)."""
-    out, cur = {}, None
-    for line in log.splitlines():
-        m = _ENTRY.search(line)
-        if m:
-            name = m.group(1)
-            cur = None
-            if marker in name:
-                stem = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)\w*?_kernel)I",
-                                 name).group(1)
-                dim = re.search(r"ILi(\d+)E", name)
-                cur = f"{stem}<{dim.group(1) if dim else '?'}>"
-                out[cur] = {}
+    out = {}
+    for name, figs in ptxas_entries(log).items():
+        if marker not in name:
             continue
-        if cur is None:
-            continue
-        m = _SPILL.search(line)
-        if m:
-            out[cur]["spill_stores"] = int(m.group(1))
-            out[cur]["spill_loads"] = int(m.group(2))
-        m = _REGS.search(line)
-        if m:
-            out[cur]["registers"] = int(m.group(1))
+        stem = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)\w*?_kernel)I",
+                         name).group(1)
+        dim = re.search(r"ILi(\d+)E", name)
+        out[f"{stem}<{dim.group(1) if dim else '?'}>"] = figs
     return out
 
 

@@ -1,5 +1,5 @@
-"""Device time by kernel from a ``torch.profiler`` window, for the
-``profile_*`` scripts.
+"""Device time by kernel from a ``torch.profiler`` window, and ptxas's
+figures from a build log, for the ``profile_*`` scripts.
 
 Each script names its own kernels (``own``: pairs of name substrings and a
 category); everything else falls into matmuls, copies or other
@@ -7,6 +7,8 @@ elementwise/reduction kernels.
 """
 
 from __future__ import annotations
+
+import re
 
 MATMUL = ("gemm", "cutlass", "nvjet", "sm90_xmma", "gemv")
 
@@ -53,3 +55,29 @@ def print_breakdown(by_cat: dict, top: list) -> None:
     for k in top:
         print(f"  {k['ms_per_step']:8.3f} ms  x{k['calls_per_step']:6.1f}  "
               f"{k['name']}")
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_entries(log: str) -> dict:
+    """{mangled kernel name: {registers, spill_stores, spill_loads}} of
+    every entry function in nvcc -Xptxas -v output, in the log's order."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+        m = _REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out

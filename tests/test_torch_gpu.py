@@ -707,22 +707,32 @@ def test_w8_kernels_match_plain(shape, rows, dtype):
     assert grew == ((0, 1) if w8.w8_route(*shape) == "ksplit" else (1, 0))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows", [1, 8, 20, 64])
-@pytest.mark.parametrize("group", [64, 128])
-@pytest.mark.parametrize("shape", MATMUL_SHAPES[:4] + [(1024, 192)])
-def test_w4_kernel_matches_plain(shape, group, rows, dtype):
-    _need_card()
+def _w4_case(rows, n_in, n_out, group, dtype, seed):
     from distributed_llm_training_and_inference_system_tpu_torch.ops import (
-        int4_matmul as w4, quantization as tq)
-    n_in, n_out = shape
-    g = torch.Generator(device="cuda").manual_seed(n_in + rows)
+        quantization as tq)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     w = torch.randn(n_in, n_out, generator=g, device="cuda") * 0.02
     x = torch.randn(rows, n_in, generator=g, device="cuda").to(dtype)
     act = torch.rand(n_in, generator=g, device="cuda") + 0.25
     packed, scale, chan = tq.quantize_int4_groupwise(w, group, act_scale=act)
     assert (chan != 1).any()
+    return x, packed, scale, chan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 8, 20, 44, 64])
+@pytest.mark.parametrize("group", [8, 16, 64, 128])
+@pytest.mark.parametrize("shape", MATMUL_SHAPES[:4] + [(1024, 192)])
+def test_w4_kernel_matches_plain(shape, group, rows, dtype):
+    """Groups 8 (scales looked up a packed row) and 16-128 (a scale row a
+    k-step); 44 rows is the serving path's suffix prefill."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int4_matmul as w4)
+    n_in, n_out = shape
+    x, packed, scale, chan = _w4_case(rows, n_in, n_out, group, dtype,
+                                      n_in + rows)
     ref = w4.matmul_w4_plain(x, packed, scale, chan, group).float()
     before = w4.int4_matmul_kernel.launches
     out = w4.matmul_w4(x, packed, scale, chan, group)
@@ -731,6 +741,111 @@ def test_w4_kernel_matches_plain(shape, group, rows, dtype):
     assert out.dtype == dtype and out.shape == (rows, n_out)
     tol = (1e-4 if dtype == torch.float32 else 1e-2) * ref.abs().max().item()
     assert (out.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 8, 44])
+@pytest.mark.parametrize("group", [2, 24])
+def test_w4_kernel_small_groups_match_plain(group, rows, dtype):
+    """The template for groups that are no multiple of 16 (a scale looked
+    up for each packed row) on a small shape whose 120 channels end in half
+    a k-step."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int4_matmul as w4)
+    x, packed, scale, chan = _w4_case(rows, 120, 128, group, dtype, rows)
+    ref = w4.matmul_w4_plain(x, packed, scale, chan, group).float()
+    out = w4.int4_matmul_kernel(x, packed, scale, chan, group)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (rows, 128)
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_w4_kernel_on_views_that_are_not_16_byte_aligned(rows, dtype):
+    """x and chan as contiguous views one element into their storage, and
+    a row of 100 channels (200 bytes in bf16): the kernel copies them by
+    element loads in place of 16-byte cp.async, with the same results."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int4_matmul as w4)
+    for n_in, group in ((1024, 128), (100, 4)):
+        x, packed, scale, chan = _w4_case(rows, n_in, 128, group, dtype, 3)
+        xs = torch.empty(rows * n_in + 1, dtype=dtype, device="cuda")
+        xs[1:] = x.reshape(-1)
+        cs = torch.empty(n_in + 1, device="cuda")
+        cs[1:] = chan
+        xv, cv = xs[1:].view(rows, n_in), cs[1:]
+        assert xv.data_ptr() % 16 and cv.data_ptr() % 16
+        ref = w4.matmul_w4_plain(x, packed, scale, chan, group).float()
+        out = w4.int4_matmul_kernel(xv, packed, scale, cv, group)
+        tol = (1e-4 if dtype == torch.float32 else 1e-2) * ref.abs().max()
+        assert (out.float() - ref).abs().max().item() <= tol.item()
+        assert torch.equal(out, w4.int4_matmul_kernel(x, packed, scale,
+                                                      chan, group))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 44])
+@pytest.mark.parametrize("group", [8, 128])
+def test_w4_kernel_rounds_as_plain(group, rows):
+    """Bit for bit, where every output is one product: a weight of 1 a
+    column turns y into bf16(x / chan) (x and chan spanning magnitudes on
+    both sides of 2^+-64 and zeros), and one-hot rows of x with chan = 1
+    turn it into the bf16 weights; fp32 outputs equal the plain version's
+    exactly."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int4_matmul as w4)
+    n = 256
+    g = torch.Generator(device="cuda").manual_seed(rows + group)
+    # activations: packed[i, 2i] = 1 (low nibble), packed[i, 2i + 1] = 16
+    # (high nibble): channel c meets column c with weight 1
+    packed = torch.zeros(n // 2, n, dtype=torch.uint8, device="cuda")
+    i = torch.arange(n // 2, device="cuda")
+    packed[i, 2 * i] = 0x01
+    packed[i, 2 * i + 1] = 0x10
+    ones = torch.ones(n // group, n, device="cuda")
+    x = torch.randn(rows, n, generator=g, device="cuda")
+    x[0, :8] = torch.tensor([1e-30, -1e-25, 1e25, -3e18, 0.0, -0.0, 5e-20,
+                             2e19])
+    chan = torch.rand(n, generator=g, device="cuda") + 0.25
+    chan[8:12] = torch.tensor([1e-25, 3e22, 2e-19, 6e19])
+    out = w4.int4_matmul_kernel(x, packed, ones, chan, group)
+    ref = w4.matmul_w4_plain(x, packed, ones, chan, group)
+    assert torch.equal(out, ref)
+    assert torch.equal(out, w4.fold_chan(x, chan).float())
+    # weights: x one-hot, chan = 1: row r of y is weight row 3r + 1
+    packed = torch.randint(0, 256, (n // 2, n), generator=g,
+                           device="cuda").to(torch.uint8)
+    scale = torch.rand(n // group, n, generator=g, device="cuda") * 0.03
+    x = torch.zeros(rows, n, device="cuda")
+    x[torch.arange(rows), 3 * torch.arange(rows) + 1] = 1.0
+    out = w4.int4_matmul_kernel(x, packed, scale, torch.ones(n,
+                                device="cuda"), group)
+    ref = w4.matmul_w4_plain(x, packed, scale, torch.ones(n, device="cuda"),
+                             group)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [8, 64])
+@pytest.mark.parametrize("shape", [(4096, 14336), (14336, 4096)])
+def test_w4_kernel_is_deterministic(shape, rows, dtype):
+    """The warps' partials are added in a fixed order: two calls on the
+    same inputs give identical bits."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int4_matmul as w4)
+    x, packed, scale, chan = _w4_case(rows, *shape, 128, dtype, 5)
+    first = w4.int4_matmul_kernel(x, packed, scale, chan, 128)
+    again = w4.int4_matmul_kernel(x, packed, scale, chan, 128)
+    assert torch.equal(first, again)
 
 
 @pytest.mark.gpu
