@@ -14,7 +14,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              output is rounded to bf16);
 4. timing  — CUDA-event times of the kernel, its plain version and one
              PyTorch library call at the decode shape (T=1, B=8), beside
-             the bound (live K+V bytes over 3.35 TB/s);
+             the bound (live K+V bytes over 3.35 TB/s); the kernel's share
+             of its bound, its ratio to SDPA, the live blocks of its split
+             plan and ptxas's registers and spills of its fp templates
+             (printed, not gated). The kernel splits each slot's keys
+             over up to 8 blocks of one cluster (8 splits of 256 keys at
+             this shape), which combine their partials in a fixed order
+             through distributed shared memory;
 5. serve   — the port's main path at full width: InferenceServer over
              llama-8b-gqa (32 layers, random bf16 weights from seed 0),
              default ServeConfig, 8 /v1/completions (greedy and sampled,
@@ -72,9 +78,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              14336 -> 4096 (library: x @ the dequantized bf16 weight, which
              reads 2 bytes a weight), paged attention over int8/int4 pages
              at phase 4's decode shape, RMSNorm; the W4 kernel's share of
-             its bound and its ratio to x @ w_bf16 at both shapes, and
-             ptxas's registers and spills of its templates (printed, not
-             gated);
+             its bound and its ratio to x @ w_bf16 at both shapes, the
+             paged kernel's share of its bound over int8/int4 pages, and
+             ptxas's registers and spills of both kernels' templates
+             (printed, not gated);
 13. serve quantized — llama-8b-gqa at full width and depth from phase 5's
              bf16 weights, twice: A = int8 weights through the W8 kernels
              (int8_pallas_matmul) with int8 KV pages, B = int4 weights with
@@ -220,9 +227,30 @@ def kernel_against_plain(torch, pa, kernel) -> float:
     return worst
 
 
-def decode_timing(torch, F, pa, kernel) -> dict:
+def paged_ptxas_lines(build_log: str, kinds) -> dict:
+    """ptxas's registers and spill bytes of the paged kernel's templates
+    of the given page kinds, printed."""
+    from distributed_llm_training_and_inference_system_tpu_torch import (
+        profile_kernel as pk)
+    figs = {n: f for n, f in pk.paged_ptxas(build_log).items()
+            if any(f"<{k}," in n for k in kinds)}
+    for name, f in figs.items():
+        print(f"ptxas {name}: {f.get('registers')} registers, spill "
+              f"stores/loads {f.get('spill_stores')}/{f.get('spill_loads')} B",
+              flush=True)
+    if not figs:
+        print("ptxas: the build log holds no paged-attention figures (the "
+              "library was built before this run)", flush=True)
+    return figs
+
+
+def decode_timing(torch, F, pa, kernel, build_log: str = "") -> dict:
     """Kernel, plain and library times at the decode shape (T=1, B=8,
-    bf16), and the bound for this run's inputs."""
+    bf16), and the bound for this run's inputs; the kernel's share of the
+    bound, its ratio to the library call, the split plan's live blocks and
+    ptxas's figures of the fp templates (from ``build_log``), printed."""
+    from distributed_llm_training_and_inference_system_tpu_torch import (
+        profile_kernel as pk)
     dtype = torch.bfloat16
     q, kp, vp, tables, starts, lengths = paged_case(torch, 1, dtype, seed=99)
     B, T, Nq, D = q.shape
@@ -274,6 +302,18 @@ def decode_timing(torch, F, pa, kernel) -> dict:
           f"({res['bound_by']}, {bytes_moved} B) -> "
           f"{res['bound_ms'] / k_ms:.1%} of bound; "
           f"library vs kernel max_abs_err {lib_err:.3e}", flush=True)
+    res["share_of_bound"] = res["bound_ms"] / k_ms
+    res["over_library"] = k_ms / l_ms
+    res["split"] = pk.split_report(
+        lengths, maxp=tables.shape[1],
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    sp = res["split"]
+    print(f"paged_attention (fp pages): {res['share_of_bound']:.1%} of its "
+          f"bound, {res['over_library']:.2f}x SDPA (printed, not gated); "
+          f"{sp['n_splits']} splits of {sp['keys_per_split']} keys, "
+          f"{sp['live_blocks']} of {sp['grid_blocks']} blocks live",
+          flush=True)
+    res["ptxas"] = paged_ptxas_lines(build_log, ("fp",))
     return res
 
 
@@ -1294,10 +1334,13 @@ def bound_record(k_ms, p_ms, l_ms, nbytes, ops, peak) -> dict:
             "bytes": nbytes, "ops": ops}
 
 
-def quant_kernel_timing(torch, F, qm, build_log: str = "") -> dict:
+def quant_kernel_timing(torch, F, qm, build_log: str = "",
+                        paged_log: str = "") -> dict:
     """The quantized-serving kernels' times beside plain, library and
     bound; the W4 kernel's share of its bound, its ratio to x @ w_bf16 and
-    ptxas's figures of its templates (from ``build_log``), printed."""
+    ptxas's figures of its templates (from ``build_log``), and the paged
+    kernel's share of its bound over int8/int4 pages and ptxas's figures
+    of those templates (from ``paged_log``), printed."""
     from distributed_llm_training_and_inference_system_tpu_torch import (
         profile_matmul as pm)
     pa, w8, w4, tq = qm["pa"], qm["w8"], qm["w4"], qm["tq"]
@@ -1388,11 +1431,14 @@ def quant_kernel_timing(torch, F, qm, build_log: str = "") -> dict:
         r["shape"] = {"B": B, "T": T, "Nq": Nq, "Nkv": Nkv, "D": D,
                       "lengths": lengths}
         res[f"paged_attention_{kind}"] = r
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
         print(f"paged_attention_{kind} (B=8, T=1, bf16 q, lengths "
               f"{lengths}): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library none, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes} B) -> "
-              f"{r['bound_ms'] / r['ms']:.1%} of bound", flush=True)
+              f"{r['share_of_bound']:.1%} of bound (printed, not gated)",
+              flush=True)
+    res["paged_ptxas"] = paged_ptxas_lines(paged_log, ("int8", "int4"))
     # row 5; the record is the entry forward's shape
     for shape in ((8, 4096), (8192, 4096), ENTRY_NORM_SHAPE):
         g = torch.Generator(device="cuda").manual_seed(3)
@@ -1689,7 +1735,8 @@ def main() -> int:
         max_err = kernel_against_plain(torch, pa, paged_attention_kernel)
 
         phase("4 kernel timing", t0)
-        timing = decode_timing(torch, F, pa, paged_attention_kernel)
+        timing = decode_timing(torch, F, pa, paged_attention_kernel,
+                               build_logs.get("paged_attention", ""))
 
         phase("5 serve llama-8b-gqa at full width", t0)
         served = serve_main_path(torch, mods, paged_attention_kernel, smi)
@@ -1725,7 +1772,8 @@ def main() -> int:
 
         phase("12 quantized kernel timing", t0)
         quant_timing = quant_kernel_timing(
-            torch, F, qmods, build_logs.get("int4_matmul", ""))
+            torch, F, qmods, build_logs.get("int4_matmul", ""),
+            build_logs.get("paged_attention", ""))
 
         phase("13 serve quantized llama-8b-gqa at full width and depth", t0)
         bf16_model = bf16_model.to("cuda")

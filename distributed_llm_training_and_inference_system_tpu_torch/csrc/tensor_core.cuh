@@ -1,10 +1,11 @@
 // Tensor-core fragment helpers for Hopper (sm_90a), shared by the bf16
-// flash-attention kernels (flash_attention.cu) and the W4A16 matmul
-// (int4_matmul.cu): ldmatrix loads of mma.sync m16n8k16 operands from
-// padded shared tiles (rows padded by 8 bf16: the eight 16-byte rows an
-// 8x8 matrix reads fall in eight distinct bank groups, so no load
-// conflicts), the bf16 mma.sync with fp32 accumulation, cp.async copies
-// global -> shared, and the accumulator -> A-fragment repack.
+// flash-attention kernels (flash_attention.cu), the W4A16 matmul
+// (int4_matmul.cu) and paged attention (paged_attention.cu): ldmatrix
+// loads of mma.sync m16n8k16 operands from padded shared tiles (rows
+// padded by 8 bf16: the eight 16-byte rows an 8x8 matrix reads fall in
+// eight distinct bank groups, so no load conflicts), the bf16 mma.sync
+// with fp32 accumulation, cp.async copies global -> shared, and the
+// accumulator -> A-fragment repack.
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4 g + t): A (row-major
 // 16 x 16) a0 = (row g, cols 2t, 2t+1), a1 = (g + 8, 2t..), a2 = (g, 2t +
@@ -105,6 +106,10 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// until at most N of this thread's newest groups are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 }  // namespace tc

@@ -10,11 +10,18 @@ output, and launches on the current stream; each counts its launches in
 which kernel the serving path went through. None falls back: a launch that
 is refused raises. The plain PyTorch version of the same function is
 ``ops.paged_attention.paged_attention_multi(impl="gather")``.
+
+A call splits each slot's keys over several blocks; where a row tile has
+more than one live split, its blocks (one thread block cluster) combine
+their partials in split order through distributed shared memory, in the
+same launch. ``split_plan`` fixes the split on the host from the table's
+width, and the launcher follows it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,14 +29,63 @@ from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KIND_FP, _KIND_INT8, _KIND_INT4 = 0, 1, 2
+KEYS_PER_TILE = 64     # kKeys of csrc/paged_attention.cu
+ROWS_PER_TILE = 8      # kRows: query rows (token, q head) of a block
+MAX_SPLITS = 8         # kMaxSplits: a row tile's splits form one cluster
+BLOCKS_PER_SM = 4      # the split aims at this many blocks an SM
+H100_SMS = 132
+
+
+def split_plan(B: int, T: int, Nq: int, Nkv: int, maxP: int, PS: int,
+               sms: int = H100_SMS) -> dict:
+    """How a call splits each slot's keys over blocks, from shapes alone
+    (the table's width maxP*PS, never the lengths, so no sync).
+
+    Without a split the grid has ``row_tiles * Nkv * B`` blocks. The keys
+    of a full table, in tiles of KEYS_PER_TILE, are cut into splits of
+    whole tiles, as few tiles a split as still give about BLOCKS_PER_SM
+    blocks an SM over a full table, and at most MAX_SPLITS splits: a
+    decode batch (T = 1) gets many splits, a long window (whose rows fill
+    the card by themselves) one."""
+    row_tiles = -(-T * (Nq // Nkv) // ROWS_PER_TILE)
+    blocks = row_tiles * Nkv * B
+    tiles = max(1, -(-maxP * PS // KEYS_PER_TILE))
+    per_split = min(tiles, max(-(-tiles // MAX_SPLITS),
+                               -(-tiles * blocks // (BLOCKS_PER_SM * sms))))
+    n_splits = -(-tiles // per_split)
+    return {"keys_per_split": per_split * KEYS_PER_TILE,
+            "n_splits": n_splits, "row_tiles": row_tiles,
+            "grid": (row_tiles * n_splits, Nkv, B)}
+
+
+def split_ranges(plan: dict, start: int, T: int, G: int, maxP: int,
+                 PS: int) -> list:
+    """The key range [begin, end) of each live split of each row tile of a
+    slot whose window starts at ``start``, as the kernel computes them:
+    a row tile's keys end at min(start + its last token + 1, maxP*PS);
+    a split is live if it starts before that end (split 0 always)."""
+    kps = plan["keys_per_split"]
+    out = []
+    for rt in range(plan["row_tiles"]):
+        last_row = min((rt + 1) * ROWS_PER_TILE, T * G) - 1
+        n_keys = min(start + last_row // G + 1, maxP * PS)
+        n_live = max(1, -(-n_keys // kps))
+        out.append([(s * kps, max(0, min((s + 1) * kps, n_keys)))
+                    for s in range(n_live)])
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _fn():
     f = build.load("paged_attention").paged_attention_fwd
     if f.argtypes is None:      # first use: pointers must not pass as int32
         f.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                      + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_void_p])
+                      + [ctypes.c_float] + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p])
         f.restype = ctypes.c_int
     return f
 
@@ -83,6 +139,7 @@ def _launch(wrapper, kind, q, k_vals, v_vals, k_scale, v_scale, PS,
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
+    plan = split_plan(B, T, Nq, Nkv, maxP, PS, _sms(q.device.index))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _fn()(q.data_ptr(), k_vals.data_ptr(), v_vals.data_ptr(),
@@ -90,7 +147,8 @@ def _launch(wrapper, kind, q, k_vals, v_vals, k_scale, v_scale, PS,
                    v_scale.data_ptr() if quant else None,
                    block_tables.data_ptr(), start_positions.data_ptr(),
                    out.data_ptr(), B, T, Nq, Nkv, D, PS, maxP,
-                   1.0 / float(D) ** 0.5, _DTYPES[q.dtype], kind, stream)
+                   1.0 / float(D) ** 0.5, _DTYPES[q.dtype], kind,
+                   plan["keys_per_split"], plan["n_splits"], stream)
     if rc != 0:
         raise RuntimeError(
             f"paged_attention kernel launch failed: CUDA error {rc}")

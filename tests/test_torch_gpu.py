@@ -664,6 +664,140 @@ def test_quantized_page_kernels_refuse_what_they_cannot_run():
             starts)
 
 
+# -- paged attention split over blocks: llama-8b-gqa geometry over serving's
+# 32-page table (8 splits of 256 keys at T = 1) --------------------------------
+
+def _split_case(T, lengths, kind, dtype, seed=0):
+    """q in ``dtype``; pages of ``kind`` (fp pages in q's dtype) over a
+    32-page table of 64; a length of 0 leaves a slot's table all scratch
+    with its window at position 300."""
+    Nq, Nkv, D, PS, maxP = 32, 8, 128, 64, 32
+    B = len(lengths)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    NP = B * maxP + 1
+    perm = (torch.randperm(NP - 1, generator=g, device="cuda") + 1).tolist()
+    tables = torch.zeros(B, maxP, dtype=torch.int32)
+    starts = []
+    for b, n in enumerate(lengths):
+        used = -(-n // PS)
+        tables[b, :used] = torch.tensor(perm[b * maxP:b * maxP + used],
+                                        dtype=torch.int32)
+        starts.append(max(n, T) - T if n else 300)
+    q = torch.randn(B, T, Nq, D, generator=g, device="cuda").to(dtype)
+    kp = torch.randn(NP, Nkv, PS, D, generator=g, device="cuda")
+    vp = torch.randn(NP, Nkv, PS, D, generator=g, device="cuda")
+    if kind == "fp":
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    else:
+        kp, vp = _quant_pages(kind, kp), _quant_pages(kind, vp)
+    return (q, kp, vp, tables.cuda(),
+            torch.tensor(starts, dtype=torch.int32, device="cuda"))
+
+
+def _split_counter(kind):
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        paged_attention_cuda as pac)
+    return {"fp": pac.paged_attention_kernel,
+            "int8": pac.paged_attention_int8_kernel,
+            "int4": pac.paged_attention_int4_kernel}[kind]
+
+
+def _split_check(args, kind, dtype):
+    kernel = _split_counter(kind)
+    before = kernel.launches
+    out = pa.paged_attention_multi(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1        # one a wrapper call
+    assert out.dtype == dtype and out.shape == args[0].shape
+    assert torch.isfinite(out.float()).all()
+    ref = pa.paged_attention_multi(*args, impl="gather")
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    return out
+
+
+KINDS = ["fp", "int8", "int4"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", KINDS)
+def test_split_kernel_on_and_one_past_split_boundaries(kind, dtype):
+    _need_card()
+    args = _split_case(1, [256, 257, 512, 513, 63, 64, 65, 1793], kind,
+                       dtype, seed=1)
+    _split_check(args, kind, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", KINDS)
+def test_split_kernel_one_key_beside_a_full_table(kind, dtype):
+    """Slot 0's seven later splits hold no key and exit; slot 1 fills all
+    eight."""
+    _need_card()
+    args = _split_case(1, [1, 2048, 1, 2048], kind, dtype, seed=2)
+    _split_check(args, kind, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("kind", KINDS)
+def test_split_kernel_all_scratch_table(kind, T):
+    """Every slot's table is page 0: the kernel reads the scratch page as
+    the plain version does, over two splits."""
+    _need_card()
+    args = _split_case(T, [0, 0, 0], kind, torch.float32, seed=3)
+    assert int(args[3].abs().sum()) == 0
+    _split_check(args, kind, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("T", [1, 4, 44])
+def test_split_kernel_windows_at_llama_geometry(T, kind, dtype):
+    """Decode (8 splits), phase 3's T = 4 (4 splits) and the 44-token
+    suffix prefill (one split)."""
+    _need_card()
+    args = _split_case(T, [2048, 1, 64, 65, 777, 1500, 130, 2000], kind,
+                       dtype, seed=T)
+    _split_check(args, kind, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("T", [1, 4])
+def test_split_kernel_two_calls_give_identical_bits(T, kind, dtype):
+    """The combine adds the splits in a fixed order, so the same inputs
+    give the same bits."""
+    _need_card()
+    args = _split_case(T, [2048, 1, 300, 1500], kind, dtype, seed=5)
+    a = pa.paged_attention_multi(*args)
+    b = pa.paged_attention_multi(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_split_kernel_counts_one_launch_a_wrapper_call():
+    """Three calls through each wrapper, with splits (T = 1) and without
+    (T = 44): three launches each, and none on the other wrappers."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        paged_attention_cuda as pac)
+    for kind in KINDS:
+        for T in (1, 44):
+            args = _split_case(T, [2048, 100], kind, torch.bfloat16)
+            before = {k: _split_counter(k).launches for k in KINDS}
+            for _ in range(3):
+                pac.paged_attention_launch(*args)
+            torch.cuda.synchronize()
+            assert {k: _split_counter(k).launches - before[k]
+                    for k in KINDS} == {k: 3 * (k == kind) for k in KINDS}
+
+
 def _w8_case(rows, n_in, n_out, dtype, seed=0):
     from distributed_llm_training_and_inference_system_tpu_torch.ops import (
         quantization as tq)
