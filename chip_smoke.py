@@ -71,17 +71,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              llama-8b-gqa projection shape, rows 1, 8 and 64, against their
              plain versions (each bf16 element within one bf16 rounding of
              itself plus 1e-2 of its row's rms; fp32 out 1e-4 of the row's
-             rms); the k-split kernel twice with identical bits; RMSNorm at
-             [8, 4096], [4096, 4096] and the entry forward's [1, 1024, 2048];
+             rms); each W8 kernel twice with identical bits (both split the
+             reduction over a cluster of blocks and add the splits in a
+             fixed order); RMSNorm at [8, 4096], [4096, 4096] and the entry
+             forward's [1, 1024, 2048];
 12. quantized timing — CUDA-event times, L2 flushed, beside bound and
              library call: W8 and W4 at 8 rows for 4096 -> 14336 and
              14336 -> 4096 (library: x @ the dequantized bf16 weight, which
              reads 2 bytes a weight), paged attention over int8/int4 pages
-             at phase 4's decode shape, RMSNorm; the W4 kernel's share of
-             its bound and its ratio to x @ w_bf16 at both shapes, the
-             paged kernel's share of its bound over int8/int4 pages, and
-             ptxas's registers and spills of both kernels' templates
-             (printed, not gated);
+             at phase 4's decode shape, RMSNorm; the W8 and W4 kernels'
+             shares of their bounds and their ratios to x @ w_bf16 at both
+             shapes, the paged kernel's share of its bound over int8/int4
+             pages, and ptxas's registers and spills of the W8, W4 and
+             paged kernels' templates (printed, not gated);
 13. serve quantized — llama-8b-gqa at full width and depth from phase 5's
              bf16 weights, twice: A = int8 weights through the W8 kernels
              (int8_pallas_matmul) with int8 KV pages, B = int4 weights with
@@ -1251,6 +1253,7 @@ def quant_kernels_against_plain(torch, qm) -> dict:
                 x, values, scale = w8_case(torch, tq, rows, n_in, n_out,
                                            dtype, seed=rows + n_out)
                 ref = w8.matmul_w8_plain(x, values, scale)
+                outs = {}
                 for name in ("int8_matmul", "int8_matmul_ksplit"):
                     before = kn[name].launches
                     out = kn[name](x, values, scale)
@@ -1259,9 +1262,10 @@ def quant_kernels_against_plain(torch, qm) -> dict:
                           f"{name} {label}: launch not counted")
                     errs[name] = max(errs[name], matmul_error(
                         torch, out, ref, dtype, f"{name} {label}"))
-                again = kn["int8_matmul_ksplit"](x, values, scale)
-                check(torch.equal(again, out),
-                      f"int8_matmul_ksplit {label}: two calls differ in bits")
+                    again = kn[name](x, values, scale)
+                    check(torch.equal(again, out),
+                          f"{name} {label}: two calls differ in bits")
+                    outs[name] = out
                 before = [kn[n].launches for n in ("int8_matmul",
                                                    "int8_matmul_ksplit")]
                 routed = w8.matmul_w8(x, values, scale)
@@ -1269,8 +1273,9 @@ def quant_kernels_against_plain(torch, qm) -> dict:
                     ("int8_matmul", "int8_matmul_ksplit"), before)]
                 check(grew == ([0, 1] if route == "ksplit" else [1, 0]),
                       f"matmul_w8 {label}: launches {grew} on route {route}")
-                check(torch.equal(routed, out if route == "ksplit"
-                                  else kn["int8_matmul"](x, values, scale)),
+                check(torch.equal(routed, outs["int8_matmul_ksplit"
+                                               if route == "ksplit"
+                                               else "int8_matmul"]),
                       f"matmul_w8 {label}: the routed result differs")
                 x, packed, s4, chan = w4_case(torch, tq, rows, n_in, n_out,
                                               dtype, seed=rows + n_in)
@@ -1287,7 +1292,7 @@ def quant_kernels_against_plain(torch, qm) -> dict:
               f"{MATMUL_ROWS} bf16+fp32 (JAX route {route}): max_abs_err "
               + "  ".join(f"{n} {e:.2e}" for n, e in errs.items())
               + f"; row limits bf16 {MATMUL_ROW_TOL:.0e} past one rounding, "
-              f"fp32 {MATMUL_F32_TOL:.0e}; k-split bits repeat", flush=True)
+              f"fp32 {MATMUL_F32_TOL:.0e}; W8 bits repeat", flush=True)
         for n, e in errs.items():
             worst[n] = max(worst[n], e)
         torch.cuda.empty_cache()
@@ -1335,12 +1340,13 @@ def bound_record(k_ms, p_ms, l_ms, nbytes, ops, peak) -> dict:
 
 
 def quant_kernel_timing(torch, F, qm, build_log: str = "",
-                        paged_log: str = "") -> dict:
+                        paged_log: str = "", w8_log: str = "") -> dict:
     """The quantized-serving kernels' times beside plain, library and
-    bound; the W4 kernel's share of its bound, its ratio to x @ w_bf16 and
-    ptxas's figures of its templates (from ``build_log``), and the paged
-    kernel's share of its bound over int8/int4 pages and ptxas's figures
-    of those templates (from ``paged_log``), printed."""
+    bound; the W4 and W8 kernels' shares of their bounds, their ratios to
+    x @ w_bf16 and ptxas's figures of their templates (from ``build_log``
+    and ``w8_log``), and the paged kernel's share of its bound over
+    int8/int4 pages and ptxas's figures of those templates (from
+    ``paged_log``), printed."""
     from distributed_llm_training_and_inference_system_tpu_torch import (
         profile_matmul as pm)
     pa, w8, w4, tq = qm["pa"], qm["w8"], qm["w4"], qm["tq"]
@@ -1362,14 +1368,13 @@ def quant_kernel_timing(torch, F, qm, build_log: str = "",
         name = ("int8_matmul_ksplit" if w8.w8_route(n_in, n_out) == "ksplit"
                 else "int8_matmul")
         w_bf16 = tq.dequantize_int8(values, scale, bf16)
-        nbytes = (values.numel() + scale.numel() * 4 + x.numel() * 2
-                  + rows * n_out * 2)
+        work = pm.w8_work(rows, n_in, n_out)
         r = bound_record(
             time_ms(torch, lambda: kn[name](x, values, scale), flush=flush),
             time_ms(torch, lambda: w8.matmul_w8_plain(x, values, scale),
                     iters=10, flush=flush),
             time_ms(torch, lambda: x @ w_bf16, flush=flush),
-            nbytes, 2 * rows * n_in * n_out, PEAK_OPS["bfloat16"])
+            work["bytes"], work["ops"], PEAK_OPS["bfloat16"])
         r["shape"] = {"rows": rows, "in": n_in, "out": n_out}
         res[name] = r
         del w_bf16
@@ -1395,22 +1400,27 @@ def quant_kernel_timing(torch, F, qm, build_log: str = "",
                   f"({rr['bound_by']}, {rr['bytes']} B) -> "
                   f"{rr['bound_ms'] / rr['ms']:.1%} of bound", flush=True)
         torch.cuda.empty_cache()
-    for name in ("int4_matmul", "int4_matmul_down"):
+    for name in ("int8_matmul", "int8_matmul_ksplit", "int4_matmul",
+                 "int4_matmul_down"):
         r = res[name]
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         r["over_library"] = r["ms"] / r["library_ms"]
-        print(f"int4_matmul {r['shape']['in']} -> {r['shape']['out']} "
-              f"({rows} rows): {r['share_of_bound']:.1%} of its bound, "
+        print(f"{name.removesuffix('_down')} {r['shape']['in']} -> "
+              f"{r['shape']['out']} ({rows} rows): "
+              f"{r['share_of_bound']:.1%} of its bound, "
               f"{r['over_library']:.2f}x x @ w_bf16 (printed, not gated)",
               flush=True)
-    res["int4_ptxas"] = pm.w4_ptxas(build_log)
-    for name, f in res["int4_ptxas"].items():
-        print(f"ptxas {name}: {f.get('registers')} registers, spill "
-              f"stores/loads {f.get('spill_stores')}/{f.get('spill_loads')} B",
-              flush=True)
-    if not res["int4_ptxas"]:
-        print("ptxas: the build log holds no W4 figures (the library was "
-              "built before this run)", flush=True)
+    for key, parse, log, what in (("int4_ptxas", pm.w4_ptxas, build_log,
+                                   "W4"),
+                                  ("int8_ptxas", pm.w8_ptxas, w8_log, "W8")):
+        res[key] = parse(log)
+        for name, f in res[key].items():
+            print(f"ptxas {name}: {f.get('registers')} registers, spill "
+                  f"stores/loads {f.get('spill_stores')}/"
+                  f"{f.get('spill_loads')} B", flush=True)
+        if not res[key]:
+            print(f"ptxas: the build log holds no {what} figures (the "
+                  f"library was built before this run)", flush=True)
     # row 1b at phase 4's decode shape
     q, kp, vp, tables, starts, lengths = paged_case(torch, 1, torch.float32,
                                                     seed=99)
@@ -1773,7 +1783,8 @@ def main() -> int:
         phase("12 quantized kernel timing", t0)
         quant_timing = quant_kernel_timing(
             torch, F, qmods, build_logs.get("int4_matmul", ""),
-            build_logs.get("paged_attention", ""))
+            build_logs.get("paged_attention", ""),
+            build_logs.get("int8_matmul", ""))
 
         phase("13 serve quantized llama-8b-gqa at full width and depth", t0)
         bf16_model = bf16_model.to("cuda")

@@ -1,6 +1,7 @@
 // Tensor-core fragment helpers for Hopper (sm_90a), shared by the bf16
-// flash-attention kernels (flash_attention.cu), the W4A16 matmul
-// (int4_matmul.cu) and paged attention (paged_attention.cu): ldmatrix
+// flash-attention kernels (flash_attention.cu), the W4A16 and W8A16
+// matmuls (int4_matmul.cu, int8_matmul.cu) and paged attention
+// (paged_attention.cu): ldmatrix
 // loads of mma.sync m16n8k16 operands from padded shared tiles (rows
 // padded by 8 bf16: the eight 16-byte rows an 8x8 matrix reads fall in
 // eight distinct bank groups, so no load conflicts), the bf16 mma.sync

@@ -3,20 +3,23 @@
 Counterpart of the JAX package's ``ops/int8_matmul_pallas.py``. ``matmul_w8``
 computes ``y = bf16(x * scale) . bf16(values)`` with fp32 accumulation for
 ``x`` [B <= 64, in], ``values`` int8 [in, out] and one fp32 ``scale`` per
-input row ([in, 1] or [in]). On a CUDA tensor it launches one of the two
-hand-written kernels of ``csrc/int8_matmul.cu`` (which fold the scale into
-the activations themselves, as they stage them), chosen from the shapes by
-the JAX package's predicate (``w8_route``): the whole-reduction kernel, or
-the k-split kernel for wide reductions (partial sums to a workspace, added
-in a fixed order by a second small kernel, so repeated calls give identical
-bits). Each wrapper counts its launches in ``.launches`` and raises when a
-launch is refused; nothing falls back. On a CPU tensor ``matmul_w8`` is
-``matmul_w8_plain``, which repeats the kernels' arithmetic in PyTorch.
+input row ([in, 1] or [in]). On a CUDA tensor it launches the hand-written
+tensor-core kernel of ``csrc/int8_matmul.cu`` (which folds the scale into
+the activations itself) through one of its two entry points, chosen from
+the shapes by the JAX package's predicate (``w8_route``): the
+whole-reduction route, or the k-split route for wide reductions. Both run
+one body: the reduction split over the blocks of a thread block cluster by
+``split_plan`` and combined in split order on the chip, one launch a call,
+so repeated calls give identical bits. Each wrapper counts its launches in
+``.launches`` and raises when a launch is refused; nothing falls back. On a
+CPU tensor ``matmul_w8`` is ``matmul_w8_plain``, which repeats the kernel's
+arithmetic in PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,8 +27,13 @@ from . import build
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROWS = 64
-TILE_COLS = 64          # output columns a block owns
-KSPLIT_LEN = 2048       # reduction rows per split of the k-split kernel
+OUT_MULTIPLE = 64       # out must be a multiple of this (half a block's tile)
+BLOCK_COLS = 128        # kBlockCols: output columns a block owns
+K_STEP = 16             # kStepK: a split is whole k-steps of this many rows
+MAX_SPLITS = 8          # kMaxSplits: a column tile's splits form one cluster
+MIN_SPLIT_STEPS = 4     # a split walks at least this many k-steps
+BLOCKS_PER_SM = 4       # the split aims at this many blocks an SM
+H100_SMS = 132
 _VMEM_BUDGET = 2 * 2 ** 20     # the JAX package's whole-K tile budget
 
 
@@ -33,7 +41,7 @@ def w8_route(n_in: int, n_out: int) -> str:
     """"whole_k" or "ksplit" for a [n_in, n_out] weight: the JAX package's
     choice between its two kernels (auto tile). Its third route, a dequant
     product for a wide reduction no k tile divides, does not exist here:
-    the k-split kernel takes any reduction length, so those shapes are
+    the kernel takes any reduction length, so those shapes are
     "ksplit" too."""
     bo = next((b for b in (512, 256, 128)
                if n_out % b == 0 and n_in * b <= _VMEM_BUDGET),
@@ -47,6 +55,33 @@ def w8_route(n_in: int, n_out: int) -> str:
     if bo < 512 and n_in * 512 > _VMEM_BUDGET and bk and bo_k > bo:
         return "ksplit"
     return "whole_k"
+
+
+def split_plan(n_in: int, n_out: int, sms: int = H100_SMS) -> dict:
+    """How a call splits the reduction over blocks, from the shapes alone.
+
+    The output's ``col_tiles`` tiles of BLOCK_COLS columns each take
+    ``splits`` blocks (one cluster), split ``s`` over input rows
+    ``[s * k_per_split, (s + 1) * k_per_split)`` clamped to ``n_in``: whole
+    k-steps, as many splits as bring the grid to about BLOCKS_PER_SM blocks
+    an SM, at most MAX_SPLITS, each at least MIN_SPLIT_STEPS k-steps long
+    where the reduction allows, and none empty."""
+    steps = -(-n_in // K_STEP)
+    col_tiles = -(-n_out // BLOCK_COLS)
+    splits = max(1, min(MAX_SPLITS, BLOCKS_PER_SM * sms // col_tiles,
+                        steps // MIN_SPLIT_STEPS))
+    per = -(-steps // splits)
+    splits = -(-steps // per)
+    return {"k_per_split": per * K_STEP, "splits": splits,
+            "col_tiles": col_tiles, "grid": col_tiles * splits}
+
+
+def split_ranges(plan: dict, n_in: int) -> list:
+    """The input-row range [begin, end) of each split, as the kernel
+    computes them."""
+    kps = plan["k_per_split"]
+    return [(s * kps, min((s + 1) * kps, n_in))
+            for s in range(plan["splits"])]
 
 
 def fold_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -83,7 +118,8 @@ def _prepare(x, values, scale):
     n_out = values.shape[1]
     _check(scale.numel() == n_in, f"scale {tuple(scale.shape)} for in={n_in}")
     _check(0 < B <= MAX_ROWS, f"{B} rows (1..{MAX_ROWS})")
-    _check(n_out % TILE_COLS == 0, f"out={n_out} (multiple of {TILE_COLS})")
+    _check(n_out % OUT_MULTIPLE == 0,
+           f"out={n_out} (multiple of {OUT_MULTIPLE})")
     _check(values.is_contiguous() and values.data_ptr() % 16 == 0,
            "values must be contiguous and 16-byte aligned")
     _check(scale.dtype == torch.float32 and scale.is_contiguous(),
@@ -92,50 +128,41 @@ def _prepare(x, values, scale):
     return x.contiguous(), y, B, n_in, n_out
 
 
-def _lib_fn(name: str, argtypes):
+@functools.lru_cache(maxsize=16)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(name: str, x, values, scale) -> torch.Tensor:
+    xs, y, B, n_in, n_out = _prepare(x, values, scale)
+    plan = split_plan(n_in, n_out, _sms(x.device.index))
     f = getattr(build.load("int8_matmul"), name)
     if f.argtypes is None:      # first use: pointers must not pass as int32
-        f.argtypes = argtypes
+        f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
         f.restype = ctypes.c_int
-    return f
+    with torch.cuda.device(x.device):
+        rc = f(xs.data_ptr(), scale.data_ptr(), values.data_ptr(),
+               y.data_ptr(), B, n_in, n_out, plan["k_per_split"],
+               plan["splits"], _OUT_DTYPES[x.dtype],
+               torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return y
 
 
 def int8_matmul_kernel(x: torch.Tensor, values: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
-    """The whole-reduction kernel: [B, out] in x's dtype."""
-    xs, y, B, n_in, n_out = _prepare(x, values, scale)
-    fn = _lib_fn("int8_matmul_whole_k",
-                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                 + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        rc = fn(xs.data_ptr(), scale.data_ptr(), values.data_ptr(),
-                y.data_ptr(), B, n_in, n_out, _OUT_DTYPES[x.dtype],
-                torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error "
-                           f"{rc}")
+    """The whole-reduction route: [B, out] in x's dtype."""
+    y = _launch("int8_matmul_whole_k", x, values, scale)
     int8_matmul_kernel.launches += 1
     return y
 
 
 def int8_matmul_ksplit_kernel(x: torch.Tensor, values: torch.Tensor,
                               scale: torch.Tensor) -> torch.Tensor:
-    """The k-split kernel pair: [B, out] in x's dtype, deterministic."""
-    xs, y, B, n_in, n_out = _prepare(x, values, scale)
-    splits = -(-n_in // KSPLIT_LEN)
-    partial = torch.empty((splits, B, n_out), dtype=torch.float32,
-                          device=x.device)
-    fn = _lib_fn("int8_matmul_ksplit",
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                 + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        rc = fn(xs.data_ptr(), scale.data_ptr(), values.data_ptr(),
-                partial.data_ptr(), y.data_ptr(), B, n_in, n_out, KSPLIT_LEN,
-                _OUT_DTYPES[x.dtype],
-                torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_matmul k-split kernel launch failed: CUDA "
-                           f"error {rc}")
+    """The k-split route: [B, out] in x's dtype."""
+    y = _launch("int8_matmul_ksplit", x, values, scale)
     int8_matmul_ksplit_kernel.launches += 1
     return y
 

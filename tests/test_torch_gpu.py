@@ -814,9 +814,10 @@ MATMUL_SHAPES = [(256, 128), (4096, 1024), (4096, 14336), (14336, 4096),
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows", [1, 8, 20, 64])
+@pytest.mark.parametrize("rows", [1, 8, 20, 44, 64])
 @pytest.mark.parametrize("shape", MATMUL_SHAPES)
 def test_w8_kernels_match_plain(shape, rows, dtype):
+    """Both entry points; 44 rows is the serving path's suffix prefill."""
     _need_card()
     from distributed_llm_training_and_inference_system_tpu_torch.ops import (
         int8_matmul as w8)
@@ -830,8 +831,8 @@ def test_w8_kernels_match_plain(shape, rows, dtype):
         assert kernel.launches == before + 1
         assert out.dtype == dtype and out.shape == (rows, shape[1])
         assert (out.float() - ref).abs().max().item() <= tol
-    again = w8.int8_matmul_ksplit_kernel(x, values, scale)
-    assert torch.equal(again, out)          # no atomics: identical bits
+        again = kernel(x, values, scale)
+        assert torch.equal(again, out)      # no atomics: identical bits
     # the dispatcher follows the route predicate
     counts = (w8.int8_matmul_kernel.launches,
               w8.int8_matmul_ksplit_kernel.launches)
@@ -839,6 +840,108 @@ def test_w8_kernels_match_plain(shape, rows, dtype):
     grew = (w8.int8_matmul_kernel.launches - counts[0],
             w8.int8_matmul_ksplit_kernel.launches - counts[1])
     assert grew == ((0, 1) if w8.w8_route(*shape) == "ksplit" else (1, 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 8, 44])
+@pytest.mark.parametrize("shape", [
+    (16, 128),          # one k-step: a single split
+    (8, 128),           # half a k-step
+    (100, 128),         # one split ending in a short tail
+    (1000, 192),        # 8 splits, the last 6.5 k-steps, a half tile
+    (2000, 64),         # a lone half tile, splits of 256 rows
+    (4096, 320),        # 3 column tiles, the last a half
+])
+def test_w8_kernels_at_split_boundaries(shape, rows, dtype):
+    """Reductions of one k-step, of a split with a short tail and of no
+    multiple of 16, and outputs whose last column tile is half (out % 128
+    == 64), against the plain version."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int8_matmul as w8)
+    x, values, scale = _w8_case(rows, *shape, dtype, seed=shape[0] + rows)
+    ref = w8.matmul_w8_plain(x, values, scale).float()
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * ref.abs().max().item()
+    for kernel in (w8.int8_matmul_kernel, w8.int8_matmul_ksplit_kernel):
+        out = kernel(x, values, scale)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (rows, shape[1])
+        assert (out.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [8, 64])
+@pytest.mark.parametrize("shape", [(4096, 14336), (14336, 4096)])
+def test_w8_kernels_are_deterministic(shape, rows, dtype):
+    """The splits' partials are added in split order on the chip: three
+    calls of either entry point on the same inputs give identical bits,
+    and the two entry points agree bit for bit."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int8_matmul as w8)
+    x, values, scale = _w8_case(rows, *shape, dtype, seed=7)
+    first = w8.int8_matmul_kernel(x, values, scale)
+    for kernel in (w8.int8_matmul_kernel, w8.int8_matmul_ksplit_kernel):
+        for _ in range(2):
+            assert torch.equal(kernel(x, values, scale), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4096, 14336), (14336, 4096), (1000, 192)])
+def test_w8_kernels_launch_once_a_call(shape):
+    """One W8 kernel on the card a call, for either entry point: no second
+    reduce kernel (the profiler's CUDA activity)."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int8_matmul as w8)
+    x, values, scale = _w8_case(8, *shape, torch.bfloat16)
+    for kernel in (w8.int8_matmul_kernel, w8.int8_matmul_ksplit_kernel):
+        kernel(x, values, scale)                # built and warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                kernel(x, values, scale)
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "int8_matmul" in e.key}
+        assert sum(kernels.values()) == 3, kernels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 8, 44])
+def test_w8_kernels_on_views_that_are_not_16_byte_aligned(rows, dtype):
+    """x and scale as contiguous views one element into their storage, and
+    rows of 100 channels: the kernel folds them by element loads in place
+    of 16-byte ones, with the same bits. A weight view that is not 16-byte
+    aligned is refused."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int8_matmul as w8)
+    for n_in in (1024, 100):
+        x, values, scale = _w8_case(rows, n_in, 128, dtype, seed=3)
+        scale = scale.reshape(-1)
+        xs = torch.empty(rows * n_in + 1, dtype=dtype, device="cuda")
+        xs[1:] = x.reshape(-1)
+        ss = torch.empty(n_in + 1, device="cuda")
+        ss[1:] = scale
+        xv, sv = xs[1:].view(rows, n_in), ss[1:]
+        assert xv.data_ptr() % 16 and sv.data_ptr() % 16
+        ref = w8.matmul_w8_plain(x, values, scale).float()
+        tol = (1e-4 if dtype == torch.float32 else 1e-2) * ref.abs().max()
+        for kernel in (w8.int8_matmul_kernel, w8.int8_matmul_ksplit_kernel):
+            out = kernel(xv, values, sv)
+            assert (out.float() - ref).abs().max().item() <= tol.item()
+            assert torch.equal(out, kernel(x, values, scale))
+    x, values, scale = _w8_case(rows, 256, 128, dtype, seed=3)
+    vs = torch.empty(256 * 128 + 1, dtype=torch.int8, device="cuda")
+    vs[1:] = values.reshape(-1)
+    with pytest.raises(ValueError):
+        w8.int8_matmul_kernel(x, vs[1:].view(256, 128), scale)
 
 
 def _w4_case(rows, n_in, n_out, group, dtype, seed):
