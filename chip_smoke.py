@@ -44,7 +44,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              give equal bits;
 8. adamw   — the fused AdamW kernel bitwise equal to its plain version on
              every gpt-1b leaf shape, fp32 and bf16 moments, with and
-             without decay, clip scale < 1;
+             without decay, clip scale < 1, a leaf a call; then all of
+             them in one multi-leaf call (one launch a dtype pair);
 9. train timing — CUDA-event times of the three flash kernels at the
              training shape (micro-batch x 2048, bf16, causal) and of one
              AdamW update of every gpt-1b leaf, beside their plain versions,
@@ -52,13 +53,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              kernel's share of its bound, the forward over SDPA's forward
              and the backward pair over SDPA's backward (printed, not
              gated) and ptxas's registers and spills of the bf16 flash
-             kernels;
+             kernels; AdamW's launches a call, share of its bound, ratio
+             to torch._fused_adamw_ and ptxas figures (printed);
 10. train  — the port's training path: TrainingEngine trains gpt-1b at
              full width and depth (24 layers, H=2048, vocab 50304; random
              fp32 masters from seed 42, synthetic data, S=2048, fused AdamW
              warmed up over 2 steps, selective remat) for 8 steps and saves
              a checkpoint to a temporary directory; the loss is finite and
-             falls, and each kernel's launches equal what the code implies;
+             falls, and each kernel's launches equal what the code implies
+             (AdamW: the planned launches a step, one at fp32 moments,
+             and 170 leaves a step);
              the step time and MFU beside those of the earlier
              backward kernels (another run);
              then the checkpoint is restored (step, data cursor, state) and
@@ -83,7 +87,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              shares of their bounds and their ratios to x @ w_bf16 at both
              shapes, the paged kernel's share of its bound over int8/int4
              pages, and ptxas's registers and spills of the W8, W4 and
-             paged kernels' templates (printed, not gated);
+             paged kernels' templates, RMSNorm's shares of its bound, its
+             ratio to F.rms_norm and ptxas figures (printed, not gated);
 13. serve quantized — llama-8b-gqa at full width and depth from phase 5's
              bf16 weights, twice: A = int8 weights through the W8 kernels
              (int8_pallas_matmul) with int8 KV pages, B = int4 weights with
@@ -96,7 +101,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              attention, within 0.1 of the largest logit;
 14. RMSNorm on a path — the port's entry() forward (gpt-1b, [1, 1024],
              bf16, flash attention) with every norm through the kernel
-             (2L + 1 launches) against the same forward without it.
+             (2L + 1 launches) against the same forward without it; the
+             CUDA kernels of its norms (one a norm) and its device time
+             with norm_impl "xla" and "cuda" (torch.profiler; printed).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} record. Without a CUDA card, or without the rest of the
@@ -798,6 +805,41 @@ def adamw_against_plain(torch, fu, kernel) -> float:
               f"clip 0.37)", flush=True)
     print(f"adamw: {cases} cases bitwise equal (max |kernel - plain| over "
           f"p, mu, nu: {worst})", flush=True)
+
+    # every leaf shape in every dtype pair, in one multi-leaf call
+    from distributed_llm_training_and_inference_system_tpu_torch.ops.\
+        adamw_cuda import adamw_multi_kernel
+    scalars = fu.adam_scalars(count, lr, 0.9, 0.95, clip)
+    s = scalars.unbind()
+    leaves, wds = [], []
+    for mdt, ndt in ((f32, f32), (bf16, f32), (bf16, bf16)):
+        for i, shape in enumerate(GPT1B_LEAVES):
+            g = torch.Generator(device="cuda").manual_seed(50 + len(leaves))
+            leaves.append((
+                torch.randn(shape, generator=g, device="cuda"),
+                torch.randn(shape, generator=g, device="cuda") * 1e-2,
+                (torch.randn(shape, generator=g, device="cuda")
+                 * 1e-3).to(mdt),
+                (torch.rand(shape, generator=g, device="cuda")
+                 * 1e-5).to(ndt)))
+            wds.append(0.1 * (i % 2))
+    ref = [fu._leaf_math(p, g, m, v, *s, b1=0.9, b2=0.95, eps=1e-8, wd=wd,
+                         mu_dtype=m.dtype, nu_dtype=v.dtype)
+           for (p, g, m, v), wd in zip(leaves, wds)]
+    before = (kernel.launches, kernel.leaves)
+    n = adamw_multi_kernel(*zip(*leaves), scalars, b1=0.9, b2=0.95,
+                           eps=1e-8, wds=wds)
+    torch.cuda.synchronize()
+    grew = (kernel.launches - before[0], kernel.leaves - before[1])
+    check(n == 3 and grew == (3, len(leaves)),
+          f"adamw multi-leaf call: {n} launches, counters grew {grew}")
+    for (p, _, m, v), (rp, rm, rv) in zip(leaves, ref):
+        same = (torch.equal(p, rp), torch.equal(m, rm), torch.equal(v, rv))
+        check(all(same), f"adamw multi-leaf {tuple(p.shape)} mu {m.dtype} "
+              f"nu {v.dtype}: p/mu/nu bitwise equal {same}")
+    print(f"adamw: {len(leaves)} leaves (every gpt-1b shape in 3 dtype "
+          f"pairs, decay alternating) in one multi-leaf call: {n} launches, "
+          f"bitwise equal to plain", flush=True)
     return worst
 
 
@@ -926,9 +968,13 @@ def flash_timing(torch, F, fa, fac, cfg, B: int, build_log: str = "") -> dict:
     return res
 
 
-def adamw_timing(torch, gpt, fu, kernel, cfg) -> dict:
+def adamw_timing(torch, gpt, fu, kernel, cfg, build_log: str = "") -> dict:
     """One update of every kernel-eligible gpt-1b leaf (fp32 p, g, mu, nu):
-    the kernel path, the plain path, torch._fused_adamw_ and the bound."""
+    the kernel path, the plain path, torch._fused_adamw_ and the bound;
+    launches a call, share of the bound, ratio to the library call and
+    the kernel's ptxas figures (from ``build_log``), printed."""
+    from distributed_llm_training_and_inference_system_tpu_torch import (
+        profile_norm_adamw as pn)
     meta = gpt.GPT(cfg, device="meta")
     shapes = [tuple(p.shape) for p in meta.parameters()
               if p.dim() >= 2 and p.numel() >= fu.KERNEL_MIN_ELEMENTS]
@@ -942,11 +988,13 @@ def adamw_timing(torch, gpt, fu, kernel, cfg) -> dict:
     clip = torch.tensor(0.37, device="cuda")
     kw = dict(lr=lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
               decay_mask=[True] * len(shapes), clip_scale=clip)
-    saved = kernel.launches
+    saved = (kernel.launches, kernel.leaves)
+    fu.fused_adamw_apply(P, G, M, V, count, **kw)
+    launches = kernel.launches - saved[0]
     k_ms = time_ms(torch, lambda: fu.fused_adamw_apply(P, G, M, V, count,
                                                        **kw), iters=10,
                    warmup=2)
-    kernel.launches = saved
+    kernel.launches, kernel.leaves = saved
     p_ms = time_ms(torch, lambda: fu.fused_adamw_apply(
         P, G, M, V, count, use_kernel=False, **kw), iters=5, warmup=1)
     steps = [torch.full((), 6.0, device="cuda") for _ in shapes]
@@ -959,18 +1007,29 @@ def adamw_timing(torch, gpt, fu, kernel, cfg) -> dict:
                             grad_scale=inv_clip, found_inf=None)
     l_ms = time_ms(torch, lib, iters=10, warmup=2)
     n = sum(p.numel() for p in P)
-    nbytes = 28 * n                 # read p, g, mu, nu; write p, mu, nu
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 20 * n / PEAK_OPS["float32"] * 1e3     # ~20 fp32 ops a param
+    # read p, g, mu, nu; write p, mu, nu (28 B a param); ~20 fp32 ops
+    work = pn.adamw_work(n)
     res = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "leaves": len(shapes), "params": n, "bytes": nbytes}
+           "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+           "leaves": len(shapes), "params": n, "bytes": work["bytes"],
+           "launches_a_call": launches,
+           "share_of_bound": work["bound_ms"] / k_ms,
+           "over_library": k_ms / l_ms,
+           "ptxas": pn.kernel_ptxas(build_log)}
     print(f"adamw over {len(shapes)} gpt-1b leaves ({n} params, fp32 "
-          f"moments): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-          f"torch._fused_adamw_ {l_ms:.3f} ms, bound {res['bound_ms']:.3f} ms "
-          f"({res['bound_by']}, {nbytes} B) -> {res['bound_ms'] / k_ms:.1%} "
-          f"of bound", flush=True)
+          f"moments): kernel {k_ms:.3f} ms ({launches} launch(es) a call), "
+          f"plain {p_ms:.3f} ms, torch._fused_adamw_ {l_ms:.3f} ms, bound "
+          f"{res['bound_ms']:.3f} ms ({res['bound_by']}, {work['bytes']} B) "
+          f"-> {res['share_of_bound']:.1%} of bound, "
+          f"{res['over_library']:.2f}x torch._fused_adamw_ (printed, not "
+          f"gated)", flush=True)
+    for name, f in res["ptxas"].items():
+        print(f"ptxas {name}: {f.get('registers')} registers, spill "
+              f"stores/loads {f.get('spill_stores')}/{f.get('spill_loads')} "
+              f"B", flush=True)
+    if not res["ptxas"]:
+        print("ptxas: the build log holds no AdamW figures (the library was "
+              "built before this run)", flush=True)
     del P, G, M, V
     torch.cuda.empty_cache()
     return res
@@ -1027,25 +1086,33 @@ def train_main_path(torch, mods, kernels: dict, card: str) -> dict:
         mc = cfg.model
         eng.initialize(resume=False)
         model = eng.state.model
-        eligible = sum(1 for p in model.parameters() if p.dim() >= 2
-                       and p.numel() >= mods["KERNEL_MIN_ELEMENTS"])
+        eligible = [i for i, p in enumerate(model.parameters())
+                    if p.dim() >= 2
+                    and p.numel() >= mods["KERNEL_MIN_ELEMENTS"]]
+        mu = eng.state.opt_state.mu
+        nu = eng.state.opt_state.nu
+        plan = mods["adamw_plan"]([(mu[i].numel(), mu[i].dtype, nu[i].dtype)
+                                   for i in eligible])
         print(f"gpt-1b: {mc.num_layers} layers, H={mc.hidden_size}, "
               f"{mc.num_heads}/{mc.num_kv_heads} heads, D={mc.head_dim}, "
               f"F={mc.ffn_size}, vocab {mc.vocab_size}, tied "
               f"{mc.tie_word_embeddings}; "
               f"{sum(p.numel() for p in model.parameters()) / 1e9:.4f}B "
               f"params; micro-batch {TRAIN_MICRO_BATCH} x "
-              f"{cfg.data.max_length}; {eligible} kernel-eligible leaves",
+              f"{cfg.data.max_length}; {len(eligible)} kernel-eligible "
+              f"leaves in {len(plan)} planned AdamW launch(es) a step",
               flush=True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for kn in kernels.values():
             kn.launches = 0                      # the main path starts
+        kernels["adamw"].leaves = 0
         t0 = time.time()
         final = eng.train(resume=False)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {name: kn.launches for name, kn in kernels.items()}
+        adamw_leaves = kernels["adamw"].leaves
         peak = torch.cuda.max_memory_allocated() / 1e9
         losses = [m["loss"] for m in log]
         check(len(losses) == TRAIN_STEPS, f"{len(losses)} logged steps")
@@ -1054,14 +1121,19 @@ def train_main_path(torch, mods, kernels: dict, card: str) -> dict:
         expected = {"flash_fwd": 2 * mc.num_layers * TRAIN_STEPS,
                     "flash_bwd_dq": mc.num_layers * TRAIN_STEPS,
                     "flash_bwd_dkv": mc.num_layers * TRAIN_STEPS,
-                    "adamw": eligible * TRAIN_STEPS}
+                    "adamw": len(plan) * TRAIN_STEPS}
         print(f"kernel launches on the training path: {launches}; expected "
               f"{expected} (per step: flash fwd 2 x {mc.num_layers} layers "
               f"under selective remat, dq and dkv {mc.num_layers}, adamw "
-              f"{eligible} leaves)", flush=True)
+              f"{len(plan)} planned launch(es)); adamw updated "
+              f"{adamw_leaves} leaves, expected {len(eligible)} x "
+              f"{TRAIN_STEPS} = {len(eligible) * TRAIN_STEPS}", flush=True)
         for name, n in expected.items():
             check(launches[name] == n, f"{name} launches {launches[name]} "
                   f"!= {n}")
+        check(adamw_leaves == len(eligible) * TRAIN_STEPS,
+              f"adamw leaves {adamw_leaves} != {len(eligible)} x "
+              f"{TRAIN_STEPS}")
         rates = sorted(m["tokens_per_sec"] for m in log[1:])
         tok_s = rates[len(rates) // 2]
         mfu = tok_s * mods["flops_per_token"](mc, cfg.data.max_length) \
@@ -1119,7 +1191,8 @@ def train_main_path(torch, mods, kernels: dict, card: str) -> dict:
               f"(rel {d_gn:.2e}), limit {STEP_AGREEMENT:.0e}", flush=True)
         check(d_loss <= STEP_AGREEMENT and d_gn <= STEP_AGREEMENT,
               "kernel and plain steps disagree")
-    return {"launches": launches, "expected": expected, "losses": losses,
+    return {"launches": launches, "expected": expected,
+            "adamw_leaves": adamw_leaves, "losses": losses,
             "steps": log, "tokens_per_sec": tok_s, "mfu": mfu,
             "step_ms": step_s * 1e3, "wall_s": wall,
             "peak_memory_allocated_gb": peak, "final": final,
@@ -1340,15 +1413,17 @@ def bound_record(k_ms, p_ms, l_ms, nbytes, ops, peak) -> dict:
 
 
 def quant_kernel_timing(torch, F, qm, build_log: str = "",
-                        paged_log: str = "", w8_log: str = "") -> dict:
+                        paged_log: str = "", w8_log: str = "",
+                        norm_log: str = "") -> dict:
     """The quantized-serving kernels' times beside plain, library and
     bound; the W4 and W8 kernels' shares of their bounds, their ratios to
     x @ w_bf16 and ptxas's figures of their templates (from ``build_log``
-    and ``w8_log``), and the paged kernel's share of its bound over
+    and ``w8_log``), the paged kernel's share of its bound over
     int8/int4 pages and ptxas's figures of those templates (from
-    ``paged_log``), printed."""
+    ``paged_log``), and RMSNorm's shares of its bound, ratios to
+    F.rms_norm and ptxas figures (from ``norm_log``), printed."""
     from distributed_llm_training_and_inference_system_tpu_torch import (
-        profile_matmul as pm)
+        profile_matmul as pm, profile_norm_adamw as pn)
     pa, w8, w4, tq = qm["pa"], qm["w8"], qm["w4"], qm["tq"]
     layers, rn = qm["layers"], qm["rn"]
     kn = qm["kernels"]
@@ -1456,22 +1531,36 @@ def quant_kernel_timing(torch, F, qm, build_log: str = "",
         sc = (torch.randn(shape[-1], generator=g, device="cuda") * 0.1
               ).to(bf16)
         weight = 1 + sc
-        n = x.numel()
+        work = pn.rmsnorm_work(x.numel() // shape[-1], shape[-1])
         r = bound_record(
             time_ms(torch, lambda: layers.rms_norm(x, sc, 1e-5, impl="cuda"),
                     flush=flush),
             time_ms(torch, lambda: layers.rms_norm(x, sc, 1e-5), flush=flush),
             time_ms(torch, lambda: F.rms_norm(x, (shape[-1],), weight, 1e-5),
                     flush=flush),
-            2 * n * 2 + shape[-1] * 2, 4 * n, PEAK_OPS["float32"])
+            work["bytes"], work["ops"], PEAK_OPS["float32"])
         r["shape"] = list(shape)
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["over_library"] = r["ms"] / r["library_ms"]
         res["rmsnorm" if shape == ENTRY_NORM_SHAPE
             else f"rmsnorm_{shape[0]}x{shape[1]}"] = r
         print(f"rmsnorm {shape} bf16: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library (F.rms_norm) "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}) -> {r['bound_ms'] / r['ms']:.1%} of bound",
+              f"({r['bound_by']}) -> {r['share_of_bound']:.1%} of bound, "
+              f"{r['over_library']:.2f}x F.rms_norm (printed, not gated)",
               flush=True)
+    print(f"rmsnorm {ENTRY_NORM_SHAPE}: its bound lies below the ~10 us "
+          f"that every cold call of time_ms costs (cuBLAS too), so its "
+          f"share of the bound is not a goal", flush=True)
+    res["rmsnorm_ptxas"] = pn.kernel_ptxas(norm_log)
+    for name, f in res["rmsnorm_ptxas"].items():
+        print(f"ptxas {name}: {f.get('registers')} registers, spill "
+              f"stores/loads {f.get('spill_stores')}/{f.get('spill_loads')} "
+              f"B", flush=True)
+    if not res["rmsnorm_ptxas"]:
+        print("ptxas: the build log holds no RMSNorm figures (the library "
+              "was built before this run)", flush=True)
     for n, k in kn.items():
         k.launches = saved[n]       # timing launches are not the main path
     return res
@@ -1643,9 +1732,33 @@ def rmsnorm_on_entry(torch, gpt, qm) -> dict:
           f"{NORM_PATH_LIMIT:.0%})", flush=True)
     check(launches == want, f"rmsnorm launches {launches} != {want}")
     check(diff <= NORM_PATH_LIMIT * top, "the norm kernel moved the logits")
+    # printed, not gated: the CUDA kernels of the norms (one a norm: no
+    # conversion ahead of it) and the forward's device time either way
+    from distributed_llm_training_and_inference_system_tpu_torch import (
+        profile_norm_adamw as pn)
+    with_kernel = pn.cuda_activity(lambda: fn(model, tokens), calls=2)
+
+    def plain():
+        with torch.inference_mode():
+            gpt.forward(model, tokens, cfg, attn_impl="flash")
+    without = pn.cuda_activity(plain, calls=2)
+    kernel.launches = launches                   # not the main path
+    norm_kernels = pn.launches_of(with_kernel, "rmsnorm")
+    ms = {impl: sum(a["ms"] for a in act.values())
+          for impl, act in (("cuda", with_kernel), ("xla", without))}
+    print(f"entry forward under torch.profiler: {norm_kernels:g} rmsnorm "
+          f"CUDA kernels a forward (one a norm: {want}), "
+          f"{pn.launches_of(with_kernel):g} CUDA kernels in all; device "
+          f"time {ms['cuda']:.3f} ms with norm_impl=cuda, {ms['xla']:.3f} ms "
+          f"with norm_impl=xla ({pn.launches_of(without):g} CUDA kernels) "
+          f"(printed, not gated)", flush=True)
     del model
     torch.cuda.empty_cache()
-    return {"launches": launches, "max_abs_diff": diff, "max_abs_logit": top}
+    return {"launches": launches, "max_abs_diff": diff, "max_abs_logit": top,
+            "norm_cuda_kernels": norm_kernels,
+            "cuda_kernels_a_forward": {"cuda": pn.launches_of(with_kernel),
+                                       "xla": pn.launches_of(without)},
+            "device_ms": ms}
 
 
 def main() -> int:
@@ -1688,7 +1801,7 @@ def main() -> int:
     from distributed_llm_training_and_inference_system_tpu_torch.ops import \
         attention as fa, attention_cuda as fac
     from distributed_llm_training_and_inference_system_tpu_torch.ops.\
-        adamw_cuda import adamw_kernel
+        adamw_cuda import adamw_kernel, adamw_plan
     from distributed_llm_training_and_inference_system_tpu_torch.runtime.\
         engine import TrainingEngine
     from distributed_llm_training_and_inference_system_tpu_torch.models \
@@ -1713,6 +1826,7 @@ def main() -> int:
             "load_run_config": load_run_config,
             "TrainingEngine": TrainingEngine,
             "KERNEL_MIN_ELEMENTS": fu.KERNEL_MIN_ELEMENTS,
+            "adamw_plan": adamw_plan,
             "flops_per_token": gpt.flops_per_token}
     train_kernels = {"flash_fwd": fac.flash_fwd,
                      "flash_bwd_dq": fac.flash_bwd_dq,
@@ -1772,7 +1886,8 @@ def main() -> int:
                                     TRAIN_MICRO_BATCH,
                                     build_logs.get("flash_attention", ""))
         train_timing["adamw"] = adamw_timing(torch, gpt, fu, adamw_kernel,
-                                             cfg1b)
+                                             cfg1b,
+                                             build_logs.get("adamw", ""))
 
         phase("10 train gpt-1b at full width and depth", t0)
         trained = train_main_path(torch, mods, train_kernels, smi)
@@ -1784,7 +1899,8 @@ def main() -> int:
         quant_timing = quant_kernel_timing(
             torch, F, qmods, build_logs.get("int4_matmul", ""),
             build_logs.get("paged_attention", ""),
-            build_logs.get("int8_matmul", ""))
+            build_logs.get("int8_matmul", ""),
+            build_logs.get("rmsnorm", ""))
 
         phase("13 serve quantized llama-8b-gqa at full width and depth", t0)
         bf16_model = bf16_model.to("cuda")

@@ -12,7 +12,8 @@ implementations of the same per-leaf function:
   ``_leaf_math`` on the card.
 
 ``fused_adamw_apply`` sends each leaf with ndim >= 2 and >= 65536 elements
-that lies on a card to the kernel, and the rest (norm scales, biases, and
+that lies on a card to the kernel, all of them in one multi-leaf call (one
+launch per (mu, nu) dtype pair), and the rest (norm scales, biases, and
 every leaf on the CPU) to ``_leaf_math``. The scalars (lr, 1 - b1^t,
 1 - b2^t, clip scale) stay on the device: nothing waits for the host.
 Unlike the JAX function, which returns new trees, this one updates
@@ -25,7 +26,7 @@ from typing import Sequence
 
 import torch
 
-from ..ops.adamw_cuda import adamw_kernel
+from ..ops.adamw_cuda import adamw_multi_kernel
 
 KERNEL_MIN_ELEMENTS = 1 << 16
 
@@ -81,12 +82,13 @@ def fused_adamw_apply(params: Sequence[torch.Tensor],
     every leaf (the unfused update)."""
     scalars = adam_scalars(count, lr, b1, b2, clip_scale)
     s_lr, om1, om2, s_clip = scalars.unbind()
+    kernel_leaves = []
     for p, g, m, v, decayed in zip(params, grads, mu, nu, decay_mask,
                                    strict=True):
         wd = weight_decay if decayed else 0.0
         if (use_kernel and p.is_cuda and p.dim() >= 2
                 and p.numel() >= KERNEL_MIN_ELEMENTS):
-            adamw_kernel(p, g, m, v, scalars, b1=b1, b2=b2, eps=eps, wd=wd)
+            kernel_leaves.append((p, g, m, v, wd))
             continue
         new_p, new_m, new_v = _leaf_math(
             p, g, m, v, s_lr, om1, om2, s_clip, b1=b1, b2=b2, eps=eps, wd=wd,
@@ -94,3 +96,7 @@ def fused_adamw_apply(params: Sequence[torch.Tensor],
         p.copy_(new_p)
         m.copy_(new_m)
         v.copy_(new_v)
+    if kernel_leaves:
+        ps, gs, ms, vs, wds = zip(*kernel_leaves)
+        adamw_multi_kernel(ps, gs, ms, vs, scalars, b1=b1, b2=b2, eps=eps,
+                           wds=wds)

@@ -521,6 +521,187 @@ def test_adamw_kernel_bitwise_equal_to_plain(shape, wd, mu_dtype, nu_dtype):
     assert torch.equal(kp, p) and torch.equal(kmu, mu) and torch.equal(knu, nu)
 
 
+# -- the multi-leaf AdamW launch ----------------------------------------------
+
+_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+          (torch.bfloat16, torch.bfloat16))
+_MIXED_SHAPES = ((5, 70001), (256, 512), (1000, 333), (300, 1), (17,),
+                 (4097,), (3,))
+
+
+def _mixed_leaves(pairs=_PAIRS, shapes=_MIXED_SHAPES, unaligned=True):
+    """Leaves of every shape in every (mu, nu) dtype pair, and (where
+    ``unaligned``) a leaf of views one element into their storage; a decay
+    mask that alternates."""
+    leaves = []
+    for mdt, ndt in pairs:
+        for shape in shapes:
+            leaves.append(_adam_leaf(shape, mdt, ndt, seed=len(leaves)))
+    if unaligned:
+        flat = _adam_leaf((3 * 70001 + 1,), torch.float32, torch.float32, 99)
+        leaves.append(tuple(t[1:].view(3, 70001) for t in flat))
+    wds = [0.1 if i % 2 else 0.0 for i in range(len(leaves))]
+    return leaves, wds
+
+
+def _adam_scalars():
+    return fu.adam_scalars(torch.tensor(6, device="cuda"),
+                           torch.tensor(3e-4, device="cuda"), 0.9, 0.95,
+                           torch.tensor(0.37, device="cuda"))
+
+
+def _multi(leaves, wds, scalars):
+    from distributed_llm_training_and_inference_system_tpu_torch.ops.\
+        adamw_cuda import adamw_multi_kernel
+    return adamw_multi_kernel(*zip(*leaves), scalars, b1=0.9, b2=0.95,
+                              eps=1e-8, wds=wds)
+
+
+def _graph_kernels(fn):
+    """Kernel nodes of a CUDA graph captured around one call of ``fn``:
+    what the call launches on the card, as the graph API lists it. (The
+    profiler's CUDA activity dropped kernels of whole windows in a full
+    run of this file on an H100, and the launch tests that came after
+    then read too few.)"""
+    import ctypes
+    fn()                                  # built and warm before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    return kinds.count(0)                 # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("pairs", [_PAIRS, _PAIRS[:1], _PAIRS[2:]])
+def test_adamw_multi_kernel_bitwise_equal_to_plain(pairs, unaligned):
+    """Leaves of odd sizes in several dtype pairs, a view that is not
+    16-byte aligned and a mixed decay mask, in one call: p, mu and nu equal
+    bit for bit to ``_leaf_math`` leaf by leaf; one launch a dtype pair
+    (the unaligned fp32 leaf joins the fp32 pair)."""
+    _need_card()
+    leaves, wds = _mixed_leaves(pairs, unaligned=unaligned)
+    scalars = _adam_scalars()
+    s = scalars.unbind()
+    ref = [fu._leaf_math(p, g, m, v, *s, b1=0.9, b2=0.95, eps=1e-8, wd=wd,
+                         mu_dtype=m.dtype, nu_dtype=v.dtype)
+           for (p, g, m, v), wd in zip(leaves, wds)]
+    before = (adamw_kernel.launches, adamw_kernel.leaves)
+    launches = _multi(leaves, wds, scalars)
+    torch.cuda.synchronize()
+    assert launches == len(set(pairs) | ({_PAIRS[0]} if unaligned else set()))
+    assert (adamw_kernel.launches - before[0],
+            adamw_kernel.leaves - before[1]) == (launches, len(leaves))
+    for (p, _, m, v), (rp, rm, rv) in zip(leaves, ref):
+        assert torch.equal(p, rp) and torch.equal(m, rm) and torch.equal(v, rv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pairs,kernels", [(_PAIRS[:1], 1), (_PAIRS, 3)])
+def test_adamw_launches_one_cuda_kernel_per_dtype_pair(pairs, kernels):
+    """Kernels on the card, not only the Python counter: one kernel for
+    every leaf of a dtype pair, and fused_adamw_apply over gpt-like leaves
+    launches one beside the kernels that make its scalars."""
+    _need_card()
+    leaves, wds = _mixed_leaves(pairs, unaligned=False)
+    scalars = _adam_scalars()
+    assert _graph_kernels(lambda: _multi(leaves, wds, scalars)) == kernels
+    shapes = [(512, 1024), (1024, 512), (2048, 256)]
+    ps, gs, ms, vs = zip(*(_adam_leaf(s, torch.float32, torch.float32, i)
+                           for i, s in enumerate(shapes)))
+    count = torch.tensor(3, dtype=torch.int32, device="cuda")
+    lr = torch.tensor(1e-3, device="cuda")
+    clip = torch.tensor(1.0, device="cuda")
+
+    def step():
+        fu.fused_adamw_apply(ps, gs, ms, vs, count, lr=lr, b1=0.9, b2=0.95,
+                             eps=1e-8, weight_decay=0.1,
+                             decay_mask=[True] * 3, clip_scale=clip)
+    before = (adamw_kernel.launches, adamw_kernel.leaves)
+    step()
+    assert (adamw_kernel.launches - before[0],
+            adamw_kernel.leaves - before[1]) == (1, 3)
+    assert _graph_kernels(step) - _graph_kernels(
+        lambda: fu.adam_scalars(count, lr, 0.9, 0.95, clip)) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count", [257, 600])
+def test_adamw_past_the_tables_capacity_runs_the_planned_launches(count):
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        adamw_cuda as ac)
+    _need_card()
+    leaves = [_adam_leaf((100 + i,), torch.float32, torch.float32, i)
+              for i in range(count)]
+    wds = [0.1] * count
+    plan = ac.adamw_plan([(p.numel(), m.dtype, v.dtype)
+                          for p, _, m, v in leaves])
+    assert len(plan) == -(-count // ac.CAPACITY)
+    scalars = _adam_scalars()
+    s = scalars.unbind()
+    ref = [fu._leaf_math(p, g, m, v, *s, b1=0.9, b2=0.95, eps=1e-8, wd=0.1,
+                         mu_dtype=m.dtype, nu_dtype=v.dtype)
+           for p, g, m, v in leaves]
+    before = adamw_kernel.launches
+    assert _multi(leaves, wds, scalars) == len(plan)
+    torch.cuda.synchronize()
+    assert adamw_kernel.launches - before == len(plan)
+    for (p, _, m, v), (rp, rm, rv) in zip(leaves, ref):
+        assert torch.equal(p, rp) and torch.equal(m, rm) and torch.equal(v, rv)
+    assert _graph_kernels(lambda: _multi(leaves, wds, scalars)) == len(plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", _PAIRS)
+def test_adamw_repeated_calls_give_identical_bits(pair):
+    _need_card()
+    leaves, wds = _mixed_leaves((pair,))
+    copies = [tuple(t.clone() for t in leaf) for leaf in leaves]
+    scalars = _adam_scalars()
+    for _ in range(2):
+        _multi(leaves, wds, scalars)
+        _multi(copies, wds, scalars)
+    torch.cuda.synchronize()
+    for a, b in zip(leaves, copies):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_adamw_multi_kernel_refuses_what_it_cannot_run():
+    from distributed_llm_training_and_inference_system_tpu_torch.ops.\
+        adamw_cuda import adamw_multi_kernel
+    _need_card()
+    p, g, m, v = _adam_leaf((64, 64), torch.float32, torch.float32, 0)
+    scalars = _adam_scalars()
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8)
+    with pytest.raises(ValueError):               # fp16 moment
+        adamw_multi_kernel([p], [g], [m.half()], [v], scalars, wds=[0.0],
+                           **kw)
+    with pytest.raises(ValueError):               # shapes differ
+        adamw_multi_kernel([p], [g[:32]], [m], [v], scalars, wds=[0.0], **kw)
+    with pytest.raises(ValueError):               # not contiguous
+        adamw_multi_kernel([p.t()], [g.t()], [m.t()], [v.t()], scalars,
+                           wds=[0.0], **kw)
+    with pytest.raises(ValueError):               # a leaf on the CPU
+        adamw_multi_kernel([p.cpu()], [g.cpu()], [m.cpu()], [v.cpu()],
+                           scalars, wds=[0.0], **kw)
+    with pytest.raises(ValueError):               # a decay per leaf
+        adamw_multi_kernel([p], [g], [m], [v], scalars, wds=[], **kw)
+
+
 @pytest.mark.gpu
 def test_train_step_on_card_kernels_against_plain():
     """One training step of a small model in bf16 on the card: through the
@@ -1135,6 +1316,86 @@ def test_rmsnorm_kernel_matches_plain(shape, dtype):
                         impl="cuda")
     with pytest.raises(ValueError):         # H not a multiple of 8
         rmsnorm_kernel(x[..., :60].contiguous(), scale[:60])
+
+
+def _norm_case(rows, H, x_dtype, s_dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(rows, H, generator=g, device="cuda") * 3).to(x_dtype)
+    scale = (torch.randn(H, generator=g, device="cuda") * 0.1).to(s_dtype)
+    return x, scale
+
+
+_NORM_DTYPES = [(torch.float32, torch.float32),
+                (torch.float32, torch.bfloat16),
+                (torch.bfloat16, torch.float32),
+                (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype,s_dtype", _NORM_DTYPES)
+@pytest.mark.parametrize("H", [64, 2048, 4096, 5120])
+@pytest.mark.parametrize("rows", [1, 7, 1024, 8192])
+def test_rmsnorm_kernel_in_every_dtype_pair(rows, H, x_dtype, s_dtype):
+    """x and scale each in fp32 or bf16 (the scale read in its own dtype),
+    a warp a row (H <= 4096 in bf16, <= 2048 in fp32) or a block a row:
+    within the tolerances of test_rmsnorm_kernel_matches_plain."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.models \
+        import layers
+    x, scale = _norm_case(rows, H, x_dtype, s_dtype, seed=rows + H)
+    out = layers.rms_norm(x, scale, 1e-5, impl="cuda")
+    ref = layers.rms_norm(x, scale, 1e-5)
+    assert out.dtype == x_dtype and out.shape == x.shape
+    tol = 2e-5 if x_dtype == torch.float32 else 6e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype,s_dtype", _NORM_DTYPES)
+@pytest.mark.parametrize("shape", [(1, 1024, 2048), (8, 4096), (3, 8192)])
+def test_rmsnorm_runs_one_cuda_kernel_a_call(shape, x_dtype, s_dtype):
+    """No conversion of the scale ahead of the norm: a CUDA graph of one
+    call holds one kernel."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops.rmsnorm \
+        import rmsnorm_kernel
+    x, scale = _norm_case(int(torch.tensor(shape[:-1]).prod()), shape[-1],
+                          x_dtype, s_dtype)
+    x = x.view(shape)
+    assert _graph_kernels(lambda: rmsnorm_kernel(x, scale)) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype,s_dtype", _NORM_DTYPES)
+@pytest.mark.parametrize("rows,H", [(1024, 2048), (8192, 4096), (5, 16384)])
+def test_rmsnorm_repeated_calls_give_identical_bits(rows, H, x_dtype,
+                                                    s_dtype):
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops.rmsnorm \
+        import rmsnorm_kernel
+    x, scale = _norm_case(rows, H, x_dtype, s_dtype, seed=7)
+    first = rmsnorm_kernel(x, scale)
+    assert all(torch.equal(first, rmsnorm_kernel(x, scale))
+               for _ in range(3))
+
+
+@pytest.mark.gpu
+def test_rmsnorm_kernel_refusals():
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.models \
+        import layers
+    from distributed_llm_training_and_inference_system_tpu_torch.ops.rmsnorm \
+        import rmsnorm_kernel
+    x, scale = _norm_case(4, 64, torch.bfloat16, torch.bfloat16)
+    with pytest.raises(ValueError):         # H not a multiple of 8
+        rmsnorm_kernel(x[:, :60].contiguous(), scale[:60])
+    flat = torch.empty(4 * 64 + 1, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):         # x 2 bytes into its storage
+        rmsnorm_kernel(flat[1:].view(4, 64), scale)
+    with pytest.raises(ValueError):         # a scale neither fp32 nor bf16
+        rmsnorm_kernel(x, scale.half())
+    with pytest.raises(RuntimeError):       # forward only
+        layers.rms_norm(x.float().requires_grad_(True), scale, impl="cuda")
 
 
 @pytest.mark.gpu
