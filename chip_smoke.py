@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              at llama-8b-gqa geometry (32 q heads over 8 kv heads, D=128,
              pages of 64, 8 slots with ragged lengths up to 2048), windows
-             T in {1, 4, 128}, fp32 (tolerance 1e-5) and bf16 (2e-2: the
+             T in {1, 4, 8, 128, 512} (decode, verify windows, suffix and
+             chunk prefill), fp32 (tolerance 1e-5) and bf16 (2e-2: the
              output is rounded to bf16);
 4. timing  — CUDA-event times of the kernel, its plain version and one
              PyTorch library call at the decode shape (T=1, B=8), beside
@@ -69,10 +70,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              one step through the kernels agrees with one through the plain
              versions within 1e-2;
 11. quantized kernels — paged attention over int8 and int4 pages at phase
-             3's geometry (fp32 1e-5; bf16 2e-2 and phase 7's row-scaled
-             limits); the W8A16 whole-reduction and k-split kernels and the
-             W4A16 kernel (group 128, channel scales not all ones) at every
-             llama-8b-gqa projection shape, rows 1, 8 and 64, against their
+             3's geometry and windows (fp32 1e-5; bf16 2e-2 and phase 7's
+             row-scaled limits); the W8A16 whole-reduction and k-split
+             kernels and the W4A16 kernel (group 128, channel scales not
+             all ones) at every llama-8b-gqa projection shape, rows 1, 8
+             and 64, against their
              plain versions (each bf16 element within one bf16 rounding of
              itself plus 1e-2 of its row's rms; fp32 out 1e-4 of the row's
              rms); each W8 kernel twice with identical bits (both split the
@@ -103,7 +105,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              bf16, flash attention) with every norm through the kernel
              (2L + 1 launches) against the same forward without it; the
              CUDA kernels of its norms (one a norm) and its device time
-             with norm_impl "xla" and "cuda" (torch.profiler; printed).
+             with norm_impl "xla" and "cuda" (torch.profiler; printed);
+15. serve features — run after 13, on phase 5's weights: llama-8b-gqa at
+             full width and depth, max_seq_len 4096, served with swap
+             preemption, chunked prefill (512) and n-gram speculation (T =
+             8) on a pool of 141 pages, and again with the three off; 8
+             prompts of 64-3000 tokens with spans that recur, 64 new
+             tokens each, 5 greedy and 3 seeded-sampled: at least one
+             swap-in, one speculative dispatch and two chunked prefills,
+             no NaN/inf, the paged kernel launched 32 x (decode steps +
+             suffix prefills + chunks + verify windows), /v1/stats; every
+             token of both runs within the near-tie bound 2 x 0.5 of the
+             dense forward's best (sampled: over the temperature, Gumbel
+             noise added), and where the runs part, the features-off
+             run's top two within it; a 24-page slot extracted and
+             restored bit for bit (the run's bf16 pool, int8 and int4
+             pages); TTFT of a 3000-token prompt chunked and dense, decode
+             tok/s with speculation on and off, the acceptance rate and
+             the swap times and bytes (printed).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} record. Without a CUDA card, or without the rest of the
@@ -191,6 +210,11 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5, flush=None) -> float:
 
 # -- phase 3/4: the kernel against its plain version ------------------------
 
+# query windows the serving paths give the kernel: decode (1), a short
+# window (4), speculation's verify window (8), a suffix prefill bucket (128)
+# and a chunk of chunked prefill (512)
+PAGED_WINDOWS = (1, 4, 8, 128, 512)
+
 def paged_case(torch, T: int, dtype, seed: int = 0):
     """llama-8b-gqa decode geometry: 8 slots, ragged lengths up to 2048,
     each slot's pages scattered over the pool in random order."""
@@ -216,7 +240,7 @@ def kernel_against_plain(torch, pa, kernel) -> float:
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        for T in (1, 4, 128):
+        for T in PAGED_WINDOWS:
             q, kp, vp, tables, starts, _ = paged_case(torch, T, dtype, seed=T)
             before = kernel.launches
             out = pa.paged_attention_multi(q, kp, vp, tables, starts)
@@ -1273,7 +1297,7 @@ def quant_kernels_against_plain(torch, qm) -> dict:
         name = f"paged_attention_{kind}"
         for dtype in (torch.float32, torch.bfloat16):
             dt = str(dtype).removeprefix("torch.")
-            for T in (1, 4, 128):
+            for T in PAGED_WINDOWS:
                 q, kp, vp, tables, starts, _ = paged_case(
                     torch, T, torch.float32, seed=T)
                 q = q.to(dtype)
@@ -1761,6 +1785,364 @@ def rmsnorm_on_entry(torch, gpt, qm) -> dict:
             "device_ms": ms}
 
 
+# -- phase 15: swap preemption, chunked prefill and speculation ---------------
+
+FEATURES = dict(chunked_prefill_tokens=512, speculative="ngram",
+                speculative_tokens=8, preemption="swap", admission="ondemand")
+FEATURE_SEQ_LEN = 4096        # room for the 3000-token prompt
+# sent longest first, so that admission packs the pool: the eight
+# admissions take 142 pages (each prompt + 15 tokens of lookahead), so a
+# pool of 140 usable pages leaves the last one waiting and no slack, and
+# the first stream whose decode crosses a page boundary preempts the newest
+FEATURE_LENGTHS = (3000, 2200, 1500, 900, 600, 300, 128, 64)
+FEATURE_POOL_PAGES = 140
+FEATURE_SAMPLED = (1, 4, 6)   # indices of the seeded-sampled requests
+FEATURE_TOKENS = 64
+FEATURE_TEMPERATURE = 0.8
+# The near-tie bound. delta is the largest change that one bf16 serving path
+# makes to a logit of llama-8b-gqa (random weights from seed 0) against the
+# dense bf16 forward: phase 6 measures it for paged decode after a dense
+# prefill (0.2739 in every run of PR 1-10); verify windows (T = 8) and
+# chunks (T = 512) are the same arithmetic at other row counts (bf16
+# projections, the kernel's fp32 softmax, K/V stored in bf16), so delta
+# allows them 1.8x that, and the phase fails if phase 6 reads more. If two
+# paths' logits each lie within delta of the dense forward's r, a path's pick
+# a = argmax satisfies max(r) - r(a) <= 2 delta, and two paths that pick
+# a != b from one context have |r(a) - r(b)| <= 2 delta. A sampled row picks
+# the argmax of logits / temperature + Gumbel noise, so there the bound is
+# 2 delta / temperature.
+NEAR_TIE_DELTA = 0.5
+FEATURE_COUNTERS = ("total_dispatched_steps", "total_extend_prefills",
+                    "total_prefill_chunks", "total_spec_dispatches",
+                    "total_chunked_prefills", "total_swap_ins",
+                    "total_swap_outs", "total_swap_out_bytes",
+                    "total_swap_fallbacks", "total_spec_drafts",
+                    "total_spec_accepted", "total_preemptions")
+
+
+def feature_prompts(seed: int = 15) -> list:
+    """Token-id prompts of FEATURE_LENGTHS, each made of a few random spans
+    of 16-48 tokens that recur inside it (so the n-gram proposer finds
+    drafts) and short random runs; ids below 256, as the byte tokenizer
+    gives them."""
+    rng = random.Random(seed)
+    out = []
+    for n in FEATURE_LENGTHS:
+        spans = [[rng.randrange(256) for _ in range(rng.randint(16, 48))]
+                 for _ in range(4)]
+        ids = []
+        while len(ids) < n:
+            ids += (rng.choice(spans) if rng.random() < 0.7 else
+                    [rng.randrange(256) for _ in range(rng.randint(1, 8))])
+        out.append(ids[:n])
+    return out
+
+
+def feature_body(i: int, prompt: list, max_tokens: int = FEATURE_TOKENS
+                 ) -> dict:
+    sampled = i in FEATURE_SAMPLED
+    return {"prompt": prompt, "max_tokens": max_tokens, "seed": 100 + i,
+            "temperature": FEATURE_TEMPERATURE if sampled else 0.0}
+
+
+def feature_traffic(torch, srv, prompts, kernels: dict) -> dict:
+    """Serve ``prompts`` through /v1/completions, started 30 ms apart in
+    order and running concurrently; the counts of ``kernels`` are set to 0
+    just before the first request and read after the last. Then /v1/stats,
+    and three rounds of two solo requests: a fresh prompt of the longest
+    length (its TTFT) and a fresh 1024-token prompt decoding 64 greedy
+    tokens (its decode rate). Stops the server."""
+    eng, port = srv.engine, srv.start()
+    try:
+        post(port, {"prompt": [1, 2, 3], "max_tokens": 2,
+                    "temperature": 0.0})           # set-up, not measured
+        torch.cuda.synchronize()
+        before = {k: getattr(eng, k) for k in FEATURE_COUNTERS}
+        for k in kernels.values():
+            k.launches = 0                           # the main path starts
+        out = [None] * len(prompts)
+
+        def worker(i):
+            out[i] = post(port, feature_body(i, prompts[i]))
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.time()
+        for t in threads:
+            t.start()
+            time.sleep(0.03)
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.time() - t0
+        launches = {n: k.launches for n, k in kernels.items()}  # it ended
+        check(all(r is not None for r in out), "a request did not return")
+        counts = {k.removeprefix("total_"): getattr(eng, k) - before[k]
+                  for k in FEATURE_COUNTERS}
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/stats",
+                                    timeout=60) as r:
+            check(r.status == 200, f"/v1/stats status {r.status}")
+            stats = json.loads(r.read())
+        ttft, rate = [], []
+        for seed in (16, 17, 18):
+            fresh = feature_prompts(seed=seed)
+            longest = post(port, {"prompt": fresh[0], "max_tokens": 2,
+                                  "temperature": 0.0})
+            ttft.append(longest["metrics"]["ttft_ms"])
+            solo = post(port, {"prompt": fresh[1][:1024],
+                               "max_tokens": FEATURE_TOKENS,
+                               "temperature": 0.0})
+            m = solo["metrics"]
+            rate.append((solo["usage"]["completion_tokens"] - 1)
+                        / ((m["latency_ms"] - m["ttft_ms"]) / 1e3))
+    finally:
+        srv.stop()
+    return {
+        "results": out, "launches": launches, "counts": counts,
+        "stats": stats, "wall_s": wall,
+        "tokens": sum(r["usage"]["completion_tokens"] for r in out),
+        "ttft_longest_ms": ttft, "solo_decode_tok_per_s": rate,
+        "per_request_decode_tok_per_s_p50": sorted(
+            (r["usage"]["completion_tokens"] - 1)
+            / ((r["metrics"]["latency_ms"] - r["metrics"]["ttft_ms"]) / 1e3)
+            for r in out)[len(out) // 2],
+    }
+
+
+def teacher_forced(torch, mods, model, cfg, prompt, tokens, body) -> dict:
+    """The dense bf16 forward over ``prompt + tokens``: for each generated
+    token, how far its score (logit; for a sampled row logit / temperature
+    + the request's Gumbel noise at its position) lies below the best
+    score (the deficit), with the scores [K, V]."""
+    gpt = mods["gpt"]
+    n, K = len(prompt), len(tokens)
+    ctx = torch.tensor([prompt + tokens[:-1]], device="cuda")
+    with torch.inference_mode():
+        logits = gpt.forward(model, ctx, cfg)[0, n - 1:n - 1 + K].float()
+        if body["temperature"] > 0:
+            noise = mods["gumbel_noise"](
+                torch.full((K,), body["seed"], device="cuda"),
+                torch.arange(n, n + K, device="cuda"), cfg.vocab_size)
+            logits = logits / body["temperature"] + noise
+    picked = logits.gather(1, torch.tensor(tokens, device="cuda")[:, None])
+    deficit = (logits.max(dim=1).values - picked[:, 0]).cpu().tolist()
+    return {"scores": logits, "deficit": deficit}
+
+
+def swap_round_trip(torch, mods, cfg, kind: str, pool=None) -> dict:
+    """A 1500-token slot (24 pages) of llama-8b-gqa extracted to pinned
+    host memory and restored into another slot on the card; the restored
+    pages must equal the originals byte for byte. ``pool`` is a cache to
+    use (the features-on engine's, holding the run's K/V); else a fresh one
+    of ``kind`` filled with random bytes. Two rounds: the first ("cold")
+    allocates the pinned host buffers, the second ("warm") reuses them
+    from PyTorch's pinned-memory cache, as a swap in a running engine
+    does; each call timed by CUDA events (device) and on the host's clock
+    until it returns (host). Bytes of the payload."""
+    kvc = mods["kv_cache"]
+    if pool is None:
+        pool = kvc.PagedKVCache(cfg, num_slots=3, max_seq_len=2048,
+                                page_size=64, num_pages=60,
+                                dtype=torch.bfloat16, device="cuda",
+                                quantized=kind)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        for buf in (pool.k_pages, pool.v_pages):
+            for t in (buf.tensors() if pool.quantized else (buf,)):
+                if t.dtype.is_floating_point:
+                    t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+                else:
+                    t.copy_(torch.randint(0, 255, t.shape, generator=g,
+                                          device="cuda").to(t.dtype))
+    src, dst = 0, 1
+    times = {}
+
+    def timed(fn):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.record()
+        out = fn()
+        e.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return out, s.elapsed_time(e), host_ms
+
+    for rnd in ("cold", "warm"):
+        for slot in (src, dst):
+            pool.release(slot)
+        pool.allocate(src, 1500)
+        payload, dev_ms, host_ms = timed(lambda: pool.extract_slot(src))
+        times[f"swap_out_{rnd}_ms"] = dev_ms
+        times[f"swap_out_{rnd}_host_ms"] = host_ms
+        host = kvc.payload_numpy(payload)
+        pool.release(src)
+        pool.allocate(2, 300)                # the freed pages move on
+        ok, dev_ms, host_ms = timed(lambda: pool.restore_slot(dst, payload))
+        check(ok, f"swap-in of {kind} pages found no room")
+        times[f"swap_in_{rnd}_ms"] = dev_ms
+        times[f"swap_in_{rnd}_host_ms"] = host_ms
+        pool.release(2)
+        del payload                 # its pinned blocks go back to the cache
+    back = kvc.payload_numpy(pool.extract_slot(dst))
+    nbytes, same = 0, True
+    for name in ("k", "v"):
+        a, b = host[name], back[name]
+        for x, y in ([(a[p], b[p]) for p in ("values", "scale")]
+                     if isinstance(a, dict) else [(a, b)]):
+            same &= x.dtype == y.dtype and x.tobytes() == y.tobytes()
+            nbytes += x.nbytes
+    for slot in (src, dst):
+        pool.release(slot)
+    check(same, f"{kind} pages restored on the card differ from the "
+          f"extracted ones")
+    return {"kind": kind, "pages": 24, "bytes": nbytes, **times}
+
+
+def serve_features(torch, mods, kernel, model, cfg, card: str,
+                   dense_max_abs_diff: float) -> dict:
+    """Phase 15: llama-8b-gqa at full width and depth from phase 5's
+    weights, served twice through /v1/completions: with swap preemption,
+    chunked prefill and n-gram speculation on (a pool that forces
+    preemption), and with the three off; every stream held to the dense
+    forward within the near-tie bound; swap round trips bit for bit."""
+    check(dense_max_abs_diff <= NEAR_TIE_DELTA,
+          f"phase 6 read paged decode {dense_max_abs_diff} from the dense "
+          f"forward, over the near-tie delta {NEAR_TIE_DELTA}")
+    L = cfg.num_layers
+    prompts = feature_prompts()
+    runs = {}
+    for name, over in (("on", dict(FEATURES,
+                                   kv_num_blocks=FEATURE_POOL_PAGES + 1)),
+                       ("off", {})):
+        scfg = mods["ServeConfig"](model=cfg.name, host="127.0.0.1", port=0,
+                                   max_seq_len=FEATURE_SEQ_LEN, **over)
+        srv = mods["InferenceServer"](cfg, scfg, params=model, seed=0)
+        runs[name] = feature_traffic(torch, srv, prompts,
+                                     {"paged_attention": kernel})
+        runs[name]["pool_pages"] = srv.engine.kv.num_pages
+        if name == "on":
+            # the engine's own pool, holding the run's K/V, bit for bit
+            swaps = [swap_round_trip(torch, mods, cfg, "bf16",
+                                     pool=srv.engine.kv)]
+        srv.engine.release()
+        del srv
+        torch.cuda.empty_cache()
+    on, off = runs["on"], runs["off"]
+    c, st = on["counts"], on["stats"]
+    for run in (on, off):
+        for r in run["results"]:
+            toks = r["choices"][0]["token_ids"]
+            reason = r["choices"][0]["finish_reason"]
+            check(len(toks) == FEATURE_TOKENS or reason == "stop",
+                  f"a stream ended after {len(toks)} tokens ({reason})")
+    check(st["nonfinite_logits"] == 0 and off["stats"]["nonfinite_logits"]
+          == 0, "a logits tensor held NaN/inf")
+    check(c["swap_ins"] >= 1, f"no swap-in ({c['swap_outs']} swap-outs, "
+          f"{c['preemptions']} preemptions)")
+    check(c["spec_dispatches"] >= 1, "no speculative dispatch")
+    check(c["chunked_prefills"] >= 2, f"{c['chunked_prefills']} chunked "
+          f"prefills")
+    for key in ("swap_ins", "spec_dispatches", "spec_acceptance",
+                "prefill_chunks", "chunked_prefills", "swapped_host_bytes"):
+        check(key in st, f"/v1/stats has no {key}")
+    passes = (c["dispatched_steps"] + c["extend_prefills"]
+              + c["prefill_chunks"] + c["spec_dispatches"])
+    launches = on["launches"]["paged_attention"]
+    print(f"features on: paged kernel launches {launches} = {L} layers x "
+          f"({c['dispatched_steps']} decode steps + {c['extend_prefills']} "
+          f"suffix prefills + {c['prefill_chunks']} chunks + "
+          f"{c['spec_dispatches']} verify windows); expected {L * passes}",
+          flush=True)
+    check(launches == L * passes, f"paged launches {launches} != "
+          f"{L * passes}")
+
+    # every stream against the dense forward; the two runs against each
+    # other at their first differing token. Every stream is read before
+    # the phase fails, so a failure shows how far past the bound it lies.
+    compared, faults = [], []
+    for i, prompt in enumerate(prompts):
+        body = feature_body(i, prompt)
+        bound = 2 * NEAR_TIE_DELTA / (body["temperature"] or 1.0)
+        a = on["results"][i]["choices"][0]["token_ids"]
+        b = off["results"][i]["choices"][0]["token_ids"]
+        ref_on = teacher_forced(torch, mods, model, cfg, prompt, a, body)
+        ref_off = teacher_forced(torch, mods, model, cfg, prompt, b, body)
+        first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+        rec = {"prompt_tokens": len(prompt), "sampled": body["temperature"]
+               > 0, "bound": bound, "first_difference": first,
+               "on_max_deficit": max(ref_on["deficit"]),
+               "off_max_deficit": max(ref_off["deficit"])}
+        if first is not None:
+            sc = ref_on["scores"][first]
+            top = sc.max().item()
+            rec["gap_at_difference"] = abs(sc[a[first]].item()
+                                           - sc[b[first]].item())
+            rec["off_deficit_at_difference"] = top - sc[b[first]].item()
+            if max(rec["gap_at_difference"],
+                   rec["off_deficit_at_difference"]) > bound:
+                faults.append(
+                    f"stream {i}: the runs part at token {first} where the "
+                    f"features-off run's top two lie "
+                    f"{rec['gap_at_difference']:.4f} apart (bound {bound})")
+        print(f"stream {i} ({len(prompt)} prompt tokens, "
+              f"{'sampled' if rec['sampled'] else 'greedy'}): first "
+              f"difference on/off at token {first}"
+              + (f" (score gap {rec['gap_at_difference']:.4f})"
+                 if first is not None else "")
+              + f"; largest deficit under the dense forward: on "
+              f"{rec['on_max_deficit']:.4f}, off {rec['off_max_deficit']:.4f}"
+              f" (bound {bound:.3f})", flush=True)
+        worst = max(rec["on_max_deficit"], rec["off_max_deficit"])
+        if worst > bound:
+            faults.append(f"stream {i}: a token lies {worst:.4f} under the "
+                          f"dense forward's best (bound {bound})")
+        compared.append(rec)
+        del ref_on, ref_off
+    torch.cuda.empty_cache()
+    check(not faults, "; ".join(faults))
+
+    swaps += [swap_round_trip(torch, mods, cfg, kind)
+              for kind in ("int8", "int4")]
+    acceptance = c["spec_accepted"] / max(c["spec_drafts"], 1)
+    print(f"features on: {c['chunked_prefills']} chunked prefills in "
+          f"{c['prefill_chunks']} chunks, {c['spec_dispatches']} speculative "
+          f"dispatches, acceptance {acceptance:.4f} ({c['spec_accepted']} of "
+          f"{c['spec_drafts']} drafts), {c['preemptions']} preemptions, "
+          f"{c['swap_outs']} swap-outs ({c['swap_out_bytes']} B), "
+          f"{c['swap_ins']} swap-ins, {c['swap_fallbacks']} fallbacks; pool "
+          f"{on['pool_pages']} pages [{card}]", flush=True)
+    def listed(xs, fmt=".1f"):
+        return ", ".join(f"{x:{fmt}}" for x in xs)
+    print(f"TTFT of a {FEATURE_LENGTHS[0]}-token prompt alone, 3 fresh "
+          f"prompts: chunked {listed(on['ttft_longest_ms'])} ms, dense "
+          f"{listed(off['ttft_longest_ms'])} ms [{card}]", flush=True)
+    print(f"decode tok/s of one greedy stream alone (64 tokens, 1024-token "
+          f"prompt, 3 fresh prompts): speculation on "
+          f"{listed(on['solo_decode_tok_per_s'])}, off "
+          f"{listed(off['solo_decode_tok_per_s'])}; per-request p50 over "
+          f"the 8 streams: on "
+          f"{on['per_request_decode_tok_per_s_p50']:.1f}, off "
+          f"{off['per_request_decode_tok_per_s_p50']:.1f}; traffic wall on "
+          f"{on['wall_s']:.2f} s, off {off['wall_s']:.2f} s [{card}]",
+          flush=True)
+    for sw in swaps:
+        print(f"swap round trip, {sw['kind']} pages, {sw['pages']} pages of "
+              f"llama-8b-gqa, {sw['bytes']} B, device (host) ms: swap-out "
+              f"warm {sw['swap_out_warm_ms']:.3f} "
+              f"({sw['swap_out_warm_host_ms']:.3f}), cold "
+              f"{sw['swap_out_cold_ms']:.3f} "
+              f"({sw['swap_out_cold_host_ms']:.3f}); swap-in warm "
+              f"{sw['swap_in_warm_ms']:.3f} "
+              f"({sw['swap_in_warm_host_ms']:.3f}), cold "
+              f"{sw['swap_in_cold_ms']:.3f} ({sw['swap_in_cold_host_ms']:.3f})"
+              f"; {sw['bytes'] / sw['swap_out_warm_ms'] / 1e6:.1f} GB/s out, "
+              f"{sw['bytes'] / sw['swap_in_warm_ms'] / 1e6:.1f} GB/s in; "
+              f"restored bytes equal [{card}]", flush=True)
+    for run in (on, off):
+        run.pop("results")
+    return {"launches": launches, "counts": c, "acceptance": acceptance,
+            "streams": compared, "swaps": swaps, "on": on, "off": off}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements here (JSON)")
@@ -1791,7 +2173,9 @@ def main() -> int:
     from distributed_llm_training_and_inference_system_tpu_torch.ops.\
         paged_attention_cuda import paged_attention_kernel
     from distributed_llm_training_and_inference_system_tpu_torch.serve \
-        import InferenceEngine, InferenceServer
+        import InferenceEngine, InferenceServer, kv_cache
+    from distributed_llm_training_and_inference_system_tpu_torch.serve.\
+        sampling import gumbel_noise
     from distributed_llm_training_and_inference_system_tpu_torch.serve.\
         decode import decode_step_forward
     from distributed_llm_training_and_inference_system_tpu_torch.config.\
@@ -1827,7 +2211,8 @@ def main() -> int:
             "TrainingEngine": TrainingEngine,
             "KERNEL_MIN_ELEMENTS": fu.KERNEL_MIN_ELEMENTS,
             "adamw_plan": adamw_plan,
-            "flops_per_token": gpt.flops_per_token}
+            "flops_per_token": gpt.flops_per_token,
+            "kv_cache": kv_cache, "gumbel_noise": gumbel_noise}
     train_kernels = {"flash_fwd": fac.flash_fwd,
                      "flash_bwd_dq": fac.flash_bwd_dq,
                      "flash_bwd_dkv": fac.flash_bwd_dkv,
@@ -1908,6 +2293,16 @@ def main() -> int:
             name: serve_quantized(torch, mods, qmods, llama_cfg, bf16_model,
                                   name, smi, **settings)
             for name, settings in QUANT_CONFIGS.items()}
+
+        # numbered 15, run while phase 5's weights are still on the card
+        phase("15 serve llama-8b-gqa with swap preemption, chunked prefill "
+              "and n-gram speculation", t0)
+        t15 = time.time()
+        features = serve_features(torch, mods, paged_attention_kernel,
+                                  bf16_model, llama_cfg, smi,
+                                  dense["max_abs_diff"])
+        features["seconds"] = time.time() - t15
+        print(f"phase 15 took {features['seconds']:.1f} s", flush=True)
         del bf16_model
         torch.cuda.empty_cache()
 
@@ -1945,7 +2340,7 @@ def main() -> int:
         "source": f"{PORT}/csrc/paged_attention.cu",
         "replaces": "distributed_llm_training_and_inference_system_tpu/ops/"
                     "paged_attention_pallas.py:47",
-        "launches": served["launches"],
+        "launches": served["launches"] + features["launches"],
         "max_abs_err": max_err,
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -1983,7 +2378,8 @@ def main() -> int:
               f"main path")
     if args.out:
         record.update(quant_max_abs_err=quant_err, quant_timing=quant_timing,
-                      serve_quantized=quant_served, rmsnorm_path=norm_path)
+                      serve_quantized=quant_served, rmsnorm_path=norm_path,
+                      serve_features=features)
         record.update(kernels=kernels, timing=timing, serve=served,
                       paged_vs_dense=dense, flash_vs_plain=flash,
                       adamw_max_abs_err=adamw_err, train_timing=train_timing,

@@ -77,6 +77,7 @@ def extend_step_forward(
     w4_kernel_ok: bool = True,
     w8_kernel_ok: bool = False,     # opt-in: ServeConfig.int8_pallas_matmul
     attn_impl: str = "auto",        # ops.paged_attention: auto|cuda|gather
+    logits: bool = True,            # False: skip the head, logits is None
 ):
     """Returns (logits [B, T, V] fp32, k_pages, v_pages).
 
@@ -85,7 +86,13 @@ def extend_step_forward(
     K/V are written first, then attention runs with per-query length
     ``start + j + 1``. A window of T <= page_size tokens takes the window
     write; a longer one (a suffix prefill) scatters B*T rows, whose masked
-    rows land in scratch page 0."""
+    rows land in scratch page 0. With ``logits=False`` (an intermediate
+    chunk of a chunked prefill, whose product is pages) the final norm and
+    the [B, T, V] head are not computed.
+
+    A window of more than ``KERNEL_MAX_ROWS`` rows (B * T: a suffix or
+    chunk prefill, a wide verify window) sends quantized weights to the
+    dequant route, as the JAX package's decode does."""
     dt = compute_dtype(cfg)
     B, T = tokens.shape
     D, Nq, Nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
@@ -137,6 +144,8 @@ def extend_step_forward(
         h = rms_norm(x, cast(blk.mlp_norm, dt), cfg.norm_eps)
         x = x + mlp_block(h, blk, cfg, matmul=proj).to(x.dtype)
 
+    if not logits:
+        return None, k_pages, v_pages
     return unembed(model, x, cfg), k_pages, v_pages
 
 

@@ -23,10 +23,27 @@ serving path:
   the in-kernel-dequant matmuls; prefill dequantizes one layer at a time.
 - **Admission**: on demand by default (pages for one dispatch of lookahead;
   chains grow as decode advances, and the newest resident request is
-  preempted, recompute-style, when the pool runs dry).
+  preempted when the pool runs dry). ``preemption="recompute"`` re-prefills
+  the victim on readmission; ``"swap"`` copies its pages to host memory
+  (``kv_cache.extract_slot``, up to ``swap_space_gb``) and writes them back
+  on readmission with no prefill; a payload the pool cannot take, or a
+  malformed one, falls back to re-prefill (counted in ``swap_fallbacks``).
+- **Chunked prefill** (``chunked_prefill_tokens`` C > 0): a context longer
+  than C prefills C tokens an engine step through ``extend_step_forward``
+  over the slot's pages (the paged kernel at windows of up to C rows),
+  interleaved with decode; at most ``prefill_budget_tokens`` of chunks a
+  step, round-robin over the requests in flight. Intermediate chunks skip
+  the head. Windows of more than 64 rows send quantized weights to the
+  dequant route.
+- **Speculative decoding** (``speculative="ngram"``): while a greedy
+  stream is resident, a dispatch is one verify window of
+  ``speculative_tokens`` T (host n-gram drafts, ``serve/speculative.py``)
+  plus K - 1 decode steps; after 64 dispatches under
+  ``speculative_min_acceptance`` it switches itself off.
 
-Non-default features that the port does not carry yet raise
-``NotImplementedError`` at construction, naming their ROADMAP item.
+Features that the port does not carry yet raise ``NotImplementedError``,
+naming their ROADMAP item: at construction, and for a fleet request
+(pipeline stage, partial payload) when it is admitted.
 """
 
 from __future__ import annotations
@@ -48,8 +65,9 @@ from ..ops.quantization import (QuantTensor, Quant4Tensor, int4_group_for,
                                 pack_int4_rows, quantize_int4_groupwise,
                                 quantize_int8)
 from .decode import decode_scan, extend_step_forward
-from .kv_cache import PagedKVCache, prefix_page_hashes
+from .kv_cache import PagedKVCache, payload_bytes, prefix_page_hashes
 from .sampling import gumbel_noise, sample_tokens
+from .speculative import SpecState, propose_ngram_draft, verify_and_decode
 from .scheduler import (ContinuousBatchingScheduler, Request, RequestState,
                         SamplingParams)
 
@@ -57,20 +75,18 @@ logger = logging.getLogger("llmctl.serve.engine")
 
 # feature -> (is it requested?, ROADMAP item that ports it)
 _NOT_PORTED = (
-    (lambda c: c.speculative != "off", "speculative",
-     "queue 1 item 6 (serve/speculative.py)"),
-    (lambda c: c.chunked_prefill_tokens > 0, "chunked_prefill_tokens > 0",
-     "queue 1 item 6 (chunked prefill)"),
     (lambda c: c.quantization == "int4-awq", "quantization='int4-awq'",
      "queue 1 item 5 (AWQ calibration, ops/quantization.py)"),
     (lambda c: c.tensor_parallel > 1, "tensor_parallel > 1",
      "queue 1 item 7 (multi-GPU)"),
-    (lambda c: c.preemption == "swap", "preemption='swap'",
-     "queue 1 item 6 (swap preemption)"),
     (lambda c: bool(c.artifact), "artifact loading",
      "queue 1 item 5 (artifact loading, io/export.py)"),
 )
 
+
+# a request that only the fleet makes (ROADMAP queue 1 item 9)
+_FLEET_ONLY = ("is a fleet request; the PyTorch engine does not serve it "
+               "yet (ROADMAP queue 1 item 9, serve/fleet/)")
 
 QUANT_MIN_SIZE = 4096    # elements of the stacked [L, in, out] kernel
 
@@ -209,6 +225,21 @@ class InferenceEngine:
         # admission sequence per slot: preemption victims newest-first
         self._slot_seq = np.zeros(S, np.int64)
         self.total_preemptions = 0
+        self.total_swap_ins = 0
+        self.total_swap_outs = 0
+        self.total_swap_out_bytes = 0
+        # swap-ins that fell back to re-prefill (pool full, bad payload)
+        self.total_swap_fallbacks = 0
+        # per-slot context (prompt + accepted tokens) for the draft
+        # proposer, extended in place as tokens are accepted
+        self._ctx = np.zeros((S, serve_cfg.max_seq_len), np.int64)
+        self._ctx_len = np.zeros(S, np.int64)
+        # chunked prefill: request id -> progress; the round-robin resume
+        # point is a request id (entries finish or cancel between steps)
+        self._partial_prefills: dict[str, dict] = {}
+        self._chunk_rr: Optional[str] = None
+        self.total_chunked_prefills = 0    # requests that took chunks
+        self.total_prefill_chunks = 0      # chunk dispatches
 
         # the one un-fetched in-flight dispatch group (see step())
         self._pending = None
@@ -228,6 +259,16 @@ class InferenceEngine:
         # together they say how many paged-attention passes ran per layer
         self.total_dispatched_steps = 0
         self.total_extend_prefills = 0
+        # speculation: on until the adaptive check switches it off
+        self._spec_on = serve_cfg.speculative == "ngram"
+        # draft proposer (ctx, n, max_ngram) -> draft or None; None is the
+        # n-gram proposer (an injected one dials acceptance in tests)
+        self.draft_fn: Optional[Callable] = None
+        self._spec_state: list[Optional[SpecState]] = [None] * S
+        self.total_spec_dispatches = 0
+        self.total_spec_drafts = 0
+        self.total_spec_accepted = 0
+        self.total_spec_resumes = 0        # slots armed from a carried state
         # device count of logits tensors with a NaN/inf (read in stats())
         self._nonfinite = torch.zeros((), dtype=torch.int64,
                                       device=self.device)
@@ -236,8 +277,16 @@ class InferenceEngine:
 
     @property
     def _decode_lookahead(self) -> int:
-        """Tokens one dispatch group may write per slot."""
-        return self._decode_units * self._decode_unit_len
+        """Tokens one dispatch may write per slot. A speculative dispatch
+        writes its verify window (T rows from the root) and then K - 1
+        decode steps from root + n_emit, n_emit <= T: T + K - 1 tokens. A
+        shorter span sends the overflow rows to scratch page 0, and the
+        next capacity pass grows the chain over them with fresh pages."""
+        k = self._decode_units * self._decode_unit_len
+        if self.serve_cfg.speculative == "ngram":
+            K = max(self.serve_cfg.decode_steps_per_dispatch, 1)
+            k = max(k, self.serve_cfg.speculative_tokens + K - 1)
+        return k
 
     def _admission_tail(self, req: Request) -> int:
         """Tokens beyond the prefill context that admission must cover:
@@ -253,6 +302,21 @@ class InferenceEngine:
         here and only the remainder is reserved."""
         ctx = req.context_tokens   # prompt, + generated after a preemption
         n = len(ctx)
+        if req.swapped_kv is not None:
+            # swap-in: the request brings its own pages; pinning prefix
+            # pages would count twice against its restore
+            need = self.kv.pages_needed(n + self._admission_tail(req))
+            pages = req.swapped_kv.get("pages")
+            if isinstance(pages, dict):
+                try:
+                    need = max(need, int(pages["num_pages"]))
+                except (KeyError, TypeError, ValueError):
+                    pass      # malformed: the restore refuses it later
+            if need > self.kv.free_pages - self._reserved_pages:
+                return False
+            self._reserved_pages += need
+            self._reserved_by[req.request_id] = need
+            return True
         pins: list[int] = []
         usable = 0
         if self.serve_cfg.prefix_caching:
@@ -364,11 +428,13 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def _prefill_extend(self, tokens: np.ndarray, cached: int, m: int,
-                        table_row: np.ndarray) -> torch.Tensor:
-        """Suffix prefill over a cached paged prefix: the ``m`` un-cached
-        tokens (padded to the suffix bucket) run through
-        ``extend_step_forward``, writing through the slot's block table.
-        Returns the last real token's logits [1, V]."""
+                        table_row: np.ndarray, head: bool = True
+                        ) -> Optional[torch.Tensor]:
+        """Suffix prefill over a cached paged prefix (or one chunk of a
+        chunked prefill): the ``m`` un-cached tokens (padded to the suffix
+        bucket) run through ``extend_step_forward``, writing through the
+        slot's block table. Returns the last real token's logits [1, V],
+        or None without ``head`` (an intermediate chunk)."""
         dev = self.device
         bucket = tokens.shape[1]
         write_ok = torch.arange(bucket, device=dev)[None] < m
@@ -376,8 +442,20 @@ class InferenceEngine:
             self.params, to_device(tokens, dev, torch.int64),
             to_device(np.array([cached]), dev), self.kv.k_pages,
             self.kv.v_pages, to_device(table_row[None], dev), self.cfg,
-            write_ok=write_ok, w8_kernel_ok=self._w8_kernel_ok)
-        return logits[:, m - 1]
+            write_ok=write_ok, w8_kernel_ok=self._w8_kernel_ok, logits=head)
+        return logits[:, m - 1] if head else None
+
+    def _assign_seed(self, req: Request, slot: int) -> None:
+        """The request's sampling seed and the slot's admission order."""
+        s = req.sampling
+        if req.assigned_seed is None:
+            req.assigned_seed = s.seed if s.seed is not None else (
+                self._base_seed + self._admitted_counter)
+        self._admitted_counter += 1
+        self._slot_seq[slot] = self._admitted_counter  # preemption priority
+        self._slot_seeds[slot] = req.assigned_seed
+        if req.prefill_dispatch_time is None:
+            req.prefill_dispatch_time = time.monotonic()
 
     def _prefill(self, req: Request):
         """Dispatch one prompt's prefill; returns (req, device token). The
@@ -402,16 +480,7 @@ class InferenceEngine:
                 used = self.kv.pages_needed(n)
                 entries[:used] = self.kv.block_tables[slot, :used]
             table_row = self.kv.block_tables[slot].copy()
-
-        s = req.sampling
-        if req.assigned_seed is None:
-            req.assigned_seed = s.seed if s.seed is not None else (
-                self._base_seed + self._admitted_counter)
-        self._admitted_counter += 1
-        self._slot_seq[slot] = self._admitted_counter  # preemption priority
-        self._slot_seeds[slot] = req.assigned_seed
-        if req.prefill_dispatch_time is None:
-            req.prefill_dispatch_time = time.monotonic()
+        self._assign_seed(req, slot)
 
         if cached == 0:
             tokens = np.zeros((1, bucket), np.int64)
@@ -431,24 +500,110 @@ class InferenceEngine:
             ~torch.isfinite(logits).all()).long()
         token = self._first_token(logits, req, req.assigned_seed, n)
 
-        # publish this prompt's freshly written full pages for future hits
-        if self.serve_cfg.prefix_caching and req.prefix_hashes:
-            with self.lock:
-                table = self.kv.block_tables[slot]
-                self.kv.register_pages(
-                    [(req.prefix_hashes[i], int(table[i]))
-                     for i in range(len(pins), n // PS)])
+        self._register_prefix(req, len(pins), n)
 
         self.total_prefill_tokens += computed
         return req, token
 
-    def _arm_slot(self, req: Request, last_token: int, n_written: int) -> None:
+    def _register_prefix(self, req: Request, first: int, n: int) -> None:
+        """Publish the slot's freshly written full pages [first, n // PS)
+        for future prefix hits."""
+        if self.serve_cfg.prefix_caching and req.prefix_hashes:
+            with self.lock:
+                table = self.kv.block_tables[req.slot]
+                self.kv.register_pages(
+                    [(req.prefix_hashes[i], int(table[i]))
+                     for i in range(first, n // self.kv.page_size)])
+
+    # -- chunked prefill -----------------------------------------------------
+
+    def _start_chunked_prefill(self, req: Request) -> None:
+        """Allocate the slot's pages and enqueue the context for chunk-at-
+        a-time prefill (one chunk an engine step, interleaved with
+        decode)."""
+        slot = req.slot
+        ctx = req.context_tokens
+        rid = req.request_id
+        with self.lock:
+            pins = self._prefix_pins.get(rid, [])
+            self.kv.allocate(slot, len(ctx) + self._admission_tail(req),
+                             prefix_pages=pins)
+            self._reserved_pages -= self._reserved_by.pop(rid, 0)
+            self._req_slot[rid] = slot
+            table_row = self.kv.block_tables[slot].copy()
+        self._assign_seed(req, slot)
+        cached = len(pins) * self.kv.page_size
+        self.total_prefix_cached_tokens += cached
+        self.total_chunked_prefills += 1
+        self._partial_prefills[rid] = {
+            "req": req, "ctx": ctx, "done": cached, "pins": len(pins),
+            "table_row": table_row}
+
+    def _advance_chunked_prefills(self) -> list:
+        """Advance the chunked prefills in flight by at most
+        ``prefill_budget_tokens`` of prompt this step in all (at least one
+        chunk, so no prefill starves), charged as the suffix bucket each
+        chunk computes, round-robin from where the last step stopped.
+        Returns [(req, device token)] of the ones that completed."""
+        completed = []
+        C = self.serve_cfg.chunked_prefill_tokens
+        budget = max(self.serve_cfg.prefill_budget_tokens, C)
+        spent = 0
+        rids = list(self._partial_prefills)
+        rr = rids.index(self._chunk_rr) if self._chunk_rr in rids else 0
+        self._chunk_rr = None
+        for rid in rids[rr:] + rids[:rr]:
+            st = self._partial_prefills[rid]
+            req: Request = st["req"]
+            if req.cancel_requested:        # dispatches nothing: no charge
+                with self.lock:
+                    self.scheduler.abort_prefill(rid)   # frees slot + pages
+                del self._partial_prefills[rid]
+                continue
+            ctx = st["ctx"]
+            n, done = len(ctx), st["done"]
+            this = min(n - done, C)
+            bucket = self._suffix_bucket(this)
+            if spent > 0 and spent + bucket > budget:
+                self._chunk_rr = rid    # resume at this request next step
+                break
+            spent += bucket
+            tokens = np.zeros((1, bucket), np.int64)
+            tokens[0, :this] = ctx[done:done + this]
+            last = done + this >= n
+            logits = self._prefill_extend(tokens, done, this,
+                                          st["table_row"], head=last)
+            self.total_prefill_chunks += 1
+            self.total_prefill_tokens += this
+            st["done"] = done + this
+            if last:
+                self._nonfinite = self._nonfinite + (
+                    ~torch.isfinite(logits).all()).long()
+                token = self._first_token(logits, req, req.assigned_seed, n)
+                self._register_prefix(req, st["pins"], n)
+                completed.append((req, token))
+                del self._partial_prefills[rid]
+        return completed
+
+    def _refuse(self, req: Request, what: str) -> None:
+        """Fail an admitted request that this engine cannot serve."""
+        with self.lock:
+            req.error = f"{what} {_FLEET_ONLY}"
+            logger.warning("refused %s: %s", req.request_id, req.error)
+            self.scheduler._release_slot(req.slot, "error")
+
+    def _arm_slot(self, req: Request, last_token: int, n_written: int,
+                  ctx: list) -> None:
         """Make a slot live for decode: the one place the per-slot decode
-        state is set. ``n_written`` is the number of KV entries present."""
+        state is set (prefill completion and swap-in). ``n_written`` is the
+        number of KV entries present; ``ctx`` the whole token context,
+        ``last_token`` included (its KV is written by its decode step)."""
         slot = req.slot
         s = req.sampling
         req.state = RequestState.RUNNING
         self.last_tokens[slot] = last_token
+        self._ctx[slot, :len(ctx)] = ctx
+        self._ctx_len[slot] = len(ctx)
         self.positions[slot] = n_written
         # first position this slot may NOT write (prompt + max_tokens)
         self.stop_positions[slot] = req.num_prompt_tokens + s.max_tokens
@@ -456,16 +611,28 @@ class InferenceEngine:
         self.temperature[slot] = s.temperature
         self.top_k[slot] = s.top_k
         self.top_p[slot] = s.top_p
+        # speculative state: resumed from what the request carries (a
+        # preemption), else cold at the full window
+        self._spec_state[slot] = None
+        if self.serve_cfg.speculative == "ngram":
+            T = max(self.serve_cfg.speculative_tokens, 2)
+            if isinstance(req.spec_state, dict):
+                self._spec_state[slot] = SpecState.from_dict(
+                    req.spec_state, max_window=T)
+                if self._spec_on:
+                    self.total_spec_resumes += 1
+            else:
+                self._spec_state[slot] = SpecState(window=T)
 
     def _finish_prefill(self, req: Request, token) -> None:
         """Resolve a dispatched prefill: fetch its first token and make the
         slot live for decode."""
-        n = len(req.context_tokens)    # BEFORE recording the new token
+        ctx = req.context_tokens       # BEFORE recording the new token
         tok = int(token)
         req.record_token(tok)
         if self.on_token is not None:
             self.on_token(req, [tok])
-        self._arm_slot(req, tok, n)
+        self._arm_slot(req, tok, len(ctx), ctx + [tok])
 
     # -- decode --------------------------------------------------------------
 
@@ -590,6 +757,111 @@ class InferenceEngine:
                 if (req.cancel_requested
                         or req.should_stop(self.eos_token_id) is not None):
                     break
+            self._extend_ctx(slot, accepted)
+            if accepted and self.on_token is not None:
+                self.on_token(req, accepted)
+
+    def _extend_ctx(self, slot: int, accepted: list) -> None:
+        end = self._ctx_len[slot] + len(accepted)
+        self._ctx[slot, self._ctx_len[slot]:end] = accepted
+        self._ctx_len[slot] = end
+
+    # -- speculative decode --------------------------------------------------
+
+    def spec_state_of(self, slot: int) -> Optional[dict]:
+        """The slot's SpecState as a plain-scalar dict; None when
+        speculation is off or the slot carries none."""
+        if not 0 <= slot < len(self._spec_state):
+            return None
+        st = self._spec_state[slot]
+        return st.to_dict() if st is not None else None
+
+    def _spec_window(self, slot: int) -> tuple[int, int]:
+        """(T, this slot's adaptive window w <= T)."""
+        T = max(self.serve_cfg.speculative_tokens, 2)
+        st = self._spec_state[slot]
+        return T, (min(st.window, T) if st is not None else T)
+
+    def _spec_device(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One fused speculative dispatch: drafts proposed on the host from
+        each greedy slot's context, then the verify window and K - 1
+        decode steps on the device (the JAX engine's ``_spec_impl``
+        program: ``verify_and_decode``), fetched once. Returns (emitted
+        [B, T], n_emit [B], decode_seq [K-1, B])."""
+        T = max(self.serve_cfg.speculative_tokens, 2)
+        B = self.serve_cfg.max_batch_size
+        # draftless rows repeat the last token: acceptance checks itself
+        # (draft == argmax), so a lucky repeat is correct greedy output
+        tokens = np.repeat(self.last_tokens[:, None], T, axis=1)
+        n_drafted = 0
+        propose = self.draft_fn or propose_ngram_draft
+        for slot, req in enumerate(self.scheduler.slots):
+            if req is None or not self.active[slot] \
+                    or self.temperature[slot] > 0:
+                continue
+            # only w - 1 drafts are proposed and counted; positions [w, T)
+            # keep the repeat (the window bounds the proposals and the
+            # acceptance statistics, not the dispatch shape)
+            _, w = self._spec_window(slot)
+            n_drafted += w - 1
+            # bounded lookback keeps a proposal O(window), not O(context)
+            ctx = self._ctx[slot, max(self._ctx_len[slot] - 1024, 0):
+                            self._ctx_len[slot]]
+            draft = propose(ctx, w - 1, self.serve_cfg.speculative_ngram)
+            if draft is not None:
+                tokens[slot, 1:w] = draft
+        shared = self._shared_decode_args()
+        emitted, n_emit, decode_seq, nonfinite = verify_and_decode(
+            self.params, to_device(tokens, self.device),
+            to_device(self.positions, self.device), self.kv.k_pages,
+            self.kv.v_pages, shared["tables"], shared["stops"],
+            shared["seeds"], shared["temperature"], shared["top_k"],
+            shared["top_p"], self.cfg,
+            num_decode_steps=max(
+                self.serve_cfg.decode_steps_per_dispatch - 1, 0),
+            w8_kernel_ok=self._w8_kernel_ok)
+        self._nonfinite = self._nonfinite + nonfinite
+        R = decode_seq.shape[0]
+        self.total_dispatched_steps += R
+        out = torch.cat([emitted, n_emit[:, None], decode_seq.T],
+                        dim=1).cpu().numpy()          # one fetch
+        emitted, n_emit, decode_seq = out[:, :T], out[:, T], out[:, T + 1:].T
+        self.total_spec_dispatches += 1
+        self.total_spec_drafts += n_drafted
+        self.total_decode_steps += 1 + R
+        self.total_padded_slot_steps += (1 + R) * int(B - self.active.sum())
+        return emitted, n_emit, decode_seq
+
+    def _apply_speculative(self, emitted: np.ndarray, n_emit: np.ndarray,
+                           decode_seq: np.ndarray) -> None:
+        """Host bookkeeping for one fused dispatch (under self.lock): the
+        n_emit verified tokens, then the decode rows; positions advance
+        with what is recorded, so a slot's length matches its K/V."""
+        for slot, req in enumerate(self.scheduler.slots):
+            if req is None or not self.active[slot]:
+                continue
+            stream = [int(emitted[slot, k]) for k in range(int(n_emit[slot]))]
+            stream += [int(t) for t in decode_seq[:, slot]]
+            accepted = []
+            for tok in stream:
+                self.positions[slot] += 1
+                req.record_token(tok)
+                accepted.append(tok)
+                self.last_tokens[slot] = tok
+                if (req.cancel_requested
+                        or req.should_stop(self.eos_token_id) is not None):
+                    break
+            self._extend_ctx(slot, accepted)
+            if self.temperature[slot] <= 0:
+                # the device's acceptance (n_emit - 1 drafts), capped at
+                # the proposed window: repeat positions past it may verify
+                # too, and crediting them would push acceptance past 1
+                T, w = self._spec_window(slot)
+                acc = min(max(int(n_emit[slot]) - 1, 0), w - 1)
+                self.total_spec_accepted += acc
+                st = self._spec_state[slot]
+                if st is not None:
+                    st.observe(acc, w - 1, max_window=T)
             if accepted and self.on_token is not None:
                 self.on_token(req, accepted)
 
@@ -601,16 +873,72 @@ class InferenceEngine:
         self.params = None
         self.kv = None
         self._pending = None
+        self._spec_on = False
+        self._partial_prefills.clear()
+
+    def _swap_bytes_in_queue(self) -> int:
+        """Host bytes held by swapped-out waiting requests (computed when
+        asked: the queue is bounded and preemption is rare)."""
+        return sum(payload_bytes(r.swapped_kv["pages"])
+                   for r in self.scheduler.waiting
+                   if r.swapped_kv is not None)
+
+    def _restore_swapped(self, req: Request) -> bool:
+        """Swap-in: allocate pages, write the saved K/V back and make the
+        slot live for decode, with no prefill. False when the pool cannot
+        hold the restore or the payload is malformed; the caller then
+        re-prefills from the tokens."""
+        slot = req.slot
+        rid = req.request_id
+        saved = req.swapped_kv
+        with self.lock:
+            try:
+                ok = self.kv.restore_slot(slot, saved["pages"])
+            except (ValueError, KeyError, TypeError) as e:
+                # wrong tokens are the one unacceptable outcome; extra
+                # compute is not
+                logger.warning("swap-in payload for %s rejected (%s); "
+                               "falling back to re-prefill", rid, e)
+                ok = False
+            if not ok:
+                self.total_swap_fallbacks += 1
+                return False
+            self._reserved_pages -= self._reserved_by.pop(rid, 0)
+            self._req_slot[rid] = slot
+        self._assign_seed(req, slot)
+        if isinstance(saved.get("spec"), dict):
+            req.spec_state = saved["spec"]
+        self._arm_slot(req, saved["last_token"], saved["positions"],
+                       req.context_tokens)
+        req.swapped_kv = None
+        self.total_swap_ins += 1
+        return True
 
     def _preempt(self, slot: int) -> None:
         """Evict ``slot``'s request (newest-first victim policy) so an older
-        stream can grow. Recompute-style: the request re-enters the queue
-        head and re-prefills prompt+generated, from prefix-cached pages
-        where caching holds them (its full pages are published here).
-        Caller holds self.lock."""
+        stream can grow. The request re-enters the queue head. With
+        ``preemption="swap"``, while the queue's swapped bytes stay under
+        ``swap_space_gb``, its pages go to host memory and come back on
+        readmission; otherwise it re-prefills prompt+generated, from
+        prefix-cached pages where caching holds them (its full pages are
+        published here). Caller holds self.lock."""
         req = self.scheduler.slots[slot]
         rid = req.request_id
         written = int(self.positions[slot])   # KV entries actually present
+        # the tuned speculative state goes with the request
+        spec = self.spec_state_of(slot)
+        if spec is not None:
+            req.spec_state = spec
+        if self.serve_cfg.preemption == "swap" and \
+                self._swap_bytes_in_queue() < \
+                self.serve_cfg.swap_space_gb * 1e9:
+            pages = self.kv.extract_slot(slot)
+            req.swapped_kv = {"pages": pages, "positions": written,
+                              "last_token": int(self.last_tokens[slot])}
+            if spec is not None:
+                req.swapped_kv["spec"] = spec
+            self.total_swap_outs += 1
+            self.total_swap_out_bytes += payload_bytes(pages)
         if self.serve_cfg.prefix_caching:
             ctx = req.context_tokens
             full = written // self.kv.page_size
@@ -628,6 +956,8 @@ class InferenceEngine:
         self.active[slot] = False
         self.positions[slot] = 0
         self.stop_positions[slot] = 0
+        self._ctx_len[slot] = 0
+        self._spec_state[slot] = None
         self.scheduler.preempt_slot(slot)
         self.total_preemptions += 1
         logger.info("preempted %s (slot %d, %d tokens generated) to free "
@@ -672,14 +1002,37 @@ class InferenceEngine:
             self.active[slot] = False
             self.positions[slot] = 0
             self.stop_positions[slot] = 0
+            self._spec_state[slot] = None
         if self.on_finish is not None:
             self.on_finish(req)
 
+    def _speculate_now(self) -> bool:
+        """Should this step's dispatch be speculative? Only while a greedy
+        stream is resident (a sampled row gets one token from a verify
+        window, K from plain decode), and not once 64 dispatches have
+        measured an acceptance under ``speculative_min_acceptance``: then
+        the verify window is a pure loss and speculation switches off."""
+        if (self._spec_on and self.total_spec_dispatches >= 64
+                and self.total_spec_accepted
+                < self.serve_cfg.speculative_min_acceptance
+                * self.total_spec_drafts):
+            logger.warning(
+                "speculative decode disabled: acceptance %.3f < %.3f after "
+                "%d dispatches",
+                self.total_spec_accepted / max(self.total_spec_drafts, 1),
+                self.serve_cfg.speculative_min_acceptance,
+                self.total_spec_dispatches)
+            self._spec_on = False
+        return self._spec_on and bool(
+            (self.temperature[self.active] <= 0).any())
+
     @torch.inference_mode()
     def step(self) -> int:
-        """One engine iteration: admit + prefill, then one decode dispatch
-        for all running slots. Returns the number of requests in slots.
-        Device work runs outside the lock; only bookkeeping is locked."""
+        """One engine iteration: admit + prefill (a swap-in restores, a
+        long context starts chunks, chunks in flight advance), then one
+        decode dispatch for all running slots. Returns the number of
+        requests in slots. Device work runs outside the lock; only
+        bookkeeping is locked."""
         static = self.serve_cfg.scheduler == "static"
         with self.lock:
             if static:
@@ -688,7 +1041,28 @@ class InferenceEngine:
             else:
                 admitted = self.scheduler.admit(
                     self.serve_cfg.prefill_budget_tokens)
-        pending = [self._prefill(req) for req in admitted]
+        C = self.serve_cfg.chunked_prefill_tokens
+        pending = []
+        for req in admitted:
+            if req.pipeline_stage is not None:
+                self._refuse(req, "a pipeline-stage prefill")
+                continue
+            if req.swapped_kv is not None:
+                if req.swapped_kv.get("partial"):
+                    self._refuse(req, "a partial KV payload")
+                    continue
+                if self._restore_swapped(req):
+                    continue
+                req.swapped_kv = None
+            # route on the whole re-prefill context: a preempted request
+            # resumes with prompt + generated, which may pass C
+            if C > 0 and len(req.context_tokens) > C:
+                self._start_chunked_prefill(req)
+            else:
+                pending.append(self._prefill(req))
+        # every chunked prefill in flight advances (within the budget);
+        # the ones that completed join this step's first tokens
+        pending += self._advance_chunked_prefills()
         for req, token in pending:
             self._finish_prefill(req, token)
         if pending:
@@ -701,8 +1075,17 @@ class InferenceEngine:
             self._ensure_decode_capacity()
             use_short = self._short_dispatch_ok()
         if any(self.active):
-            if (self.serve_cfg.pipelined_decode and not static
-                    and not use_short and not admitted
+            if self._speculate_now():
+                # the dispatch builds its window from host state, so a
+                # pipelined group still in flight is applied first
+                self._drain_pending()
+                emitted, n_emit, decode_seq = self._spec_device()
+                with self.lock:
+                    self._apply_speculative(emitted, n_emit, decode_seq)
+                    self.scheduler.step_finished(self.eos_token_id)
+            elif (self.serve_cfg.pipelined_decode and not static
+                    and not use_short and not admitted and not pending
+                    and not self._partial_prefills
                     and 2 * int(self.active.sum())
                     >= self.serve_cfg.max_batch_size):
                 # keep one group in flight: enqueue the next group chained
@@ -735,6 +1118,9 @@ class InferenceEngine:
         with self.lock:
             failed = self.scheduler.fail_all(error)
             self._pending = None
+            # every slot was released: a chunk advanced now would write
+            # into freed pages
+            self._partial_prefills.clear()
         if self.on_finish is not None:
             for r in failed:
                 self.on_finish(r)
@@ -783,6 +1169,11 @@ class InferenceEngine:
             "admission": self.serve_cfg.admission,
             "preemptions": self.total_preemptions,
             "preemption_mode": self.serve_cfg.preemption,
+            "swap_ins": self.total_swap_ins,
+            "swapped_host_bytes": self._swap_bytes_in_queue(),
+            "swap_outs": self.total_swap_outs,
+            "swap_out_bytes": self.total_swap_out_bytes,
+            "swap_fallbacks": self.total_swap_fallbacks,
             "decode_steps": self.total_decode_steps,
             "short_dispatches": self.total_short_dispatches,
             "prefill_tokens": self.total_prefill_tokens,
@@ -790,9 +1181,17 @@ class InferenceEngine:
             "padded_slot_steps": self.total_padded_slot_steps,
             "dispatched_steps": self.total_dispatched_steps,
             "extend_prefills": self.total_extend_prefills,
+            "chunked_prefills": self.total_chunked_prefills,
+            "prefill_chunks": self.total_prefill_chunks,
             "nonfinite_logits": int(self._nonfinite),
             "decode_slot_utilization": round(
                 1.0 - self.total_padded_slot_steps
                 / (steps * self.serve_cfg.max_batch_size), 4),
+            "spec_dispatches": self.total_spec_dispatches,
+            "spec_drafts": self.total_spec_drafts,
+            "spec_accepted": self.total_spec_accepted,
+            "spec_resumes": self.total_spec_resumes,
+            "spec_acceptance": round(
+                self.total_spec_accepted / max(self.total_spec_drafts, 1), 4),
             "device": str(self.device),
         }

@@ -15,8 +15,27 @@ Counterpart of the JAX package's ``serve/kv_cache.py``:
   they complete; a page is in exactly one of free, referenced (ref > 0),
   or evictable (ref == 0, content kept, LRU order).
 
-The fleet-only extract/insert/demote and payload helpers of the JAX module
-are not ported yet.
+- Swap payloads: ``extract_slot`` / ``extract_slot_pages`` /
+  ``extract_pages`` copy pages to the host, ``restore_slot`` /
+  ``write_slot_pages`` write them back in place. A payload is
+  ``{"k", "v", "num_pages"}``; each of k and v is one tensor [L, n, Nkv,
+  PS, D] in the pool's dtype, or for a quantized pool a ``{"values",
+  "scale"}`` dict (int8 values [L, n, Nkv, PS, D], or int4 packed uint8
+  [L, n, Nkv, PS/2, D]; fp32 scale [L, n, Nkv, PS]).
+
+Host form of a payload: CPU torch tensors. On a card they are pinned and
+filled by one asynchronous device-to-host copy per tensor on the current
+stream, so a swap-out does not wait for the decode work queued before it;
+a restore, queued on the same stream, needs no synchronisation, and a host
+reader goes through ``payload_numpy``, which synchronises first. The JAX
+package's payload holds numpy arrays of the same shapes and bytes:
+``payload_numpy`` gives them, with a bf16 tensor as its ``uint16`` view
+(numpy has no bf16 without ``ml_dtypes``; JAX's bf16 array viewed as
+``uint16`` holds the same bytes). A restore takes either form, a
+``uint16`` numpy array standing for bf16 pages.
+
+The fleet-only helpers of the JAX module (prefix-page insert, inventory,
+demotion) are not ported yet (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -30,6 +49,43 @@ import numpy as np
 import torch
 
 from ..ops.paged_attention import Int4Pages, QuantPages
+
+
+def _host_tensor(data, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A payload array as a CPU or device tensor: a tensor as it is, a
+    numpy array through ``torch.from_numpy`` (a ``uint16`` array taken as
+    the bits of bf16 when ``dtype`` is bf16)."""
+    if isinstance(data, torch.Tensor):
+        return data
+    arr = np.array(data, copy=True)     # a tensor may not alias read-only
+    if arr.dtype == np.uint16 and dtype == torch.bfloat16:
+        return torch.from_numpy(arr).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def payload_bytes(content: dict) -> int:
+    """Host bytes of a payload's page tensors."""
+    return sum(t.nbytes for part in (content["k"], content["v"])
+               for t in (part.values() if isinstance(part, dict)
+                         else (part,)))
+
+
+def payload_numpy(content: dict) -> dict:
+    """A payload with every tensor copied into a numpy array (bf16 as its
+    ``uint16`` view): the JAX package's payload form. Synchronises the card
+    first, since an extract fills its tensors asynchronously; the copies
+    leave the pinned buffers free to return to PyTorch's cache."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if node.dtype == torch.bfloat16:
+            node = node.view(torch.uint16)
+        return node.cpu().numpy().copy()
+    return {"k": conv(content["k"]), "v": conv(content["v"]),
+            "num_pages": int(content["num_pages"])}
 
 
 def prefix_page_hashes(tokens, page_size: int) -> list[bytes]:
@@ -225,6 +281,183 @@ class PagedKVCache:
             self._drop_ref(page)
         self.block_tables[slot, :] = 0
         self._chain_len.pop(slot, None)
+
+    # -- swap (preemption to host memory) ------------------------------------
+
+    def extract_slot(self, slot: int) -> dict:
+        """Copy ``slot``'s pages to host memory (the swap-out half of
+        preemption=swap): one device gather and one device-to-host copy a
+        tensor."""
+        return self.extract_slot_pages(slot, 0, self._chain_len.get(slot, 0))
+
+    def extract_slot_pages(self, slot: int, lo: int, hi: int) -> dict:
+        """Copy chain entries [lo, hi) of ``slot`` to host memory. Bounds
+        are checked first: an out-of-range request would otherwise gather
+        scratch page 0 and present it as real K/V."""
+        chain = self._chain_len.get(slot, 0)
+        if not 0 <= lo <= hi <= chain:
+            raise ValueError(
+                f"extract_slot_pages: range [{lo}, {hi}) outside slot "
+                f"{slot}'s chain of {chain} page(s)")
+        return self._extract_pages_idx(self.block_tables[slot, lo:hi].copy())
+
+    def extract_pages(self, pages: list[int]) -> dict:
+        """Copy arbitrary page ids to host memory (same payload schema).
+        Scratch page 0 and ids outside the pool are refused."""
+        bad = [int(p) for p in pages if not 0 < int(p) < self.num_pages]
+        if bad:
+            raise ValueError(
+                f"extract_pages: page id(s) {bad} outside (0, "
+                f"{self.num_pages})")
+        return self._extract_pages_idx(np.asarray(pages, np.int64))
+
+    def _extract_pages_idx(self, pages: np.ndarray) -> dict:
+        idx = torch.as_tensor(np.asarray(pages, np.int64),
+                              device=self.device)
+        on_card = torch.device(self.device).type == "cuda"
+
+        def grab(t: torch.Tensor) -> torch.Tensor:
+            picked = t.index_select(1, idx)          # one gather, on device
+            if not on_card:
+                return picked
+            host = torch.empty(picked.shape, dtype=picked.dtype,
+                               pin_memory=True)
+            return host.copy_(picked, non_blocking=True)
+
+        def part(buf):
+            if isinstance(buf, QuantPages):
+                return {"values": grab(buf.values), "scale": grab(buf.scale)}
+            return grab(buf)
+        return {"k": part(self.k_pages), "v": part(self.v_pages),
+                "num_pages": int(len(pages))}
+
+    def restore_slot(self, slot: int, content: dict) -> bool:
+        """Swap-in: allocate fresh pages for the slot and write the saved
+        K/V back. Returns False, allocating nothing, when the pool cannot
+        supply the pages (the caller falls back to recompute). The payload
+        is validated before anything is allocated, so a malformed one
+        raises with no page taken."""
+        n = self._validate_pages_content(content)
+        if n > self.free_pages:
+            return False
+        self.allocate(slot, n * self.page_size)
+        self.write_slot_pages(slot, content)
+        return True
+
+    def _validate_payload(self, slot: int, content: dict, lo: int) -> int:
+        """Schema and bounds check of a restore payload; returns its page
+        count. Bounds before shapes, so a wrong page count names the
+        slot's chain rather than a derived shape mismatch."""
+        n = self._parse_num_pages(content)
+        chain = self._chain_len.get(slot, 0)
+        if lo < 0 or lo + n > chain:
+            raise ValueError(
+                f"restore payload covers chain entries [{lo}, {lo + n}) "
+                f"but slot {slot} owns only {chain} page(s)")
+        self._validate_pages_shapes(content, n)
+        return n
+
+    def _validate_pages_content(self, content: dict) -> int:
+        """Schema and shape check with no slot bounds; the page count."""
+        n = self._parse_num_pages(content)
+        self._validate_pages_shapes(content, n)
+        return n
+
+    @staticmethod
+    def _parse_num_pages(content) -> int:
+        if not isinstance(content, dict) or "num_pages" not in content \
+                or "k" not in content or "v" not in content:
+            got = (sorted(content) if isinstance(content, dict)
+                   else type(content).__name__)
+            raise ValueError(
+                "restore payload must be a dict with 'k', 'v' and "
+                f"'num_pages'; got keys {got}")
+        try:
+            n = int(content["num_pages"])
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"restore payload num_pages must be an int, got "
+                f"{content['num_pages']!r}") from None
+        if n < 0:
+            raise ValueError(f"restore payload num_pages {n} < 0")
+        return n
+
+    def _validate_pages_shapes(self, content: dict, n: int) -> None:
+        cfg = self.cfg
+        expect = (cfg.num_layers, n, cfg.num_kv_heads, self.page_size,
+                  cfg.head_dim)
+        for name, buf in (("k", self.k_pages), ("v", self.v_pages)):
+            data = content[name]
+            if isinstance(buf, QuantPages):
+                if not isinstance(data, dict) or "values" not in data \
+                        or "scale" not in data:
+                    raise ValueError(
+                        f"restore payload '{name}' must be a quantized "
+                        "{values, scale} dict for a "
+                        f"{self.quant_kind}-KV pool; got "
+                        f"{type(data).__name__}")
+                vexpect = expect
+                if isinstance(buf, Int4Pages):
+                    # packed layout: PS/2 bytes along the page-slot axis
+                    vexpect = (*expect[:-2], expect[-2] // 2, expect[-1])
+                shapes = {"values": vexpect, "scale": expect[:-1]}
+                for part, want in shapes.items():
+                    got = tuple(data[part].shape)
+                    if got != want:
+                        raise ValueError(
+                            f"restore payload '{name}.{part}' shape "
+                            f"{got} != expected {want}")
+                # the dtype guards the int8/int4 seam the shapes cannot
+                # always see (garbage K/V scattered, no error)
+                got_dtype = _host_tensor(data["values"]).dtype
+                if got_dtype != buf.values.dtype:
+                    raise ValueError(
+                        f"restore payload '{name}.values' dtype "
+                        f"{got_dtype} != pool dtype {buf.values.dtype} "
+                        f"({self.quant_kind}-KV pool)")
+            else:
+                if isinstance(data, dict):
+                    raise ValueError(
+                        f"restore payload '{name}' is quantized but the "
+                        "pool holds plain pages; quantized-KV payloads "
+                        "only restore into same-kind quantized engines")
+                got = tuple(data.shape)
+                if got != expect:
+                    raise ValueError(
+                        f"restore payload '{name}' shape {got} != "
+                        f"expected {expect}")
+
+    def write_slot_pages(self, slot: int, content: dict,
+                         lo: int = 0) -> None:
+        """Write a host payload's pages into chain entries [lo,
+        lo + num_pages) of an already-allocated slot. Schema and bounds
+        are validated first: a malformed payload raises ValueError and
+        writes nothing."""
+        n = self._validate_payload(slot, content, lo)
+        if n <= 0:
+            return
+        self._write_pages_idx(self.block_tables[slot, lo:lo + n],
+                              content["k"], content["v"])
+
+    def _write_pages_idx(self, pages: np.ndarray, kd, vd) -> None:
+        """Write n pages of host K/V content into the given page ids, in
+        place: one host-to-device copy a tensor, then ``index_copy_`` along
+        the page axis of the pool (no second pool, no buckets)."""
+        if len(pages) == 0:
+            return
+        dev = self.device
+        idx = torch.as_tensor(np.asarray(pages, np.int64), device=dev)
+
+        def put(t: torch.Tensor, data) -> None:
+            src = _host_tensor(data, t.dtype).to(dev, non_blocking=True)
+            t.index_copy_(1, idx, src.to(t.dtype))
+
+        for buf, data in ((self.k_pages, kd), (self.v_pages, vd)):
+            if isinstance(buf, QuantPages):
+                put(buf.values, data["values"])
+                put(buf.scale, data["scale"])
+            else:
+                put(buf, data)
 
     # -- prefix cache --------------------------------------------------------
 

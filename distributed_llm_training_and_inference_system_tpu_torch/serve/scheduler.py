@@ -1,5 +1,6 @@
 """Continuous-batching request scheduler (a copy of the JAX package's
-``serve/scheduler.py``, which imports no JAX; the port keeps its own).
+``serve/scheduler.py``, which imports no JAX; the port keeps its own, with
+one repair: ``admit`` checks the prefill budget before it reserves pages).
 
 Fixes the reference's core serving defect: its DynamicBatchScheduler pops
 requests once and never re-enqueues unfinished ones, so any request needing
@@ -327,11 +328,15 @@ class ContinuousBatchingScheduler:
         free = self.free_slots()
         while free and self.waiting:
             req = self.waiting[0]
-            if not self._can_allocate(req):
-                break  # head-of-line blocks until pages free up (FCFS, no starvation)
+            # the budget first: _can_allocate reserves the request's pages,
+            # and a request that then stopped at the budget would keep a
+            # reservation nothing returns (the JAX package checks them the
+            # other way round and leaks it)
             if budget_tokens > 0 and admitted and (
                     spent + req.num_prompt_tokens > budget_tokens):
                 break
+            if not self._can_allocate(req):
+                break  # head-of-line blocks until pages free up (FCFS, no starvation)
             self.waiting.popleft()
             slot = free.pop(0)
             req.slot = slot

@@ -2,11 +2,14 @@
 
 Counterpart of the JAX package's ``serve/server.py``: ``POST
 /v1/completions`` (plain JSON, or server-sent events with ``"stream":
-true``) and ``GET /health``, over ``http.server.ThreadingHTTPServer`` with
-one engine thread. Handler threads only enqueue requests and wait; the
-engine thread runs ``engine.step()``, which holds the engine lock only
-around bookkeeping, never across device work. ``/metrics`` is not ported
-yet.
+true``), ``GET /health``, ``GET /v1/stats`` (``engine.stats()``) and ``GET
+/v1/models``, over ``http.server.ThreadingHTTPServer`` with one engine
+thread. Handler threads only enqueue requests and wait; the engine thread
+runs ``engine.step()``, which holds the engine lock only around
+bookkeeping, never across device work. CORS follows
+``ServeConfig.cors_origins`` ("" off, "*" any origin, or a comma-separated
+list of origins) with the JAX server's headers, ``OPTIONS`` preflights
+included. ``/metrics`` is not ported yet (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -73,6 +76,32 @@ def parse_completion_body(body: dict, tokenizer, vocab_size: int
     return prompt_tokens, sampling, bool(body.get("stream", False))
 
 
+def cors_headers(origins: str, origin: str, request_headers: str) -> dict:
+    """CORS headers for a request from ``origin`` asking for
+    ``request_headers`` (its Access-Control-Request-Headers), or only the
+    Vary header when the origin is not allowed; {} with CORS off. The JAX
+    server's ``_cors_headers``: credentials are asserted only for an
+    explicit list (reflecting any origin with credentials would grant more
+    than "*"), and Vary goes on every response, denials included, so a
+    shared cache keys on the origin."""
+    if not origins:
+        return {}
+    explicit = origins != "*"
+    vary = {"Vary": "Origin, Access-Control-Request-Headers"}
+    if explicit and origin not in {
+            o.strip() for o in origins.split(",") if o.strip()}:
+        return vary
+    headers = {
+        "Access-Control-Allow-Origin": (origin if explicit else "*") or "*",
+        "Access-Control-Allow-Methods": "GET, POST, OPTIONS",
+        "Access-Control-Allow-Headers": request_headers or "*",
+        **vary,
+    }
+    if explicit:
+        headers["Access-Control-Allow-Credentials"] = "true"
+    return headers
+
+
 def _percentile(xs: list, q: float) -> Optional[float]:
     if not xs:
         return None
@@ -88,10 +117,6 @@ class InferenceServer:
 
     def __init__(self, model_cfg, serve_cfg, params=None, device=None,
                  seed: int = 0):
-        if serve_cfg.cors_origins not in ("", "*"):
-            raise NotImplementedError(
-                "an explicit cors_origins list is not ported to the stdlib "
-                "server yet (ROADMAP queue 1 item 3); use '*' or ''")
         self.model_cfg = model_cfg
         self.serve_cfg = serve_cfg
         self.tokenizer = load_tokenizer(serve_cfg.artifact or None,
@@ -279,6 +304,16 @@ class InferenceServer:
             "engine_error_count": self._engine_error_count,
         }
 
+    def stats(self) -> tuple[int, dict]:
+        with self._lock:
+            return 200, self.engine.stats()
+
+    def models(self) -> tuple[int, dict]:
+        return 200, {"object": "list",
+                     "data": [{"id": self.model_cfg.name, "object": "model",
+                               "owned_by": "llmctl",
+                               "max_model_len": self.serve_cfg.max_seq_len}]}
+
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> int:
@@ -318,19 +353,34 @@ def _make_handler(server: InferenceServer):
         def log_message(self, fmt, *args):     # route to logging
             logger.debug("%s - " + fmt, self.address_string(), *args)
 
+        def _cors(self) -> None:
+            for k, v in cors_headers(
+                    server.serve_cfg.cors_origins,
+                    self.headers.get("Origin", ""),
+                    self.headers.get("Access-Control-Request-Headers",
+                                     "")).items():
+                self.send_header(k, v)
+
         def _json(self, status: int, body: dict) -> None:
             data = json.dumps(body).encode()
             self.send_response(status)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(data)))
-            if server.serve_cfg.cors_origins == "*":
-                self.send_header("Access-Control-Allow-Origin", "*")
+            self._cors()
             self.end_headers()
             self.wfile.write(data)
 
+        def do_OPTIONS(self):           # CORS preflight
+            self.send_response(204)
+            self.send_header("Content-Length", "0")
+            self._cors()
+            self.end_headers()
+
         def do_GET(self):
-            if self.path == "/health":
-                self._json(*server.health())
+            routes = {"/health": server.health, "/v1/stats": server.stats,
+                      "/v1/models": server.models}
+            if self.path in routes:
+                self._json(*routes[self.path]())
             else:
                 self._json(404, {"error": f"no route {self.path}"})
 
@@ -358,6 +408,7 @@ def _make_handler(server: InferenceServer):
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
             self.send_header("Connection", "close")
+            self._cors()
             self.end_headers()
             self.close_connection = True
             try:

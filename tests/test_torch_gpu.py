@@ -1471,3 +1471,149 @@ def test_quantized_engine_on_card_matches_engine_on_cpu(quantization, kv,
     assert grew["w8"] + grew["w8k"] == (mm if w8 else 0)
     assert eng.stats()["quantization"] == quantization
     assert eng.stats()["kv"]["kv_quantization"] == kv
+
+
+# -- engine features: verify and chunk windows, swap payloads -----------------
+#
+# The paged kernel at the windows that speculation (T = 8 verify windows)
+# and chunked prefill (T up to 512) give it, against its plain version with
+# the tolerances above; a slot's pages extracted to pinned host memory and
+# restored, bit for bit; verify windows of B * T rows at the 64-row line
+# where quantized weights leave the W8/W4 kernels for the dequant route.
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("T", [8, 512])
+def test_kernel_at_verify_and_chunk_windows(T, kind, dtype):
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        paged_attention_cuda as pac)
+    lengths = [max(n, T) for n in (8, 70, 600, 1500)]
+    q, kp, vp, tables, starts = _case(len(lengths), T, 32, 8, 128, 64,
+                                      lengths, torch.float32, seed=T)
+    q = q.to(dtype)
+    if kind == "fp":
+        kp, vp = kp.to(dtype), vp.to(dtype)
+        kernel = paged_attention_kernel
+    else:
+        kp, vp = _quant_pages(kind, kp), _quant_pages(kind, vp)
+        kernel = getattr(pac, f"paged_attention_{kind}_kernel")
+    before = kernel.launches
+    out = pa.paged_attention_multi(q, kp, vp, tables, starts)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = pa.paged_attention_multi(q, kp, vp, tables, starts, impl="gather")
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["none", "int8", "int4"])
+def test_swap_payload_round_trip_on_card_is_bitwise(kind):
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        import kv_cache
+    cfg = get_model_config("gpt-test")
+    kv = kv_cache.PagedKVCache(cfg, num_slots=4, max_seq_len=128,
+                               page_size=8, num_pages=40,
+                               dtype=torch.bfloat16, device="cuda",
+                               quantized=kind)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for buf in (kv.k_pages, kv.v_pages):
+        for t in (buf.tensors() if kind != "none" else (buf,)):
+            if t.dtype.is_floating_point:
+                t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+            else:
+                t.copy_(torch.randint(-100, 100, t.shape, generator=g,
+                                      device="cuda").to(t.dtype))
+    kv.allocate(0, 50)                       # 7 pages
+    payload = kv.extract_slot(0)
+    leaves = [p for part in (payload["k"], payload["v"])
+              for p in (part.values() if isinstance(part, dict) else (part,))]
+    assert all(p.device.type == "cpu" and p.is_pinned() for p in leaves)
+    host = kv_cache.payload_numpy(payload)
+    kv.release(0)
+    kv.allocate(1, 30)                       # takes some of the old pages
+    kv.allocate(2, 30)
+    assert kv.restore_slot(3, payload)
+    back = kv_cache.payload_numpy(kv.extract_slot(3))
+    for name in ("k", "v"):
+        a, b = host[name], back[name]
+        pairs = ([(a[p], b[p]) for p in ("values", "scale")]
+                 if isinstance(a, dict) else [(a, b)])
+        for x, y in pairs:
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [64, 72])
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_verify_window_rows_at_the_kernel_line(quant, rows):
+    """A verify window of ``rows`` = B x T rows through decode.mm: 64 rows
+    (8 slots x T = 8) launch the W8/W4 kernel, 72 take the dequant route;
+    both agree with the dequant route within the matmul tolerance."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int4_matmul as w4m, int8_matmul as w8m, quantization as tq)
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        import decode
+    dtype = torch.bfloat16
+    if quant == "int8":
+        x, values, scale = _w8_case(rows, 4096, 1024, dtype, seed=rows)
+        w = tq.QuantTensor(values, scale)
+        kernels = (w8m.int8_matmul_kernel, w8m.int8_matmul_ksplit_kernel)
+    else:
+        x, packed, scale, chan = _w4_case(rows, 4096, 1024, 128, dtype,
+                                          seed=rows)
+        w = tq.Quant4Tensor(packed, scale, chan, group=128)
+        kernels = (w4m.int4_matmul_kernel,)
+    x = x.reshape(rows // 8, 8, 4096)       # [B, T, H] as the verify window
+    before = [k.launches for k in kernels]
+    out = decode.mm(x, w, dtype, w8_kernel_ok=True)
+    torch.cuda.synchronize()
+    launched = sum(k.launches - b for k, b in zip(kernels, before))
+    assert launched == (1 if rows <= decode.KERNEL_MAX_ROWS else 0)
+    ref = x @ w.dequant(dtype)
+    assert out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        1e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_engine_features_on_card_match_engine_on_cpu():
+    """gpt-test in fp32 with swap preemption, chunked prefill and n-gram
+    speculation all on: the card (verify and chunk windows through the
+    paged kernel) gives the CPU engine's tokens and stats, and the kernel's
+    launches are one a layer for every decode step, suffix prefill, chunk
+    and verify window."""
+    _need_card()
+    cfg = get_model_config("gpt-test")
+    scfg = dict(model="gpt-test", max_batch_size=4, max_seq_len=128,
+                prefill_chunk=32, kv_block_size=8, dtype="float32",
+                chunked_prefill_tokens=16, speculative="ngram",
+                speculative_tokens=4, preemption="swap", kv_num_blocks=14,
+                decode_steps_per_dispatch=4)
+    cpu_model = gpt.init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    card_model = gpt.GPT(cfg, device="cuda")
+    card_model.load_state_dict(cpu_model.state_dict())
+    rep = [7, 8, 9, 10] * 4
+    prompts = [rep + list(range(20, 30)), list(range(40, 56)), rep * 2]
+    greedy = SamplingParams(temperature=0.0, max_tokens=36)
+    cpu = InferenceEngine(cfg, ServeConfig(**scfg), params=cpu_model,
+                          device="cpu")
+    ref = cpu.generate(prompts, greedy)
+    before = paged_attention_kernel.launches
+    eng = InferenceEngine(cfg, ServeConfig(**scfg), params=card_model)
+    out = eng.generate(prompts, greedy)
+    assert [r.generated_tokens for r in out] == \
+        [r.generated_tokens for r in ref]
+    st, cst = eng.stats(), cpu.stats()
+    for key in ("swap_ins", "spec_dispatches", "spec_accepted",
+                "prefill_chunks", "decode_steps"):
+        assert st[key] == cst[key], key
+    assert st["swap_ins"] > 0 and st["spec_dispatches"] > 0
+    assert st["prefill_chunks"] > 0 and st["nonfinite_logits"] == 0
+    assert paged_attention_kernel.launches - before == cfg.num_layers * (
+        st["dispatched_steps"] + st["extend_prefills"]
+        + st["prefill_chunks"] + st["spec_dispatches"])

@@ -188,10 +188,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("over", [
-    {"speculative": "ngram"}, {"chunked_prefill_tokens": 16},
     {"quantization": "int4-awq"},
     {"quantization": "int4-awq", "kv_quantization": "int8"},
-    {"tensor_parallel": 2}, {"preemption": "swap"},
+    {"tensor_parallel": 2},
     {"artifact": "/nonexistent/artifact"},
 ])
 def test_unported_features_refuse_at_construction(over, torch_params):
@@ -199,11 +198,69 @@ def test_unported_features_refuse_at_construction(over, torch_params):
         _torch_engine(torch_params, **over)
 
 
+@pytest.mark.socket
 def test_server_refuses_an_origin_list(torch_params):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceServer(torch_cfg("gpt-test"),
-                        ServeConfig(**SERVE, cors_origins="https://a.example"),
-                        params=torch_params, device="cpu")
+    """An explicit cors_origins list: an origin outside it gets no grant
+    (only Vary), one inside it is reflected with credentials, a preflight
+    answers 204; every header set equals the JAX server's _cors_headers for
+    the same request. /v1/stats and /v1/models answer as JAX's do."""
+    from types import SimpleNamespace
+
+    from distributed_llm_training_and_inference_system_tpu.serve.server \
+        import InferenceServer as JaxServer
+    origins = "https://a.example, https://b.example"
+    cfg = ServeConfig(**SERVE, host="127.0.0.1", port=0, cors_origins=origins)
+    srv = InferenceServer(torch_cfg("gpt-test"), cfg, params=torch_params,
+                          device="cpu")
+    port = srv.start()
+    names = ("Access-Control-Allow-Origin", "Access-Control-Allow-Methods",
+             "Access-Control-Allow-Headers",
+             "Access-Control-Allow-Credentials", "Vary")
+
+    def call(path, origin, method="GET", req_headers=None):
+        headers = {"Origin": origin} if origin else {}
+        if req_headers:
+            headers["Access-Control-Request-Headers"] = req_headers
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     headers=headers, method=method)
+        with urllib.request.urlopen(req, timeout=30) as r:
+            got = {k: r.headers[k] for k in names if r.headers[k]}
+            return r.status, got, r.read()
+
+    def jax_headers(o, serve_origins, req_headers=None):
+        h = {"Origin": o} if o else {}
+        if req_headers:
+            h["Access-Control-Request-Headers"] = req_headers
+        return JaxServer._cors_headers(
+            SimpleNamespace(serve_cfg=SimpleNamespace(
+                cors_origins=serve_origins)), SimpleNamespace(headers=h))
+
+    try:
+        for origin in ("https://b.example", "https://evil.example", ""):
+            status, got, body = call("/v1/models", origin)
+            assert status == 200 and got == jax_headers(origin, origins)
+            assert json.loads(body)["data"][0]["id"] == "gpt-test"
+        assert "Access-Control-Allow-Origin" not in \
+            call("/v1/models", "https://evil.example")[1]
+        status, got, _ = call("/v1/completions", "https://a.example",
+                              method="OPTIONS", req_headers="content-type")
+        assert status == 204
+        assert got == jax_headers("https://a.example", origins,
+                                  "content-type")
+        assert got["Access-Control-Allow-Origin"] == "https://a.example"
+        status, _, body = call("/v1/stats", "")
+        stats = json.loads(body)
+        for key in ("swap_ins", "swapped_host_bytes", "spec_dispatches",
+                    "spec_acceptance", "decode_steps", "kv"):
+            assert key in stats, key
+    finally:
+        srv.stop()
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        .server import cors_headers
+    for serve_origins in ("*", ""):
+        for origin in ("https://a.example", ""):
+            assert cors_headers(serve_origins, origin, "") == \
+                jax_headers(origin, serve_origins)
 
 
 def test_params_must_be_a_module(params):
