@@ -122,7 +122,37 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              restored bit for bit (the run's bf16 pool, int8 and int4
              pages); TTFT of a 3000-token prompt chunked and dense, decode
              tok/s with speculation on and off, the acceptance rate and
-             the swap times and bytes (printed).
+             the swap times and bytes (printed);
+16. MoE    — run last: (a) moe_block at gpt-moe-8x1b's widths (H 2048,
+             F 5632, 8 experts, top-2) on the card against the same
+             function on the CPU at N = 8 and 2048, fp32 and bf16: the same
+             choices kept and dropped in the same buffer slots, out within
+             1e-5 (fp32) / 2e-2 (bf16) of its max, aux within 1e-5; its
+             dispatch and whole-block times at N = 8 beside the bound of
+             reading every expert once; (b) gpt-moe-8x1b at full width
+             and depth (16 layers, 4.90B random bf16 parameters from seed
+             0) through InferenceServer, 8 slots, 12 greedy requests of
+             40-1500 tokens (one sharing another's prefix), 24 new tokens
+             each: plain, then with chunked prefill (512) and n-gram
+             speculation (T = 8), then 4 requests with int8 weights through
+             the W8 kernels (q/k/v/o; router and experts dequantized); each
+             run's paged launches = 16 x (decode steps + suffix prefills +
+             chunks + verify windows), W8's = 4 x 16 x decode steps; every
+             forward each engine issued replayed in order on a fresh pool
+             through the plain paged attention (and the dequant route),
+             with its tokens, pad rows and routing held: every position
+             whose logits the engine read within the near-tie bound 2 x
+             0.5 of the replay's best, and where the replay's own router
+             would choose otherwise, within 0.05 of probability; TTFT,
+             decode tok/s, wall ms a step and the share of choices dropped
+             per step (printed); (c) gpt-moe-1b at full width and depth (12
+             layers, 0.98B parameters) trained through
+             runtime/train_entry.py for 6 steps (flash kernels, fused
+             AdamW, selective remat, micro-batch 4 x 2048): the loss
+             finite, the flash launches 2 x 12 / 12 / 12 a step; then
+             3 kernel steps on one repeated batch (the loss falls) and the
+             first of them against the plain step within 1e-2; tokens/s and
+             MFU over active parameters (printed).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} record. Without a CUDA card, or without the rest of the
@@ -215,10 +245,16 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5, flush=None) -> float:
 # and a chunk of chunked prefill (512)
 PAGED_WINDOWS = (1, 4, 8, 128, 512)
 
-def paged_case(torch, T: int, dtype, seed: int = 0):
-    """llama-8b-gqa decode geometry: 8 slots, ragged lengths up to 2048,
-    each slot's pages scattered over the pool in random order."""
-    B, Nq, Nkv, D, PS, maxP = 8, 32, 8, 128, 64, 32
+# (query heads, KV heads, head_dim, page size) of llama-8b-gqa's decode
+LLAMA_PAGED = (32, 8, 128, 64)
+
+
+def paged_case(torch, T: int, dtype, seed: int = 0, geom=LLAMA_PAGED):
+    """A decode geometry ``geom`` (llama-8b-gqa's unless given): 8 slots,
+    ragged lengths up to 2048, each slot's pages scattered over the pool
+    in random order."""
+    B, (Nq, Nkv, D, PS) = 8, geom
+    maxP = -(-2048 // PS)
     NP = B * maxP + 1
     g = torch.Generator(device="cuda").manual_seed(seed)
     base = [2048, 1, 64, 65, 777, 1500, 130, 2000]
@@ -236,12 +272,17 @@ def paged_case(torch, T: int, dtype, seed: int = 0):
     return q, kp, vp, tables.cuda(), starts, lengths
 
 
-def kernel_against_plain(torch, pa, kernel) -> float:
+def kernel_against_plain(torch, pa, kernel, dtypes=None,
+                         windows=PAGED_WINDOWS, geom=LLAMA_PAGED) -> float:
+    """The paged kernel against the gather version on the same inputs, at
+    every window T of ``windows`` and dtype of ``dtypes`` (fp32 and bf16
+    unless given), at ``geom``; returns the largest difference."""
     worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        for T in PAGED_WINDOWS:
-            q, kp, vp, tables, starts, _ = paged_case(torch, T, dtype, seed=T)
+        for T in windows:
+            q, kp, vp, tables, starts, _ = paged_case(torch, T, dtype, seed=T,
+                                                      geom=geom)
             before = kernel.launches
             out = pa.paged_attention_multi(q, kp, vp, tables, starts)
             torch.cuda.synchronize()
@@ -252,7 +293,8 @@ def kernel_against_plain(torch, pa, kernel) -> float:
             err = (out.float() - ref.float()).abs().max().item()
             check(bool(torch.isfinite(out.float()).all()),
                   f"non-finite kernel output ({name}, T={T})")
-            print(f"kernel vs plain  {name:8s} T={T:<4d} "
+            print(f"kernel vs plain  {name:8s} T={T:<4d} heads "
+                  f"{geom[0]}/{geom[1]} D={geom[2]} PS={geom[3]} "
                   f"max_abs_err={err:.3e}  tol={TOL[name]:.0e}", flush=True)
             check(err <= TOL[name], f"kernel disagrees with plain ({name}, "
                   f"T={T}): {err} > {TOL[name]}")
@@ -1286,9 +1328,74 @@ def matmul_error(torch, out, ref, dtype, label) -> float:
     return diff.max().item()
 
 
+def matmul_kernels_against_plain(torch, qm, projections,
+                                 row_counts=MATMUL_ROWS) -> dict:
+    """The W8 (whole-K and k-split) and W4 kernels against their plain
+    versions at every [in, out] of ``projections`` and row count of
+    ``row_counts``, bf16 and fp32; W8 through ``matmul_w8`` takes JAX's
+    route. Returns the largest difference of each kernel."""
+    w8, w4, tq, kn = qm["w8"], qm["w4"], qm["tq"], qm["kernels"]
+    worst = dict.fromkeys(("int8_matmul", "int8_matmul_ksplit",
+                           "int4_matmul"), 0.0)
+    for n_in, n_out in projections:
+        route = w8.w8_route(n_in, n_out)
+        errs = dict.fromkeys(("int8_matmul", "int8_matmul_ksplit",
+                              "int4_matmul"), 0.0)
+        for rows in row_counts:
+            for dtype in (torch.bfloat16, torch.float32):
+                dt = str(dtype).removeprefix("torch.")
+                label = f"[{rows}x{n_in}] x [{n_in}x{n_out}] {dt}"
+                x, values, scale = w8_case(torch, tq, rows, n_in, n_out,
+                                           dtype, seed=rows + n_out)
+                ref = w8.matmul_w8_plain(x, values, scale)
+                outs = {}
+                for name in ("int8_matmul", "int8_matmul_ksplit"):
+                    before = kn[name].launches
+                    out = kn[name](x, values, scale)
+                    torch.cuda.synchronize()
+                    check(kn[name].launches == before + 1,
+                          f"{name} {label}: launch not counted")
+                    errs[name] = max(errs[name], matmul_error(
+                        torch, out, ref, dtype, f"{name} {label}"))
+                    again = kn[name](x, values, scale)
+                    check(torch.equal(again, out),
+                          f"{name} {label}: two calls differ in bits")
+                    outs[name] = out
+                before = [kn[n].launches for n in ("int8_matmul",
+                                                   "int8_matmul_ksplit")]
+                routed = w8.matmul_w8(x, values, scale)
+                grew = [kn[n].launches - b for n, b in zip(
+                    ("int8_matmul", "int8_matmul_ksplit"), before)]
+                check(grew == ([0, 1] if route == "ksplit" else [1, 0]),
+                      f"matmul_w8 {label}: launches {grew} on route {route}")
+                check(torch.equal(routed, outs["int8_matmul_ksplit"
+                                               if route == "ksplit"
+                                               else "int8_matmul"]),
+                      f"matmul_w8 {label}: the routed result differs")
+                x, packed, s4, chan = w4_case(torch, tq, rows, n_in, n_out,
+                                              dtype, seed=rows + n_in)
+                ref = w4.matmul_w4_plain(x, packed, s4, chan, 128)
+                before = kn["int4_matmul"].launches
+                out = w4.matmul_w4(x, packed, s4, chan, 128)
+                torch.cuda.synchronize()
+                check(kn["int4_matmul"].launches == before + 1,
+                      f"int4_matmul {label}: launch not counted")
+                errs["int4_matmul"] = max(errs["int4_matmul"], matmul_error(
+                    torch, out, ref, dtype, f"int4_matmul {label}"))
+                del x, values, scale, packed, s4, chan, ref, out
+        print(f"matmul kernels vs plain  in={n_in:<6d} out={n_out:<6d} rows "
+              f"{row_counts} bf16+fp32 (JAX route {route}): max_abs_err "
+              + "  ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f"; row limits bf16 {MATMUL_ROW_TOL:.0e} past one rounding, "
+              f"fp32 {MATMUL_F32_TOL:.0e}; W8 bits repeat", flush=True)
+        for n, e in errs.items():
+            worst[n] = max(worst[n], e)
+        torch.cuda.empty_cache()
+    return worst
+
+
 def quant_kernels_against_plain(torch, qm) -> dict:
-    pa, w8, w4, tq = qm["pa"], qm["w8"], qm["w4"], qm["tq"]
-    kn = qm["kernels"]
+    pa, kn = qm["pa"], qm["kernels"]
     worst = dict.fromkeys(("paged_attention_int8", "paged_attention_int4",
                            "int8_matmul", "int8_matmul_ksplit",
                            "int4_matmul", "rmsnorm"), 0.0)
@@ -1339,60 +1446,9 @@ def quant_kernels_against_plain(torch, qm) -> dict:
                 print(line, flush=True)
                 worst[name] = max(worst[name], err)
     # rows 7-9 at every projection shape
-    for n_in, n_out in LLAMA_PROJECTIONS:
-        route = w8.w8_route(n_in, n_out)
-        errs = dict.fromkeys(("int8_matmul", "int8_matmul_ksplit",
-                              "int4_matmul"), 0.0)
-        for rows in MATMUL_ROWS:
-            for dtype in (torch.bfloat16, torch.float32):
-                dt = str(dtype).removeprefix("torch.")
-                label = f"[{rows}x{n_in}] x [{n_in}x{n_out}] {dt}"
-                x, values, scale = w8_case(torch, tq, rows, n_in, n_out,
-                                           dtype, seed=rows + n_out)
-                ref = w8.matmul_w8_plain(x, values, scale)
-                outs = {}
-                for name in ("int8_matmul", "int8_matmul_ksplit"):
-                    before = kn[name].launches
-                    out = kn[name](x, values, scale)
-                    torch.cuda.synchronize()
-                    check(kn[name].launches == before + 1,
-                          f"{name} {label}: launch not counted")
-                    errs[name] = max(errs[name], matmul_error(
-                        torch, out, ref, dtype, f"{name} {label}"))
-                    again = kn[name](x, values, scale)
-                    check(torch.equal(again, out),
-                          f"{name} {label}: two calls differ in bits")
-                    outs[name] = out
-                before = [kn[n].launches for n in ("int8_matmul",
-                                                   "int8_matmul_ksplit")]
-                routed = w8.matmul_w8(x, values, scale)
-                grew = [kn[n].launches - b for n, b in zip(
-                    ("int8_matmul", "int8_matmul_ksplit"), before)]
-                check(grew == ([0, 1] if route == "ksplit" else [1, 0]),
-                      f"matmul_w8 {label}: launches {grew} on route {route}")
-                check(torch.equal(routed, outs["int8_matmul_ksplit"
-                                               if route == "ksplit"
-                                               else "int8_matmul"]),
-                      f"matmul_w8 {label}: the routed result differs")
-                x, packed, s4, chan = w4_case(torch, tq, rows, n_in, n_out,
-                                              dtype, seed=rows + n_in)
-                ref = w4.matmul_w4_plain(x, packed, s4, chan, 128)
-                before = kn["int4_matmul"].launches
-                out = w4.matmul_w4(x, packed, s4, chan, 128)
-                torch.cuda.synchronize()
-                check(kn["int4_matmul"].launches == before + 1,
-                      f"int4_matmul {label}: launch not counted")
-                errs["int4_matmul"] = max(errs["int4_matmul"], matmul_error(
-                    torch, out, ref, dtype, f"int4_matmul {label}"))
-                del x, values, scale, packed, s4, chan, ref, out
-        print(f"matmul kernels vs plain  in={n_in:<6d} out={n_out:<6d} rows "
-              f"{MATMUL_ROWS} bf16+fp32 (JAX route {route}): max_abs_err "
-              + "  ".join(f"{n} {e:.2e}" for n, e in errs.items())
-              + f"; row limits bf16 {MATMUL_ROW_TOL:.0e} past one rounding, "
-              f"fp32 {MATMUL_F32_TOL:.0e}; W8 bits repeat", flush=True)
-        for n, e in errs.items():
-            worst[n] = max(worst[n], e)
-        torch.cuda.empty_cache()
+    for n, e in matmul_kernels_against_plain(torch, qm,
+                                             LLAMA_PROJECTIONS).items():
+        worst[n] = e
     # row 5
     layers, rn = qm["layers"], qm["rn"]
     for shape in RMSNORM_SHAPES:
@@ -2143,6 +2199,692 @@ def serve_features(torch, mods, kernel, model, cfg, card: str,
             "streams": compared, "swaps": swaps, "on": on, "off": off}
 
 
+# -- phase 16: the MoE family ---------------------------------------------------
+
+MOE_SERVE = "gpt-moe-8x1b"
+MOE_TRAIN = "gpt-moe-1b"
+MOE_BLOCK_N = (8, 2048)          # a decode step's 8 slots; a prefill bucket
+# moe_block on the card against the same function on the CPU: the same
+# choices kept and dropped, in the same buffer slots; out within this share
+# of its largest element (fp32: summation order, TF32 off; bf16: one
+# rounding of the expert products' bf16 outputs either way); the aux loss
+# within MOE_AUX_TOL of itself (fp32 means of the same probabilities)
+MOE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+MOE_AUX_TOL = 1e-5
+# the replay holds the engine's routing fixed and reads its own router:
+# where its top-K differs from the engine's choice, the probability of its
+# own K-th choice may exceed that of the engine's weakest by at most this
+# (a near-tie that the two attention paths' bf16 rounding can flip). A
+# control reads the same gap against the routing of the engine's previous
+# call (another layer's router over the same rows: routing that is wrong),
+# and must exceed the limit, or the gate could not fail
+MOE_ROUTE_TIE = 0.05
+MOE_LENGTHS = (1500, 64, 900, 300, 1200, 128, 700, 40, 520, 260, 90, 1000)
+MOE_SHARED = 3                   # this request shares request 0's 256 tokens
+MOE_TOKENS = 24
+MOE_FEATURES = dict(chunked_prefill_tokens=512, speculative="ngram",
+                    speculative_tokens=8)
+MOE_COUNTERS = ("total_dispatched_steps", "total_extend_prefills",
+                "total_prefill_chunks", "total_spec_dispatches",
+                "total_decode_steps", "total_prefix_cached_tokens")
+MOE_TRAIN_STEPS = 6
+MOE_REPEAT_STEPS = 3             # steps on one repeated batch
+
+
+def moe_layer(torch, cfg, dtype, seed: int):
+    """Random router [H, E] and experts at ``cfg``'s widths, drawn on the
+    CPU in fp32 (init's scales: 0.02, down 0.02 / sqrt(2L)), in ``dtype``."""
+    g = torch.Generator().manual_seed(seed)
+    H, F, E = cfg.hidden_size, cfg.ffn_size, cfg.moe.num_experts
+    resid = 0.02 / (2 * cfg.num_layers) ** 0.5
+
+    def draw(*shape, std=0.02):
+        return (torch.randn(shape, generator=g) * std).to(dtype)
+    return {"moe_router": draw(H, E), "moe_gate": draw(E, H, F),
+            "moe_up": draw(E, H, F), "moe_down": draw(E, F, H, std=resid)}
+
+
+def moe_block_against_cpu(torch, layers, cfg, card: str) -> dict:
+    """Phase 16a: moe_block at ``cfg``'s widths on the card against the
+    same function on the CPU, at N tokens of MOE_BLOCK_N, fp32 and bf16;
+    the dispatch and the whole block timed on the card (N = 8, bf16) beside
+    the bound of reading every expert once."""
+    from types import SimpleNamespace
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        w = moe_layer(torch, cfg, dtype, seed=16)
+        cpu = SimpleNamespace(**w)
+        dev = SimpleNamespace(**{k: v.cuda() for k, v in w.items()})
+        for N in MOE_BLOCK_N:
+            g = torch.Generator().manual_seed(N)
+            x = torch.randn((1, N, cfg.hidden_size), generator=g).to(dtype)
+            res = {}
+            for where, layer, xx in (("cpu", cpu, x), ("card", dev, x.cuda())):
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    o, aux = layers.moe_block(xx, layer, cfg)
+                    probs = torch.softmax(
+                        xx.reshape(N, -1).float() @ layer.moe_router.float(),
+                        dim=-1)
+                    d = layers.moe_dispatch(probs, cfg)
+                if where == "card":
+                    torch.cuda.synchronize()
+                res[where] = {"out": o.float().cpu(), "aux": float(aux),
+                              "slot": d.slot.cpu(), "probs": probs.cpu(),
+                              "s": time.perf_counter() - t0}
+            c, k = res["cpu"], res["card"]
+            same = torch.equal(c["slot"], k["slot"])
+            if not same:
+                p = c["probs"].sort(dim=-1, descending=True).values
+                gap = (p[:, 1] - p[:, 2]).abs().min().item()
+                check(False, f"moe_block {name} N={N}: the card keeps other "
+                      f"choices than the CPU (closest 2nd/3rd gap {gap:.2e})")
+            ref = c["out"]
+            err = (k["out"] - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            aux_err = abs(k["aux"] - c["aux"])
+            dropped = int((c["slot"] < 0).sum())
+            print(f"moe_block {name} N={N} (H={cfg.hidden_size}, "
+                  f"F={cfg.ffn_size}, E={cfg.moe.num_experts}, K="
+                  f"{cfg.moe.experts_per_token}, C="
+                  f"{layers.moe_capacity(cfg, N)}): same kept/dropped "
+                  f"choices as the CPU ({dropped} of "
+                  f"{N * cfg.moe.experts_per_token} dropped); max abs err "
+                  f"{err:.3e} ({err / scale:.2e} of max {scale:.3e}, limit "
+                  f"{MOE_TOL[name]:.0e}); aux {k['aux']:.6f} vs "
+                  f"{c['aux']:.6f}; CPU {c['s']:.2f} s, card {k['s']:.3f} s",
+                  flush=True)
+            check(err <= MOE_TOL[name] * scale, f"moe_block {name} N={N}: "
+                  f"error {err:.3e} over {MOE_TOL[name]} x {scale:.3e}")
+            check(aux_err <= MOE_AUX_TOL * abs(c["aux"]),
+                  f"moe_block {name} N={N}: aux {k['aux']} vs {c['aux']}")
+            out[f"{name}_N{N}"] = {"max_abs_err": err, "max_abs_ref": scale,
+                                   "aux_err": aux_err, "dropped": dropped,
+                                   "cpu_s": c["s"]}
+        if dtype is torch.bfloat16:
+            x = torch.randn((1, 8, cfg.hidden_size), device="cuda",
+                            dtype=dtype)
+
+            def dispatch():
+                probs = torch.softmax(
+                    x.reshape(8, -1).float() @ dev.moe_router.float(), dim=-1)
+                return layers.moe_dispatch(probs, cfg)
+            with torch.inference_mode():
+                d_ms = time_ms(torch, dispatch)
+                b_ms = time_ms(torch, lambda: layers.moe_block(x, dev, cfg))
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in vars(dev).values())
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"moe_block bf16 at a decode step's N=8: router + dispatch "
+                  f"{d_ms:.4f} ms, whole block {b_ms:.4f} ms; bound "
+                  f"{bound:.4f} ms ({nbytes} B of router and experts read "
+                  f"once), {bound / b_ms:.1%} of it [{card}]", flush=True)
+            out["timing_bf16_N8"] = {"dispatch_ms": d_ms, "block_ms": b_ms,
+                                     "bound_ms": bound}
+        del cpu, dev, w
+    torch.cuda.empty_cache()
+    return out
+
+
+class CallRecorder:
+    """Records every forward one engine issues, in issue order, so that a
+    replay can repeat them: a dense prefill (its bucket tokens, length and
+    page entries) or a paged forward (``extend_step_forward``: tokens,
+    starts, block tables, write mask, whether the head runs), each with
+    the argmax of the engine's logits; every MoE routing decision
+    (``moe_dispatch``'s top-K choices, and how many it dropped); and the
+    time of every run of decode steps (``decode_scan``, from the engine and
+    after a verify window: CUDA events around it, and the host's time to
+    issue it)."""
+
+    def __init__(self, torch, mm):
+        self.torch, self.mm = torch, mm
+        self.events, self.routes, self.dropped = [], [], []
+        self.scans = []
+        self._saved = []
+
+    def install(self, eng) -> None:
+        mm, rec, torch = self.mm, self, self.torch
+        orig_ext = mm["decode"].extend_step_forward
+        orig_dense = eng._prefill_dense
+        orig_route = mm["layers"].moe_dispatch
+        orig_scan = mm["decode"].decode_scan
+
+        def ext(model, tokens, start, kp, vp, tables, cfg, **kw):
+            out = orig_ext(model, tokens, start, kp, vp, tables, cfg, **kw)
+            wo = kw.get("write_ok")
+            rec.events.append({
+                "kind": "extend", "tokens": tokens.clone(),
+                "start": start.clone(), "tables": tables.clone(),
+                "write_ok": None if wo is None else wo.clone(),
+                "logits": kw.get("logits", True),
+                "w8": kw.get("w8_kernel_ok", False),
+                "argmax": None if out[0] is None else out[0].argmax(-1)})
+            return out
+
+        def dense(tokens, n, entries):
+            logits = orig_dense(tokens, n, entries)
+            rec.events.append({"kind": "dense", "tokens": tokens.copy(),
+                               "n": n, "entries": entries.copy(),
+                               "argmax": logits.argmax(-1)})
+            return logits
+
+        def route(probs, cfg):
+            d = orig_route(probs, cfg)
+            rec.routes.append(d.top_e.clone())
+            rec.dropped.append((probs.shape[0], (d.slot < 0).sum()))
+            return d
+
+        def scan(*args, **kw):
+            steps = kw["num_steps"] if "num_steps" in kw else args[12]
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            t = time.perf_counter()
+            out = orig_scan(*args, **kw)
+            host = time.perf_counter() - t
+            end.record()
+            rec.scans.append((steps, host, start, end))
+            return out
+        for mod in ("decode", "engine", "speculative"):
+            self._saved.append((mm[mod], "extend_step_forward",
+                                getattr(mm[mod], "extend_step_forward")))
+            setattr(mm[mod], "extend_step_forward", ext)
+        self._saved.append((mm["layers"], "moe_dispatch", orig_route))
+        mm["layers"].moe_dispatch = route
+        for mod in ("engine", "speculative"):
+            self._saved.append((mm[mod], "decode_scan", orig_scan))
+            setattr(mm[mod], "decode_scan", scan)
+        eng._prefill_dense = dense
+        self._eng = eng
+
+    def remove(self) -> None:
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        self._saved = []
+        del self._eng._prefill_dense
+
+    def decode_steps(self) -> dict:
+        """Decode steps alone: per step, the device timeline's span of a
+        decode dispatch (from its first operation to its last, idle gaps
+        while the host issues included; queued work before it excluded),
+        total and p50 over dispatches, and the host's time to issue it."""
+        self.torch.cuda.synchronize()
+        steps = sum(n for n, _, _, _ in self.scans)
+        span = [a.elapsed_time(b) for _, _, a, b in self.scans]
+        per = sorted(ms / n for (n, _, _, _), ms in zip(self.scans, span))
+        return {"dispatches": len(self.scans), "steps": steps,
+                "device_span_ms": sum(span) / max(steps, 1),
+                "device_span_ms_p50": per[len(per) // 2] if per else 0.0,
+                "host_issue_ms": sum(h for _, h, _, _ in self.scans) * 1e3
+                / max(steps, 1)}
+
+    def drop_shares(self, slots: int, K: int) -> dict:
+        """Mean share of the choices dropped per call (one layer of one
+        forward), by the call's rows: decode steps (``slots`` rows), verify
+        windows and prefills (the rest); idle and pad rows included."""
+        out = {}
+        for label, pick in (("decode", lambda n: n == slots),
+                            ("other", lambda n: n != slots)):
+            sel = [(n, c) for n, c in self.dropped if pick(n)]
+            if sel:
+                shares = self.torch.stack([c.float() / (n * K)
+                                           for n, c in sel])
+                out[label] = {"calls": len(sel),
+                              "mean": float(shares.mean()),
+                              "max": float(shares.max())}
+        return out
+
+
+def moe_replay(torch, mm, model, cfg, kv: dict, rec: CallRecorder) -> dict:
+    """Repeat ``rec``'s forwards in order on a fresh pool of the engine's
+    geometry ``kv`` (PagedKVCache's arguments), through the plain paged attention (the gather path) and the
+    dequant route for quantized weights, with the engine's tokens, pad rows
+    and routing held fixed. For every position whose logits the engine
+    read, the deficit of the engine's pick under the replay's logits; for
+    every routing call, where the replay's own top-K differs from the
+    engine's, how far its own K-th choice lies above the engine's weakest;
+    and the same gap against the engine's previous routing call of the
+    same rows, a control that the limit must reject."""
+    from types import SimpleNamespace
+    layers = mm["layers"]
+    dev = model.device
+    pool = mm["kv_cache"].PagedKVCache(cfg, device=dev, **kv)
+    K = cfg.moe.experts_per_token
+    routes = rec.routes
+    orig_route = layers.moe_dispatch
+    gaps, differ, control = [], [], []
+    calls = iter(range(len(routes)))
+
+    def gap_to(probs, own_p, own_e, want):
+        mismatch = (own_e[:, :K].sort(dim=-1).values
+                    != want.sort(dim=-1).values).any(dim=-1)
+        weakest = torch.gather(probs, 1, want).min(dim=-1).values
+        gap = torch.where(mismatch, own_p[:, K - 1] - weakest,
+                          torch.zeros_like(weakest))
+        return gap.max(), mismatch.sum()
+
+    def forced(probs, cfg_):
+        i = next(calls, None)
+        check(i is not None, "the replay made more routing calls than the "
+              "engine")
+        want = routes[i]
+        check(want.shape[0] == probs.shape[0], f"replay out of step: a "
+              f"routing call of {probs.shape[0]} rows against the "
+              f"engine's {want.shape[0]}")
+        own_p, own_e = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+        gap, n = gap_to(probs, own_p, own_e, want)
+        gaps.append(gap)
+        differ.append(n)
+        if i and routes[i - 1].shape == want.shape:
+            control.append(gap_to(probs, own_p, own_e, routes[i - 1])[0])
+        top_p = torch.gather(probs, 1, want)
+        top_w = top_p / top_p.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+        return layers.moe_assign(want, top_w, cfg_)
+    shim = SimpleNamespace(cfg=cfg, kv=pool, device=dev, params=model)
+    deficits, checked = [], 0
+    layers.moe_dispatch = forced
+    try:
+        with torch.inference_mode():
+            for ev in rec.events:
+                if ev["kind"] == "dense":
+                    lg = mm["InferenceEngine"]._prefill_dense(
+                        shim, ev["tokens"], ev["n"], ev["entries"])
+                    am = ev["argmax"]
+                    deficits.append(lg.max(-1).values
+                                    - lg.gather(-1, am[:, None])[:, 0])
+                    checked += 1
+                    continue
+                lg, _, _ = mm["decode"].extend_step_forward(
+                    model, ev["tokens"], ev["start"], pool.k_pages,
+                    pool.v_pages, ev["tables"], cfg, write_ok=ev["write_ok"],
+                    w8_kernel_ok=False, attn_impl="gather",
+                    logits=ev["logits"])
+                if lg is None:
+                    continue
+                am = ev["argmax"]
+                d = lg.max(-1).values - lg.gather(-1, am[..., None])[..., 0]
+                mask = (ev["write_ok"] if ev["write_ok"] is not None
+                        else torch.ones_like(d, dtype=torch.bool))
+                deficits.append(torch.where(mask, d, torch.zeros_like(d))
+                                .reshape(-1))
+                checked += int(mask.sum())
+    finally:
+        layers.moe_dispatch = orig_route
+    check(next(calls, None) is None, "the replay made fewer routing calls "
+          "than the engine")
+    dall = torch.cat([d.reshape(-1) for d in deficits])
+    res = {"events": len(rec.events), "positions": checked,
+           "max_deficit": float(dall.max()),
+           "over_bound": int((dall > 2 * NEAR_TIE_DELTA).sum()),
+           "routing_calls": len(gaps),
+           "routing_rows_differing": int(torch.stack(differ).sum()),
+           "max_routing_gap": float(torch.stack(gaps).max()),
+           "control_calls": len(control),
+           "control_routing_gap": float(torch.stack(control).max())}
+    del pool
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_prompts(seed: int = 16) -> list:
+    """MOE_LENGTHS prompts of byte-tokenizer ids, built as feature_prompts
+    builds them (recurring spans, for the n-gram proposer); request
+    MOE_SHARED starts with request 0's first 256 tokens."""
+    rng = random.Random(seed)
+    out = []
+    for n in MOE_LENGTHS:
+        spans = [[rng.randrange(256) for _ in range(rng.randint(16, 48))]
+                 for _ in range(4)]
+        ids = []
+        while len(ids) < n:
+            ids += (rng.choice(spans) if rng.random() < 0.7 else
+                    [rng.randrange(256) for _ in range(rng.randint(1, 8))])
+        out.append(ids[:n])
+    out[MOE_SHARED] = out[0][:256] + out[MOE_SHARED][:n - 256]
+    return out
+
+
+def moe_traffic(torch, srv, prompts, kernels: dict, max_tokens: int) -> dict:
+    """A warm-up request (set-up, not measured), then request 0 alone (it
+    publishes its prefix), then the rest 30 ms apart and concurrently, all
+    greedy; the counts of ``kernels`` and the engine's counters are read
+    around the measured traffic. Stops the server."""
+    eng, port = srv.engine, srv.start()
+    try:
+        post(port, {"prompt": [1, 2, 3], "max_tokens": 2,
+                    "temperature": 0.0})           # set-up, not measured
+        torch.cuda.synchronize()
+        before = {k: getattr(eng, k) for k in MOE_COUNTERS}
+        for k in kernels.values():
+            k.launches = 0                           # the main path starts
+        t0 = time.time()
+        out = [post(port, {"prompt": prompts[0], "max_tokens": max_tokens,
+                           "temperature": 0.0})] + [None] * (len(prompts) - 1)
+
+        def worker(i):
+            out[i] = post(port, {"prompt": prompts[i],
+                                 "max_tokens": max_tokens,
+                                 "temperature": 0.0})
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(1, len(prompts))]
+        for t in threads:
+            t.start()
+            time.sleep(0.03)
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.time() - t0
+        launches = {n: k.launches for n, k in kernels.items()}  # it ended
+        check(all(r is not None for r in out), "a request did not return")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/stats",
+                                    timeout=60) as r:
+            check(r.status == 200, f"/v1/stats status {r.status}")
+            stats = json.loads(r.read())
+    finally:
+        srv.stop()
+    counts = {k.removeprefix("total_"): getattr(eng, k) - before[k]
+              for k in MOE_COUNTERS}
+    for r in out:
+        toks = r["choices"][0]["token_ids"]
+        check(len(toks) == max_tokens or r["choices"][0]["finish_reason"]
+              == "stop", f"a stream ended after {len(toks)} tokens")
+    per_tok = sorted((r["metrics"]["latency_ms"] - r["metrics"]["ttft_ms"])
+                     / max(r["usage"]["completion_tokens"] - 1, 1)
+                     for r in out)
+    ttft = sorted(r["metrics"]["ttft_ms"] for r in out)
+    return {"launches": launches, "counts": counts, "stats": stats,
+            "wall_s": wall, "tokens": sum(r["usage"]["completion_tokens"]
+                                          for r in out),
+            "ttft_first_ms": out[0]["metrics"]["ttft_ms"],
+            "ttft_p50_ms": ttft[len(ttft) // 2],
+            "decode_ms_per_token_p50": per_tok[len(per_tok) // 2],
+            "decode_tok_per_s_p50": 1e3 / per_tok[len(per_tok) // 2]}
+
+
+def moe_kernels_against_plain(torch, qm, kernel, cfg, page_size: int,
+                              card: str) -> dict:
+    """Phase 16b's kernels at its shapes, before it serves: the paged
+    kernel at ``cfg``'s heads and head_dim over pages of ``page_size`` (the
+    engine's), bf16, at every window the engine issues, and the W8 and W4
+    kernels at 8 rows over ``cfg``'s q/k/v/o projections, each against its
+    plain version on the same inputs."""
+    geom = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, page_size)
+    out = {"paged_attention": kernel_against_plain(
+        torch, qm["pa"], kernel, dtypes=(torch.bfloat16,), geom=geom)}
+    H, D = cfg.hidden_size, cfg.head_dim
+    projections = sorted({(H, cfg.num_heads * D), (H, cfg.num_kv_heads * D),
+                          (cfg.num_heads * D, H)})
+    out.update(matmul_kernels_against_plain(torch, qm, projections,
+                                            row_counts=(8,)))
+    print(f"{cfg.name} kernels vs plain: paged heads {geom[0]}/{geom[1]} "
+          f"D={geom[2]} PS={geom[3]} T {PAGED_WINDOWS} bf16, matmuls "
+          f"{projections} at 8 rows: max_abs_err "
+          + "  ".join(f"{n} {e:.2e}" for n, e in out.items())
+          + f" [{card}]", flush=True)
+    return out
+
+
+def serve_moe(torch, mods, mm, kernels: dict, card: str,
+              page_size: int) -> dict:
+    """Phase 16b: gpt-moe-8x1b at full width and depth (random bf16 weights
+    from seed 0) through InferenceServer: the MOE_LENGTHS traffic plain,
+    then with chunked prefill and n-gram speculation, then a short int8
+    pass through the W8 kernels; every run recorded and replayed, and the
+    paged kernel's launches (and W8's) against what the counters imply.
+    The engines' pages are of ``page_size``, the geometry the kernels were
+    checked at."""
+    cfg = mods["get_model_config"](MOE_SERVE)
+    L = cfg.num_layers
+    t_init = time.time()
+    model = mods["gpt"].init(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda",
+                             dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"{MOE_SERVE}: {L} layers, H={cfg.hidden_size}, F={cfg.ffn_size}, "
+          f"{cfg.moe.num_experts} experts, top-{cfg.moe.experts_per_token}, "
+          f"capacity factor {cfg.moe.capacity_factor}; {nparams / 1e9:.4f}B "
+          f"params ({model.weight_bytes() / 1e9:.3f} GB bf16) "
+          f"random-initialised in {time.time() - t_init:.1f}s", flush=True)
+    prompts = moe_prompts()
+    runs = {}
+    paged = kernels["paged_attention"]
+    w8 = {"int8_matmul": kernels["int8_matmul"],
+          "int8_matmul_ksplit": kernels["int8_matmul_ksplit"]}
+    for name, over, reqs, toks in (
+            ("plain", {}, prompts, MOE_TOKENS),
+            ("features", MOE_FEATURES, prompts, MOE_TOKENS),
+            ("int8", dict(quantization="int8", int8_pallas_matmul=True),
+             prompts[4:8], 16)):
+        scfg = mods["ServeConfig"](model=cfg.name, host="127.0.0.1", port=0,
+                                   **over)
+        srv = mods["InferenceServer"](cfg, scfg, params=model, seed=0)
+        eng = srv.engine
+        check(eng.kv.page_size == page_size, f"{name}: pages of "
+              f"{eng.kv.page_size}, the kernels were checked at {page_size}")
+        rec = CallRecorder(torch, mm)
+        rec.install(eng)
+        try:
+            res = moe_traffic(torch, srv, reqs,
+                              {"paged_attention": paged, **w8}, toks)
+        finally:
+            rec.remove()
+        res["decode_step"] = ds = rec.decode_steps()
+        c = res["counts"]
+        check(res["stats"]["nonfinite_logits"] == 0,
+              f"{name}: a logits tensor held NaN/inf")
+        passes = (c["dispatched_steps"] + c["extend_prefills"]
+                  + c["prefill_chunks"] + c["spec_dispatches"])
+        got = res["launches"]["paged_attention"]
+        print(f"{name}: paged kernel launches {got} = {L} layers x "
+              f"({c['dispatched_steps']} decode steps + "
+              f"{c['extend_prefills']} suffix prefills + "
+              f"{c['prefill_chunks']} chunks + {c['spec_dispatches']} verify "
+              f"windows); expected {L * passes}", flush=True)
+        check(got == L * passes, f"{name}: paged launches {got} != "
+              f"{L * passes}")
+        if name == "int8":
+            n_w8 = sum(res["launches"][k] for k in w8)
+            want = 4 * L * c["dispatched_steps"]
+            print(f"int8: W8 launches {res['launches']} = 4 projections "
+                  f"(q, k, v, o; router and experts dequantized) x {L} x "
+                  f"{c['dispatched_steps']} decode steps; expected {want}",
+                  flush=True)
+            check(n_w8 == want, f"int8: W8 launches {n_w8} != {want}")
+        if name == "plain":
+            check(c["extend_prefills"] >= 1 and c["prefix_cached_tokens"]
+                  >= 256, "the shared-prefix request did not hit the cache")
+        if name == "features":
+            check(c["prefill_chunks"] >= 2 and c["spec_dispatches"] >= 1,
+                  f"features: {c['prefill_chunks']} chunks, "
+                  f"{c['spec_dispatches']} verify windows")
+        kv = {k: getattr(eng.kv, k) for k in ("num_slots", "max_seq_len",
+                                              "page_size", "num_pages",
+                                              "dtype")}
+        kv["quantized"] = eng.kv.quant_kind
+        res["weight_bytes"] = eng.stats()["weight_bytes"]
+        served = eng.params              # int8: the quantized copy
+        eng.release()
+        del srv, eng
+        torch.cuda.empty_cache()
+        res["drop_share"] = rec.drop_shares(8, cfg.moe.experts_per_token)
+        res["replay"] = rp = moe_replay(torch, mm, served, cfg, kv, rec)
+        del served, rec
+        torch.cuda.empty_cache()
+        dec = res["drop_share"].get("decode", {})
+        print(f"{name}: {len(reqs)} requests, {res['tokens']} tokens in "
+              f"{res['wall_s']:.2f} s; TTFT of request 0 alone "
+              f"{res['ttft_first_ms']:.1f} ms, p50 {res['ttft_p50_ms']:.1f} "
+              f"ms; decode p50 {res['decode_tok_per_s_p50']:.1f} tok/s a "
+              f"request ({res['decode_ms_per_token_p50']:.1f} ms a token); "
+              f"{c['decode_steps']} decode steps; a decode step alone "
+              f"{ds['device_span_ms']:.2f} ms on the device timeline (p50 "
+              f"{ds['device_span_ms_p50']:.2f} over {ds['dispatches']} "
+              f"dispatches of {ds['steps']} steps), issued by the host in "
+              f"{ds['host_issue_ms']:.2f} ms; traffic wall over decode steps "
+              f"{res['wall_s'] * 1e3 / max(c['decode_steps'], 1):.1f} ms "
+              f"(prefills included); choices dropped per decode step "
+              f"{dec.get('mean', 0):.4f} of {8 * cfg.moe.experts_per_token} "
+              f"a layer (max {dec.get('max', 0):.4f}; idle slots included), "
+              f"other calls {res['drop_share'].get('other', {})}; weight "
+              f"bytes {res['weight_bytes']} [{card}]", flush=True)
+        print(f"{name}: replay of {rp['events']} forwards through the plain "
+              f"paged attention with the engine's tokens, pad rows and "
+              f"routing: {rp['positions']} positions, largest deficit "
+              f"{rp['max_deficit']:.4f} (bound {2 * NEAR_TIE_DELTA}), "
+              f"{rp['over_bound']} over; {rp['routing_rows_differing']} of "
+              f"the routed rows of {rp['routing_calls']} calls would route "
+              f"otherwise, the largest probability gap "
+              f"{rp['max_routing_gap']:.2e} (limit {MOE_ROUTE_TIE}); control, "
+              f"the previous call's routing: gap {rp['control_routing_gap']:.2e}"
+              f" over {rp['control_calls']} calls (must exceed the limit)",
+              flush=True)
+        check(rp["over_bound"] == 0, f"{name}: {rp['over_bound']} tokens "
+              f"lie over the near-tie bound under the replay")
+        check(rp["max_routing_gap"] <= MOE_ROUTE_TIE,
+              f"{name}: the replay routes a row otherwise by "
+              f"{rp['max_routing_gap']:.3e} of probability")
+        check(rp["control_routing_gap"] > MOE_ROUTE_TIE,
+              f"{name}: the routing gate cannot fail: wrong routing reads a "
+              f"gap of {rp['control_routing_gap']:.3e}, under the limit")
+        runs[name] = res
+    return {"runs": runs, "params": nparams, "cfg": cfg, "model": model}
+
+
+def train_moe(torch, mods, mm, kernels: dict, card: str) -> dict:
+    """Phase 16c: gpt-moe-1b at full width and depth through
+    runtime/train_entry.py (flash kernels, fused AdamW, selective remat,
+    synthetic data, S = 2048, micro-batch TRAIN_MICRO_BATCH): the loss
+    finite, the kernels' launches as the code implies; then
+    from one seeded state, MOE_REPEAT_STEPS kernel steps on one repeated
+    batch (the loss falls) and the first of them against the same step
+    through the plain attention and unfused AdamW."""
+    import gc
+    import logging
+    import tempfile
+    cfg = mods["get_model_config"](MOE_TRAIN)
+    L = cfg.num_layers
+    steps_log = []
+
+    class Steps(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("step "):
+                steps_log.append(record.args)
+    handler = Steps()
+    log = logging.getLogger("llmctl.engine")
+    level = log.level
+    log.setLevel(logging.INFO)
+    log.addHandler(handler)
+    run = {"model": {"name": MOE_TRAIN},
+           "parallel": {"global_batch_size": TRAIN_MICRO_BATCH,
+                        "activation_checkpoint": "selective"},
+           "data": {"train": "synthetic", "val": "synthetic",
+                    "max_length": 2048},
+           "optimizer": {"scheduler": {"warmup_steps": 2}},
+           "checkpoint": {"interval_steps": 10 ** 9},
+           "training": {"log_interval": 1, "eval_interval": 10 ** 9}}
+    try:
+        with tempfile.TemporaryDirectory(prefix="llmctl-moe-") as tmp:
+            run["checkpoint"]["path"] = tmp + "/ck"
+            path = Path(tmp) / "run.json"
+            path.write_text(json.dumps(run))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kn in kernels.values():
+                kn.launches = 0                      # the main path starts
+            t0 = time.time()
+            rc = mm["train_entry"].main(
+                ["--config", str(path), "--model", MOE_TRAIN,
+                 "--max-steps", str(MOE_TRAIN_STEPS), "--no-resume"])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {n: kn.launches for n, kn in kernels.items()}
+            peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    check(rc == 0, f"train_entry exited {rc}")
+    losses = [float(a[1]) for a in steps_log]
+    rates = sorted(float(a[4]) for a in steps_log[1:])
+    # the stream gives a new batch a step, and the warmup's first step has
+    # lr 0: learning is checked on the repeated batch below
+    check(len(losses) == MOE_TRAIN_STEPS, f"{len(losses)} logged steps")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    tok_s = rates[len(rates) // 2]
+    peak_tflops = mods["load_run_config"](environ={}).hardware\
+        .peak_bf16_tflops
+    fpt = mods["flops_per_token"](cfg, 2048)
+    mfu = tok_s * fpt / (peak_tflops * 1e12)
+    nparams = cfg.param_count
+    print(f"{MOE_TRAIN}: {L} layers, H={cfg.hidden_size}, F="
+          f"{cfg.ffn_size}, {cfg.moe.num_experts} experts top-"
+          f"{cfg.moe.experts_per_token}, {nparams / 1e9:.4f}B params; "
+          f"train_entry {MOE_TRAIN_STEPS} steps in {wall:.1f}s (init and "
+          f"save included): loss {' '.join(f'{x:.4f}' for x in losses)}; "
+          f"median over steps 2..{MOE_TRAIN_STEPS}: {tok_s:.0f} tok/s, MFU "
+          f"{mfu:.1%} of {peak_tflops:.0f} TF/s over active parameters "
+          f"({fpt / 1e9:.3f} GFLOP a token: 6 x the matmul parameters of "
+          f"{cfg.moe.experts_per_token} experts + attention); peak "
+          f"max_memory_allocated {peak:.2f} GB [{card}]", flush=True)
+    # AdamW: the planned launches a step over the kernel-eligible leaves
+    # (fp32 moments), the router and expert stacks among them
+    shapes = mods["gpt"].GPT(cfg, device="meta").parameters()
+    plan = mods["adamw_plan"]([
+        (p.numel(), torch.float32, torch.float32) for p in shapes
+        if p.dim() >= 2 and p.numel() >= mods["KERNEL_MIN_ELEMENTS"]])
+    expected = {"flash_fwd": 2 * L * MOE_TRAIN_STEPS,
+                "flash_bwd_dq": L * MOE_TRAIN_STEPS,
+                "flash_bwd_dkv": L * MOE_TRAIN_STEPS,
+                "adamw": len(plan) * MOE_TRAIN_STEPS}
+    print(f"training launches {launches}; expected {expected} (per step: "
+          f"flash fwd 2 x {L} layers under selective remat, dq and dkv "
+          f"{L}, adamw {len(plan)} planned launch(es))", flush=True)
+    for name, n in expected.items():
+        check(launches[name] == n, f"{name} launches {launches[name]} != "
+              f"{n}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one seeded state, one batch: the kernels' steps repeat it; the plain
+    # step takes the first of them from the same state
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="llmctl-moe-") as tmp:
+        run["checkpoint"]["path"] = tmp
+        cfg_run = mods["load_run_config"](cli_overrides=run, environ={})
+        for label, attn, fused in (("kernels", "flash", True),
+                                   ("plain", "xla", False)):
+            cfg_run.training.attn_impl = attn
+            cfg_run.optimizer.fused = fused
+            e = mods["TrainingEngine"](cfg_run)
+            e.init_state(seed=7)
+            batch = e._device_batch(next(e.train_data))
+            out = []
+            for _ in range(MOE_REPEAT_STEPS if fused else 1):
+                _, m = e.train_step(e.state, batch)
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+            res[label] = out
+            del e, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+    rep = [x for x, _ in res["kernels"]]
+    check(all(np.isfinite(rep)) and rep[-1] < rep[0],
+          f"the loss did not fall on a repeated batch: {rep}")
+    (lk, gk), (lp, gp) = res["kernels"][0], res["plain"][0]
+    d_loss, d_gn = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+    print(f"{MOE_TRAIN} on one repeated batch: loss "
+          f"{' '.join(f'{x:.4f}' for x in rep)}; first step kernels vs "
+          f"plain: loss {lk:.5f} vs {lp:.5f} (rel {d_loss:.2e}), grad_norm "
+          f"{gk:.4f} vs {gp:.4f} (rel {d_gn:.2e}), limit "
+          f"{STEP_AGREEMENT:.0e} [{card}]", flush=True)
+    check(d_loss <= STEP_AGREEMENT and d_gn <= STEP_AGREEMENT,
+          "kernel and plain MoE steps disagree")
+    return {"launches": launches, "losses": losses, "tokens_per_sec": tok_s,
+            "mfu_active": mfu, "wall_s": wall, "peak_gb": peak,
+            "repeated_batch": res}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements here (JSON)")
@@ -2193,6 +2935,10 @@ def main() -> int:
     from distributed_llm_training_and_inference_system_tpu_torch.ops import (
         int4_matmul as w4, int8_matmul as w8, paged_attention_cuda as pac,
         quantization as tq, rmsnorm as rn)
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        import decode as sdecode, engine as sengine, speculative as sspec
+    from distributed_llm_training_and_inference_system_tpu_torch.runtime \
+        import train_entry
     qmods = {"pa": pa, "pac": pac, "w4": w4, "w8": w8, "tq": tq, "rn": rn,
              "layers": layers,
              "kernels": {
@@ -2213,6 +2959,10 @@ def main() -> int:
             "adamw_plan": adamw_plan,
             "flops_per_token": gpt.flops_per_token,
             "kv_cache": kv_cache, "gumbel_noise": gumbel_noise}
+    moe_mods = {"decode": sdecode, "engine": sengine, "speculative": sspec,
+                "layers": layers, "kv_cache": kv_cache,
+                "InferenceEngine": InferenceEngine,
+                "train_entry": train_entry}
     train_kernels = {"flash_fwd": fac.flash_fwd,
                      "flash_bwd_dq": fac.flash_bwd_dq,
                      "flash_bwd_dkv": fac.flash_bwd_dkv,
@@ -2308,6 +3058,27 @@ def main() -> int:
 
         phase("14 RMSNorm on the entry forward", t0)
         norm_path = rmsnorm_on_entry(torch, gpt, qmods)
+
+        phase("16 the MoE family: moe_block, gpt-moe-8x1b served, "
+              "gpt-moe-1b trained", t0)
+        t16 = time.time()
+        moe_cfg = get_model_config(MOE_SERVE)
+        moe_pages = ServeConfig(model=MOE_SERVE).kv_block_size
+        moe = {"block": moe_block_against_cpu(torch, layers, moe_cfg, smi),
+               "kernels": moe_kernels_against_plain(
+                   torch, qmods, paged_attention_kernel, moe_cfg, moe_pages,
+                   smi)}
+        moe_served = serve_moe(torch, mods, moe_mods,
+                               {**qmods["kernels"],
+                                "paged_attention": paged_attention_kernel},
+                               smi, moe_pages)
+        moe_served.pop("model")
+        moe_served.pop("cfg")
+        moe["serve"] = moe_served
+        torch.cuda.empty_cache()
+        moe["train"] = train_moe(torch, mods, moe_mods, train_kernels, smi)
+        moe["seconds"] = time.time() - t16
+        print(f"phase 16 took {moe['seconds']:.1f} s", flush=True)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -2321,6 +3092,7 @@ def main() -> int:
                 "adamw": "exec/fused_update.py:55"}
     errors = dict(flash["max_abs_err"], adamw=adamw_err)
     train_records = []
+    moe_runs = moe["serve"]["runs"].values()
     for name, where in replaces.items():
         tm = train_timing[name]
         train_records.append({
@@ -2328,7 +3100,8 @@ def main() -> int:
             "source": src + ("adamw.cu" if name == "adamw"
                              else "flash_attention.cu"),
             "replaces": jax_pkg + where,
-            "launches": trained["launches"][name],
+            "launches": (trained["launches"][name]
+                         + moe["train"]["launches"][name]),
             "max_abs_err": errors[name],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
@@ -2340,8 +3113,10 @@ def main() -> int:
         "source": f"{PORT}/csrc/paged_attention.cu",
         "replaces": "distributed_llm_training_and_inference_system_tpu/ops/"
                     "paged_attention_pallas.py:47",
-        "launches": served["launches"] + features["launches"],
-        "max_abs_err": max_err,
+        "launches": (served["launches"] + features["launches"]
+                     + sum(r["launches"]["paged_attention"]
+                           for r in moe_runs)),
+        "max_abs_err": max(max_err, moe["kernels"]["paged_attention"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
@@ -2359,7 +3134,7 @@ def main() -> int:
                                "ops/int8_matmul_pallas.py:54"),
         "rmsnorm": ("rmsnorm.cu", "ops/rmsnorm.py:20")}
     quant_launches = {"rmsnorm": norm_path["launches"]}
-    for res in quant_served.values():
+    for res in [*quant_served.values(), moe["serve"]["runs"]["int8"]]:
         for name, n in res["launches"].items():
             if name in quant_replaces and n:
                 quant_launches[name] = quant_launches.get(name, 0) + n
@@ -2369,7 +3144,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src + source,
             "replaces": jax_pkg + where,
             "launches": quant_launches.get(name, 0),
-            "max_abs_err": quant_err[name],
+            "max_abs_err": max(quant_err[name],
+                               moe["kernels"].get(name, 0.0)),
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"]})
@@ -2379,7 +3155,7 @@ def main() -> int:
     if args.out:
         record.update(quant_max_abs_err=quant_err, quant_timing=quant_timing,
                       serve_quantized=quant_served, rmsnorm_path=norm_path,
-                      serve_features=features)
+                      serve_features=features, moe=moe)
         record.update(kernels=kernels, timing=timing, serve=served,
                       paged_vs_dense=dense, flash_vs_plain=flash,
                       adamw_max_abs_err=adamw_err, train_timing=train_timing,

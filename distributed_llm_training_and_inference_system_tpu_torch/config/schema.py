@@ -65,9 +65,10 @@ class RopeConfig:
 
 @dataclass
 class MoEConfig:
-    """Mixture-of-experts settings. The serving slice runs dense models
-    only; the engine refuses an MoE config (``moe_block`` is not ported
-    yet)."""
+    """Mixture-of-experts settings (``models.layers.moe_block``): E experts,
+    K of them a token, ``capacity_factor`` * K * N / E slots an expert for a
+    call over N tokens, and the weight of the load-balancing aux loss.
+    Expert parallelism is not ported (ROADMAP queue 1 item 7)."""
     num_experts: int = 0            # 0 = dense model
     experts_per_token: int = 2
     router_aux_loss_weight: float = 0.01

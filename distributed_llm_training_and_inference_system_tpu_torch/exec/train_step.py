@@ -40,21 +40,29 @@ class TrainState:
 
 def _loss_fn(model, batch, model_cfg, attn_impl: str, remat: str,
              loss_chunk: int = 512):
-    """Training loss (loss, token count). With ``loss_chunk > 0`` the LM
-    head and cross-entropy run chunked over the sequence, so the [B, S, V]
-    fp32 logits never exist whole."""
+    """Training objective and what is reported: (loss + the MoE aux loss
+    summed over layers, (loss, token count)), as the JAX ``_loss_fn``; a
+    dense model's aux is 0. With ``loss_chunk > 0`` the LM head and
+    cross-entropy run chunked over the sequence, so the [B, S, V] fp32
+    logits never exist whole."""
     out = forward(model, batch["tokens"], model_cfg,
                   positions=batch.get("positions"),
                   segment_ids=batch.get("segment_ids"),
                   attn_impl=attn_impl, remat=remat,
+                  return_aux=model_cfg.is_moe,
                   return_hidden=loss_chunk > 0)
+    head_in, aux = out if model_cfg.is_moe else (out, None)
     if loss_chunk > 0:
         tied = model_cfg.tie_word_embeddings
         w = model.embed if tied else model.lm_head
-        return chunked_next_token_loss(out, w, batch["tokens"],
-                                       batch.get("segment_ids"),
-                                       chunk=loss_chunk, tied=tied)
-    return next_token_loss(out, batch["tokens"], batch.get("segment_ids"))
+        loss, count = chunked_next_token_loss(
+            head_in, w, batch["tokens"], batch.get("segment_ids"),
+            chunk=loss_chunk, tied=tied)
+    else:
+        loss, count = next_token_loss(head_in, batch["tokens"],
+                                      batch.get("segment_ids"))
+    total = loss if aux is None else loss + aux
+    return total, (loss, count)
 
 
 def make_train_step(model_cfg, opt_cfg, par_cfg=None, attn_impl: str = "xla",
@@ -75,9 +83,9 @@ def make_train_step(model_cfg, opt_cfg, par_cfg=None, attn_impl: str = "xla",
     wd = opt_cfg.weight_decay if opt_cfg.type == "adamw" else 0.0
 
     def grads_of(model, params, batch):
-        loss, count = _loss_fn(model, batch, model_cfg, attn_impl, remat,
-                               loss_chunk)
-        grads = torch.autograd.grad(loss, params)
+        total, (loss, count) = _loss_fn(model, batch, model_cfg, attn_impl,
+                                        remat, loss_chunk)
+        grads = torch.autograd.grad(total, params)
         return loss.detach(), count.detach(), grads
 
     def train_step(state: TrainState, batch: dict):

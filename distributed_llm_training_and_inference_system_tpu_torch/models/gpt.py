@@ -13,6 +13,11 @@ layer loop (``precast_params``), so autograd returns fp32 gradients to the
 masters; ``remat`` wraps each block in ``torch.utils.checkpoint``. Serving
 calls ``forward`` under ``torch.inference_mode()``.
 
+An MoE config's blocks hold a router and stacked experts in place of the
+dense FFN (``moe_block``); ``forward(return_aux=True)`` also returns the
+load-balancing aux loss summed over the layers, which training adds to the
+loss.
+
 A serving model's block kernels may be quantized: ``with_block_leaves``
 builds a model whose blocks hold ``ops.quantization`` ``QuantTensor`` /
 ``Quant4Tensor`` leaves in place of parameters. ``forward`` dequantizes
@@ -34,8 +39,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import resolve_device
 from ..ops.quantization import QuantTensor, Quant4Tensor
-from .layers import attention_block, cast, mlp_block, rms_norm, \
-    rope_frequencies
+from .layers import attention_block, cast, mlp_block, moe_block, \
+    rms_norm, rope_frequencies
 
 _QUANT = (QuantTensor, Quant4Tensor)
 
@@ -45,8 +50,9 @@ def _param(*shape, device, dtype) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One pre-norm transformer block's parameters (dense FFN); the block
-    itself is ``_block_fn`` over these or their precast copies."""
+    """One pre-norm transformer block's parameters (a dense FFN, or for an
+    MoE config the router [H, E] and the stacked experts); the block itself
+    is ``_block_fn`` over these or their precast copies."""
 
     def __init__(self, cfg, device=None, dtype=torch.float32):
         super().__init__()
@@ -63,12 +69,22 @@ class Block(nn.Module):
             self.k_bias = _param(Nkv * D, **kw)
             self.v_bias = _param(Nkv * D, **kw)
         self.mlp_norm = _param(H, **kw)
-        self.gate = _param(H, Fs, **kw)
-        self.up = _param(H, Fs, **kw)
-        self.down = _param(Fs, H, **kw)
+        if cfg.is_moe:
+            E = cfg.moe.num_experts
+            self.moe_router = _param(H, E, **kw)
+            self.moe_gate = _param(E, H, Fs, **kw)
+            self.moe_up = _param(E, H, Fs, **kw)
+            self.moe_down = _param(E, Fs, H, **kw)
+        else:
+            self.gate = _param(H, Fs, **kw)
+            self.up = _param(H, Fs, **kw)
+            self.down = _param(Fs, H, **kw)
 
+    # the JAX tree's blocks/mlp/{gate,up,down} and blocks/moe/{router,gate,
+    # up,down}: a block holds one FFN or the other
     LEAF_NAMES = ("attn_norm", "q", "k", "v", "o", "q_bias", "k_bias",
-                  "v_bias", "mlp_norm", "gate", "up", "down")
+                  "v_bias", "mlp_norm", "gate", "up", "down", "moe_router",
+                  "moe_gate", "moe_up", "moe_down")
 
     def leaves(self) -> dict:
         """name -> leaf: a parameter, or a quantized weight."""
@@ -91,7 +107,8 @@ def _block_fn(layer, x, cfg, positions, segment_ids, inv_freq,
               kv_cache=None, cache_offset=None, attn_impl="xla",
               norm_impl="xla"):
     """One pre-norm block over ``layer`` (a ``Block`` or its precast
-    leaves). Returns (x, updated kv_cache or None)."""
+    leaves). Returns (x, updated kv_cache or None, the MoE aux loss or
+    None for a dense block)."""
     h = rms_norm(x, cast(layer.attn_norm, x.dtype), cfg.norm_eps,
                  impl=norm_impl)
     attn_out, new_cache = attention_block(
@@ -100,7 +117,11 @@ def _block_fn(layer, x, cfg, positions, segment_ids, inv_freq,
     x = x + attn_out
     h = rms_norm(x, cast(layer.mlp_norm, x.dtype), cfg.norm_eps,
                  impl=norm_impl)
-    return x + mlp_block(h, layer, cfg), new_cache
+    if cfg.is_moe:
+        ffn, aux = moe_block(h, layer, cfg)
+    else:
+        ffn, aux = mlp_block(h, layer, cfg), None
+    return x + ffn, new_cache, aux
 
 
 class GPT(nn.Module):
@@ -108,10 +129,6 @@ class GPT(nn.Module):
 
     def __init__(self, cfg, device=None, dtype=torch.float32):
         super().__init__()
-        if cfg.is_moe:
-            raise NotImplementedError(
-                "MoE models are not ported yet (ROADMAP queue 1 item 2: "
-                "moe_block)")
         self.cfg = cfg
         H, V = cfg.hidden_size, cfg.vocab_size
         kw = dict(device=device, dtype=dtype)
@@ -184,9 +201,15 @@ def init(cfg, generator: Optional[torch.Generator] = None, device=None,
         fill(blk.k)
         fill(blk.v)
         fill(blk.o, resid_std)
-        fill(blk.gate)
-        fill(blk.up)
-        fill(blk.down, resid_std)
+        if cfg.is_moe:
+            fill(blk.moe_router)
+            fill(blk.moe_gate)
+            fill(blk.moe_up)
+            fill(blk.moe_down, resid_std)
+        else:
+            fill(blk.gate)
+            fill(blk.up)
+            fill(blk.down, resid_std)
     fill(model.embed)
     if model.lm_head is not None:
         fill(model.lm_head)
@@ -318,6 +341,7 @@ def forward(
     attn_impl: str = "xla",
     norm_impl: str = "xla",
     remat: str = "none",
+    return_aux: bool = False,
     unembed_positions: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
 ):
@@ -334,7 +358,10 @@ def forward(
       ``cache_offset`` [B] runs incremental attention; the cache is
       updated in place and returned as ``(logits, kv_cache)``.
     - ``unembed_positions`` [B] keeps one position per row for the LM
-      head, returning [B, 1, V]."""
+      head, returning [B, 1, V].
+    - ``return_aux`` appends the MoE aux loss summed over the layers (an
+      fp32 scalar; 0 for a dense model), as the JAX forward does:
+      ``(out, [kv_cache,] aux)``."""
     cfg = cfg or model.cfg
     dt = compute_dtype(cfg)
     B, S = tokens.shape
@@ -351,19 +378,24 @@ def forward(
                                 device=dev)
     layers = precast_params(model, dt)
     new_cache = None
+    aux_total = None                     # summed over MoE layers only
     if kv_cache is None:
         block = _remat_wrap(_block_fn, remat)
         for layer in layers:
             layer = _dequantized(layer, dt)      # this layer only
-            x, _ = block(layer, x, cfg, positions, segment_ids, inv_freq,
-                         None, None, attn_impl, norm_impl)
+            x, _, aux = block(layer, x, cfg, positions, segment_ids,
+                              inv_freq, None, None, attn_impl, norm_impl)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
     else:
         k_cache, v_cache = kv_cache
         for i, layer in enumerate(layers):
             layer = _dequantized(layer, dt)      # this layer only
-            x, _ = _block_fn(layer, x, cfg, positions, segment_ids,
-                             inv_freq, (k_cache[i], v_cache[i]),
-                             cache_offset, norm_impl=norm_impl)
+            x, _, aux = _block_fn(layer, x, cfg, positions, segment_ids,
+                                  inv_freq, (k_cache[i], v_cache[i]),
+                                  cache_offset, norm_impl=norm_impl)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
         new_cache = (k_cache, v_cache)
 
     if unembed_positions is not None:
@@ -375,9 +407,13 @@ def forward(
                        impl=norm_impl)
     else:
         out = unembed(model, x, cfg, norm_impl=norm_impl)
+    result = [out]
     if kv_cache is not None:
-        return out, new_cache
-    return out
+        result.append(new_cache)
+    if return_aux:
+        result.append(aux_total if aux_total is not None else torch.zeros(
+            (), dtype=torch.float32, device=dev))
+    return tuple(result) if len(result) > 1 else result[0]
 
 
 def entry(device=None, norm_impl: str = "xla"):

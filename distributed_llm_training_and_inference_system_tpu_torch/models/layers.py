@@ -3,14 +3,17 @@
 Counterpart of the JAX package's ``models/layers.py``, function for
 function: RMSNorm applied as ``(1 + scale)``, RoPE that rotates split halves
 (not interleaved pairs), GQA attention with kv-head-major grouping
-(``q.reshape(B, S, Nkv, G, D)``) and fp32 softmax, and the gated FFN.
-Weights keep the JAX ``[in, out]`` layout, so every projection is
-``x @ w``. ``layer`` arguments are ``models.gpt.Block`` modules.
+(``q.reshape(B, S, Nkv, G, D)``) and fp32 softmax, the gated FFN, and the
+mixture of experts (token-choice top-K with GShard capacity and sort-based
+dispatch; plain PyTorch ops, as the JAX package's is plain XLA). Weights
+keep the JAX ``[in, out]`` layout, so every projection is ``x @ w``.
+``layer`` arguments are ``models.gpt.Block`` modules.
 """
 
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -216,3 +219,117 @@ def mlp_block(x: torch.Tensor, layer, cfg, matmul=None) -> torch.Tensor:
     up = matmul(x, layer.up)
     h = _activate(gate, cfg.activation) * up
     return matmul(h, layer.down).to(x.dtype)
+
+
+def moe_capacity(cfg, n_tokens: int) -> int:
+    """Slots per expert for a call over ``n_tokens`` tokens (GShard
+    capacity, in Python float arithmetic as the JAX package computes it):
+    pad tokens and idle slots count, so C depends on the call's shape."""
+    m = cfg.moe
+    return max(int(m.capacity_factor * m.experts_per_token * n_tokens
+                   / m.num_experts), 1)
+
+
+def moe_dispatch(probs: torch.Tensor, cfg) -> SimpleNamespace:
+    """Token-choice top-K routing with capacity, sort-based, from the
+    router's probabilities ``probs`` [N, E] (fp32): each token's K most
+    probable experts (the lower expert id first among equal ones, as
+    ``jax.lax.top_k``: a stable descending sort's first K), their weights
+    renormalised to sum to 1, placed by ``moe_assign``."""
+    K = cfg.moe.experts_per_token
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :K], top_e[:, :K]
+    top_w = top_p / top_p.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    return moe_assign(top_e, top_w, cfg)
+
+
+def moe_assign(top_e: torch.Tensor, top_w: torch.Tensor,
+               cfg) -> SimpleNamespace:
+    """Places the choices ``top_e`` [N, K] (weights ``top_w``) into the
+    experts' capacity buffers. Returns a namespace:
+
+    - ``top_e``, ``top_w`` [N, K]: as given;
+    - ``counts`` [E]: choices routed to each expert, kept or not;
+    - ``tok``, ``valid``, ``w`` [E, C]: expert e's buffer slot c holds
+      token ``tok`` with weight ``w`` while ``valid`` (else it is padding,
+      its weight 0);
+    - ``slot`` [N, K]: where choice (n, k) sits in the flattened [E * C]
+      buffers, -1 where it was dropped.
+
+    The choices are sorted by expert with a stable sort of the flat
+    token-major order, and each expert keeps its first C: of two tokens
+    routed to a full expert, the lower index (an earlier token, an earlier
+    slot of the batch) keeps its place, exactly as the JAX ``moe_block``
+    and the one-hot GShard formulation decide."""
+    N, K = top_e.shape
+    E = cfg.moe.num_experts
+    C = moe_capacity(cfg, N)
+    dev = top_e.device
+    flat_e = top_e.reshape(N * K)
+    order = torch.sort(flat_e, stable=True).indices               # [NK]
+    counts = torch.bincount(flat_e, minlength=E)                  # [E]
+    starts = torch.cumsum(counts, 0) - counts                     # [E]
+    c_idx = torch.arange(C, device=dev)
+    gather_pos = (starts[:, None] + c_idx[None, :]).clamp(max=N * K - 1)
+    valid = c_idx[None, :] < counts[:, None]                      # [E, C]
+    choice = order[gather_pos]                                    # [E, C]
+    tok = choice // K                                             # [E, C]
+    w = torch.where(valid, top_w.reshape(N * K)[choice],
+                    torch.zeros((), dtype=top_w.dtype, device=dev))
+
+    # each choice's rank inside its expert: position in the sorted order
+    # less the expert's start
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(N * K, device=dev)
+    c_of = rank - starts[flat_e]
+    slot = torch.where(c_of < C, flat_e * C + c_of,
+                       torch.full_like(c_of, -1)).reshape(N, K)
+    return SimpleNamespace(top_e=top_e, top_w=top_w, counts=counts,
+                           capacity=C, tok=tok, valid=valid, w=w, slot=slot)
+
+
+def moe_block(x: torch.Tensor, layer, cfg) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Token-choice top-K mixture of experts with GShard capacity and
+    sort-based dispatch (the JAX ``moe_block``). Returns (out [B, S, H] in
+    x's dtype, the Switch load-balancing aux loss, fp32 scalar).
+
+    ``layer`` holds ``moe_router`` [H, E] and the experts ``moe_gate`` /
+    ``moe_up`` [E, H, F] and ``moe_down`` [E, F, H], in x's dtype. The
+    router product is fp32 (TF32 must stay off on a card, PyTorch's
+    default, or near-tie routing parts from the CPU's). The expert FFNs
+    are one ``torch.bmm`` each over the [E, C, H] buffers, whose padding
+    slots are zeroed first. The combine gathers each token's kept rows
+    and adds them to zero in ascending buffer position, the order of the
+    JAX scatter-add, with no atomics: the same bits every run."""
+    B, S, H = x.shape
+    E = cfg.moe.num_experts
+    K = cfg.moe.experts_per_token
+    N = B * S
+    dt = x.dtype
+    xt = x.reshape(N, H)
+    logits = xt.float() @ layer.moe_router.float()               # [N, E]
+    probs = torch.softmax(logits, dim=-1)
+    d = moe_dispatch(probs, cfg)
+    C = d.capacity
+
+    xe = xt[d.tok] * d.valid[..., None].to(dt)                    # [E, C, H]
+    g = torch.bmm(xe, layer.moe_gate)
+    u = torch.bmm(xe, layer.moe_up)
+    he = torch.bmm(_activate(g, cfg.activation) * u, layer.moe_down)
+    rows = (he * d.w.to(dt)[..., None]).reshape(E * C, H)
+
+    # each token's kept rows in ascending buffer position (its dropped
+    # choices, -1, add zeros first, which changes no sum)
+    slots = torch.sort(d.slot, dim=-1).values                     # [N, K]
+    out = torch.zeros((N, H), dtype=dt, device=x.device)
+    for k in range(K):
+        s = slots[:, k]
+        got = rows[s.clamp(min=0)]
+        out = out + torch.where((s >= 0)[:, None], got,
+                                torch.zeros((), dtype=dt, device=x.device))
+
+    f = d.counts.float() / N
+    p = probs.mean(dim=0)
+    aux = E * (f * p).sum() * cfg.moe.router_aux_loss_weight
+    return out.reshape(B, S, H), aux

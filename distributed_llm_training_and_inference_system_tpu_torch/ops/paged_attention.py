@@ -320,6 +320,12 @@ def write_token_to_pages(
                 else (cur & 0x0F) | (nib << 4))
         pages.scale[phys, :, offset] = scale
         return pages
+    # rows sent to one (page, offset), the scratch page's above all, all
+    # write the last such row's values: the JAX scatter's last-wins result,
+    # and the same bits every run on a card, where an index_put_ with
+    # duplicate indices keeps an arbitrary one (idle rows of an MoE batch
+    # read scratch page 0, and their routing takes capacity)
+    new_kv = new_kv[_last_writer(phys * PS + offset, pages.shape[0] * PS)]
     if isinstance(pages, QuantPages):
         qv, scale = quantize_kv_token(new_kv)
         pages.values[phys, :, offset] = qv
@@ -327,3 +333,13 @@ def write_token_to_pages(
         return pages
     pages[phys, :, offset] = new_kv.to(pages.dtype)
     return pages
+
+
+def _last_writer(key: torch.Tensor, n_keys: int) -> torch.Tensor:
+    """For rows writing at ``key`` [R] (in [0, n_keys)), the index of the
+    last row that writes the same key (an integer scatter-max: exact, no
+    host synchronisation)."""
+    rows = torch.arange(key.numel(), device=key.device)
+    last = torch.full((n_keys,), -1, dtype=torch.int64, device=key.device)
+    last.scatter_reduce_(0, key, rows, reduce="amax")
+    return last[key]

@@ -15,17 +15,23 @@ engine opts in, to the in-kernel-dequant matmuls (``ops.int4_matmul``,
 ``ops.int8_matmul``) where the shapes allow it, and otherwise dequantizes
 the weight and takes the plain product. That choice is made from shapes
 and the tensor's device before any launch; a kernel that fails raises.
+An MoE block's router and experts are dequantized to the compute dtype for
+the layer and contracted by ``models.layers.moe_block``, never by the
+W4/W8 kernels (the JAX decode's rule); its attention projections keep
+their kernels. Routing makes each row's output depend on the whole call,
+so the engine gives every forward the JAX engine's shape and pad rows.
 """
 
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 
 from ..models.gpt import compute_dtype, unembed
-from ..models.layers import apply_rope, cast, mlp_block, rms_norm, \
-    rope_frequencies
+from ..models.layers import apply_rope, cast, mlp_block, moe_block, \
+    rms_norm, rope_frequencies
 from ..ops.int4_matmul import matmul_w4
 from ..ops.int8_matmul import matmul_w8
 from ..ops.paged_attention import (paged_attention_multi,
@@ -36,6 +42,7 @@ from .sampling import gumbel_noise, sample_tokens
 
 
 KERNEL_MAX_ROWS = 64      # decode and verify windows; longer goes dequant
+_MOE_NAMES = ("moe_router", "moe_gate", "moe_up", "moe_down")
 
 
 def mm(a: torch.Tensor, w, dtype: torch.dtype, w4_kernel_ok: bool = True,
@@ -62,6 +69,17 @@ def mm(a: torch.Tensor, w, dtype: torch.dtype, w4_kernel_ok: bool = True,
             return y.reshape(*a.shape[:-1], y.shape[-1])
         w = w.dequant(dtype)
     return a @ cast(w, dtype)
+
+
+def _moe_leaves(blk, dtype: torch.dtype) -> SimpleNamespace:
+    """A block's router and experts in the compute dtype, quantized ones
+    dequantized (this layer only), as the JAX decode casts the whole MoE
+    subtree: ``moe_block`` contracts them itself, so they never reach the
+    W4/W8 kernels."""
+    def full(w):
+        return (w.dequant(dtype) if isinstance(w, (QuantTensor, Quant4Tensor))
+                else cast(w, dtype))
+    return SimpleNamespace(**{n: full(getattr(blk, n)) for n in _MOE_NAMES})
 
 
 @torch.inference_mode()
@@ -142,7 +160,11 @@ def extend_step_forward(
         attn = attn.reshape(B, T, Nq * D)
         x = x + proj(attn, blk.o).to(x.dtype)
         h = rms_norm(x, cast(blk.mlp_norm, dt), cfg.norm_eps)
-        x = x + mlp_block(h, blk, cfg, matmul=proj).to(x.dtype)
+        if cfg.is_moe:
+            ffn, _ = moe_block(h, _moe_leaves(blk, dt), cfg)
+        else:
+            ffn = mlp_block(h, blk, cfg, matmul=proj)
+        x = x + ffn.to(x.dtype)
 
     if not logits:
         return None, k_pages, v_pages

@@ -98,10 +98,13 @@ def quantize_blocks(model: gpt.GPT, kind: str, free_source: bool = False
     kernels quantized: the per-layer result of the JAX engine's
     ``quantize_tree_int8(blocks, min_ndim=3)`` (``kind`` "int8") or
     ``quantize_tree_int4`` ("int4") over the stacked tree. A kernel
-    [in, out] quantizes when the stacked leaf would (L * in * out >=
+    [in, out] (an MoE router [H, E] too) or an MoE expert stack [E, in,
+    out] quantizes when the stacked leaf would (L * numel >=
     ``QUANT_MIN_SIZE``); int4 takes the largest group up to 128 that
-    divides ``in`` and falls back to int8 where none does. Biases and norm
-    scales stay as they are. Leaf by leaf, on the model's device; with
+    divides ``in`` for a kernel and falls back to int8 where none does.
+    Expert stacks take int8 in both modes (the JAX int4 pass groups only
+    3-D stacked leaves; the experts' [L, E, in, out] is 4-D). Biases and
+    norm scales stay as they are. Leaf by leaf, on the model's device; with
     ``free_source`` each full-precision kernel is dropped from ``model`` as
     soon as it is quantized, so the two copies never coexist."""
     L = len(model.blocks)
@@ -109,11 +112,13 @@ def quantize_blocks(model: gpt.GPT, kind: str, free_source: bool = False
     for blk in model.blocks:
         leaves = {}
         for name, p in blk.leaves().items():
-            if (isinstance(p, (QuantTensor, Quant4Tensor)) or p.dim() != 2
+            if (isinstance(p, (QuantTensor, Quant4Tensor))
+                    or p.dim() not in (2, 3)
                     or L * p.numel() < QUANT_MIN_SIZE):
                 leaves[name] = p
                 continue
-            group = int4_group_for(p.shape[0]) if kind == "int4" else 0
+            group = (int4_group_for(p.shape[0])
+                     if kind == "int4" and p.dim() == 2 else 0)
             if group:
                 leaves[name] = Quant4Tensor(
                     *quantize_int4_groupwise(p.detach(), group=group),
@@ -402,7 +407,15 @@ class InferenceEngine:
             kv_cache=zeros,
             cache_offset=torch.zeros(1, dtype=torch.int64, device=dev),
             unembed_positions=to_device(np.array([n - 1]), dev))
-        idx = to_device(entries, dev, torch.int64)
+        # the bucket's pages past the prompt all go to scratch page 0: only
+        # the last of them is written, the JAX scatter's last-wins result
+        # (an index_put_ with duplicate indices keeps an arbitrary one, and
+        # an MoE batch's idle rows read page 0)
+        keep = np.sort(len(entries) - 1 - np.unique(
+            entries[::-1], return_index=True)[1])
+        idx = to_device(entries[keep], dev, torch.int64)
+        keep = (None if len(keep) == len(entries)
+                else to_device(keep, dev, torch.int64))
 
         def scatter(pages, dense):
             # [L, 1, bucket, Nkv, D] -> [L, nP, Nkv, PS, D], quantized per
@@ -411,6 +424,8 @@ class InferenceEngine:
             dense = dense[:, 0].reshape(
                 cfg.num_layers, n_pages, PS, cfg.num_kv_heads,
                 cfg.head_dim).transpose(2, 3)
+            if keep is not None:
+                dense = dense[:, keep]
             if isinstance(pages, Int4Pages):
                 qv, sc = quantize_kv_token_int4(dense)
                 pages.values[:, idx] = pack_int4_rows(qv, axis=-2)

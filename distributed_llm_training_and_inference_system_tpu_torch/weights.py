@@ -31,15 +31,35 @@ _BLOCK_LEAVES = {
     ("v", "kernel"): "v",
     ("o", "kernel"): "o",
     ("mlp_norm", "scale"): "mlp_norm",
+}
+_MLP_LEAVES = {
     ("mlp", "gate", "kernel"): "gate",
     ("mlp", "up", "kernel"): "up",
     ("mlp", "down", "kernel"): "down",
+}
+# an MoE block's FFN: router [L, H, E], experts [L, E, H, F] / [L, E, F, H]
+_MOE_LEAVES = {
+    ("moe", "router", "kernel"): "moe_router",
+    ("moe", "gate", "kernel"): "moe_gate",
+    ("moe", "up", "kernel"): "moe_up",
+    ("moe", "down", "kernel"): "moe_down",
 }
 _BIAS_LEAVES = {
     ("q", "bias"): "q_bias",
     ("k", "bias"): "k_bias",
     ("v", "bias"): "v_bias",
 }
+
+
+def _block_leaves(cfg, bias: bool = False) -> dict:
+    """JAX block path -> Block attribute for ``cfg``'s blocks: the shared
+    leaves, then the dense FFN's or the MoE's (and q/k/v biases with
+    ``bias`` where the config has them)."""
+    leaves = dict(_BLOCK_LEAVES)
+    leaves.update(_MOE_LEAVES if cfg.is_moe else _MLP_LEAVES)
+    if bias and cfg.attention_bias:
+        leaves.update(_BIAS_LEAVES)
+    return leaves
 
 
 def _leaf(tree, path):
@@ -72,7 +92,7 @@ def _quant_leaves(tree, cfg, device) -> dict[str, object]:
     """``blocks.<i>.<leaf>`` -> QuantTensor | Quant4Tensor for every
     quantized block kernel of the JAX tree, split per layer."""
     out = {}
-    for path, name in _BLOCK_LEAVES.items():
+    for path, name in _block_leaves(cfg).items():
         node = tree["blocks"]
         for p in path:
             node = node[p]
@@ -94,9 +114,7 @@ def _named_arrays(tree, cfg, skip=()) -> dict[str, np.ndarray]:
     (``blocks.<i>.<leaf>``, ``embed``, ``final_norm``, ``lm_head``), the
     stacked block leaves split per layer; names in ``skip`` (quantized
     kernels) are left out."""
-    leaves = dict(_BLOCK_LEAVES)
-    if cfg.attention_bias:
-        leaves.update(_BIAS_LEAVES)
+    leaves = _block_leaves(cfg, bias=True)
     out = {"embed": _leaf(tree, ("embed", "embedding")),
            "final_norm": _leaf(tree, ("final_norm", "scale"))}
     if not cfg.tie_word_embeddings:

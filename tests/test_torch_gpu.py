@@ -1617,3 +1617,116 @@ def test_engine_features_on_card_match_engine_on_cpu():
     assert paged_attention_kernel.launches - before == cfg.num_layers * (
         st["dispatched_steps"] + st["extend_prefills"]
         + st["prefill_chunks"] + st["spec_dispatches"])
+
+
+# -- the MoE family -----------------------------------------------------------
+
+import dataclasses  # noqa: E402
+from types import SimpleNamespace  # noqa: E402
+
+from distributed_llm_training_and_inference_system_tpu_torch.models import (  # noqa: E402
+    layers as tl)
+
+
+def _moe_cfg():
+    """gpt-test-moe widened to 8 experts over H = 256, F = 512."""
+    c = get_model_config("gpt-test-moe")
+    return dataclasses.replace(c, hidden_size=256, ffn_size=512,
+                               moe=dataclasses.replace(c.moe, num_experts=8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [8, 512])
+def test_moe_block_on_card_matches_cpu(N, dtype):
+    """The same kept and dropped choices in the same buffer slots as the
+    CPU (router in fp32, TF32 off), out within 1e-5 (fp32) or 2e-2 (bf16)
+    of its largest element, aux within 1e-5 of itself."""
+    _need_card()
+    cfg = _moe_cfg()
+    g = torch.Generator().manual_seed(N)
+    H, F, E = cfg.hidden_size, cfg.ffn_size, cfg.moe.num_experts
+    w = {"moe_router": 0.02 * torch.randn(H, E, generator=g),
+         "moe_gate": 0.02 * torch.randn(E, H, F, generator=g),
+         "moe_up": 0.02 * torch.randn(E, H, F, generator=g),
+         "moe_down": 0.01 * torch.randn(E, F, H, generator=g)}
+    x = torch.randn(1, N, H, generator=g).to(dtype)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        layer = SimpleNamespace(**{k: v.to(dev, dtype) for k, v in w.items()})
+        xx = x.to(dev)
+        with torch.no_grad():
+            out, aux = tl.moe_block(xx, layer, cfg)
+            probs = torch.softmax(xx[0].float() @ layer.moe_router.float(),
+                                  dim=-1)
+            d = tl.moe_dispatch(probs, cfg)
+        res[dev] = (out.float().cpu(), aux.item(), d.slot.cpu())
+    (co, ca, cs), (ko, ka, ks) = res["cpu"], res["cuda"]
+    assert torch.equal(cs, ks)
+    assert (ko - co).abs().max().item() <= TOL[dtype] * co.abs().max().item()
+    assert abs(ka - ca) <= 1e-5 * abs(ca)
+
+
+@pytest.mark.gpu
+def test_moe_engine_on_card_matches_engine_on_cpu():
+    """gpt-test-moe in fp32 with chunked prefill, n-gram speculation and
+    swap preemption: the card gives the CPU engine's tokens (idle slots
+    route too, so a difference in any row's contents would show), and the
+    paged kernel launches one a layer for every forward over the pages."""
+    _need_card()
+    cfg = get_model_config("gpt-test-moe")
+    scfg = dict(model=cfg.name, max_batch_size=4, max_seq_len=128,
+                prefill_chunk=32, kv_block_size=8, dtype="float32",
+                chunked_prefill_tokens=16, speculative="ngram",
+                speculative_tokens=4, preemption="swap", kv_num_blocks=14,
+                decode_steps_per_dispatch=4)
+    cpu_model = gpt.init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    card_model = gpt.GPT(cfg, device="cuda")
+    card_model.load_state_dict(cpu_model.state_dict())
+    rep = [7, 8, 9, 10] * 4
+    prompts = [rep + list(range(20, 30)), list(range(40, 56)), rep * 2, [5]]
+    greedy = SamplingParams(temperature=0.0, max_tokens=36)
+    cpu = InferenceEngine(cfg, ServeConfig(**scfg), params=cpu_model,
+                          device="cpu")
+    ref = cpu.generate(prompts, greedy)
+    before = paged_attention_kernel.launches
+    eng = InferenceEngine(cfg, ServeConfig(**scfg), params=card_model)
+    out = eng.generate(prompts, greedy)
+    assert [r.generated_tokens for r in out] == \
+        [r.generated_tokens for r in ref]
+    st, cst = eng.stats(), cpu.stats()
+    for key in ("swap_ins", "spec_dispatches", "prefill_chunks",
+                "decode_steps", "weight_bytes"):
+        assert st[key] == cst[key], key
+    assert st["nonfinite_logits"] == 0
+    assert paged_attention_kernel.launches - before == cfg.num_layers * (
+        st["dispatched_steps"] + st["extend_prefills"]
+        + st["prefill_chunks"] + st["spec_dispatches"])
+
+
+@pytest.mark.gpu
+def test_moe_train_step_on_card_matches_cpu():
+    """One gpt-test-moe training step (fp32, plain attention, loss + aux
+    differentiated through the sort-based dispatch) on the card and on the
+    CPU from the same state: loss and gradient norm within 1e-5."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import schema
+    from distributed_llm_training_and_inference_system_tpu_torch.exec import (
+        train_step as ts)
+    cfg = get_model_config("gpt-test-moe")
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = gpt.init(cfg, torch.Generator().manual_seed(1), device="cpu")
+        model = model.to(dev)
+        step, init, _ = ts.make_train_step(
+            cfg, schema.OptimizerConfig(fused=dev == "cuda"),
+            schema.ParallelConfig(activation_checkpoint="full"),
+            loss_chunk=16)
+        _, m = step(ts.TrainState.create(model, init),
+                    {"tokens": tokens.to(dev)})
+        out[dev] = (m["loss"].item(), m["grad_norm"].item())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert abs(a - b) <= 1e-5 * abs(b)
