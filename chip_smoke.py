@@ -152,7 +152,41 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              finite, the flash launches 2 x 12 / 12 / 12 a step; then
              3 kernel steps on one repeated batch (the loss falls) and the
              first of them against the plain step within 1e-2; tokens/s and
-             MFU over active parameters (printed).
+             MFU over active parameters (printed);
+17. remnants — the single-card modules ported last: (a) the 256-candidate
+             sampling tier at llama-8b-gqa's vocab, B = 8, top_k in {1,
+             40, 256, 300} x top_p in {1.0, 0.9}: its tokens and the
+             sampler's (the single sort) equal the single sort's under
+             the same noise; the tier's and the sort's device times and
+             the host wall of reading the tier's flag; (b)
+             serve/loadgen.py on llama-8b-gqa with phase 5's weights and
+             the default ServeConfig: run_closed_loop (8 in flight) and
+             run_poisson (2 rps), 32 requests of 512 + 64 tokens each;
+             TTFT/TPOT p50/p99, goodput, preemptions; the paged kernel's
+             launches = 32 x the dispatched steps; the closed loop's
+             on-device TTFT and decode step (attach_device_times); (c)
+             int4-awq: the engine calibrates (JAX's
+             calibration tokens) and quantizes phase 5's weights on the
+             card; layer 0's chan within 1e-2 of an fp32 CPU
+             calibration; W4 with that chan against plain at 8 x
+             4096 -> 14336; export_params to $TMPDIR; an engine on the
+             artifact with int4 pages (device peak while loading under
+             half the bf16 weights' bytes) through run_closed_loop (8 in
+             flight, 16 requests), W4 launches = 32 x 7 x decode steps,
+             int4-page launches counted, every forward replayed through
+             the plain paged attention over int4 pages with the engine's
+             tokens held (within the near-tie bound) and over bf16 pages
+             (the witness of what 4-bit K/V moves, printed); the same
+             weights with bf16 pages
+             (8 requests), every greedy token within the near-tie bound
+             of the dense forward over the dequantized weights; (d)
+             gpt-1b at full width and depth, micro-batch 4 x 2048: 3
+             steps under selective_attn and 3 under selective from one
+             state, bit for bit, 2 x 24 flash forwards a step;
+             lion, adafactor and sgd: the first update on the card
+             within 1e-5 of its largest element (plus one fp32 rounding
+             of the largest parameter) of the CPU's from the same
+             gradients and state, then a second step.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} record. Without a CUDA card, or without the rest of the
@@ -164,9 +198,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import random
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -2437,16 +2473,26 @@ class CallRecorder:
         return out
 
 
-def moe_replay(torch, mm, model, cfg, kv: dict, rec: CallRecorder) -> dict:
-    """Repeat ``rec``'s forwards in order on a fresh pool of the engine's
-    geometry ``kv`` (PagedKVCache's arguments), through the plain paged attention (the gather path) and the
-    dequant route for quantized weights, with the engine's tokens, pad rows
-    and routing held fixed. For every position whose logits the engine
-    read, the deficit of the engine's pick under the replay's logits; for
-    every routing call, where the replay's own top-K differs from the
-    engine's, how far its own K-th choice lies above the engine's weakest;
-    and the same gap against the engine's previous routing call of the
-    same rows, a control that the limit must reject."""
+def pool_geometry(eng) -> dict:
+    """PagedKVCache's arguments for a fresh pool like ``eng``'s."""
+    kv = {k: getattr(eng.kv, k) for k in ("num_slots", "max_seq_len",
+                                          "page_size", "num_pages", "dtype")}
+    kv["quantized"] = eng.kv.quant_kind
+    return kv
+
+
+def replay_forwards(torch, mm, model, cfg, kv: dict,
+                    rec: CallRecorder) -> dict:
+    """Repeat ``rec``'s forwards in order on a fresh pool of geometry
+    ``kv`` (PagedKVCache's arguments), through the plain paged attention
+    (the gather path) and the dequant route for quantized weights, with
+    the engine's tokens, pad rows and (for MoE) routing held fixed. For
+    every position whose logits the engine read, the deficit of the
+    engine's pick under the replay's logits. For MoE, for every routing
+    call, where the replay's own top-K differs from the engine's, how far
+    its own K-th choice lies above the engine's weakest; and the same gap
+    against the engine's previous routing call of the same rows, a control
+    that the limit must reject."""
     from types import SimpleNamespace
     layers = mm["layers"]
     dev = model.device
@@ -2485,7 +2531,8 @@ def moe_replay(torch, mm, model, cfg, kv: dict, rec: CallRecorder) -> dict:
         return layers.moe_assign(want, top_w, cfg_)
     shim = SimpleNamespace(cfg=cfg, kv=pool, device=dev, params=model)
     deficits, checked = [], 0
-    layers.moe_dispatch = forced
+    if routes:
+        layers.moe_dispatch = forced
     try:
         with torch.inference_mode():
             for ev in rec.events:
@@ -2500,8 +2547,8 @@ def moe_replay(torch, mm, model, cfg, kv: dict, rec: CallRecorder) -> dict:
                 lg, _, _ = mm["decode"].extend_step_forward(
                     model, ev["tokens"], ev["start"], pool.k_pages,
                     pool.v_pages, ev["tables"], cfg, write_ok=ev["write_ok"],
-                    w8_kernel_ok=False, attn_impl="gather",
-                    logits=ev["logits"])
+                    w4_kernel_ok=False, w8_kernel_ok=False,
+                    attn_impl="gather", logits=ev["logits"])
                 if lg is None:
                     continue
                 am = ev["argmax"]
@@ -2518,12 +2565,13 @@ def moe_replay(torch, mm, model, cfg, kv: dict, rec: CallRecorder) -> dict:
     dall = torch.cat([d.reshape(-1) for d in deficits])
     res = {"events": len(rec.events), "positions": checked,
            "max_deficit": float(dall.max()),
-           "over_bound": int((dall > 2 * NEAR_TIE_DELTA).sum()),
-           "routing_calls": len(gaps),
-           "routing_rows_differing": int(torch.stack(differ).sum()),
-           "max_routing_gap": float(torch.stack(gaps).max()),
-           "control_calls": len(control),
-           "control_routing_gap": float(torch.stack(control).max())}
+           "over_bound": int((dall > 2 * NEAR_TIE_DELTA).sum())}
+    if routes:
+        res.update(routing_calls=len(gaps),
+                   routing_rows_differing=int(torch.stack(differ).sum()),
+                   max_routing_gap=float(torch.stack(gaps).max()),
+                   control_calls=len(control),
+                   control_routing_gap=float(torch.stack(control).max()))
     del pool
     torch.cuda.empty_cache()
     return res
@@ -2700,17 +2748,15 @@ def serve_moe(torch, mods, mm, kernels: dict, card: str,
             check(c["prefill_chunks"] >= 2 and c["spec_dispatches"] >= 1,
                   f"features: {c['prefill_chunks']} chunks, "
                   f"{c['spec_dispatches']} verify windows")
-        kv = {k: getattr(eng.kv, k) for k in ("num_slots", "max_seq_len",
-                                              "page_size", "num_pages",
-                                              "dtype")}
-        kv["quantized"] = eng.kv.quant_kind
+        kv = pool_geometry(eng)
         res["weight_bytes"] = eng.stats()["weight_bytes"]
         served = eng.params              # int8: the quantized copy
         eng.release()
         del srv, eng
         torch.cuda.empty_cache()
         res["drop_share"] = rec.drop_shares(8, cfg.moe.experts_per_token)
-        res["replay"] = rp = moe_replay(torch, mm, served, cfg, kv, rec)
+        res["replay"] = rp = replay_forwards(torch, mm, served, cfg, kv,
+                                             rec)
         del served, rec
         torch.cuda.empty_cache()
         dec = res["drop_share"].get("decode", {})
@@ -2885,6 +2931,505 @@ def train_moe(torch, mods, mm, kernels: dict, card: str) -> dict:
             "repeated_batch": res}
 
 
+# -- phase 17: the single-card remnants ---------------------------------------
+#
+# (a) the 256-candidate sampling tier at llama-8b-gqa's vocab, (b) loadgen
+# on llama-8b-gqa with phase 5's weights, (c) int4-awq calibrated on the
+# card, exported, and served from the artifact with int4 pages, (d) gpt-1b
+# training under selective_attn and with lion, adafactor and sgd.
+
+TIER_VOCAB = 128256
+TIER_ROWS = 8
+TIER_K = (1, 40, 256, 300)
+TIER_P = (1.0, 0.9)
+LOAD_RUNS = (("closed", dict(concurrency=8, num_requests=32, prompt_len=512,
+                             max_tokens=64, seed=0)),
+             ("poisson", dict(offered_rps=2.0, num_requests=32,
+                              prompt_len=512, max_tokens=64, seed=0)))
+AWQ_RUN = dict(concurrency=8, num_requests=16, prompt_len=512,
+               max_tokens=32, seed=1)
+AWQ_HELD_RUN = dict(concurrency=8, num_requests=8, prompt_len=512,
+                    max_tokens=32, seed=2)
+# chan of one layer, calibrated in bf16 on the card against fp32 on the CPU
+# (the statistic is an RMS over 512 tokens of activations rounded to bf16,
+# 2^-9 relative an element; chan is its square root): relative
+AWQ_CHAN_TOL = 1e-2
+AWQ_LAYER_LEAVES = ("q", "k", "v", "gate", "up", "down")
+REMAT_STEPS = 3
+OPT_KINDS = ("lion", "adafactor", "sgd")
+# one optimizer update on the card against the CPU's from the same fp32
+# gradients and state: elementwise arithmetic, and for adafactor two means
+# and two block sums summed in another order; of the update's largest
+# element, plus one fp32 rounding of the largest parameter (p + u rounds
+# to a neighbour when u moves by less than that)
+OPT_UPDATE_TOL = 1e-5
+
+
+def host_wall_ms(torch, fn, iters: int = 50) -> float:
+    """Host wall time a call of ``fn``, the device drained after the last:
+    what a caller that issues ``fn`` back to back waits."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def sampling_tier_on_card(torch, smp, card: str) -> dict:
+    """17a: the tier's tokens equal the single sort's under the same noise
+    for every (top_k, top_p); the tier's and the sort's device times, and
+    the host wall of the tier with and without its flag read (the sampler
+    takes the single sort: these are the numbers behind that choice)."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    B, V = TIER_ROWS, TIER_VOCAB
+    logits = torch.randn(B, V, generator=g, device="cuda") * 3
+    noise = smp.gumbel_noise(torch.arange(B, device="cuda") + 100,
+                             torch.full((B,), 600, device="cuda"), V)
+    temp = np.ones(B, np.float32)
+    cases = []
+    for tk in TIER_K:
+        for tp in TIER_P:
+            k, p = np.full(B, tk, np.int64), np.full(B, tp, np.float32)
+            kt, pt = torch.from_numpy(k).cuda(), torch.from_numpy(p).cuda()
+            tier = (smp._filtered_fast_or_exact(logits, kt, pt, k)
+                    + noise).argmax(-1)
+            exact = (smp._filtered_single_sort(logits, kt, pt)
+                     + noise).argmax(-1)
+            check(torch.equal(smp.sample_tokens(logits, temp, k, p, noise),
+                              exact), f"the sampler's tokens differ from "
+                  f"the single sort's at top_k {tk}, top_p {tp}")
+            flag = (bool(smp._filtered_fast(logits, kt, pt)[1])
+                    if tk <= smp.FILTER_FAST_CAP else True)
+            check(torch.equal(tier, exact), f"tier tokens differ from the "
+                  f"single sort's at top_k {tk}, top_p {tp}")
+            cases.append({"top_k": tk, "top_p": tp, "exact_path": flag})
+    # 300 tied top values: the cut ties the 257th candidate
+    tied = torch.zeros(B, V, device="cuda")
+    tied[:, :300] = 1.0
+    k40 = torch.full((B,), 40, device="cuda")
+    p1 = torch.ones(B, device="cuda")
+    check(bool(smp._filtered_fast(tied, k40, p1)[1]),
+          "a cut tied with the 257th candidate did not take the exact path")
+    check(torch.equal((smp._filtered_fast_or_exact(
+        tied, k40, p1, np.full(B, 40)) + noise).argmax(-1),
+        (smp._filtered_single_sort(tied, k40, p1) + noise).argmax(-1)),
+        "tied tier tokens differ")
+    t = {"tier_ms": time_ms(torch, lambda: smp._filtered_fast(
+             logits, k40, p1)),
+         "single_sort_ms": time_ms(torch, lambda: smp._filtered_single_sort(
+             logits, k40, p1)),
+         "tier_wall_ms": host_wall_ms(torch, lambda: smp._filtered_fast(
+             logits, k40, p1)),
+         "tier_read_wall_ms": host_wall_ms(
+             torch, lambda: smp._filtered_fast_or_exact(
+                 logits, k40, p1, np.full(B, 40))),
+         "sort_wall_ms": host_wall_ms(
+             torch, lambda: smp._filtered_single_sort(logits, k40, p1))}
+    print(f"sampling tier [{B}, {V}]: tokens equal the single sort's in "
+          f"{len(cases)} (top_k, top_p) cases (exact path taken: "
+          f"{[c['exact_path'] for c in cases]}); device ms: tier "
+          f"{t['tier_ms']:.4f}, single sort {t['single_sort_ms']:.4f}; host "
+          f"wall a call: tier {t['tier_wall_ms']:.4f}, tier with its flag "
+          f"read {t['tier_read_wall_ms']:.4f}, single sort "
+          f"{t['sort_wall_ms']:.4f} [{card}]", flush=True)
+    return {"cases": cases, **t}
+
+
+def load_prompts_recorded(engine) -> list:
+    """The requests the engine's scheduler is offered, in order."""
+    seen = []
+    add = engine.scheduler.add_request
+
+    def record(r):
+        seen.append(r)
+        return add(r)
+    engine.scheduler.add_request = record
+    return seen
+
+
+def loadgen_on_card(torch, mods, kernel, model, cfg, card: str) -> dict:
+    """17b: run_closed_loop and run_poisson on llama-8b-gqa with phase 5's
+    weights and the default ServeConfig; the paged kernel's launches each
+    run against the engine's dispatched steps; after the closed loop's
+    count is read, its on-device TTFT (queue wait + the bucket's prefill
+    on the device, ``attach_device_times``, what ``device_times=True``
+    adds) and decode time a token."""
+    lg = mods["loadgen"]
+    eng = mods["InferenceEngine"](cfg, mods["ServeConfig"](model=cfg.name),
+                                  params=model, seed=0)
+    eng.generate([[1, 2, 3, 4]], mods["SamplingParams"](max_tokens=4))
+    L = cfg.num_layers
+    out = {}
+    for name, kw in LOAD_RUNS:
+        seen = load_prompts_recorded(eng)
+        before = (eng.total_dispatched_steps, eng.total_extend_prefills,
+                  eng.total_prefill_chunks)
+        kernel.launches = 0                         # the main path starts
+        run = lg.run_closed_loop if name == "closed" else lg.run_poisson
+        res = run(eng, **kw)
+        launches = kernel.launches                  # it ended
+        del eng.scheduler.add_request
+        steps = [a - b for a, b in zip(
+            (eng.total_dispatched_steps, eng.total_extend_prefills,
+             eng.total_prefill_chunks), before)]
+        s = res.summary()
+        check(s["completed"] == kw["num_requests"] and s["failed"] == 0,
+              f"loadgen {name}: {s['completed']} completed, "
+              f"{s['failed']} failed")
+        check(all(len(r.generated_tokens) == kw["max_tokens"]
+                  for r in seen), f"loadgen {name}: a request stopped early")
+        check(launches == L * sum(steps) and launches > 0,
+              f"loadgen {name}: {launches} paged launches, {L} x {steps}")
+        if name == "closed":
+            # the calibration launches the kernel too: after the count
+            s = lg.attach_device_times(res, seen, eng).summary()
+            check(len(res.ttft_device_ms) > 0, "no on-device TTFT")
+            print(f"loadgen closed on the device: TTFT p50 "
+                  f"{s['p50_ttft_device_ms']} ms p99 "
+                  f"{s['p99_ttft_device_ms']} ms over "
+                  f"{len(res.ttft_device_ms)} dense-prefill requests (queue "
+                  f"wait + the bucket's prefill on the device), a decode "
+                  f"step of every slot {s['decode_ms_per_token_device']} ms "
+                  f"[{card}]", flush=True)
+        print(f"loadgen {name} {kw}: TTFT p50 {s['p50_ttft_ms']} ms p99 "
+              f"{s['p99_ttft_ms']} ms, TPOT p50 {s['p50_tpot_ms']} ms p99 "
+              f"{s['p99_tpot_ms']} ms, goodput {s['goodput_tok_s']} tok/s, "
+              f"{s['preemptions']} preemptions, queue peak "
+              f"{s['queue_peak']}, {s['duration_s']} s; paged launches "
+              f"{launches} = {L} x {sum(steps)} (decode steps, suffix "
+              f"prefills, chunks) [{card}]", flush=True)
+        out[name] = {**s, "launches": launches}
+    out["launches"] = sum(out[n]["launches"] for n, _ in LOAD_RUNS)
+    eng.release()
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def awq_calibrate_and_export(torch, mods, qm, model, cfg, path,
+                             card: str) -> dict:
+    """17c, first half: llama-8b-gqa quantized as int4-awq on the card from
+    phase 5's weights (the engine draws JAX's calibration tokens); one
+    layer's chan against the same calibration in fp32 on the CPU; W4 with
+    that chan against its plain version at 8 x 4096 -> 14336; the model
+    exported to ``path``."""
+    gpt, tq, w4, wt = mods["gpt"], qm["tq"], qm["w4"], mods["weights"]
+    smp = mods["sampling"]
+    scfg = mods["ServeConfig"](model=cfg.name, quantization="int4-awq",
+                               kv_quantization="int4")
+    t0 = time.time()
+    eng = mods["InferenceEngine"](cfg, scfg, params=model, seed=0)
+    torch.cuda.synchronize()
+    quant_s = time.time() - t0
+    check(eng.stats()["quantization"] == "int4-awq", "not int4-awq")
+    blk = eng.params.blocks[0]
+    one = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    named = {n: p.detach().float().cpu() for n, p in (
+        ("embed", model.embed), ("final_norm", model.final_norm),
+        ("lm_head", model.lm_head)) if p is not None}
+    named.update({f"blocks.0.{n}": p.detach().float().cpu()
+                  for n, p in model.blocks[0].leaves().items()})
+    cpu_model = wt.model_from_named(named, one, device="cpu")
+    calib = smp.randint(smp.prng_key(torch.zeros((), dtype=torch.int64)),
+                        (2, min(256, scfg.max_seq_len)), 1, cfg.vocab_size)
+    act = gpt.activation_channel_scales(cpu_model, one, calib)
+    chan_err = {}
+    for n in AWQ_LAYER_LEAVES:
+        want = tq.awq_channel_scale(act[wt.jax_path(f"blocks.0.{n}")][0])
+        got = getattr(blk, n).chan.float().cpu()
+        chan_err[n] = ((got - want).abs() / want).max().item()
+    del cpu_model, named
+    print(f"int4-awq: llama-8b-gqa calibrated and quantized on the card in "
+          f"{quant_s:.1f} s; layer 0 chan against the fp32 CPU "
+          f"calibration, largest relative difference: "
+          + ", ".join(f"{n} {e:.2e}" for n, e in chan_err.items())
+          + f" (limit {AWQ_CHAN_TOL:.0e}); chan in "
+          f"[{blk.gate.chan.min().item():.3f}, "
+          f"{blk.gate.chan.max().item():.3f}] [{card}]", flush=True)
+    check(max(chan_err.values()) <= AWQ_CHAN_TOL, f"chan {chan_err}")
+    check(bool((blk.gate.chan != 1).any()), "chan is all ones")
+    gate = blk.gate
+    x = torch.randn(8, gate.shape[0], device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5)
+                    ).to(torch.bfloat16)
+    before = w4.int4_matmul_kernel.launches
+    out = w4.matmul_w4(x, gate.packed, gate.scale, gate.chan, gate.group)
+    torch.cuda.synchronize()
+    check(w4.int4_matmul_kernel.launches == before + 1, "W4 not launched")
+    ref = w4.matmul_w4_plain(x, gate.packed, gate.scale, gate.chan,
+                             gate.group)
+    w4_err = matmul_error(torch, out, ref, torch.bfloat16,
+                          "int4_matmul with the calibrated chan")
+    print(f"W4 at 8 x {gate.shape[0]} -> {gate.shape[1]} with layer 0's "
+          f"calibrated chan against matmul_w4_plain: max_abs_err "
+          f"{w4_err:.3e} (row limit {MATMUL_ROW_TOL:.0e})", flush=True)
+    t1 = time.time()
+    mods["export"].export_params(eng.params, path, metadata={
+        "model": cfg.name, "quant": "int4-awq"})
+    export_s = time.time() - t1
+    size = path.stat().st_size
+    print(f"exported to $TMPDIR as {size / 1e9:.3f} GB of safetensors in "
+          f"{export_s:.1f} s", flush=True)
+    weight_bytes = eng.params.weight_bytes()
+    eng.release()
+    del eng
+    torch.cuda.empty_cache()
+    return {"quant_s": quant_s, "chan_rel_err": chan_err,
+            "w4_max_abs_err": w4_err, "export_s": export_s,
+            "artifact_bytes": size, "weight_bytes": weight_bytes}
+
+
+def held_to_dense(torch, mods, model, cfg, requests) -> float:
+    """The largest deficit of a request's greedy tokens under the dense
+    forward over ``model`` (quantized kernels dequantized a layer at a
+    time) on its prompt and tokens."""
+    return max(max(teacher_forced(torch, mods, model, cfg,
+                                  list(r.prompt_tokens), r.generated_tokens,
+                                  {"temperature": 0.0})["deficit"])
+               for r in requests)
+
+
+def awq_artifact_serve(torch, mods, mm, qm, cfg, path, card: str) -> dict:
+    """17c, second half: an engine on the artifact with int4 pages (the
+    weights reach the card as stored: the peak while it loads stays under
+    half the bf16 weights' bytes) through run_closed_loop, the W4 and
+    int4-page kernels counted and every forward recorded. The run is held
+    by replaying its forwards through the plain paged attention over int4
+    pages of its own geometry (the dequant route for the weights), and
+    the witness replays them over bf16 pages: it reads how far 4-bit K/V
+    alone moves the engine's picks. Then the same weights with bf16 pages,
+    whose greedy tokens are held to the dense forward over the dequantized
+    AWQ weights within the near-tie bound."""
+    kn = qm["kernels"]
+    L = cfg.num_layers
+    bf16_bytes = 2 * cfg.param_count
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = mods["InferenceEngine"](cfg, mods["ServeConfig"](
+        model=cfg.name, artifact=str(path), kv_quantization="int4"), seed=0)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    st = eng.stats()
+    kv = st["kv"]
+    print(f"artifact engine: quantization {st['quantization']}, weights "
+          f"{st['weight_bytes'] / 1e9:.3f} GB, KV pool "
+          f"{kv['hbm_bytes'] / 1e9:.3f} GB ({kv['kv_quantization']}), "
+          f"loaded in {load_s:.1f} s, device peak while loading "
+          f"{peak / 1e9:.3f} GB (bf16 weights would be "
+          f"{bf16_bytes / 1e9:.3f} GB)", flush=True)
+    check(st["quantization"] == "int4-awq", "artifact not served as int4-awq")
+    check(peak < bf16_bytes * 0.5, "a bf16 copy of the weights was made")
+    check(bool((eng.params.blocks[0].q.chan != 1).any()), "chan lost")
+    bound = 2 * NEAR_TIE_DELTA
+    runs = {}
+    for pages, run in (("int4", AWQ_RUN), ("bf16", AWQ_HELD_RUN)):
+        if pages == "bf16":
+            eng = mods["InferenceEngine"](cfg, mods["ServeConfig"](
+                model=cfg.name), params=params, seed=0)
+        seen = load_prompts_recorded(eng)
+        rec = CallRecorder(torch, mm) if pages == "int4" else None
+        before = eng.total_dispatched_steps, eng.total_extend_prefills
+        if rec:
+            rec.install(eng)
+        try:
+            for k in kn.values():
+                k.launches = 0                      # the main path starts
+            res = mods["loadgen"].run_closed_loop(eng, **run)
+            launches = {n: k.launches for n, k in kn.items()}   # it ended
+        finally:
+            if rec:
+                rec.remove()
+        steps = eng.total_dispatched_steps - before[0]
+        extends = eng.total_extend_prefills - before[1]
+        s = res.summary()
+        check(s["completed"] == run["num_requests"], f"awq run {s}")
+        check(launches["int4_matmul"] == L * 7 * steps > 0,
+              f"W4 launches {launches['int4_matmul']} != {L} x 7 x {steps}")
+        paged = ("paged_attention_int4" if pages == "int4"
+                 else "paged_attention")
+        check(launches[paged] == L * (steps + extends) > 0,
+              f"{paged} launches {launches[paged]}")
+        params, geometry = eng.params, pool_geometry(eng)
+        eng.release()
+        del eng
+        torch.cuda.empty_cache()
+        deficit = held_to_dense(torch, mods, params, cfg, seen)
+        runs[pages] = {**s, "launches": launches, "max_deficit": deficit}
+        line = (f"int4-awq artifact, {pages} pages, {run}: TTFT p50 "
+                f"{s['p50_ttft_ms']} ms, TPOT p50 {s['p50_tpot_ms']} ms, "
+                f"goodput {s['goodput_tok_s']} tok/s; launches W4 "
+                f"{launches['int4_matmul']} = {L} x 7 x {steps} decode "
+                f"steps, {paged} {launches[paged]}; largest deficit of a "
+                f"greedy token under the dense forward over the dequantized "
+                f"weights {deficit:.4f}")
+        if rec is None:
+            print(f"{line} (bound {bound}) [{card}]", flush=True)
+            continue
+        held = replay_forwards(torch, mm, params, cfg, geometry, rec)
+        witness = replay_forwards(torch, mm, params, cfg,
+                                  {**geometry, "quantized": "none"}, rec)
+        del rec
+        torch.cuda.empty_cache()
+        runs[pages].update(replay=held, replay_bf16_pages=witness)
+        print(f"{line} (not held: the dense forward's K/V are not 4-bit); "
+              f"replay of {held['events']} forwards through the plain paged "
+              f"attention over int4 pages, the engine's tokens held: "
+              f"{held['positions']} positions, largest deficit "
+              f"{held['max_deficit']:.4f} (bound {bound}), "
+              f"{held['over_bound']} over; the same replay over bf16 pages "
+              f"(witness: what 4-bit K/V alone moves): largest deficit "
+              f"{witness['max_deficit']:.4f}, {witness['over_bound']} over "
+              f"the bound [{card}]", flush=True)
+        check(held["over_bound"] == 0, f"{held['over_bound']} tokens served "
+              f"from int4 pages lie over the near-tie bound under the replay "
+              f"(largest deficit {held['max_deficit']:.4f})")
+    check(runs["bf16"]["max_deficit"] <= bound, f"a token lies "
+          f"{runs['bf16']['max_deficit']:.4f} under the dense forward's "
+          f"best (bound {bound})")
+    del params
+    torch.cuda.empty_cache()
+    launches = {n: runs["int4"]["launches"][n] + runs["bf16"]["launches"][n]
+                for n in kn}
+    return {"runs": runs, "launches": launches, "load_s": load_s,
+            "load_peak_bytes": peak, "weight_bytes": st["weight_bytes"]}
+
+
+def train_remnants(torch, mods, fac, kernels: dict, card: str) -> dict:
+    """17d: gpt-1b at full width and depth, S = 2048, micro-batch 4: 3
+    steps under selective_attn and 3 under selective from the same state
+    (losses, grad norms and parameter checksums bit for bit; flash forward
+    launches a step); then lion, adafactor and sgd: the first update on the
+    card against the CPU's from the same gradients and state, and a second
+    step."""
+    gpt, tts, topt = mods["gpt"], mods["train_step"], mods["optimizer"]
+    schema = mods["schema"]
+    cfg = mods["get_model_config"]("gpt-1b")
+    S, B = 2048, TRAIN_MICRO_BATCH
+    model = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    start = {k: v.detach().cpu().clone() for k, v in
+             model.state_dict().items()}
+    data = mods["SyntheticDataset"](B, S, cfg.vocab_size, seed=0)
+    batches = [{k: torch.from_numpy(v).cuda().long()
+                for k, v in next(data).items()} for _ in range(REMAT_STEPS)]
+    opt_cfg = schema.OptimizerConfig.from_dict(
+        {"scheduler": {"warmup_steps": 2}})
+    runs = {}
+    for remat in ("selective_attn", "selective"):
+        model.load_state_dict(start)
+        step, init, _ = tts.make_train_step(
+            cfg, opt_cfg, schema.ParallelConfig(activation_checkpoint=remat),
+            attn_impl="flash")
+        state = tts.TrainState.create(model, init)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, norms = [], [], []
+        for k in kernels.values():
+            k.launches = 0                          # the main path starts
+        for b in batches:
+            t0 = time.time()
+            state, m = step(state, b)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            times.append(time.time() - t0)
+        launches = {n: k.launches for n, k in kernels.items()}  # it ended
+        sums = [float(t.detach().double().sum()) for t in (
+            model.embed, model.lm_head, model.blocks[0].q,
+            model.blocks[-1].down, state.opt_state.mu[-1],
+            state.opt_state.nu[0])]
+        tok_s = B * S * (REMAT_STEPS - 1) / sum(times[1:])
+        mfu = gpt.flops_per_token(cfg, S) * tok_s / PEAK_OPS["bfloat16"]
+        runs[remat] = {"losses": losses, "grad_norms": norms,
+                       "checksums": sums, "launches": launches,
+                       "step_s": times, "tokens_per_s": tok_s, "mfu": mfu,
+                       "peak_bytes": torch.cuda.max_memory_allocated()}
+        print(f"gpt-1b {remat}: losses {losses}, grad norms {norms}; flash "
+              f"forward launches a step {launches['flash_fwd'] / REMAT_STEPS}"
+              f" (backward {launches['flash_bwd_dq'] / REMAT_STEPS}), AdamW "
+              f"{launches['adamw']}; {tok_s:.0f} tok/s, MFU {mfu:.1%}, peak "
+              f"{runs[remat]['peak_bytes'] / 1e9:.2f} GB [{card}]",
+              flush=True)
+        del state, step
+        torch.cuda.empty_cache()
+    a, b = runs["selective_attn"], runs["selective"]
+    check(a["launches"]["flash_fwd"] == 2 * cfg.num_layers * REMAT_STEPS,
+          f"flash forwards {a['launches']['flash_fwd']}")
+    same = all(a[k] == b[k] for k in ("losses", "grad_norms", "checksums"))
+    print(f"selective_attn against selective from one state: losses, grad "
+          f"norms and checksums {'equal bit for bit' if same else 'DIFFER'}"
+          f" ({a['checksums']} / {b['checksums']})", flush=True)
+    check(same, "selective_attn and selective differ")
+
+    names = [n for n, _ in model.named_parameters()]
+    opts = {}
+    for kind in OPT_KINDS:
+        model.load_state_dict(start)
+        ocfg = schema.OptimizerConfig.from_dict(
+            {"type": kind, "scheduler": {"warmup_steps": 2}})
+        init, schedule = topt.make_optimizer(ocfg)
+        state = init(model)
+        state.count.fill_(2)          # past the warmup: lr is the base lr
+        params = [p for _, p in model.named_parameters()]
+        total, _ = tts._loss_fn(model, batches[0], cfg, "flash",
+                                "selective", 512)
+        grads = torch.autograd.grad(total, params)
+        gnorm = mods["global_norm"](grads)
+        clip = torch.clamp(ocfg.grad_clip / (gnorm + 1e-9), max=1.0)
+        grads = [g.float() * clip for g in grads]
+        mask = topt._decay_mask(model)
+        decay = [mask[n] for n in names]
+        p0 = [p.detach().cpu() for p in params]
+        cpu_p = [p.clone() for p in p0]
+        cpu_state = dataclasses.replace(state, **{
+            f.name: ([t.cpu() for t in getattr(state, f.name)]
+                     if f.name != "count" else state.count.cpu())
+            for f in dataclasses.fields(state)})
+        lr = schedule(state.count)
+        cpu_g = [g.cpu() for g in grads]
+        topt.apply_update(kind, ocfg, [p.data for p in params], grads, state,
+                          names, decay, lr)
+        topt.apply_update(kind, ocfg, cpu_p, cpu_g, cpu_state, names, decay,
+                          lr.cpu())
+        del grads, cpu_g
+        diff = upd = big = 0.0
+        for p, c, z in zip(params, cpu_p, p0):
+            card_p = p.detach().cpu()
+            diff = max(diff, (card_p - c).abs().max().item())
+            upd = max(upd, (c - z).abs().max().item())
+            big = max(big, z.abs().max().item())
+        limit = OPT_UPDATE_TOL * upd + float(np.spacing(np.float32(big)))
+        opts[kind] = {"max_abs_diff": diff, "max_update": upd,
+                      "limit": limit}
+        check(diff <= limit, f"{kind}: the card's first update is "
+              f"{diff:.3e} from the CPU's (largest update {upd:.3e}, "
+              f"limit {limit:.3e})")
+        step, _, _ = tts.make_train_step(
+            cfg, ocfg, schema.ParallelConfig(
+                activation_checkpoint="selective"), attn_impl="flash")
+        tstate = tts.TrainState(step=3, model=model, opt_state=state)
+        tstate, m = step(tstate, batches[1])
+        opts[kind]["second_loss"] = m["loss"].item()
+        check(np.isfinite(opts[kind]["second_loss"]), f"{kind}: loss")
+        print(f"{kind}: the first update on the card against the CPU's from "
+              f"the same gradients and state: max |diff| {diff:.3e}, largest "
+              f"update {upd:.3e} (limit {limit:.3e}: {OPT_UPDATE_TOL:.0e} of "
+              f"it + one rounding of the largest parameter, {big:.4f}); "
+              f"second step loss {opts[kind]['second_loss']:.4f}",
+              flush=True)
+        del state, tstate, step, cpu_p, cpu_state, p0
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return {"remat": runs, "optimizers": opts,
+            "launches": {n: a["launches"][n] + b["launches"][n]
+                         for n in a["launches"]}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements here (JSON)")
@@ -2939,6 +3484,18 @@ def main() -> int:
         import decode as sdecode, engine as sengine, speculative as sspec
     from distributed_llm_training_and_inference_system_tpu_torch.runtime \
         import train_entry
+    from distributed_llm_training_and_inference_system_tpu_torch import (
+        weights)
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import schema
+    from distributed_llm_training_and_inference_system_tpu_torch.exec \
+        import optimizer, train_step
+    from distributed_llm_training_and_inference_system_tpu_torch.io import (
+        data as iodata, export)
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        import SamplingParams, loadgen, sampling
+    from distributed_llm_training_and_inference_system_tpu_torch.utils.\
+        tree import global_norm
     qmods = {"pa": pa, "pac": pac, "w4": w4, "w8": w8, "tq": tq, "rn": rn,
              "layers": layers,
              "kernels": {
@@ -2958,11 +3515,16 @@ def main() -> int:
             "KERNEL_MIN_ELEMENTS": fu.KERNEL_MIN_ELEMENTS,
             "adamw_plan": adamw_plan,
             "flops_per_token": gpt.flops_per_token,
-            "kv_cache": kv_cache, "gumbel_noise": gumbel_noise}
-    moe_mods = {"decode": sdecode, "engine": sengine, "speculative": sspec,
-                "layers": layers, "kv_cache": kv_cache,
-                "InferenceEngine": InferenceEngine,
-                "train_entry": train_entry}
+            "kv_cache": kv_cache, "gumbel_noise": gumbel_noise,
+            "loadgen": loadgen, "sampling": sampling, "export": export,
+            "weights": weights, "SamplingParams": SamplingParams,
+            "schema": schema, "optimizer": optimizer,
+            "train_step": train_step, "global_norm": global_norm,
+            "SyntheticDataset": iodata.SyntheticDataset}
+    engine_mods = {"decode": sdecode, "engine": sengine,
+                   "speculative": sspec, "layers": layers,
+                   "kv_cache": kv_cache, "InferenceEngine": InferenceEngine,
+                   "train_entry": train_entry}
     train_kernels = {"flash_fwd": fac.flash_fwd,
                      "flash_bwd_dq": fac.flash_bwd_dq,
                      "flash_bwd_dkv": fac.flash_bwd_dkv,
@@ -3053,7 +3615,26 @@ def main() -> int:
                                   dense["max_abs_diff"])
         features["seconds"] = time.time() - t15
         print(f"phase 15 took {features['seconds']:.1f} s", flush=True)
-        del bf16_model
+
+        # numbered 17, its parts (b) and (c) on phase 5's weights
+        t17 = time.time()
+        phase("17b loadgen on llama-8b-gqa", t0)
+        remnants = {"loadgen": loadgen_on_card(
+            torch, mods, paged_attention_kernel, bf16_model, llama_cfg, smi)}
+        phase("17c int4-awq calibrated, exported and served from the "
+              "artifact", t0)
+        awq_path = Path(tempfile.gettempdir()) / (
+            f"llmctl-smoke-{os.getpid()}-int4-awq.safetensors")
+        try:
+            remnants["awq"] = awq_calibrate_and_export(
+                torch, mods, qmods, bf16_model, llama_cfg, awq_path, smi)
+            del bf16_model
+            torch.cuda.empty_cache()
+            remnants["awq"]["serve"] = awq_artifact_serve(
+                torch, mods, engine_mods, qmods, llama_cfg, awq_path, smi)
+        finally:
+            awq_path.unlink(missing_ok=True)
+        remnants["seconds"] = time.time() - t17
         torch.cuda.empty_cache()
 
         phase("14 RMSNorm on the entry forward", t0)
@@ -3068,7 +3649,7 @@ def main() -> int:
                "kernels": moe_kernels_against_plain(
                    torch, qmods, paged_attention_kernel, moe_cfg, moe_pages,
                    smi)}
-        moe_served = serve_moe(torch, mods, moe_mods,
+        moe_served = serve_moe(torch, mods, engine_mods,
                                {**qmods["kernels"],
                                 "paged_attention": paged_attention_kernel},
                                smi, moe_pages)
@@ -3076,9 +3657,18 @@ def main() -> int:
         moe_served.pop("cfg")
         moe["serve"] = moe_served
         torch.cuda.empty_cache()
-        moe["train"] = train_moe(torch, mods, moe_mods, train_kernels, smi)
+        moe["train"] = train_moe(torch, mods, engine_mods, train_kernels, smi)
         moe["seconds"] = time.time() - t16
         print(f"phase 16 took {moe['seconds']:.1f} s", flush=True)
+
+        t17 = time.time()
+        phase("17a the 256-candidate sampling tier", t0)
+        remnants["tier"] = sampling_tier_on_card(torch, sampling, smi)
+        phase("17d gpt-1b under selective_attn; lion, adafactor, sgd", t0)
+        remnants["train"] = train_remnants(torch, mods, fac, train_kernels,
+                                           smi)
+        remnants["seconds"] += time.time() - t17
+        print(f"phase 17 took {remnants['seconds']:.1f} s", flush=True)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -3101,7 +3691,8 @@ def main() -> int:
                              else "flash_attention.cu"),
             "replaces": jax_pkg + where,
             "launches": (trained["launches"][name]
-                         + moe["train"]["launches"][name]),
+                         + moe["train"]["launches"][name]
+                         + remnants["train"]["launches"][name]),
             "max_abs_err": errors[name],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
@@ -3115,7 +3706,10 @@ def main() -> int:
                     "paged_attention_pallas.py:47",
         "launches": (served["launches"] + features["launches"]
                      + sum(r["launches"]["paged_attention"]
-                           for r in moe_runs)),
+                           for r in moe_runs)
+                     + remnants["loadgen"]["launches"]
+                     + remnants["awq"]["serve"]["launches"][
+                         "paged_attention"]),
         "max_abs_err": max(max_err, moe["kernels"]["paged_attention"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -3134,7 +3728,8 @@ def main() -> int:
                                "ops/int8_matmul_pallas.py:54"),
         "rmsnorm": ("rmsnorm.cu", "ops/rmsnorm.py:20")}
     quant_launches = {"rmsnorm": norm_path["launches"]}
-    for res in [*quant_served.values(), moe["serve"]["runs"]["int8"]]:
+    for res in [*quant_served.values(), moe["serve"]["runs"]["int8"],
+                remnants["awq"]["serve"]]:
         for name, n in res["launches"].items():
             if name in quant_replaces and n:
                 quant_launches[name] = quant_launches.get(name, 0) + n
@@ -3145,7 +3740,9 @@ def main() -> int:
             "replaces": jax_pkg + where,
             "launches": quant_launches.get(name, 0),
             "max_abs_err": max(quant_err[name],
-                               moe["kernels"].get(name, 0.0)),
+                               moe["kernels"].get(name, 0.0),
+                               remnants["awq"]["w4_max_abs_err"]
+                               if name == "int4_matmul" else 0.0),
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"]})
@@ -3155,7 +3752,8 @@ def main() -> int:
     if args.out:
         record.update(quant_max_abs_err=quant_err, quant_timing=quant_timing,
                       serve_quantized=quant_served, rmsnorm_path=norm_path,
-                      serve_features=features, moe=moe)
+                      serve_features=features, moe=moe,
+                      remnants=remnants)
         record.update(kernels=kernels, timing=timing, serve=served,
                       paged_vs_dense=dense, flash_vs_plain=flash,
                       adamw_max_abs_err=adamw_err, train_timing=train_timing,

@@ -317,7 +317,8 @@ class SchedulerConfig:
 
 @dataclass
 class OptimizerConfig:
-    """AdamW + schedule. ``moment_dtype``/``nu_dtype`` store Adam's mu and
+    """The optimizer (adamw, adam, lion, adafactor or sgd) and its
+    schedule. ``moment_dtype``/``nu_dtype`` store Adam's mu and
     nu rounded (the update still computes in fp32); ``fused`` sends every
     leaf with ndim >= 2 and >= 65536 elements through the AdamW kernel
     (exec/fused_update.py); ``accum_dtype`` is the dtype of the

@@ -4,8 +4,10 @@ accumulation (the JAX package's ``exec/train_step.py``).
 One step runs eagerly on the parameters' device: the micro-batches'
 gradients are summed in an ``accum_dtype`` carry and averaged in fp32, the
 pre-clip global norm gives ``clip_scale = min(1, clip / (gnorm + 1e-9))``,
-and AdamW updates parameters and moments in place, through the fused
-kernel (``OptimizerConfig.fused``) or the plain per-leaf update. Nothing in
+and the optimizer updates parameters and its state in place: AdamW through
+the fused kernel (``OptimizerConfig.fused``) or the plain per-leaf update,
+Lion, Adafactor and SGD (``exec.optimizer.apply_update``) from the
+gradients scaled by ``clip_scale``, as the JAX step feeds optax. Nothing in
 the step waits for the host; the metrics are device tensors.
 """
 
@@ -21,7 +23,7 @@ from ..models.gpt import GPT, forward
 from ..models.loss import chunked_next_token_loss, next_token_loss
 from ..utils.tree import global_norm
 from .fused_update import fused_adamw_apply
-from .optimizer import AdamState, _decay_mask, make_optimizer
+from .optimizer import _decay_mask, apply_update, make_optimizer
 
 
 @dataclass
@@ -31,7 +33,7 @@ class TrainState:
     its device twin)."""
     step: int
     model: GPT
-    opt_state: AdamState
+    opt_state: object      # exec.optimizer's state of the configured type
 
     @classmethod
     def create(cls, model: GPT, init: Callable) -> "TrainState":
@@ -125,13 +127,19 @@ def make_train_step(model_cfg, opt_cfg, par_cfg=None, attn_impl: str = "xla",
             clip_scale = torch.ones((), device=gnorm.device)
         opt = state.opt_state
         mask = _decay_mask(model)
-        fused_adamw_apply(
-            [p.data for p in params], grads, opt.mu, opt.nu, opt.count,
-            lr=schedule(opt.count), b1=opt_cfg.betas[0], b2=opt_cfg.betas[1],
-            eps=opt_cfg.eps, weight_decay=wd,
-            decay_mask=[mask[n] for n in names], clip_scale=clip_scale,
-            use_kernel=opt_cfg.fused)
-        opt.count += 1
+        if opt_cfg.type in ("adamw", "adam"):
+            fused_adamw_apply(
+                [p.data for p in params], grads, opt.mu, opt.nu, opt.count,
+                lr=schedule(opt.count), b1=opt_cfg.betas[0],
+                b2=opt_cfg.betas[1], eps=opt_cfg.eps, weight_decay=wd,
+                decay_mask=[mask[n] for n in names], clip_scale=clip_scale,
+                use_kernel=opt_cfg.fused)
+            opt.count += 1
+        else:
+            apply_update(opt_cfg.type, opt_cfg, [p.data for p in params],
+                         [g.float() * clip_scale for g in grads], opt,
+                         list(names), [mask[n] for n in names],
+                         schedule(opt.count))
         metrics = {
             "loss": loss,
             "grad_norm": gnorm,

@@ -39,8 +39,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import resolve_device
 from ..ops.quantization import QuantTensor, Quant4Tensor
-from .layers import attention_block, cast, mlp_block, moe_block, \
-    rms_norm, rope_frequencies
+from .layers import _activate, attention_block, cast, mlp_block, \
+    moe_block, rms_norm, rope_frequencies
 
 _QUANT = (QuantTensor, Quant4Tensor)
 
@@ -313,20 +313,28 @@ def _selective_policy(ctx, op, *args, **kwargs):
 
 def _remat_wrap(fn, policy: str):
     """Wrap the block per the activation-checkpoint policy: "none",
-    "full" (recompute everything in backward) or "selective" (keep the
-    matmul outputs, recompute the rest, the flash forward included)."""
+    "full" (recompute everything in backward), "selective" (keep the
+    matmul outputs, recompute the rest, the flash forward included) or
+    "selective_attn".
+
+    The JAX "selective_attn" adds the block's named ``attn_out`` to the
+    dots policy. That name is the attention block's output after the o
+    projection, a dot the dots policy keeps already: JAX's saved residuals
+    are the same under both policies (``jax.ad_checkpoint``'s listing for
+    gpt-test: the q, k, v, o and FFN products), and neither keeps the flash
+    kernel's output, so its forward re-runs in the backward under both.
+    The port copies that: "selective_attn" keeps what "selective" keeps."""
     if policy == "none":
         return fn
     if policy == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False)
-    if policy == "selective":
+    if policy in ("selective", "selective_attn"):
         return functools.partial(
             checkpoint, fn, use_reentrant=False,
             context_fn=functools.partial(
                 create_selective_checkpoint_contexts, _selective_policy))
-    raise NotImplementedError(
-        f"remat {policy!r} is not ported yet (none|selective|full; "
-        f"selective_attn waits in ROADMAP queue 1 item 4)")
+    raise ValueError(f"unknown remat policy {policy!r} "
+                     "(none|selective|selective_attn|full)")
 
 
 def forward(
@@ -353,7 +361,8 @@ def forward(
       (``ops.attention.flash_attention``: the kernels on a card).
     - ``norm_impl`` "xla" (plain RMSNorm) or "cuda" (``ops.rmsnorm``: the
       kernel on a card; forward only, so not for training).
-    - ``remat`` "none" | "selective" | "full" (training only).
+    - ``remat`` "none" | "selective" | "selective_attn" | "full"
+      (training only).
     - ``kv_cache`` ([L, B, Smax, Nkv, D], [L, B, Smax, Nkv, D]) with
       ``cache_offset`` [B] runs incremental attention; the cache is
       updated in place and returned as ``(logits, kv_cache)``.
@@ -435,6 +444,56 @@ def entry(device=None, norm_impl: str = "xla"):
 
     tokens = torch.ones((1, 1024), dtype=torch.int64, device=dev)
     return fn, (model, tokens)
+
+
+@torch.no_grad()
+def activation_channel_scales(model: GPT, model_cfg, calib_tokens: torch.Tensor
+                              ) -> dict[str, torch.Tensor]:
+    """Per-input-channel activation RMS of the projection kernels from one
+    calibration forward (the "activation-aware" statistic AWQ scales by):
+    {stacked JAX param path: [L, in] fp32} for the q/k/v and dense mlp
+    gate/up/down kernels (o and the MoE experts keep plain absmax: o's
+    input never leaves the attention block, and experts are token-routed).
+    ``model`` is a ``GPT`` with plain leaves; ``calib_tokens``
+    [B, S] integer tokens on its device. The forward is the JAX one's:
+    every layer's leaves cast to the compute dtype, plain attention, the
+    MoE block for an MoE config."""
+    dt = compute_dtype(model_cfg)
+    dev = model.device
+    tokens = calib_tokens.to(dev, torch.int64)
+    x = cast(model.embed[tokens], dt)
+    inv_freq = rope_frequencies(model_cfg.head_dim, model_cfg.rope.base,
+                                model_cfg.rope.scaling,
+                                model_cfg.rope.scaling_factor, device=dev)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int64, device=dev)[None, :]
+    positions = positions.repeat(B, 1)
+    per_layer: dict[str, list] = {}
+
+    def record(key, h):
+        rms = torch.sqrt((h.float() ** 2).mean(
+            dim=tuple(range(h.dim() - 1)))) + 1e-6
+        per_layer.setdefault(key, []).append(rms)
+
+    for layer in precast_params(model, dt):
+        h_attn = rms_norm(x, layer.attn_norm, model_cfg.norm_eps)
+        for name in ("q", "k", "v"):
+            record(f"blocks.{name}.kernel", h_attn)
+        attn_out, _ = attention_block(h_attn, layer, model_cfg, positions,
+                                      None, inv_freq)
+        x = x + attn_out
+        h_mlp = rms_norm(x, layer.mlp_norm, model_cfg.norm_eps)
+        if model_cfg.is_moe:
+            ffn, _ = moe_block(h_mlp, layer, model_cfg)
+            x = x + ffn.to(x.dtype)
+            continue
+        for name in ("gate", "up"):
+            record(f"blocks.mlp.{name}.kernel", h_mlp)
+        a = _activate(h_mlp @ layer.gate, model_cfg.activation)
+        a = a * (h_mlp @ layer.up)
+        record("blocks.mlp.down.kernel", a)
+        x = x + (a @ layer.down).to(x.dtype)
+    return {k: torch.stack(v) for k, v in per_layer.items()}    # [L, in]
 
 
 # ---------------------------------------------------------------------------

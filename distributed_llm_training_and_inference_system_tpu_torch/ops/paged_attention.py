@@ -294,10 +294,11 @@ def write_token_to_pages(
 
     ``Int4Pages``: a token's nibble is spliced into the byte it shares
     with its neighbour. Rows 2i and 2i+1 of one slot (a suffix prefill
-    flattens B*T rows into one call) share a byte, and a single scatter
-    would build both from the old byte and keep one; so the even slots
-    are written first and the odd slots second, each over what the other
-    left (the rows of the other parity go to scratch meanwhile)."""
+    flattens B*T rows into one call) share a byte: a live page's byte takes
+    both rows' nibbles (whole-page quantization's bytes; the JAX scatter
+    keeps one of them, ROADMAP queue 3 item 5). Scratch page 0 takes the
+    JAX scatter's bytes: for each byte, the last row sent there spliced
+    into the byte as it was before the call."""
     PS = pages.shape[2]
     maxP = block_tables.shape[1]
     positions = positions.long()
@@ -311,14 +312,27 @@ def write_token_to_pages(
         qv, scale = quantize_kv_token_int4(new_kv)        # [B,Nkv,D] i8
         nib = (qv.to(torch.int16) & 0xF).to(torch.uint8)
         byte = offset // 2
-        for parity in (0, 1):
-            mine = (offset % 2) == parity
-            ph = torch.where(mine, phys, torch.zeros_like(phys))
-            cur = pages.values[ph, :, byte]               # [B,Nkv,D] u8
-            pages.values[ph, :, byte] = (
-                (cur & 0xF0) | nib if parity == 0
-                else (cur & 0x0F) | (nib << 4))
-        pages.scale[phys, :, offset] = scale
+        cur = pages.values[phys, :, byte]                 # [B,Nkv,D] u8
+        # live byte: each half from the last row writing that slot, else
+        # as it was
+        last = _last_writer_table(phys * PS + offset, pages.shape[0] * PS)
+        halves = []
+        for half in (0, 1):
+            w = last[phys * PS + 2 * byte + half]
+            mine = cur & 0xF if half == 0 else cur >> 4
+            theirs = nib[w.clamp(min=0)]
+            halves.append(torch.where((w >= 0)[:, None, None], theirs,
+                                      mine))
+        live = halves[0] | (halves[1] << 4)
+        # scratch byte: the last row sent to it, spliced into the old byte
+        w = _last_writer(phys * (PS // 2) + byte, pages.shape[0] * (PS // 2))
+        scratch = torch.where((offset[w] % 2 == 0)[:, None, None],
+                              (cur[w] & 0xF0) | nib[w],
+                              (cur[w] & 0x0F) | (nib[w] << 4))
+        pages.values[phys, :, byte] = torch.where(
+            (phys == 0)[:, None, None], scratch, live)
+        pages.scale[phys, :, offset] = scale[
+            _last_writer(phys * PS + offset, pages.shape[0] * PS)]
         return pages
     # rows sent to one (page, offset), the scratch page's above all, all
     # write the last such row's values: the JAX scatter's last-wins result,
@@ -335,11 +349,16 @@ def write_token_to_pages(
     return pages
 
 
-def _last_writer(key: torch.Tensor, n_keys: int) -> torch.Tensor:
-    """For rows writing at ``key`` [R] (in [0, n_keys)), the index of the
-    last row that writes the same key (an integer scatter-max: exact, no
-    host synchronisation)."""
+def _last_writer_table(key: torch.Tensor, n_keys: int) -> torch.Tensor:
+    """[n_keys]: for each key, the index of the last of the rows writing
+    at ``key`` [R] (in [0, n_keys)), or -1 where none does (an integer
+    scatter-max: exact, no host synchronisation)."""
     rows = torch.arange(key.numel(), device=key.device)
     last = torch.full((n_keys,), -1, dtype=torch.int64, device=key.device)
-    last.scatter_reduce_(0, key, rows, reduce="amax")
-    return last[key]
+    return last.scatter_reduce_(0, key, rows, reduce="amax")
+
+
+def _last_writer(key: torch.Tensor, n_keys: int) -> torch.Tensor:
+    """For rows writing at ``key`` [R], the index of the last row that
+    writes the same key."""
+    return _last_writer_table(key, n_keys)[key]

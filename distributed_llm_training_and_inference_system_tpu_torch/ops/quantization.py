@@ -11,8 +11,10 @@ numbers from the same bytes.
 ``QuantTensor`` / ``Quant4Tensor`` are the runtime form of a quantized
 weight (small classes over plain tensors; ``models.gpt.Block`` holds them in
 place of a parameter). The tree helpers walk plain nested dicts of tensors,
-the layout of the JAX parameter tree. The AWQ calibration
-(``activation_channel_scales``, ``quantize_int8_awq``) is not ported yet.
+the layout of the JAX parameter tree. The AWQ statistic (per-input-channel
+activation RMS from one calibration forward, ``models.gpt.
+activation_channel_scales``) feeds ``quantize_tree_int4``'s channel scales
+and the int8-awq interchange format (``quantize_int8_awq``).
 """
 
 from __future__ import annotations
@@ -249,8 +251,7 @@ def quantize_int4_groupwise(
     (its inverse folds into dequant); without it ``chan`` is all ones.
     W ~= unpack(packed) * scales / chan[:, None]."""
     if act_scale is not None:
-        chan = act_scale.float() ** alpha
-        chan = chan / torch.exp(torch.log(chan).mean(dim=-1, keepdim=True))
+        chan = awq_channel_scale(act_scale, alpha)
     else:
         chan = torch.ones(w.shape[:-1], dtype=torch.float32, device=w.device)
     w_scaled = w.float() * chan[..., :, None]
@@ -438,23 +439,83 @@ def int4_group_for(n_in: int, group: int = 128) -> int:
     return 0 if (n_in % g or g < 2) else g
 
 
-def quantize_tree_int4(params: Any, group: int = 128,
+def _tree_map_with_path(fn, tree: Any, path: tuple = ()) -> Any:
+    """``fn(dotted path, leaf)`` over a nested dict's leaves."""
+    if isinstance(tree, dict):
+        return {k: _tree_map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    return fn(".".join(path), tree)
+
+
+def quantize_tree_int4(params: Any, act: Optional[dict] = None,
+                       group: int = 128, alpha: float = 0.5,
                        min_size: int = 4096) -> Any:
-    """Group-wise int4 (W4A16) over a full param tree, without
-    calibration: only the stacked [L, in, out] block kernels quantize
-    (embedding, LM head and norms keep full precision). The group is
-    clamped to the input dim; an input dim no group divides falls back to
-    int8."""
-    def q(x):
+    """Group-wise int4 (W4A16) over a full param tree: only the stacked
+    [L, in, out] block kernels quantize (embedding, LM head and norms keep
+    full precision). The group is clamped to the input dim; an input dim
+    no group divides falls back to int8. ``act`` ({stacked path: [L, in]},
+    the AWQ statistic of ``models.gpt.activation_channel_scales``) scales
+    the kernels it covers; the JAX function takes the model config and
+    calibration tokens and runs that forward itself (this module imports
+    nothing of the package, so ``weights.calibration_scales`` runs it)."""
+    act = act or {}
+
+    def q(path, x):
         if not (_is_float(x) and x.numel() >= min_size and x.dim() == 3):
-            return x
+            return (quantize_tree_int8(x, min_size=min_size, min_ndim=3)
+                    if isinstance(x, torch.Tensor) else x)
         g = int4_group_for(x.shape[-2], group)
         if g == 0:
             return quantize_tree_int8(x, min_size=min_size, min_ndim=3)
-        packed, scale, chan = quantize_int4_groupwise(x, group=g)
+        packed, scale, chan = quantize_int4_groupwise(
+            x, group=g, act_scale=act.get(path), alpha=alpha)
         return {"__quant__": "int4", "values": packed, "scale": scale,
                 "chan": chan, "group": g}
-    return _tree_map(q, params)
+    return _tree_map_with_path(q, params)
+
+
+def awq_channel_scale(act_scale: torch.Tensor, alpha: float = 0.5
+                      ) -> torch.Tensor:
+    """AWQ's channel scale ``s = act^alpha`` normalised to a geometric
+    mean of 1 over the input channels (the last axis)."""
+    chan = act_scale.float() ** alpha
+    return chan / torch.exp(torch.log(chan).mean(dim=-1, keepdim=True))
+
+
+def quantize_int8_awq(w: torch.Tensor, act_scale: torch.Tensor,
+                      alpha: float = 0.5
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Activation-aware int8: salient input channels scaled up before
+    per-output-channel absmax quantization. Returns (q int8, scales fp32
+    [..., 1, out], chan fp32 [..., in]); W ~= (q * scales) / chan[:, None]."""
+    s = awq_channel_scale(act_scale, alpha)
+    q, scales = quantize_int8(w.float() * s[..., :, None], axis=-2)
+    return q, scales, s
+
+
+def dequantize_int8_awq(q: torch.Tensor, scales: torch.Tensor,
+                        chan: torch.Tensor, dtype=torch.bfloat16
+                        ) -> torch.Tensor:
+    """Inverse of quantize_int8_awq."""
+    return ((q.float() * scales) / chan[..., :, None]).to(dtype)
+
+
+def quantize_tree_int8_awq(params: Any, act: dict, alpha: float = 0.5,
+                           min_size: int = 4096) -> Any:
+    """AWQ-style int8 over a param tree: kernels with a calibrated
+    statistic in ``act`` get channel-scaled ``{"__quant__": "int8-awq",
+    values, scale, chan}``; every other large float leaf plain absmax int8
+    (an interchange format: the serving engine refuses it)."""
+
+    def q(path, x):
+        if (path in act and _is_float(x) and x.numel() >= min_size
+                and x.dim() == 3):
+            qv, scales, chan = quantize_int8_awq(x, act[path], alpha=alpha)
+            return {"__quant__": "int8-awq", "values": qv, "scale": scales,
+                    "chan": chan}
+        return (quantize_tree_int8(x, min_size=min_size)
+                if isinstance(x, torch.Tensor) else x)
+    return _tree_map_with_path(q, params)
 
 
 def dequantize_tree(params: Any, dtype=torch.bfloat16) -> Any:
@@ -466,8 +527,10 @@ def dequantize_tree(params: Any, dtype=torch.bfloat16) -> Any:
             return dequantize_int4_groupwise(
                 x["values"], x["scale"], x["chan"],
                 group=int(x.get("group", 128)), dtype=dtype)
+        if x["__quant__"] == "int8-awq":
+            return dequantize_int8_awq(x["values"], x["scale"], x["chan"],
+                                       dtype)
         if x["__quant__"] == "int8":
             return dequantize_int8(x["values"], x["scale"], dtype)
-        raise ValueError(f"quant marker {x['__quant__']!r} is not ported "
-                         "(int8-awq waits for the AWQ calibration)")
+        raise ValueError(f"unknown quant marker {x['__quant__']!r}")
     return _tree_map(dq, params, is_leaf=_is_quant_marker)

@@ -28,6 +28,7 @@ from ..io.checkpoint import CheckpointManager, load_state_dict_into, \
 from ..io.data import make_dataset
 from ..models import gpt
 from ..models.gpt import flops_per_token
+from ..weights import state_dict_from_flat
 
 logger = logging.getLogger("llmctl.engine")
 
@@ -80,7 +81,13 @@ class TrainingEngine:
         self.init_state(seed=self.cfg.training.seed)
         self._start_step = 0
         if resume and self.ckpt.latest_step() is not None:
+            jax_written = self.ckpt.is_jax()
             saved, extra = self.ckpt.restore()
+            if jax_written:      # the JAX package's flat checkpoint
+                saved = state_dict_from_flat(
+                    saved, [n for n, _ in
+                            self.state.model.named_parameters()],
+                    self.cfg.optimizer.type)
             load_state_dict_into(self.state, saved)
             if "train_data" in extra:
                 self.train_data.load_state_dict(extra["train_data"])

@@ -15,9 +15,15 @@ serving path:
   and are fetched once. At half-full batches or more, one group stays in
   flight: the next group is enqueued, chained on the previous group's
   device-resident tokens, before the previous one is fetched.
-- **Quantization**: ``quantization`` int8 | int4 quantizes the block
-  kernels at construction (W8A16 / group-wise W4A16; embedding, LM head
-  and norms keep full precision), and ``kv_quantization`` int8 | int4
+- **Weights**: random from the seed, or from ``artifact``: an export
+  artifact (``.safetensors``/``.npz``, possibly pre-quantized: quantized
+  kernels go to the device as they are stored), a JAX package checkpoint
+  directory or one of the port's own (params only).
+- **Quantization**: ``quantization`` int8 | int4 | int4-awq quantizes the
+  block kernels at construction (W8A16 / group-wise W4A16, int4-awq with
+  channel scales calibrated by one forward over 2 x min(256,
+  max_seq_len) tokens drawn as the JAX engine draws them; embedding, LM
+  head and norms keep full precision), and ``kv_quantization`` int8 | int4
   stores the KV pages quantized, each token quantized as it is written.
   Decode sends W4 weights, and W8 weights with ``int8_pallas_matmul``, to
   the in-kernel-dequant matmuls; prefill dequantizes one layer at a time.
@@ -48,25 +54,32 @@ naming their ROADMAP item: at construction, and for a fleet request
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import threading
 import time
+from pathlib import Path
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..config.schema import _parse_bool
 from ..device import resolve_device, to_device
+from ..io.checkpoint import (CheckpointManager, apply_ckpt_model_overrides,
+                             params_from_flat)
+from ..io.export import load_exported
 from ..models import gpt
 from ..ops.paged_attention import (Int4Pages, QuantPages, quantize_kv_token,
                                    quantize_kv_token_int4)
 from ..ops.quantization import (QuantTensor, Quant4Tensor, int4_group_for,
                                 pack_int4_rows, quantize_int4_groupwise,
-                                quantize_int8)
+                                quantize_int8, to_runtime_quant)
+from ..weights import jax_path, model_from_named, params_from_jax
 from .decode import decode_scan, extend_step_forward
 from .kv_cache import PagedKVCache, payload_bytes, prefix_page_hashes
-from .sampling import gumbel_noise, sample_tokens
+from .sampling import gumbel_noise, prng_key, randint, sample_tokens
 from .speculative import SpecState, propose_ngram_draft, verify_and_decode
 from .scheduler import (ContinuousBatchingScheduler, Request, RequestState,
                         SamplingParams)
@@ -75,12 +88,8 @@ logger = logging.getLogger("llmctl.serve.engine")
 
 # feature -> (is it requested?, ROADMAP item that ports it)
 _NOT_PORTED = (
-    (lambda c: c.quantization == "int4-awq", "quantization='int4-awq'",
-     "queue 1 item 5 (AWQ calibration, ops/quantization.py)"),
     (lambda c: c.tensor_parallel > 1, "tensor_parallel > 1",
      "queue 1 item 7 (multi-GPU)"),
-    (lambda c: bool(c.artifact), "artifact loading",
-     "queue 1 item 5 (artifact loading, io/export.py)"),
 )
 
 
@@ -92,8 +101,8 @@ QUANT_MIN_SIZE = 4096    # elements of the stacked [L, in, out] kernel
 
 
 @torch.no_grad()
-def quantize_blocks(model: gpt.GPT, kind: str, free_source: bool = False
-                    ) -> gpt.GPT:
+def quantize_blocks(model: gpt.GPT, kind: str, free_source: bool = False,
+                    act: Optional[dict] = None) -> gpt.GPT:
     """A model over ``model``'s embedding, norms and head with its block
     kernels quantized: the per-layer result of the JAX engine's
     ``quantize_tree_int8(blocks, min_ndim=3)`` (``kind`` "int8") or
@@ -103,13 +112,16 @@ def quantize_blocks(model: gpt.GPT, kind: str, free_source: bool = False
     ``QUANT_MIN_SIZE``); int4 takes the largest group up to 128 that
     divides ``in`` for a kernel and falls back to int8 where none does.
     Expert stacks take int8 in both modes (the JAX int4 pass groups only
-    3-D stacked leaves; the experts' [L, E, in, out] is 4-D). Biases and
+    3-D stacked leaves; the experts' [L, E, in, out] is 4-D). ``act``
+    ({stacked JAX path: [L, in]}, ``activation_channel_scales``) gives
+    the int4 kernels it covers their AWQ channel scales. Biases and
     norm scales stay as they are. Leaf by leaf, on the model's device; with
     ``free_source`` each full-precision kernel is dropped from ``model`` as
     soon as it is quantized, so the two copies never coexist."""
     L = len(model.blocks)
+    act = act or {}
     blocks = []
-    for blk in model.blocks:
+    for i, blk in enumerate(model.blocks):
         leaves = {}
         for name, p in blk.leaves().items():
             if (isinstance(p, (QuantTensor, Quant4Tensor))
@@ -120,8 +132,11 @@ def quantize_blocks(model: gpt.GPT, kind: str, free_source: bool = False
             group = (int4_group_for(p.shape[0])
                      if kind == "int4" and p.dim() == 2 else 0)
             if group:
+                scales = act.get(jax_path(f"blocks.{i}.{name}"))
                 leaves[name] = Quant4Tensor(
-                    *quantize_int4_groupwise(p.detach(), group=group),
+                    *quantize_int4_groupwise(
+                        p.detach(), group=group,
+                        act_scale=None if scales is None else scales[i]),
                     group=group)
             else:
                 leaves[name] = QuantTensor(*quantize_int8(p.detach()))
@@ -150,17 +165,17 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.serve_cfg = serve_cfg
         self.eos_token_id = eos_token_id
-        self.cfg = model_cfg
         # the effective quantization: what the weights are, which a
-        # pre-quantized ``params`` decides whatever the config asks for
+        # pre-quantized model or artifact decides whatever the config
+        # asks for
         self.quantization = serve_cfg.quantization
         dtype = getattr(torch, serve_cfg.dtype)
         own_params = params is None
         if own_params:
-            # random init from the seed (no artifact: random weights keep
-            # smoke and benchmark paths self-contained)
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = gpt.init(model_cfg, gen, device=self.device, dtype=dtype)
+            # an artifact may override architecture facts (a tied
+            # embedding): the effective config comes back with the params
+            params, model_cfg, self.quantization = self._load_params(
+                model_cfg, serve_cfg, seed, dtype)
         elif not isinstance(params, gpt.GPT):
             raise TypeError(
                 "params must be a models.gpt.GPT (a JAX params tree goes "
@@ -168,17 +183,32 @@ class InferenceEngine:
         elif params.device != self.device:
             raise ValueError(f"params live on {params.device}, the engine "
                              f"on {self.device}")
+        self.cfg = model_cfg
         kinds = {type(leaf) for blk in params.blocks
                  for leaf in blk.leaves().values()}
         if Quant4Tensor in kinds or QuantTensor in kinds:
-            self.quantization = "int4" if Quant4Tensor in kinds else "int8"
+            if not own_params:
+                self.quantization = ("int4" if Quant4Tensor in kinds
+                                     else "int8")
             logger.info("serving pre-quantized weights (%s)",
                         self.quantization)
-        elif serve_cfg.quantization in ("int8", "int4"):
+        elif serve_cfg.quantization in ("int8", "int4", "int4-awq"):
+            act = None
+            if serve_cfg.quantization == "int4-awq":
+                # one synthetic calibration pass for the AWQ channel
+                # statistic, on the JAX engine's tokens
+                calib = randint(
+                    prng_key(torch.zeros((), dtype=torch.int64,
+                                         device=self.device)),
+                    (2, min(256, serve_cfg.max_seq_len)), 1,
+                    model_cfg.vocab_size)
+                act = gpt.activation_channel_scales(params, model_cfg,
+                                                    calib)
             # the caller's model is left as it is; a model this engine made
             # gives up each full-precision kernel as it is quantized
-            params = quantize_blocks(params, serve_cfg.quantization,
-                                     free_source=own_params)
+            params = quantize_blocks(
+                params, serve_cfg.quantization.split("-")[0],
+                free_source=own_params, act=act)
             logger.info("serving with %s block weights",
                         serve_cfg.quantization)
         self.params = params
@@ -248,6 +278,8 @@ class InferenceEngine:
 
         # the one un-fetched in-flight dispatch group (see step())
         self._pending = None
+        # dense prefill buckets run so far (measure_device_times' default)
+        self._dense_buckets: set[int] = set()
         K = max(serve_cfg.decode_steps_per_dispatch, 1)
         # latency-adaptive dispatch: unit of L <= K-1 steps, a full group
         # chains ceil(K/L) units; L = 0 means one unit of K steps
@@ -277,6 +309,82 @@ class InferenceEngine:
         # device count of logits tensors with a NaN/inf (read in stats())
         self._nonfinite = torch.zeros((), dtype=torch.int64,
                                       device=self.device)
+
+    def _load_params(self, model_cfg, serve_cfg, seed: int, dtype):
+        """(params, effective model config, effective quantization) from
+        ``serve_cfg.artifact``: an export artifact file (pre-quantized
+        kernels go to the device quantized; architecture facts it records
+        or proves override the template), a checkpoint directory (the JAX
+        package's or the port's; params only), else random init from
+        ``seed``. The caller's ServeConfig is never changed."""
+        art = serve_cfg.artifact
+        if art and Path(art).is_file():
+            tree, meta = load_exported(art)
+            art_quant = meta.get("quant") or ""
+            want = serve_cfg.quantization
+            want = "" if want in ("", "none") else want
+            if art_quant and want and art_quant != want:
+                raise ValueError(
+                    f"artifact {art} is {art_quant}-quantized but serve "
+                    f"config asks for {want!r}; requantization from a "
+                    "quantized artifact would compound error — re-export")
+            if art_quant == "int8-awq":
+                raise ValueError(
+                    "int8-awq exports are an interchange format; the serve "
+                    "runtime consumes int8 / int4 / int4-awq artifacts "
+                    "(the awq channel scaling is already folded for int4)")
+            tied_meta = meta.get("tie_word_embeddings")
+            if tied_meta is not None:
+                tied = _parse_bool("artifact tie_word_embeddings", tied_meta)
+                if tied != model_cfg.tie_word_embeddings:
+                    logger.warning(
+                        "artifact records tie_word_embeddings=%s; "
+                        "overriding serving template %r", tied,
+                        model_cfg.name)
+                    model_cfg = dataclasses.replace(
+                        model_cfg, tie_word_embeddings=tied)
+            has_head = isinstance(tree, dict) and "lm_head" in tree
+            if has_head == model_cfg.tie_word_embeddings:
+                # structural proof beats both metadata and template
+                logger.warning(
+                    "artifact %s lm_head — overriding "
+                    "tie_word_embeddings=%s on template %r",
+                    "has an" if has_head else "has no", not has_head,
+                    model_cfg.name)
+                model_cfg = dataclasses.replace(
+                    model_cfg, tie_word_embeddings=not has_head)
+            params = params_from_jax(to_runtime_quant(tree), model_cfg,
+                                     device=self.device, dtype=dtype)
+            if meta.get("model") and meta["model"] != model_cfg.name:
+                logger.warning("artifact was exported from model %r, "
+                               "serving as %r", meta["model"], model_cfg.name)
+            logger.info("loaded exported artifact %s (quant=%s)", art,
+                        art_quant or "none")
+            return params, model_cfg, (art_quant or want)
+        if art and Path(art).exists():
+            ckpt = CheckpointManager(art)
+            if ckpt.latest_step() is not None:
+                jax_written = ckpt.is_jax()
+                state, extra = ckpt.restore()
+                model_cfg = apply_ckpt_model_overrides(model_cfg, extra)
+                if jax_written:
+                    params = params_from_jax(params_from_flat(state),
+                                             model_cfg, device=self.device,
+                                             dtype=dtype)
+                else:
+                    params = model_from_named(state["params"], model_cfg,
+                                              device=self.device,
+                                              dtype=dtype)
+                logger.info("loaded params from %s step %s", art,
+                            ckpt.latest_step())
+                return params, model_cfg, serve_cfg.quantization
+        if art:
+            logger.warning("no artifact checkpoint found (%r): using "
+                           "random init", art)
+        # random weights keep smoke and benchmark paths self-contained
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return (gpt.init(model_cfg, gen, device=self.device, dtype=dtype),
+                model_cfg, serve_cfg.quantization)
 
     # -- admission -----------------------------------------------------------
 
@@ -501,6 +609,8 @@ class InferenceEngine:
             tokens = np.zeros((1, bucket), np.int64)
             tokens[0, :n] = ctx
             logits = self._prefill_dense(tokens, n, entries)
+            req.prefill_bucket = bucket
+            self._dense_buckets.add(bucket)
             computed = n
         else:
             computed = n - cached
@@ -1151,6 +1261,53 @@ class InferenceEngine:
         except RuntimeError:
             logger.exception("engine recovery probe failed")
             return False
+
+    def measure_device_times(self, buckets: Sequence[int] = (),
+                             iters: int = 8) -> dict:
+        """On-device phase times, as the JAX engine's calibration: the
+        dense prefill of each bucket (default: the buckets served so far)
+        and a decode dispatch of ``decode_steps`` steps over every slot, in
+        ms, ``iters`` runs queued behind one synchronisation after a warm
+        run. Every write goes to scratch page 0 (all-zero table entries),
+        so live KV is untouched. Returns {"prefill_ms": {bucket: ms},
+        "decode_ms_per_token": ms, "iters": iters}."""
+        out: dict = {"prefill_ms": {}, "iters": iters}
+        PS = self.kv.page_size
+
+        def timed(run) -> float:
+            run()
+            self._sync()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                last = run()
+            last.cpu()
+            return (time.perf_counter() - t0) / iters * 1e3
+
+        for bucket in buckets or sorted(self._dense_buckets):
+            tokens = np.ones((1, bucket), np.int64)
+            entries = np.zeros(bucket // PS, np.int64)
+            out["prefill_ms"][bucket] = timed(
+                lambda: self._prefill_dense(tokens, bucket, entries))
+        S, K = self.serve_cfg.max_batch_size, self._decode_unit_len
+        zeros = torch.zeros(S, dtype=torch.int64, device=self.device)
+        tables = torch.zeros_like(to_device(self.kv.block_tables,
+                                            self.device))
+
+        def decode():
+            _, sampled, _ = decode_scan(
+                self.params, zeros, zeros, self.kv.k_pages, self.kv.v_pages,
+                tables, zeros + self.serve_cfg.max_seq_len, zeros,
+                np.ones(S, np.float32), np.zeros(S, np.int64),
+                np.ones(S, np.float32), self.cfg, K,
+                w8_kernel_ok=self._w8_kernel_ok)
+            return sampled
+        with torch.inference_mode():
+            out["decode_ms_per_token"] = timed(decode) / K
+        return out
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def run_until_idle(self, max_steps: int = 100_000) -> None:
         for _ in range(max_steps):

@@ -2,14 +2,14 @@
 
 Counterpart of the JAX package's ``serve/sampling.py``. Every row carries
 its own (temperature, top_k, top_p); temperature 0 is greedy. The batch
-takes the cheapest tier that serves it, chosen on the host from the host
+takes the cheapest path that serves it, chosen on the host from the host
 copies of the knobs (no device synchronisation):
 
   all rows greedy     -> argmax only
   no row filters      -> categorical draw from the scaled logits
-  any row filters     -> top-k then top-p from ONE sort (the JAX
-                         ``_filtered_single_sort``, same kept set and tie
-                         order), then the categorical draw
+  any row filters     -> top-k then top-p from ONE sort of the row
+                         (``_filtered_single_sort``), then the
+                         categorical draw
 
 A categorical draw is ``argmax(logits + gumbel)``, the Gumbel-max form of
 ``jax.random.categorical``. The noise is an argument, so a test can feed
@@ -21,12 +21,22 @@ entry from ``random_bits`` (the partitionable counter layout, the JAX
 default), so a seeded request gets the JAX engine's tokens, whatever slot
 or batch it shares.
 
-The JAX package's 256-candidate ``lax.top_k`` tier (an optimisation with the
-same kept set) is not ported yet.
+The JAX package filters through a 256-candidate tier first
+(``_filtered_fast_or_exact``: a top-257 selection, the single sort where
+the kept set could reach past the candidates), chosen per batch by
+``lax.cond`` on a device value. It is ported here with the same kept set
+and tie order, but the sampler does not take it: the host would have to
+read the device's "needs the exact path" flag every filtered step, and on
+the H100 the single sort alone is the faster call (``chip_smoke.py``
+phase 17a times both; PERF.md).
+
+``randint`` is ``jax.random.randint`` for int32 bit for bit (the int4-awq
+calibration tokens of the serving engine).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -86,6 +96,34 @@ def random_bits(key: tuple[torch.Tensor, torch.Tensor], n: int
     return b0 ^ b1
 
 
+def split(key: tuple[torch.Tensor, torch.Tensor], num: int = 2
+          ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """``jax.random.split`` (threefry, partitionable): key i is the hash
+    of the counter pair (0, i)."""
+    i = torch.arange(num, dtype=torch.int64, device=key[0].device)
+    b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
+    return [(b0[j], b1[j]) for j in range(num)]
+
+
+def randint(key: tuple[torch.Tensor, torch.Tensor], shape: tuple,
+            minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32 (JAX
+    without x64): the key split in two, 32 bits drawn from each, folded
+    into [minval, maxval) as ``(hi % span) * m + lo % span`` modulo span
+    with ``m = (2^16 % span)^2 % span``, every product wrapping in uint32
+    as JAX's does. Returns int64 values."""
+    if not -2 ** 31 <= minval <= maxval <= 2 ** 31 - 1:
+        raise ValueError(f"randint range [{minval}, {maxval}) outside int32")
+    k1, k2 = split(key)
+    n = math.prod(shape)
+    hi = random_bits((k1[0][None], k1[1][None]), n)[0]
+    lo = random_bits((k2[0][None], k2[1][None]), n)[0]
+    span = max(maxval - minval, 1)
+    mult = ((((1 << 16) % span) ** 2) & _M32) % span
+    off = (((hi % span) * mult & _M32) + lo % span) & _M32
+    return (minval + off % span).reshape(shape)
+
+
 def uniform(key: tuple[torch.Tensor, torch.Tensor], n: int,
             minval: float = 0.0) -> torch.Tensor:
     """[B, n] fp32 ``jax.random.uniform(key, (n,), minval=minval)``: the
@@ -137,6 +175,85 @@ def _filtered_single_sort(scaled: torch.Tensor, top_k: torch.Tensor,
     return scaled.masked_fill(~keep, NEG_INF)
 
 
+FILTER_FAST_CAP = 256
+"""Candidate width of the fast filter tier: a top-(CAP + 1) selection in
+place of a full-vocab sort (the JAX package's ``FILTER_FAST_CAP``)."""
+
+
+def _filtered_fast(scaled: torch.Tensor, top_k: torch.Tensor,
+                   top_p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(filtered logits over the CAP largest values of each row, a 0-dim
+    bool: does some filtered row need the exact path?). The JAX
+    ``_filtered_fast_or_exact`` before its ``lax.cond``: the candidates
+    are put in the single sort's order (descending value, ties by
+    descending token id) before the cuts, and a row is "dirty" when its
+    top-k cut lies past or ties the largest excluded value, when top-p's
+    mass is not reached within the candidates, or when its kept set
+    touches a value the excluded tail ties with."""
+    B, V = scaled.shape
+    cap = FILTER_FAST_CAP
+    vals, idx = torch.topk(scaled, cap + 1, dim=-1)
+    sentinel = vals[:, cap]                     # largest EXCLUDED value
+    cvals, cidx = vals[:, :cap], idx[:, :cap]
+    # torch.topk orders ties arbitrarily on a card: sort the candidates by
+    # descending token id, then stably by descending value (ties keep
+    # descending id), the argsort path's order
+    i1, perm = torch.sort(cidx, dim=-1, descending=True)
+    v1 = torch.gather(cvals, 1, perm)
+    svals, order = torch.sort(v1, dim=-1, descending=True, stable=True)
+    sidx = torch.gather(i1, 1, order)                       # [B, cap]
+
+    k_active = top_k > 0
+    p_active = top_p < 1.0
+    k = top_k.clamp(1, V)
+    kth = torch.gather(svals, 1, ((k - 1).clamp(max=cap - 1))[:, None])
+    keep_k = (svals >= kth) | ~k_active[:, None]
+
+    # the exact path's masked softmax: over the kept candidates when top-k
+    # masks the tail, over the whole row when it does not
+    m = svals[:, :1]
+    exps = torch.where(keep_k, torch.exp(svals - m),
+                       torch.zeros((), dtype=svals.dtype,
+                                   device=svals.device))
+    z_kept = exps.sum(dim=1, keepdim=True)
+    z_full = torch.exp(scaled - m).sum(dim=1, keepdim=True)
+    probs = exps / torch.where(k_active[:, None], z_kept, z_full)
+    cum = torch.cumsum(probs, dim=1)
+    keep_p = (cum - probs) < top_p[:, None]
+    keep_p[:, 0] = True
+    keep_p = keep_p | (top_p[:, None] >= 1.0)
+    keep_c = keep_k & keep_p
+
+    filtered_row = k_active | p_active
+    dirty = ((k_active & ((k > cap) | (kth[:, 0] <= sentinel)))
+             | (~k_active & p_active & ((cum[:, -1] - probs[:, -1]) < top_p))
+             | (filtered_row
+                & (keep_c & (svals <= sentinel[:, None])).any(dim=1)))
+    need_exact = (dirty & filtered_row).any()
+
+    keep = torch.zeros((B, V), dtype=torch.bool, device=scaled.device)
+    keep.scatter_(1, sidx, keep_c)
+    fast = scaled.masked_fill(~(keep | ~filtered_row[:, None]), NEG_INF)
+    return fast, need_exact
+
+
+def _filtered_fast_or_exact(scaled: torch.Tensor, top_k: torch.Tensor,
+                            top_p: torch.Tensor, host_top_k: np.ndarray
+                            ) -> torch.Tensor:
+    """Filtered logits with ``_filtered_single_sort``'s kept set: the
+    candidate tier where it is exact, else the single sort. The host
+    picks: small vocabularies and a top_k past the candidates sort
+    straight away (``host_top_k`` is the knobs' host copy); otherwise the
+    tier's flag is read back from the device."""
+    V = scaled.shape[1]
+    if V <= FILTER_FAST_CAP + 1 or (host_top_k > FILTER_FAST_CAP).any():
+        return _filtered_single_sort(scaled, top_k, top_p)
+    fast, need_exact = _filtered_fast(scaled, top_k, top_p)
+    if bool(need_exact):                 # the one device-to-host read
+        return _filtered_single_sort(scaled, top_k, top_p)
+    return fast
+
+
 Noise = Union[torch.Tensor, Callable[[], torch.Tensor]]
 
 
@@ -160,9 +277,8 @@ def sample_tokens(
     temp = to_device(np.maximum(temperature, 1e-6), dev)
     scaled = logits / temp[:, None]
     if (is_sampled & ((top_k > 0) | (top_p < 1.0))).any():
-        # greedy rows' filter knobs are irrelevant to their argmax
-        scaled = _filtered_single_sort(scaled, to_device(top_k, dev),
-                                       to_device(top_p, dev))
+        scaled = _filtered_single_sort(
+            scaled, to_device(top_k, dev), to_device(top_p, dev))
     if noise is None:
         raise ValueError("sampled rows need Gumbel noise")
     if callable(noise):

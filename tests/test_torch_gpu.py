@@ -1730,3 +1730,93 @@ def test_moe_train_step_on_card_matches_cpu():
         out[dev] = (m["loss"].item(), m["grad_norm"].item())
     for a, b in zip(out["cuda"], out["cpu"]):
         assert abs(a - b) <= 1e-5 * abs(b)
+
+
+# -- the single-card remnants: sampling tier, int4-awq, selective_attn ------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top_k,top_p", [(1, 1.0), (40, 0.9), (256, 1.0),
+                                         (300, 0.9), (0, 0.5)])
+def test_sampling_tier_on_card_equals_single_sort(top_k, top_p):
+    """At llama-8b-gqa's vocab: torch.topk orders ties arbitrarily on a
+    card, and the tier rebuilds the single sort's order; the filtered
+    logits and the tokens under one noise are the single sort's."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        import sampling as smp
+    g = torch.Generator(device="cuda").manual_seed(top_k)
+    B, V = 8, 128256
+    logits = torch.round(torch.randn(B, V, generator=g, device="cuda") * 4)
+    k = torch.full((B,), top_k, device="cuda")
+    p = torch.full((B,), top_p, device="cuda")
+    exact = smp._filtered_single_sort(logits, k, p)
+    tier = smp._filtered_fast_or_exact(logits, k, p,
+                                       k.cpu().numpy())
+    assert torch.equal(tier, exact)
+    noise = smp.gumbel_noise(torch.arange(B, device="cuda"),
+                             torch.zeros(B, dtype=torch.long, device="cuda"),
+                             V)
+    assert torch.equal((tier + noise).argmax(-1), (exact + noise).argmax(-1))
+
+
+@pytest.mark.gpu
+def test_w4_with_a_calibrated_chan_on_card():
+    """The W4 kernel with AWQ channel scales from a calibration forward
+    (gpt-test widths, bf16) against matmul_w4_plain."""
+    _need_card()
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        int4_matmul as w4, quantization as tq)
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        import sampling as smp
+    import dataclasses
+    cfg = dataclasses.replace(get_model_config("gpt-1b"), num_layers=1)
+    model = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda", dtype=torch.bfloat16)
+    calib = smp.randint(smp.prng_key(torch.zeros((), dtype=torch.long,
+                                                 device="cuda")),
+                        (2, 256), 1, cfg.vocab_size)
+    act = gpt.activation_channel_scales(model, cfg, calib)
+    w = model.blocks[0].gate.detach()
+    packed, scale, chan = tq.quantize_int4_groupwise(
+        w, 128, act_scale=act["blocks.mlp.gate.kernel"][0])
+    assert bool((chan != 1).any())
+    x = torch.randn(8, w.shape[0], device="cuda").to(torch.bfloat16)
+    before = w4.int4_matmul_kernel.launches
+    out = w4.matmul_w4(x, packed, scale, chan, 128)
+    torch.cuda.synchronize()
+    assert w4.int4_matmul_kernel.launches == before + 1
+    ref = w4.matmul_w4_plain(x, packed, scale, chan, 128)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat,per_layer", [("selective", 2),
+                                             ("selective_attn", 2)])
+def test_flash_forward_launches_under_selective_attn(remat, per_layer):
+    """A small model's step (bf16, D 64) with flash attention on the card:
+    the flash forward runs twice a layer under selective_attn, as under
+    selective (the policy keeps no flash output, as JAX's does not)."""
+    _need_card()
+    import dataclasses
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import schema
+    from distributed_llm_training_and_inference_system_tpu_torch.exec \
+        import train_step as tts
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        attention_cuda as fac)
+    cfg = dataclasses.replace(get_model_config("gpt-test"), hidden_size=256,
+                              num_heads=4, num_kv_heads=2, head_dim=64,
+                              ffn_size=512, dtype="bfloat16")
+    model = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    step, init, _ = tts.make_train_step(
+        cfg, schema.OptimizerConfig(),
+        schema.ParallelConfig(activation_checkpoint=remat),
+        attn_impl="flash", loss_chunk=16)
+    before = fac.flash_fwd.launches
+    _, m = step(tts.TrainState.create(model, init),
+                {"tokens": torch.randint(1, 200, (2, 64), device="cuda")})
+    torch.cuda.synchronize()
+    assert fac.flash_fwd.launches - before == per_layer * cfg.num_layers
+    assert torch.isfinite(m["loss"])

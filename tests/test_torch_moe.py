@@ -40,7 +40,7 @@ from distributed_llm_training_and_inference_system_tpu_torch.ops import (
 from distributed_llm_training_and_inference_system_tpu_torch.serve.engine \
     import quantize_blocks
 from distributed_llm_training_and_inference_system_tpu_torch.weights import (
-    _named_arrays, params_from_jax, train_state_from_jax)
+    named_from_tree, params_from_jax, train_state_from_jax)
 
 NAME = "gpt-test-moe"
 MOE = ("router", "gate", "up", "down")
@@ -224,9 +224,9 @@ def test_moe_forward_aux_and_grads_match_jax(remat):
     np.testing.assert_allclose(loss.item(), float(jl_), rtol=1e-5)
     names, params = zip(*model.named_parameters())
     grads = torch.autograd.grad(total, params)
-    ref = _named_arrays(jax.tree_util.tree_map(np.asarray, jgrads), tc)
+    ref = named_from_tree(jax.tree_util.tree_map(np.asarray, jgrads))
     for name, g in zip(names, grads):
-        r = ref[name]
+        r = ref[name].numpy()
         np.testing.assert_allclose(g.numpy(), r, rtol=0,
                                    atol=1e-4 * max(np.abs(r).max(), 1e-6),
                                    err_msg=name)

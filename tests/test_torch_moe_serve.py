@@ -32,7 +32,7 @@ from distributed_llm_training_and_inference_system_tpu.serve import (
 from distributed_llm_training_and_inference_system_tpu_torch.config import (
     ServeConfig, get_model_config as torch_cfg)
 from distributed_llm_training_and_inference_system_tpu_torch.ops import (
-    paged_attention as tpa)
+    paged_attention as tpa, quantization as tq)
 from distributed_llm_training_and_inference_system_tpu_torch.serve import (
     InferenceEngine, SamplingParams)
 from distributed_llm_training_and_inference_system_tpu_torch.weights import (
@@ -219,3 +219,53 @@ def test_dense_prefill_writes_the_scratch_page_as_jax():
                    (je.kv.v_pages, te.kv.v_pages)):
         np.testing.assert_allclose(tp[:, 0].numpy(), np.asarray(jp)[:, 0],
                                    rtol=0, atol=1e-5)
+
+
+def test_int4_scratch_page_as_jax_and_live_pages_whole():
+    """An MoE batch at gpt-test-moe's geometry (4 kv heads, D 16, pages of
+    8) writing a 12-token window through the flattened-row path: two live
+    slots cross a page boundary, two idle slots and the masked tail rows
+    go to scratch page 0. Page 0's bytes and scales equal the JAX
+    scatter's bit for bit (for each byte, the last row spliced into the
+    old byte); the live pages equal whole-page quantization (both nibbles
+    of a shared byte kept); no other page changes."""
+    torch.set_num_threads(4)                  # the module's fixture resets
+    cfg = torch_cfg(NAME)
+    rs = np.random.RandomState(5)
+    NP, Nkv, PS, D = 12, cfg.num_kv_heads, 8, cfg.head_dim
+    B, T = 4, 12
+    values = rs.randint(0, 256, (NP, Nkv, PS // 2, D)).astype(np.uint8)
+    scale = rs.rand(NP, Nkv, PS).astype(np.float32)
+    new = rs.randn(B * T, Nkv, D).astype(np.float32)
+    tables = np.zeros((B, 4), np.int32)
+    tables[0, :3] = (3, 5, 9)                 # slots 2 and 3 idle
+    tables[2, :3] = (4, 7, 2)
+    starts = np.array([5, 0, 3, 0])
+    positions = (starts[:, None] + np.arange(T)).reshape(-1).astype(np.int32)
+    ok = np.ones((B, T), bool)
+    ok[0, 10:] = False                        # a masked tail
+    flat_tables = np.repeat(tables, T, axis=0)
+    ref = jpa.write_token_to_pages(
+        jpa.Int4Pages(jnp.asarray(values), jnp.asarray(scale)),
+        jnp.asarray(new), jnp.asarray(flat_tables), jnp.asarray(positions),
+        jnp.asarray(ok.reshape(-1)))
+    got = tpa.write_token_to_pages(
+        tpa.Int4Pages(torch.from_numpy(values.copy()),
+                      torch.from_numpy(scale.copy())),
+        torch.from_numpy(new), torch.from_numpy(flat_tables),
+        torch.from_numpy(positions), torch.from_numpy(ok.reshape(-1)))
+    gv, gs = got.values.numpy(), got.scale.numpy()
+    assert gv[0].tobytes() == np.asarray(ref.values)[0].tobytes()
+    assert gs[0].tobytes() == np.asarray(ref.scale)[0].tobytes()
+    # live pages: every token of the window quantized into its own slot
+    q, s = tpa.quantize_kv_token_int4(torch.from_numpy(new))
+    logical = tq.unpack_int4_rows(torch.from_numpy(values), axis=-2)
+    want_s = scale.copy()
+    for r in np.flatnonzero(ok.reshape(-1)):
+        page = flat_tables[r, positions[r] // PS]
+        if page:
+            logical[page, :, positions[r] % PS] = q[r]
+            want_s[page, :, positions[r] % PS] = s[r].numpy()
+    want_v = tq.pack_int4_rows(logical, axis=-2).numpy()
+    assert np.array_equal(gv[1:], want_v[1:])
+    assert np.array_equal(gs[1:], want_s[1:])

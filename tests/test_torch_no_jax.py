@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py never import JAX or the JAX package."""
+"""The port and chip_smoke.py never import JAX, the JAX package, optax,
+ml_dtypes or safetensors."""
 
 import ast
 import subprocess
@@ -9,7 +10,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = "distributed_llm_training_and_inference_system_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "distributed_llm_training_and_inference_system_tpu"}
+# JAX and its package, and what the card machine lacks: optax,
+# ml_dtypes, safetensors
+FORBIDDEN = {"jax", "jaxlib", "distributed_llm_training_and_inference_system_tpu",
+             "optax", "ml_dtypes", "safetensors"}
 SOURCES = sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

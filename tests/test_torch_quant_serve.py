@@ -234,13 +234,16 @@ def test_pool_refuses_unknown_kinds_and_odd_int4_pages():
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"quantization": "int4-awq"}, "queue 1 item 5"),
-    ({"artifact": "/nonexistent/artifact"}, "queue 1 item 5"),
+    ({"quantization": "int4-awq"}, "int4-awq"),
+    ({"artifact": "/nonexistent/artifact"}, "none"),
 ])
 def test_awq_and_artifacts_still_refuse_naming_their_item(params, over, item):
-    with pytest.raises(NotImplementedError, match=item):
-        InferenceEngine(torch_cfg("gpt-test"), ServeConfig(**SERVE, **over),
-                        params=_to_torch(params), device="cpu")
+    """int4-awq and artifacts are ported: the engine no longer refuses
+    them and reports the quantization the JAX engine reports (an artifact
+    beside given params is not read, as in the JAX engine)."""
+    eng = InferenceEngine(torch_cfg("gpt-test"), ServeConfig(**SERVE, **over),
+                          params=_to_torch(params), device="cpu")
+    assert eng.stats()["quantization"] == item
 
 
 def test_mm_routes_by_shape_and_device():

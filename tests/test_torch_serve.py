@@ -194,8 +194,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     {"artifact": "/nonexistent/artifact"},
 ])
 def test_unported_features_refuse_at_construction(over, torch_params):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _torch_engine(torch_params, **over)
+    """Tensor parallelism still refuses, naming its ROADMAP item; int4-awq
+    and artifacts are ported and construct."""
+    if "tensor_parallel" in over:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _torch_engine(torch_params, **over)
+        return
+    eng = _torch_engine(torch_params, **over)
+    assert eng.stats()["quantization"] == over.get("quantization", "none")
 
 
 @pytest.mark.socket

@@ -260,7 +260,12 @@ def test_preempted_resume_chunks_its_whole_context(params):
                 decode_steps_per_dispatch=4)
     je, te = _both(params, **over)
     want = _run(je, prompts, temperature=0.0, max_tokens=30)
-    assert _run(te, prompts, temperature=0.0, max_tokens=30) == want
+    got = _run(te, prompts, temperature=0.0, max_tokens=30)
+    # request 1's generated token 5 has this test's smallest top-2 logit
+    # gap, 1.57e-3, against 2.1e-7 between the two packages' logits: a
+    # mismatch is a difference of schedule or state, not of rounding, so
+    # it reports both engines' counters
+    assert got == want, (got, want, te.stats(), je.stats())
     assert want == _run(_port(params, decode_steps_per_dispatch=4), prompts,
                         temperature=0.0, max_tokens=30)
     st = _same_stats(te, je)

@@ -87,8 +87,10 @@ def test_hardware_is_an_h100_and_run_config_loads():
 def test_parallel_degrees_above_one_are_refused():
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         torch_schema.ParallelConfig(tensor_parallel=2).require_single_device()
-    with pytest.raises(NotImplementedError):
-        topt.make_optimizer(torch_schema.OptimizerConfig(type="lion"))
+    # every optimizer of the JAX package is ported (lion among them)
+    init, _ = topt.make_optimizer(torch_schema.OptimizerConfig(type="lion"))
+    model = tgpt.GPT(torch_cfg("gpt-test"), device="cpu")
+    assert isinstance(init(model), topt.LionState)
 
 
 # -- losses ------------------------------------------------------------------
@@ -174,12 +176,12 @@ def test_decay_mask_equal_leaf_by_leaf(tied, bias):
 
 def _named(tree, cfg, _):
     from distributed_llm_training_and_inference_system_tpu_torch.weights \
-        import _named_arrays
+        import named_from_tree
     stacked = jax.tree_util.tree_map(
         lambda m: np.full((cfg.num_layers,), m, np.float32), tree["blocks"])
     full = dict(tree, blocks=stacked)
     return {k: float(np.asarray(v).reshape(-1)[0])
-            for k, v in _named_arrays(full, cfg).items()}
+            for k, v in named_from_tree(full).items()}
 
 
 def test_global_norm_and_param_count_match_jax():
