@@ -186,7 +186,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              lion, adafactor and sgd: the first update on the card
              within 1e-5 of its largest element (plus one fp32 rounding
              of the largest parameter) of the CPU's from the same
-             gradients and state, then a second step.
+             gradients and state, then a second step;
+18. cli    — the port's command line and observability, through the
+             entry points a user calls: (a) `serve start` (llama-8b-gqa,
+             `build_server` on ephemeral ports, in process): 8 greedy
+             requests of 256 + 32 tokens, 4 at a time, the paged kernel's
+             launches counted, every token within the near-tie bound of
+             the dense forward, the server's and the exporter's /metrics
+             both counting 8 requests and TTFTs, llmctl_hbm_used_gb after
+             one export_system, TTFT and TPOT p50; (b) `python -m ...cli
+             serve start --model gpt-1b` in a child: /health within 300 s,
+             4 requests counted by /metrics, SIGTERM and exit 0 within
+             10 s; (c) `train launch --in-process` on gpt-1b at full
+             width and depth, 4 steps of 4 x 2048: the flash and AdamW
+             kernels launched, llmctl_train_step and llmctl_train_loss
+             against the manifest, `train status`, then 2 steps through
+             LocalLauncher in a child (exit 0); (d) `eval run --suite
+             all` on (c)'s checkpoint with 16 multiple-choice and 8
+             greedy-match examples: log-likelihoods within 1e-4 relative
+             of fp32 on the CPU, picks held where the CPU's top-2 gap
+             exceeds that; (e) `export convert` to gguf (f16, tensors
+             read back equal to the checkpoint's rounded to f16) and to
+             int4 safetensors, served by `serve start --artifact`: W4 and
+             paged launches counted, every forward replayed through the
+             plain paged attention with the tokens held; (f) `hw probe
+             --emit`, `hw benchmark` (bf16 matmul 8192^3, a 1 GB copy)
+             and `health check --json` with its GPU memory check.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} record. Without a CUDA card, or without the rest of the
@@ -3430,6 +3455,544 @@ def train_remnants(torch, mods, fac, kernels: dict, card: str) -> dict:
                          for n in a["launches"]}}
 
 
+# -- phase 18: the command line and observability ----------------------------
+
+CLI_PROMPT_LEN = 256           # 18a: prompt tokens a request
+CLI_NEW_TOKENS = 32            # 18a: new tokens a request
+CLI_REQUESTS = 8               # 18a: requests, CLI_CONCURRENCY at a time
+CLI_CONCURRENCY = 4
+CLI_CHILD_REQUESTS = 4         # 18b and 18e
+CLI_HEALTH_TIMEOUT_S = 300.0   # 18b: the child answers /health within this
+CLI_STOP_TIMEOUT_S = 10.0      # 18b: and exits 0 this long after SIGTERM
+CLI_TRAIN_STEPS = 4            # 18c, in process
+CLI_LAUNCH_STEPS = 2           # 18c, through LocalLauncher
+CLI_TRAIN_SETS = ("parallel.global_batch_size=4", "data.max_length=2048",
+                  "parallel.activation_checkpoint=selective",
+                  "training.log_interval=1")
+# 18d: the CLI's scoring on the card (gpt-1b's configured bf16) against
+# the same scoring in fp32 on the CPU: summed log-likelihoods agree within
+# this share of themselves (five bf16 unit roundoffs, 2^-9 each); a
+# multiple-choice pick must agree wherever the CPU's top-2 gap exceeds
+# the bound on both (rtol x (|ll_1| + |ll_2|)); a greedy token must lie
+# within 2 delta of the CPU's best logit, delta the largest difference of
+# the card's teacher-forced logits from the CPU's (phase 15's near-tie
+# argument), so it is the CPU's pick wherever the top-2 gap exceeds 2 delta
+CLI_EVAL_RTOL = 1e-2
+CLI_EVAL_MC, CLI_EVAL_CHOICES, CLI_EVAL_GREEDY = 16, 4, 8
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def get_url(url: str, timeout: float = 60.0) -> tuple[int, bytes]:
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def scrape(url: str) -> dict:
+    """{name or name{labels}: value} of a Prometheus text page."""
+    status, body = get_url(url)
+    check(status == 200, f"{url}: status {status}")
+    out = {}
+    for line in body.decode().splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def cli_run(cli, argv: list) -> tuple[int, str]:
+    """The port's CLI main() in this process: (exit code, its stdout),
+    the stdout echoed."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines()[-12:]:
+        print("  | " + line)
+    return rc, out
+
+
+def request_rates(results: list) -> dict:
+    ttft = sorted(r["metrics"]["ttft_ms"] for r in results)
+    tpot = sorted((r["metrics"]["latency_ms"] - r["metrics"]["ttft_ms"])
+                  / max(r["usage"]["completion_tokens"] - 1, 1)
+                  for r in results)
+    return {"ttft_p50_ms": ttft[len(ttft) // 2],
+            "tpot_p50_ms": tpot[len(tpot) // 2]}
+
+
+def cli_bodies(seed: int, n: int, vocab: int, prompt_len: int,
+               new: int) -> list:
+    rng = random.Random(seed)
+    return [{"prompt": [rng.randrange(1, vocab) for _ in range(prompt_len)],
+             "max_tokens": new, "temperature": 0.0} for _ in range(n)]
+
+
+def post_all(port: int, bodies: list, concurrency: int) -> list:
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(concurrency) as ex:
+        return list(ex.map(lambda b: post(port, b), bodies))
+
+
+def cli_serve_in_process(torch, mods, cm, kernel, card: str) -> dict:
+    """18a: `serve start` through the port's CLI, in process: llama-8b-gqa
+    from build_server on ephemeral ports, 8 greedy requests of 256 + 32
+    tokens, 4 at a time; the paged kernel counted; every token held to the
+    dense forward; both /metrics count the requests; one export_system
+    fills llmctl_hbm_used_gb. One request on the engine alone warms it up
+    first (set-up: not through the server, so not counted)."""
+    args = cm["cli"].parse(["serve", "start", "--model", "llama-8b-gqa",
+                            "--host", "127.0.0.1", "--port", "0",
+                            "--prometheus-port", "0"])
+    t0 = time.time()
+    srv = cm["serve"].build_server(args)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    eng, cfg = srv.engine, srv.engine.cfg
+    check(srv.metrics is not None, "no exporter behind --prometheus-port 0")
+    # set-up, not measured or counted: one request on the engine itself
+    # (not through the server) loads the kernels and warms the allocator
+    eng.generate([[1, 2, 3]], mods["SamplingParams"](temperature=0.0,
+                                                      max_tokens=2))
+    port = srv.start()
+    try:
+        bodies = cli_bodies(18, CLI_REQUESTS, cfg.vocab_size,
+                            CLI_PROMPT_LEN, CLI_NEW_TOKENS)
+        before = eng.total_dispatched_steps, eng.total_extend_prefills
+        kernel.launches = 0                          # the main path starts
+        t1 = time.time()
+        results = post_all(port, bodies, CLI_CONCURRENCY)
+        wall = time.time() - t1
+        launches = kernel.launches                   # it ended
+        steps = eng.total_dispatched_steps - before[0]
+        extends = eng.total_extend_prefills - before[1]
+        ours = scrape(f"http://127.0.0.1:{port}/metrics")
+        theirs = scrape(f"http://127.0.0.1:{srv.metrics.port}/metrics")
+        obs = cm["obs"].get_observability()
+        obs.prometheus.export_system(obs.collector.sample_once())
+        hbm = scrape(f"http://127.0.0.1:{port}/metrics").get(
+            'llmctl_hbm_used_gb{device="0"}', 0.0)
+        health_status, health = get_url(f"http://127.0.0.1:{port}/health")
+    finally:
+        srv.stop()
+        cm["obs"].reset_observability()
+    check(health_status == 200, f"/health {health_status}")
+    for name, page in (("server", ours), ("exporter", theirs)):
+        for key in ("llmctl_inference_requests_total",
+                    "llmctl_inference_ttft_seconds_count"):
+            check(page.get(key) == float(CLI_REQUESTS),
+                  f"{name} /metrics {key} = {page.get(key)}")
+    check(hbm > 0, f"llmctl_hbm_used_gb {{device=0}} = {hbm}")
+    check(launches == cfg.num_layers * (steps + extends) and launches > 0,
+          f"paged launches {launches} != {cfg.num_layers} x ({steps} + "
+          f"{extends})")
+    deficit = 0.0
+    with torch.inference_mode():
+        for b, r in zip(bodies, results):
+            toks = r["choices"][0]["token_ids"]
+            check(len(toks) == CLI_NEW_TOKENS, f"{len(toks)} tokens")
+            deficit = max(deficit, max(teacher_forced(
+                torch, mods, eng.params, cfg, b["prompt"], toks,
+                b)["deficit"]))
+    check(deficit <= 2 * NEAR_TIE_DELTA, f"a served token lies {deficit:.4f} "
+          f"under the dense forward's best (bound {2 * NEAR_TIE_DELTA})")
+    rates = request_rates(results)
+    eng.release()
+    del srv, eng
+    torch.cuda.empty_cache()
+    print(f"18a serve start llama-8b-gqa (random init {init_s:.1f}s): "
+          f"{CLI_REQUESTS} x ({CLI_PROMPT_LEN} + {CLI_NEW_TOKENS}) tokens, "
+          f"{CLI_CONCURRENCY} at a time, in {wall:.2f}s; TTFT p50 "
+          f"{rates['ttft_p50_ms']:.1f} ms, TPOT p50 "
+          f"{rates['tpot_p50_ms']:.2f} ms; paged launches {launches} = "
+          f"{cfg.num_layers} x ({steps} decode steps + {extends} suffix "
+          f"prefills); both /metrics count {CLI_REQUESTS} requests and "
+          f"TTFTs; llmctl_hbm_used_gb{{device=\"0\"}} {hbm:.2f}; largest "
+          f"deficit under the dense forward {deficit:.4f} (bound "
+          f"{2 * NEAR_TIE_DELTA}) [{card}]", flush=True)
+    return {"launches": launches, "decode_steps": steps,
+            "extend_prefills": extends, "init_s": init_s, "wall_s": wall,
+            **rates, "hbm_used_gb": hbm, "max_deficit": deficit}
+
+
+def cli_serve_subprocess(tmp: Path, card: str) -> dict:
+    """18b: `python -m ...cli serve start --model gpt-1b` in a child
+    process; /health within CLI_HEALTH_TIMEOUT_S; 4 requests; /metrics
+    counts them; SIGTERM, and the child exits 0 within
+    CLI_STOP_TIMEOUT_S."""
+    import signal
+    port, mport = free_port(), free_port()
+    log = tmp / "serve-child.log"
+    cmd = [sys.executable, "-m", f"{PORT}.cli", "serve", "start",
+           "--model", "gpt-1b", "--host", "127.0.0.1", "--port", str(port),
+           "--prometheus-port", str(mport)]
+    t0 = time.time()
+    with open(log, "w") as out:
+        child = subprocess.Popen(cmd, cwd=ROOT, stdout=out,
+                                 stderr=subprocess.STDOUT)
+    try:
+        while True:
+            check(child.poll() is None, f"the server exited "
+                  f"{child.returncode}: {log.read_text()[-2000:]}")
+            try:
+                if get_url(f"http://127.0.0.1:{port}/health", 5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(time.time() - t0 < CLI_HEALTH_TIMEOUT_S,
+                  f"no /health within {CLI_HEALTH_TIMEOUT_S}s")
+            time.sleep(1.0)
+        ready_s = time.time() - t0
+        results = post_all(port, cli_bodies(19, CLI_CHILD_REQUESTS, 50304,
+                                            64, 16), CLI_CHILD_REQUESTS)
+        page = scrape(f"http://127.0.0.1:{port}/metrics")
+        exported = scrape(f"http://127.0.0.1:{mport}/metrics")
+        child.send_signal(signal.SIGTERM)
+        t1 = time.time()
+        rc = child.wait(timeout=CLI_STOP_TIMEOUT_S)
+        stop_s = time.time() - t1
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    text = log.read_text()
+    check(rc == 0, f"the server exited {rc} after SIGTERM: {text[-2000:]}")
+    for p in (page, exported):
+        check(p.get("llmctl_inference_requests_total")
+              == float(CLI_CHILD_REQUESTS), f"child /metrics {p.get(
+                  'llmctl_inference_requests_total')}")
+    check(all(len(r["choices"][0]["token_ids"]) == 16 for r in results),
+          "a child request came back short")
+    print(f"18b child `{' '.join(cmd[1:3])} serve start --model gpt-1b`: "
+          f"/health after {ready_s:.1f}s, {CLI_CHILD_REQUESTS} requests "
+          f"counted on both /metrics, exit {rc} {stop_s:.2f}s after SIGTERM "
+          f"(want 0 within {CLI_STOP_TIMEOUT_S}s) [{card}]", flush=True)
+    return {"ready_s": ready_s, "stop_s": stop_s, "exit_code": rc,
+            **request_rates(results)}
+
+
+def cli_train(torch, mods, cm, kernels: dict, tmp: Path, card: str) -> dict:
+    """18c: `train launch --in-process` on gpt-1b at full width and depth,
+    4 steps of 4 x 2048; the flash and AdamW kernels counted; the
+    exporter's llmctl_train_step and llmctl_train_loss against the
+    manifest; `train status`; then 2 steps through LocalLauncher in a
+    child process."""
+    ckdir = tmp / "gpt-1b"
+    sets = [a for s in CLI_TRAIN_SETS for a in ("--set", s)]
+    obs = cm["obs"].setup_observability(prometheus_port=0)
+    try:
+        for k in kernels.values():
+            k.launches = 0                           # the main path starts
+        t0 = time.time()
+        rc, _ = cli_run(cm["cli"], [
+            "train", "launch", "--in-process", "--model", "gpt-1b",
+            "--max-steps", str(CLI_TRAIN_STEPS),
+            "--set", f"checkpoint.path={ckdir}"] + sets)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {n: k.launches for n, k in kernels.items()}   # it ended
+        page = scrape(f"http://127.0.0.1:{obs.prometheus.port}/metrics")
+    finally:
+        cm["obs"].reset_observability()
+    check(rc == 0, f"train launch exited {rc}")
+    manifest = json.loads((ckdir / "run_manifest.json").read_text())
+    final = manifest["final_metrics"]
+    check(page.get("llmctl_train_step") == float(CLI_TRAIN_STEPS),
+          f"llmctl_train_step {page.get('llmctl_train_step')}")
+    check(page.get("llmctl_train_loss") == final["loss"],
+          f"llmctl_train_loss {page.get('llmctl_train_loss')} != manifest "
+          f"{final['loss']}")
+    check(np.isfinite(final["loss"]), f"loss {final['loss']}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by train launch")
+    status_toml = tmp / "status.toml"
+    status_toml.write_text(f'[checkpoint]\npath = "{ckdir}"\n'
+                           f"[training]\nmax_steps = {CLI_TRAIN_STEPS}\n")
+    rc, out = cli_run(cm["cli"], ["train", "status", "--config",
+                                  str(status_toml)])
+    check(rc == 0 and f"latest {CLI_TRAIN_STEPS} of max" in out,
+          f"train status: {out}")
+    # the same entry point through the local launcher, in a child
+    launch_dir = tmp / "launched"
+    lcfg = cm["launcher"].LaunchConfig(extra_args=[
+        "--model", "gpt-1b", "--max-steps", str(CLI_LAUNCH_STEPS),
+        "--set", f"checkpoint.path={launch_dir}",
+        "--set", "data.max_length=512"] + sets[:2] + sets[4:])
+    t1 = time.time()
+    orch = cm["launcher"].ProcessOrchestrator(lcfg)
+    lrc = orch.run_with_restarts(max_restarts=0, stream_output=False)
+    launch_s = time.time() - t1
+    check(lrc == 0, f"LocalLauncher's child exited {lrc}")
+    check((launch_dir / f"step_{CLI_LAUNCH_STEPS}" / "COMMIT").exists(),
+          "the launched run wrote no checkpoint")
+    import shutil
+    shutil.rmtree(launch_dir)
+    mfu = final.get("mfu")
+    print(f"18c train launch gpt-1b, {CLI_TRAIN_STEPS} steps of 4 x 2048 in "
+          f"{wall:.1f}s (save included): loss {final['loss']:.4f} (= "
+          f"llmctl_train_loss), llmctl_train_step {CLI_TRAIN_STEPS}; last "
+          f"step {final['tokens_per_sec']:.0f} tok/s, MFU "
+          f"{(mfu or 0):.1%}; launches {launches}; train status read step "
+          f"{CLI_TRAIN_STEPS}; LocalLauncher child, {CLI_LAUNCH_STEPS} steps "
+          f"of 4 x 512, exit {lrc} in {launch_s:.1f}s [{card}]", flush=True)
+    return {"launches": launches, "wall_s": wall, "final": final,
+            "launcher_s": launch_s, "ckpt": str(ckdir)}
+
+
+def cli_task_file(path: Path, vocab: int) -> None:
+    """16 multiple-choice examples of 4 choices and 8 greedy-match
+    examples, as token ids."""
+    rng = random.Random(18)
+    rows = []
+    for _ in range(CLI_EVAL_MC):
+        rows.append({"type": "multiple_choice",
+                     "context": [rng.randrange(1, vocab)
+                                 for _ in range(rng.randint(6, 20))],
+                     "choices": [[rng.randrange(1, vocab)
+                                  for _ in range(rng.randint(1, 4))]
+                                 for _ in range(CLI_EVAL_CHOICES)],
+                     "answer": rng.randrange(CLI_EVAL_CHOICES)})
+    for _ in range(CLI_EVAL_GREEDY):
+        rows.append({"type": "greedy_match",
+                     "context": [rng.randrange(1, vocab)
+                                 for _ in range(rng.randint(6, 20))],
+                     "target": [rng.randrange(1, vocab) for _ in range(4)]})
+    path.write_text("\n".join(json.dumps(r) for r in rows) + "\n")
+
+
+def cli_eval(torch, cm, ckdir: str, tmp: Path, card: str) -> dict:
+    """18d: `eval run --suite all` on 18c's checkpoint with a task file;
+    the log-likelihoods and greedy picks held to the same scoring on the
+    CPU in fp32 from the same checkpoint."""
+    cfg = cm["get_model_config"]("gpt-1b")
+    tasks = tmp / "tasks.jsonl"
+    cli_task_file(tasks, cfg.vocab_size)
+    out = tmp / "eval.json"
+    t0 = time.time()
+    rc, _ = cli_run(cm["cli"], [
+        "eval", "run", "--ckpt", ckdir, "--model", "gpt-1b", "--suite",
+        "all", "--tasks", str(tasks), "--batches", "2", "--batch-size", "8",
+        "--seq-len", "512", "--out", str(out)])
+    eval_s = time.time() - t0
+    check(rc == 0, f"eval run exited {rc}")
+    res = json.loads(out.read_text())
+    check(np.isfinite(res["perplexity"]["loss"]), f"eval {res}")
+    T = cm["tasks"]
+    examples = T.load_task_file(tasks)
+    mc = [e for e in examples if e.type == "multiple_choice"]
+    rows = [(e.context, c) for e in mc for c in e.choices]
+    tree, _ = cm["checkpoint_tree"](ckdir)
+    gm = [e for e in examples if e.type == "greedy_match"]
+    picks, lls, forced, greedy = {}, {}, {}, []
+    for dev, dcfg in (("cuda", cfg),
+                      ("cpu", dataclasses.replace(cfg, dtype="float32"))):
+        model = cm["params_from_jax"](tree, dcfg, device=dev)
+        lls[dev] = T._continuation_logprobs(model, dcfg, rows, 8)
+        picks[dev] = [int(np.argmax(lls[dev][i * CLI_EVAL_CHOICES:
+                                            (i + 1) * CLI_EVAL_CHOICES]))
+                      for i in range(len(mc))]
+        if dev == "cuda":
+            greedy = T.greedy_continuations(model, dcfg, examples, 8)
+            check(T.score_multiple_choice(model, dcfg, examples, 8)
+                  == res["tasks"][0]["multiple_choice"],
+                  "the CLI's multiple-choice scores differ from the "
+                  "module's")
+        forced[dev] = []      # the card's greedy tokens, teacher-forced
+        with torch.no_grad():
+            for e, g in zip(gm, greedy):
+                toks = torch.tensor([e.context + g[:-1]], device=dev)
+                lg = cm["gpt"].forward(model, toks, dcfg)[0]
+                forced[dev].append(lg[len(e.context) - 1:].float().cpu())
+        del model
+        torch.cuda.empty_cache()
+    a, b = np.asarray(lls["cuda"]), np.asarray(lls["cpu"])
+    rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    check(rel <= CLI_EVAL_RTOL, f"log-likelihoods card vs CPU: rel {rel:.2e} "
+          f"> {CLI_EVAL_RTOL}")
+    mc_checked = 0
+    for i in range(len(mc)):
+        s = np.sort(b[i * CLI_EVAL_CHOICES:(i + 1) * CLI_EVAL_CHOICES])
+        if (s[-1] - s[-2]) > CLI_EVAL_RTOL * (abs(s[-1]) + abs(s[-2])):
+            mc_checked += 1
+            check(picks["cuda"][i] == picks["cpu"][i],
+                  f"multiple-choice pick {i} differs beyond the bound")
+    delta = max(float((c - r).abs().max())
+                for c, r in zip(forced["cuda"], forced["cpu"]))
+    deficit, tok_checked = 0.0, 0
+    for g, lg in zip(greedy, forced["cpu"]):
+        best = lg.max(dim=-1).values
+        d = best - lg.gather(1, torch.tensor(g)[:, None])[:, 0]
+        deficit = max(deficit, float(d.max()))
+        top2 = torch.topk(lg, 2, dim=-1).values
+        tok_checked += int(((top2[:, 0] - top2[:, 1]) > 2 * delta).sum())
+    check(deficit <= 2 * delta, f"a greedy token lies {deficit:.4f} under "
+          f"the CPU's best logit (bound 2 delta = {2 * delta:.4f})")
+    print(f"18d eval run --suite all on step {CLI_TRAIN_STEPS} in "
+          f"{eval_s:.1f}s: perplexity {res['perplexity']['perplexity']:.2f}, "
+          f"mc acc {res['tasks'][0]['multiple_choice']['acc']:.3f}, greedy "
+          f"exact {res['tasks'][0]['greedy_match']['exact_match']:.3f}, "
+          f"selftest {res['selftest']['probes']} probes; {len(rows)} "
+          f"log-likelihoods on the card (bf16) within {rel:.2e} (relative; "
+          f"bound {CLI_EVAL_RTOL}) of fp32 on the CPU; multiple-choice picks "
+          f"held where the CPU's top-2 gap exceeds the bound: "
+          f"{mc_checked}/{len(mc)}; greedy tokens within {deficit:.4f} of "
+          f"the CPU's best logit (bound 2 delta = {2 * delta:.4f}; "
+          f"{tok_checked}/{sum(len(g) for g in greedy)} with a top-2 gap "
+          f"over it) [{card}]", flush=True)
+    return {"results": res, "loglik_rel": rel, "mc_checked": mc_checked,
+            "greedy_delta": delta, "greedy_max_deficit": deficit,
+            "tokens_checked": tok_checked, "eval_s": eval_s, "tree": tree}
+
+
+def cli_export(torch, mods, mm, cm, kernels: dict, ckdir: str, tree: dict,
+               tmp: Path, card: str) -> dict:
+    """18e: `export convert` to gguf (f16), every tensor read back equal to
+    the checkpoint's rounded to f16; to safetensors with --quant int4,
+    served by `serve start --artifact` (gpt-1b): 4 requests through the W4
+    and paged kernels, held by the replay through the plain paged
+    attention."""
+    cfg = cm["get_model_config"]("gpt-1b")
+    gguf = tmp / "gpt-1b-f16.gguf"
+    t0 = time.time()
+    rc, _ = cli_run(cm["cli"], ["export", "convert", "--ckpt", ckdir,
+                                "--format", "gguf", "--out", str(gguf)])
+    gguf_s = time.time() - t0
+    check(rc == 0, f"export convert gguf exited {rc}")
+    meta, tensors = cm["gguf"].read_gguf(gguf)
+    np_tree = cm["gguf"]._tree_f32(tree)
+    want = {"token_embd.weight": np_tree["embed"]["embedding"],
+            "output_norm.weight": 1.0 + np_tree["final_norm"]["scale"]}
+    b = np_tree["blocks"]
+    for i in range(cfg.num_layers):
+        want[f"blk.{i}.attn_q.weight"] = b["q"]["kernel"][i].T
+        want[f"blk.{i}.ffn_down.weight"] = b["mlp"]["down"]["kernel"][i].T
+        want[f"blk.{i}.attn_norm.weight"] = 1.0 + b["attn_norm"]["scale"][i]
+    if "lm_head" in np_tree:
+        want["output.weight"] = np_tree["lm_head"]["kernel"].T
+    check(len(tensors) == 2 + 9 * cfg.num_layers + ("lm_head" in np_tree),
+          f"{len(tensors)} gguf tensors")
+    for name, arr in want.items():
+        ref = arr if arr.ndim == 1 else arr.astype(np.float16)
+        check(np.array_equal(tensors[name], ref), f"gguf {name} differs")
+    check(meta["llama.block_count"] == cfg.num_layers, "gguf metadata")
+    gguf.unlink()
+    art = tmp / "gpt-1b-int4.safetensors"
+    t1 = time.time()
+    rc, _ = cli_run(cm["cli"], ["export", "convert", "--ckpt", ckdir,
+                                "--quant", "int4", "--out", str(art)])
+    int4_s = time.time() - t1
+    check(rc == 0, f"export convert --quant int4 exited {rc}")
+    args = cm["cli"].parse(["serve", "start", "--model", "gpt-1b",
+                            "--artifact", str(art), "--host", "127.0.0.1",
+                            "--port", "0"])
+    srv = cm["serve"].build_server(args)
+    eng = srv.engine
+    check(eng.quantization == "int4", f"served as {eng.quantization}")
+    rec = CallRecorder(torch, mm)
+    rec.install(eng)
+    port = srv.start()
+    try:
+        before = eng.total_dispatched_steps, eng.total_extend_prefills
+        for k in kernels.values():
+            k.launches = 0                           # the main path starts
+        results = post_all(port, cli_bodies(20, CLI_CHILD_REQUESTS,
+                                            cfg.vocab_size, 128, 16),
+                           CLI_CHILD_REQUESTS)
+        launches = {n: k.launches for n, k in kernels.items()}   # it ended
+    finally:
+        srv.stop()
+        rec.remove()
+    steps = eng.total_dispatched_steps - before[0]
+    extends = eng.total_extend_prefills - before[1]
+    L = cfg.num_layers
+    check(launches["int4_matmul"] == L * 7 * steps > 0,
+          f"W4 launches {launches['int4_matmul']} != {L} x 7 x {steps}")
+    check(launches["paged_attention"] == L * (steps + extends) > 0,
+          f"paged launches {launches['paged_attention']}")
+    check(all(len(r["choices"][0]["token_ids"]) == 16 for r in results),
+          "an artifact request came back short")
+    params, geometry = eng.params, pool_geometry(eng)
+    eng.release()
+    held = replay_forwards(torch, mm, params, eng.cfg, geometry, rec)
+    del rec, params, srv, eng
+    torch.cuda.empty_cache()
+    check(held["over_bound"] == 0, f"{held['over_bound']} tokens served from "
+          f"the int4 artifact lie over the near-tie bound under the replay")
+    size = art.stat().st_size
+    art.unlink()
+    print(f"18e export convert: gguf f16 in {gguf_s:.1f}s, every checked "
+          f"tensor equal to the checkpoint's rounded to f16; int4 "
+          f"safetensors ({size / 1e9:.3f} GB) in {int4_s:.1f}s, served by "
+          f"serve start --artifact: {CLI_CHILD_REQUESTS} requests, W4 "
+          f"launches {launches['int4_matmul']} = {L} x 7 x {steps}, paged "
+          f"{launches['paged_attention']}; replay of {held['events']} "
+          f"forwards through the plain paged attention: {held['positions']} "
+          f"positions, largest deficit {held['max_deficit']:.4f} (bound "
+          f"{2 * NEAR_TIE_DELTA}) [{card}]", flush=True)
+    return {"launches": launches, "gguf_s": gguf_s, "int4_s": int4_s,
+            "artifact_bytes": size, "replay": held,
+            **request_rates(results)}
+
+
+def cli_hw_health(cm, tmp: Path, card: str) -> dict:
+    """18f: `hw probe --emit`, `hw benchmark` at 8192^3 and `health check
+    --json`."""
+    import re
+    emit = tmp / "hw.toml"
+    rc, _ = cli_run(cm["cli"], ["hw", "probe", "--emit", str(emit)])
+    check(rc == 0, f"hw probe exited {rc}")
+    profile = cm["load_config_file"](emit)
+    d = profile["chips"]["devices"][0]
+    rc, out = cli_run(cm["cli"], ["hw", "benchmark", "--matmul-size", "8192",
+                                  "--mem-size-mb", "1024"])
+    check(rc == 0, f"hw benchmark exited {rc}")
+    tflops = float(re.search(r"bf16: ([0-9.]+) TFLOP/s", out).group(1))
+    gbps = float(re.search(r"\): ([0-9.]+) GB/s", out).group(1))
+    rc, out = cli_run(cm["cli"], ["health", "check", "--json"])
+    report = json.loads(out.strip().splitlines()[-1])
+    hbm = [c for c in report["checks"] if c["name"].startswith("hbm_device")]
+    check(hbm, "health check has no GPU memory check")
+    check(rc == (1 if report["status"] == "critical" else 0),
+          f"health check exited {rc} with status {report['status']}")
+    print(f"18f hw probe: {d['name']}, {d['memory_gb']:.1f} GB, "
+          f"{d['sm_count']} SMs, power limit {d['power_limit']}; hw "
+          f"benchmark: bf16 matmul 8192^3 {tflops:.1f} TFLOP/s, copy "
+          f"{gbps:.1f} GB/s; health {report['status']} ("
+          f"{hbm[0]['message']}) [{card}]", flush=True)
+    return {"card": d, "matmul_tflops": tflops, "copy_gbps": gbps,
+            "health": report["status"], "hbm_check": hbm[0]}
+
+
+def cli_phase(torch, mods, mm, cm, kernels: dict, card: str) -> dict:
+    """Phase 18: the port's command line and observability on the card."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="llmctl-smoke-cli-") as d:
+        tmp = Path(d)
+        out["serve"] = cli_serve_in_process(torch, mods, cm,
+                                            kernels["paged_attention"], card)
+        out["child"] = cli_serve_subprocess(tmp, card)
+        out["train"] = cli_train(torch, mods, cm, {
+            n: kernels[n] for n in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv", "adamw")}, tmp, card)
+        ev = cli_eval(torch, cm, out["train"]["ckpt"], tmp, card)
+        tree = ev.pop("tree")
+        out["eval"] = ev
+        out["export"] = cli_export(torch, mods, mm, cm, {
+            n: kernels[n] for n in ("paged_attention", "int4_matmul")},
+            out["train"]["ckpt"], tree, tmp, card)
+        del tree
+        out["hw"] = cli_hw_health(cm, tmp, card)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements here (JSON)")
@@ -3496,6 +4059,20 @@ def main() -> int:
         import SamplingParams, loadgen, sampling
     from distributed_llm_training_and_inference_system_tpu_torch.utils.\
         tree import global_norm
+    from distributed_llm_training_and_inference_system_tpu_torch.cli import (
+        main as cli_main)
+    from distributed_llm_training_and_inference_system_tpu_torch.cli.\
+        commands import serve as serve_cmd
+    from distributed_llm_training_and_inference_system_tpu_torch.evals \
+        import tasks as eval_tasks
+    from distributed_llm_training_and_inference_system_tpu_torch.io import \
+        gguf
+    from distributed_llm_training_and_inference_system_tpu_torch.metrics \
+        import observability
+    from distributed_llm_training_and_inference_system_tpu_torch.runtime \
+        import launcher
+    from distributed_llm_training_and_inference_system_tpu_torch.utils.\
+        tomlio import load_config_file
     qmods = {"pa": pa, "pac": pac, "w4": w4, "w8": w8, "tq": tq, "rn": rn,
              "layers": layers,
              "kernels": {
@@ -3525,6 +4102,12 @@ def main() -> int:
                    "speculative": sspec, "layers": layers,
                    "kv_cache": kv_cache, "InferenceEngine": InferenceEngine,
                    "train_entry": train_entry}
+    cli_mods = {"cli": cli_main, "serve": serve_cmd, "obs": observability,
+                "launcher": launcher, "tasks": eval_tasks, "gguf": gguf,
+                "gpt": gpt, "get_model_config": get_model_config,
+                "checkpoint_tree": weights.checkpoint_tree,
+                "params_from_jax": weights.params_from_jax,
+                "load_config_file": load_config_file}
     train_kernels = {"flash_fwd": fac.flash_fwd,
                      "flash_bwd_dq": fac.flash_bwd_dq,
                      "flash_bwd_dkv": fac.flash_bwd_dkv,
@@ -3669,6 +4252,15 @@ def main() -> int:
                                            smi)
         remnants["seconds"] += time.time() - t17
         print(f"phase 17 took {remnants['seconds']:.1f} s", flush=True)
+
+        phase("18 the command line and observability: serve start, "
+              "train launch, eval run, export convert, hw, health", t0)
+        t18 = time.time()
+        cli = cli_phase(torch, mods, engine_mods, cli_mods, {
+            **train_kernels, "paged_attention": paged_attention_kernel,
+            "int4_matmul": w4.int4_matmul_kernel}, smi)
+        cli["seconds"] = time.time() - t18
+        print(f"phase 18 took {cli['seconds']:.1f} s", flush=True)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -3692,7 +4284,8 @@ def main() -> int:
             "replaces": jax_pkg + where,
             "launches": (trained["launches"][name]
                          + moe["train"]["launches"][name]
-                         + remnants["train"]["launches"][name]),
+                         + remnants["train"]["launches"][name]
+                         + cli["train"]["launches"][name]),
             "max_abs_err": errors[name],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
@@ -3709,7 +4302,9 @@ def main() -> int:
                            for r in moe_runs)
                      + remnants["loadgen"]["launches"]
                      + remnants["awq"]["serve"]["launches"][
-                         "paged_attention"]),
+                         "paged_attention"]
+                     + cli["serve"]["launches"]
+                     + cli["export"]["launches"]["paged_attention"]),
         "max_abs_err": max(max_err, moe["kernels"]["paged_attention"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -3727,7 +4322,8 @@ def main() -> int:
         "int8_matmul_ksplit": ("int8_matmul.cu",
                                "ops/int8_matmul_pallas.py:54"),
         "rmsnorm": ("rmsnorm.cu", "ops/rmsnorm.py:20")}
-    quant_launches = {"rmsnorm": norm_path["launches"]}
+    quant_launches = {"rmsnorm": norm_path["launches"],
+                      "int4_matmul": cli["export"]["launches"]["int4_matmul"]}
     for res in [*quant_served.values(), moe["serve"]["runs"]["int8"],
                 remnants["awq"]["serve"]]:
         for name, n in res["launches"].items():
@@ -3753,7 +4349,7 @@ def main() -> int:
         record.update(quant_max_abs_err=quant_err, quant_timing=quant_timing,
                       serve_quantized=quant_served, rmsnorm_path=norm_path,
                       serve_features=features, moe=moe,
-                      remnants=remnants)
+                      remnants=remnants, cli=cli)
         record.update(kernels=kernels, timing=timing, serve=served,
                       paged_vs_dense=dense, flash_vs_plain=flash,
                       adamw_max_abs_err=adamw_err, train_timing=train_timing,

@@ -64,11 +64,15 @@ def state_to_dict(state) -> dict:
 def load_state_dict_into(state, d: dict) -> None:
     """Copy a ``state_to_dict`` result into ``state`` in place (on its
     devices, in its dtypes). The saved optimizer state must have every
-    field of ``state``'s."""
+    field of ``state``'s; a params-only checkpoint (``io.hf_import``)
+    keeps ``state``'s fresh optimizer state."""
     names = [n for n, _ in state.model.named_parameters()]
     params = dict(state.model.named_parameters())
     for n in names:
         params[n].copy_(d["params"][n])
+    state.step = int(d["step"])
+    if "opt_state" not in d:
+        return
     for f in dataclasses.fields(state.opt_state):
         if f.name not in d["opt_state"]:
             raise ValueError(
@@ -83,7 +87,6 @@ def load_state_dict_into(state, d: dict) -> None:
                 raise ValueError(f"optimizer {f.name}[{n}]: shape "
                                  f"{tuple(src[n].shape)} != {tuple(t.shape)}")
             t.copy_(src[n])
-    state.step = int(d["step"])
 
 
 def _parse_slice_key(key: str, shape: tuple) -> tuple:

@@ -4,8 +4,10 @@
 runtime.train_entry --model gpt-1b --max-steps 8
 
 Config precedence is file < env (LLMCTL_*) < CLI flags. Trains on the card
-(``--device cpu`` runs the plain path on the CPU). Multi-host training
-waits for ROADMAP queue 1 item 7.
+(``--device cpu`` runs the plain path on the CPU), with train steps and
+evals fed to ``metrics.observability.engine_observer()`` (a scrape endpoint
+when ``LLMCTL_METRICS_PORT`` is set). Multi-host training waits for ROADMAP
+queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ def main(argv: list[str] | None = None) -> int:
 
     from ..config.loader import load_run_config
     from ..config.presets import get_model_config
+    from ..metrics.observability import engine_observer
     from .engine import TrainingEngine
     overrides = parse_overrides(args.set)
     if args.max_steps is not None:
@@ -52,7 +55,8 @@ def main(argv: list[str] | None = None) -> int:
     cfg = load_run_config(args.config, cli_overrides=overrides)
     if args.model:
         cfg.model = get_model_config(args.model)
-    engine = TrainingEngine(cfg, device=args.device)
+    engine = TrainingEngine(cfg, device=args.device,
+                            observer=engine_observer())
     try:
         final = engine.train(resume=not args.no_resume)
     finally:

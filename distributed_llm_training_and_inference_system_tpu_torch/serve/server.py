@@ -9,7 +9,10 @@ runs ``engine.step()``, which holds the engine lock only around
 bookkeeping, never across device work. CORS follows
 ``ServeConfig.cors_origins`` ("" off, "*" any origin, or a comma-separated
 list of origins) with the JAX server's headers, ``OPTIONS`` preflights
-included. ``/metrics`` is not ported yet (ROADMAP queue 1 item 8).
+included. Every finished request goes to ``observer("inference_request",
+payload)`` with the JAX server's payload keys. ``/metrics`` renders the
+registry or fails with its error; a server given no registry answers 404
+there.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from ..metrics.observability import CONTENT_TYPE as METRICS_CONTENT_TYPE
 from .engine import InferenceEngine
 from .scheduler import Request, RequestState, SamplingParams
 from .tokenizer import IncrementalDecoder, load_tokenizer
@@ -116,7 +120,11 @@ class InferenceServer:
     thread."""
 
     def __init__(self, model_cfg, serve_cfg, params=None, device=None,
-                 seed: int = 0):
+                 seed: int = 0, observer=None, metrics=None):
+        """``observer(event, payload)`` receives an "inference_request"
+        event for each finished request; ``metrics`` is what ``GET
+        /metrics`` renders (anything with a ``render() -> bytes``, such as
+        ``metrics.observability.PrometheusExporter``)."""
         self.model_cfg = model_cfg
         self.serve_cfg = serve_cfg
         self.tokenizer = load_tokenizer(serve_cfg.artifact or None,
@@ -124,6 +132,8 @@ class InferenceServer:
         self.engine = InferenceEngine(
             model_cfg, serve_cfg, params=params, seed=seed, device=device,
             eos_token_id=getattr(self.tokenizer, "eos_token_id", None))
+        self.observer = observer or (lambda event, payload: None)
+        self.metrics = metrics
         self._lock = self.engine.lock
         self._wake = threading.Event()
         self._stop = threading.Event()
@@ -215,7 +225,7 @@ class InferenceServer:
             return 504, {"error": "timeout"}
         if req.state is RequestState.FAILED:
             return 500, {"error": req.error or "failed"}
-        self._record(req)
+        self._record_request_metrics(req)
         n_gen = len(req.generated_tokens)
         return 200, {
             "id": req.request_id,
@@ -266,7 +276,7 @@ class InferenceServer:
             yield chunk(decoder.feed(batch), token_ids=batch)
         self._streams.pop(req.request_id, None)
         self._waiters.pop(req.request_id, None)
-        self._record(req)
+        self._record_request_metrics(req)
         yield chunk(decoder.finish(), req.finish_reason or "error")
         yield b"data: [DONE]\n\n"
 
@@ -277,7 +287,9 @@ class InferenceServer:
             with self._lock:
                 self.engine.scheduler.cancel(req.request_id)
 
-    def _record(self, req: Request) -> None:
+    def _record_request_metrics(self, req: Request) -> None:
+        """/health percentiles and the observer's event for a finished
+        request (the blocking and streaming paths share it)."""
         if req.finish_time is None:
             return
         latency_ms = (req.finish_time - req.arrival_time) * 1000.0
@@ -287,6 +299,16 @@ class InferenceServer:
             if req.ttft_ms is not None:
                 self._recent_ttfts = (
                     self._recent_ttfts + [req.ttft_ms])[-1000:]
+            st = self.engine.stats()
+        self.observer("inference_request", {
+            "latency_ms": latency_ms, "ttft_ms": req.ttft_ms,
+            "prompt_tokens": req.num_prompt_tokens,
+            "tokens": len(req.generated_tokens),
+            "queue_depth": st["queue_depth"],
+            "preemptions": st["preemptions"],
+            "swap_ins": st["swap_ins"],
+            "swapped_host_bytes": st["swapped_host_bytes"],
+        })
 
     def health(self) -> tuple[int, dict]:
         with self._lock:
@@ -376,10 +398,25 @@ def _make_handler(server: InferenceServer):
             self._cors()
             self.end_headers()
 
+        def _metrics(self) -> None:
+            if server.metrics is None:
+                self._json(404, {"error": "this server exports no metrics "
+                                          "(serve start --prometheus-port)"})
+                return
+            data = server.metrics.render()
+            self.send_response(200)
+            self.send_header("Content-Type", METRICS_CONTENT_TYPE)
+            self.send_header("Content-Length", str(len(data)))
+            self._cors()
+            self.end_headers()
+            self.wfile.write(data)
+
         def do_GET(self):
             routes = {"/health": server.health, "/v1/stats": server.stats,
                       "/v1/models": server.models}
-            if self.path in routes:
+            if self.path == "/metrics":
+                self._metrics()
+            elif self.path in routes:
                 self._json(*routes[self.path]())
             else:
                 self._json(404, {"error": f"no route {self.path}"})

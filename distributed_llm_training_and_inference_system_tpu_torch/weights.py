@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from .device import resolve_device
-from .io.checkpoint import subtree
+from .io.checkpoint import CheckpointManager, params_from_flat, subtree
 from .models.gpt import GPT, Block, activation_channel_scales
 from .ops.quantization import QuantTensor, Quant4Tensor
 
@@ -255,6 +255,38 @@ def params_to_tree(model: GPT) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = value
     return tree
+
+
+def tree_from_named(named: dict) -> dict:
+    """The JAX-layout tree of a full-precision {port name: tensor} dict
+    (block leaves stacked on [L, ...]); the inverse of
+    ``named_from_tree``."""
+    tree: dict = {"blocks": {}}
+    for name, path in _TOP_LEAVES.items():
+        if name in named:
+            tree.setdefault(path[0], {})[path[1]] = named[name]
+    layers = sorted({int(m.group(1)) for n in named
+                     if (m := _LAYER.match(n))})
+    attrs = {n.split(".", 2)[2] for n in named if _LAYER.match(n)}
+    for attr in sorted(attrs):
+        node = tree["blocks"]
+        path = _ATTR_PATH[attr]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = torch.stack(
+            [named[f"blocks.{i}.{attr}"] for i in layers])
+    return tree
+
+
+def checkpoint_tree(directory, step=None) -> tuple[dict, dict]:
+    """(JAX-layout param tree of host tensors, extra metadata) of a
+    committed checkpoint, the port's or the JAX package's."""
+    ckpt = CheckpointManager(directory)
+    jax_written = ckpt.is_jax(step)
+    state, extra = ckpt.restore(step=step)
+    if jax_written:
+        return params_from_flat(state), extra
+    return tree_from_named(state["params"]), extra
 
 
 # -- optimizer state ---------------------------------------------------------

@@ -1,5 +1,9 @@
 """The port and chip_smoke.py never import JAX, the JAX package, optax,
-ml_dtypes or safetensors."""
+ml_dtypes or safetensors, nor what the card machine lacks of the JAX
+CLI's and metrics' packages: click, rich, psutil, prometheus_client,
+aiohttp and opentelemetry. The one exception is ``OTLPExporter``'s lazy
+``opentelemetry`` import (``metrics/observability.py``), made only when
+an OTLP endpoint is asked for."""
 
 import ast
 import subprocess
@@ -11,9 +15,13 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = "distributed_llm_training_and_inference_system_tpu_torch"
 # JAX and its package, and what the card machine lacks: optax,
-# ml_dtypes, safetensors
+# ml_dtypes, safetensors, and the JAX CLI's and metrics' packages
 FORBIDDEN = {"jax", "jaxlib", "distributed_llm_training_and_inference_system_tpu",
-             "optax", "ml_dtypes", "safetensors"}
+             "optax", "ml_dtypes", "safetensors", "click", "rich", "psutil",
+             "prometheus_client", "aiohttp", "opentelemetry"}
+# (port file, package) -> the one function allowed to import it lazily
+LAZY_EXCEPTIONS = {("metrics/observability.py", "opentelemetry"):
+                   "OTLPExporter.__init__"}
 SOURCES = sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -33,11 +41,39 @@ def _imported_top_levels(path: Path) -> set:
     return names
 
 
+def _allowed(path: Path) -> set:
+    rel = str(path.relative_to(ROOT / PORT)) if PORT in path.parts else ""
+    return {pkg for (f, pkg) in LAZY_EXCEPTIONS if f == rel}
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import(path):
     assert path.is_file()
-    bad = _imported_top_levels(path) & FORBIDDEN
+    bad = _imported_top_levels(path) & FORBIDDEN - _allowed(path)
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_the_lazy_opentelemetry_import_is_the_one_exception():
+    """opentelemetry is imported in OTLPExporter.__init__ and nowhere else
+    in the file: not at module level, not in another function."""
+    for (rel, pkg), where in LAZY_EXCEPTIONS.items():
+        tree = ast.parse((ROOT / PORT / rel).read_text())
+        cls_name, fn_name = where.split(".")
+        found = []
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ClassDef):
+                for fn in node.body:
+                    if isinstance(fn, ast.FunctionDef):
+                        for sub in ast.walk(fn):
+                            if isinstance(sub, ast.ImportFrom) and (
+                                    sub.module or "").split(".")[0] == pkg:
+                                found.append((node.name, fn.name))
+        assert found and set(found) == {(cls_name, fn_name)}, found
+        top = {n.module.split(".")[0] for n in tree.body
+               if isinstance(n, ast.ImportFrom) and n.module}
+        top |= {a.name.split(".")[0] for n in tree.body
+                if isinstance(n, ast.Import) for a in n.names}
+        assert pkg not in top
 
 
 def test_every_module_imports_with_jax_blocked():
