@@ -211,7 +211,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              paged launches counted, every forward replayed through the
              plain paged attention with the tokens held; (f) `hw probe
              --emit`, `hw benchmark` (bf16 matmul 8192^3, a 1 GB copy)
-             and `health check --json` with its GPU memory check.
+             and `health check --json` with its GPU memory check;
+19. tools  — the operator's commands and the data loader, in process:
+             (a) `bench kernels` at its defaults (the flash kernels time
+             attention_flash); (b) `bench kv-decode` at llama-8b-gqa's
+             decode geometry, 8 slots x 2048: each page kind's kernel
+             launched once a step, one step of each kind against the
+             gather path within phase 11's tolerances; (c) `bench e2e
+             --mode serve-load` on llama-8b-gqa at full width and depth,
+             Poisson at 2 rps and a closed loop of 8, 8 x (512 + 64):
+             TTFT/TPOT p50/p99, goodput, each point's paged launches = 32
+             x its engine's dispatched steps; (d) `bench e2e --mode train`
+             on gpt-1b, 3 steps of 4 x 2048: tokens/s, step ms, flash and
+             AdamW launches; (e) `trace capture` of gpt-1b (2 steps): the
+             Chrome trace's kernel events name the flash and AdamW kernels,
+             and `trace summarize`; (f) `replay run` of (e)'s manifest within 1e-4; (g)
+             `tune kernels`, its cache read back by AutoTuner.load_results;
+             (h) `bench dataloader` over file:// shards with prefetch 2,
+             the native packer built and used and its batches equal to
+             LLMCTL_NO_NATIVE=1's, and both packers' synchronous fetch
+             time a batch; (i) `admin inspect` and `admin gc
+             --dry-run` on (e)'s checkpoint; (j) one gpt-1b engine at 4 x
+             2048, runs alternating: tok/s with the training set
+             prefetched (the default) and bare, and with the profiler on.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} record. Without a CUDA card, or without the rest of the
@@ -3993,6 +4015,450 @@ def cli_phase(torch, mods, mm, cm, kernels: dict, card: str) -> dict:
     return out
 
 
+# -- phase 19: the operator's tools -----------------------------------------
+
+TOOLS_KV = ["--slots", "8", "--kv-heads", "8", "--q-heads", "32",
+            "--head-dim", "128", "--page-size", "64", "--context", "2048"]
+TOOLS_LOAD = ["--mode", "serve-load",
+              "--requests", "8", "--prompt-len", "512", "--gen-len", "64",
+              "--rps", "2", "--concurrency", "8"]
+TOOLS_SERVE_MODEL, TOOLS_TRAIN_MODEL = "llama-8b-gqa", "gpt-1b"
+TOOLS_TRAIN_STEPS = 3          # 19d, after one warm-up step
+TOOLS_TRACE_STEPS = 2          # 19e
+TOOLS_TRACE_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                       "flash_bwd_dkv_bf16_kernel", "adamw_kernel")
+REPLAY_TOL = 1e-4              # replay run's own default
+TOOLS_AB_STEPS, TOOLS_AB_ROUNDS = 4, 2      # 19j
+
+
+def json_of(out: str) -> dict:
+    return json.loads(out[out.index("{"):])
+
+
+def reset(kernels: dict) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def counts(kernels: dict) -> dict:
+    return {n: k.launches for n, k in kernels.items()}
+
+
+def tools_kernels(cli, card: str, kernels: dict) -> dict:
+    """19a: `bench kernels --op all` at the JAX command's defaults."""
+    reset(kernels)
+    rc, out = cli_run(cli, ["bench", "kernels"])
+    n = counts(kernels)
+    check(rc == 0, f"bench kernels exited {rc}")
+    res = json_of(out)
+    check("attention_flash" in res, "bench kernels timed no attention_flash")
+    check(n["flash_fwd"] > 0, "bench kernels launched no flash forward")
+    print(f"19a bench kernels: " + ", ".join(
+        f"{k} {v['time_ms']:.4f} ms" for k, v in res.items())
+        + f"; flash {res['attention_flash']['speedup_vs_xla']:.2f}x the "
+          f"plain attention; flash forward launches {n['flash_fwd']} "
+          f"[{card}]", flush=True)
+    return {"results": res, "launches": n}
+
+
+def tools_kv_decode(torch, tm, qm, card: str, kernels: dict) -> dict:
+    """19b: `bench kv-decode` at llama-8b-gqa's decode geometry; each page
+    kind's kernel launched once a step; one step of each kind held to the
+    plain paged attention within phase 11's tolerances."""
+    bench = tm["bench"]
+    reset(kernels)
+    rc, out = cli_run(tm["cli"], ["bench", "kv-decode"] + TOOLS_KV)
+    n = counts(kernels)
+    check(rc == 0, f"bench kv-decode exited {rc}")
+    res = json_of(out)
+    steps = 50 + 1                       # the default steps and a warm-up
+    for name in ("paged_attention", "paged_attention_int8",
+                 "paged_attention_int4"):
+        check(n[name] == steps, f"kv-decode: {name} launched {n[name]} "
+              f"times, not {steps}")
+    inp = bench.kv_decode_inputs(8, 8, 128, 32, 64, 2048,
+                                 torch.device("cuda"))
+    errs = {}
+    for kind in bench.KV_KINDS:
+        with torch.inference_mode():
+            got = bench.kv_decode_step(bench.kv_decode_pages(
+                kind, inp["kf"]), inp, "paged").float()
+            pages = bench.kv_decode_pages(kind, inp["kf"])
+            ref = bench.kv_decode_step(pages, inp, "paged",
+                                       impl="gather").float()
+        err = (got - ref).abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"kv-decode {kind}: non-finite")
+        check(err <= TOL["bfloat16"], f"kv-decode {kind}: {err} past "
+              f"{TOL['bfloat16']}")
+        # the kernel reads the pages (dequantized) into fp32: held to the
+        # gather over the written pages in fp32, within phase 11's limits
+        fp32 = (pages.float() if kind == "bf16"
+                else pages.dequant(torch.float32))
+        exact = qm["pa"].paged_attention(
+            inp["q"], fp32, fp32, inp["tables"], inp["lengths"],
+            impl="gather").float()
+        diff = (got - exact).abs()
+        row = row_scaled_error(diff, exact).max().item()
+        rms = (diff.pow(2).mean().sqrt()
+               / exact.pow(2).mean().sqrt()).item()
+        check(row <= FLASH_ROW_TOL and rms <= FLASH_RMS_TOL,
+              f"kv-decode {kind}: row error {row:.3e}, rms {rms:.3e}")
+        line = f"{kind} max_abs_err {err:.3e} row {row:.1e} rms {rms:.1e}"
+        errs[kind] = err
+        print(f"19b kv-decode step {line} "
+              f"({res[kind]['ms_per_layer_step']} ms a layer step)",
+              flush=True)
+    print(f"19b bench kv-decode llama-8b-gqa 8 slots x 2048: ms a layer "
+          f"step bf16 {res['bf16']['ms_per_layer_step']}, int8 "
+          f"{res['int8']['ms_per_layer_step']}, int4 "
+          f"{res['int4']['ms_per_layer_step']}; launches {n} [{card}]",
+          flush=True)
+    return {"results": res, "launches": n, "max_abs_err": errs}
+
+
+def tools_serve_load(torch, tm, card: str, kernels: dict) -> dict:
+    """19c: `bench e2e --mode serve-load` on llama-8b-gqa at full width and
+    depth, one Poisson rate and one closed-loop concurrency; each point's
+    paged launches between its counter reset (after its warm-up request)
+    and its device-time calibration equal the layers x (dispatched steps +
+    suffix prefills + chunks) of its engine counters, as in phase 17b."""
+    bench, lg = tm["bench"], tm["loadgen"]
+    kernel = kernels["paged_attention"]
+    marks, calib = [], []
+    orig_reset, orig_attach = bench._reset_counters, lg.attach_device_times
+
+    def reset_hook(eng):
+        orig_reset(eng)
+        marks.append(kernel.launches)
+
+    def attach_hook(res, reqs, eng):
+        n = kernel.launches
+        out = orig_attach(res, reqs, eng)
+        calib.append((n, kernel.launches))
+        return out
+    bench._reset_counters, lg.attach_device_times = reset_hook, attach_hook
+    reset(kernels)
+    try:
+        rc, out = cli_run(tm["cli"], ["bench", "e2e", "--model",
+                                      TOOLS_SERVE_MODEL] + TOOLS_LOAD)
+    finally:
+        bench._reset_counters, lg.attach_device_times = (orig_reset,
+                                                         orig_attach)
+    n = counts(kernels)
+    check(rc == 0, f"bench e2e serve-load exited {rc}")
+    sl = json_of(out)["serve_load"]
+    points = sl["open_loop"] + sl["closed_loop"]
+    check(len(points) == 2 == len(marks) == len(calib),
+          f"serve-load: {len(points)} points, {len(marks)} resets")
+    L = tm["get_model_config"](TOOLS_SERVE_MODEL).num_layers
+    for s, mark, (c0, c1) in zip(points, marks, calib):
+        e = s["engine"]
+        run = c0 - mark
+        want = L * (e["dispatched_steps"] + e["extend_prefills"]
+                    + e["prefill_chunks"])
+        check(s["completed"] == 8 and s["failed"] == 0,
+              f"serve-load: {s['completed']} completed")
+        check(run == want and run > 0, f"serve-load: {run} paged launches, "
+              f"{L} x the engine's dispatched steps = {want}")
+        kind = ("closed loop at " + str(s.get("concurrency"))
+                if "concurrency" in s else f"Poisson at {s['offered_rps']}")
+        print(f"19c serve-load {kind}: TTFT p50 {s['p50_ttft_ms']:.1f} ms "
+              f"p99 {s['p99_ttft_ms']:.1f}, TPOT p50 {s['p50_tpot_ms']:.2f} "
+              f"p99 {s['p99_tpot_ms']:.2f} ms, goodput "
+              f"{s['goodput_tok_s']:.1f} tok/s, on-device TTFT p50 "
+              f"{s['p50_ttft_device_ms']} ms; paged launches {run} = {L} x "
+              f"{want // L}, calibration {c1 - c0} [{card}]", flush=True)
+    return {"serve_load": sl, "launches": n}
+
+
+def tools_train(tm, card: str, kernels: dict) -> dict:
+    """19d: `bench e2e --mode train` on gpt-1b at full width and depth,
+    micro-batch 4 x 2048: the flash kernels launched 2 x 24 / 24 / 24 a
+    step (selective remat) and AdamW a whole number of times a step."""
+    reset(kernels)
+    rc, out = cli_run(tm["cli"], [
+        "bench", "e2e", "--model", TOOLS_TRAIN_MODEL, "--mode", "train",
+        "--steps",
+        str(TOOLS_TRAIN_STEPS), "--batch", "4", "--seq-len", "2048"])
+    n = counts(kernels)
+    check(rc == 0, f"bench e2e train exited {rc}")
+    res = json_of(out)["train"]
+    steps = TOOLS_TRAIN_STEPS + 1
+    L = tm["get_model_config"](TOOLS_TRAIN_MODEL).num_layers
+    check(n["flash_fwd"] == 2 * L * steps and n["flash_bwd_dq"] == L * steps
+          and n["flash_bwd_dkv"] == L * steps, f"bench train launches {n}")
+    check(n["adamw"] > 0 and n["adamw"] % steps == 0,
+          f"bench train: {n['adamw']} AdamW launches over {steps} steps")
+    print(f"19d bench e2e train gpt-1b 4 x 2048: {res['tokens_per_sec']:.0f} "
+          f"tok/s, step {res['step_ms']:.1f} ms, "
+          f"{res['model_tflops_per_sec']:.1f} model TFLOP/s; launches {n} "
+          f"[{card}]", flush=True)
+    return {"results": res, "launches": n}
+
+
+def trace_kernel_names(path: Path) -> set:
+    import gzip
+    raw = path.read_bytes()
+    if path.name.endswith(".gz"):
+        raw = gzip.decompress(raw)
+    events = json.loads(raw)["traceEvents"]
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def tools_trace_replay(tm, tmp: Path, card: str, kernels: dict) -> dict:
+    """19e: `trace capture` of gpt-1b (4 x 2048, 2 steps): the Chrome
+    trace's kernel events name the flash and AdamW kernels; `trace
+    summarize`. 19f: `replay run` of that run's manifest within 1e-4."""
+    cfg = tmp / "trace.toml"
+    ck = tmp / "trace-ck"
+    cfg.write_text(f'[checkpoint]\npath = "{ck}"\n[data]\nmax_length = '
+                   f'2048\n[parallel]\nmicro_batch_size = 4\n'
+                   f'global_batch_size = 4\n')
+    out_dir = tmp / "traces"
+    reset(kernels)
+    t0 = time.time()
+    rc, _ = cli_run(tm["cli"], ["trace", "capture", "--config", str(cfg),
+                                "--model", TOOLS_TRAIN_MODEL, "--steps",
+                                str(TOOLS_TRACE_STEPS), "--out",
+                                str(out_dir)])
+    trace_s = time.time() - t0
+    n = counts(kernels)
+    check(rc == 0, f"trace capture exited {rc}")
+    L = tm["get_model_config"](TOOLS_TRAIN_MODEL).num_layers
+    steps = TOOLS_TRACE_STEPS
+    check(n["flash_fwd"] == 2 * L * steps and n["flash_bwd_dq"] == L * steps
+          and n["adamw"] > 0, f"trace capture launches {n}")
+    [trace] = sorted(out_dir.iterdir())
+    names = trace_kernel_names(trace)
+    found = {k: sum(k in name for name in names) > 0
+             for k in TOOLS_TRACE_KERNELS}
+    check(all(found.values()), f"the Chrome trace lacks kernels: {found} "
+          f"({len(names)} kernel names)")
+    rc, out = cli_run(tm["cli"], ["trace", "summarize", str(out_dir)])
+    check(rc == 0 and "Chrome traces present" in out, "trace summarize")
+    print(f"19e trace capture gpt-1b 4 x 2048, {steps} steps in "
+          f"{trace_s:.1f}s (save included): {trace.name}, "
+          f"{trace.stat().st_size / 1e6:.1f} MB, {len(names)} kernel names, "
+          f"{', '.join(TOOLS_TRACE_KERNELS)} present; launches {n} "
+          f"[{card}]", flush=True)
+    launches = dict(n)
+    reset(kernels)
+    t0 = time.time()
+    rc, out = cli_run(tm["cli"], ["replay", "run", str(ck)])
+    replay_s = time.time() - t0
+    n = counts(kernels)
+    import re
+    m = re.search(r"rel diff ([0-9.e+-]+) -> (MATCH|MISMATCH)", out)
+    check(m is not None, f"replay printed no comparison: {out[-300:]}")
+    rel = float(m.group(1))
+    check(rc == 0 and m.group(2) == "MATCH" and rel <= REPLAY_TOL,
+          f"replay run: rc {rc}, rel diff {rel}")
+    print(f"19f replay run of 19e's manifest in {replay_s:.1f}s: rel diff "
+          f"{rel:.3e} (tolerance {REPLAY_TOL:.0e}); launches {n} [{card}]",
+          flush=True)
+    for k, v in n.items():
+        launches[k] += v
+    return {"trace": str(trace.name), "trace_bytes": trace.stat().st_size,
+            "trace_s": trace_s, "replay_rel_diff": rel, "replay_s": replay_s,
+            "launches": launches, "ckpt": str(ck)}
+
+
+def tools_tune(tm, tmp: Path, card: str, kernels: dict) -> dict:
+    """19g: `tune kernels` at the JAX command's (small) defaults; the cache
+    read back through AutoTuner.load_results."""
+    reset(kernels)
+    rc, out = cli_run(tm["cli"], ["tune", "kernels", "--output-dir",
+                                  str(tmp / "tune")])
+    n = counts(kernels)
+    check(rc == 0, f"tune kernels exited {rc}")
+    tuner = tm["autotuning"].AutoTuner()
+    tuner.load_results(tmp / "tune" / "tuning_cache.json")
+    keys = sorted(tuner.cache)
+    check(keys == ["attention_512_64_8_8_gpu", "matmul_1024x1024x1024_gpu"],
+          f"tuning cache keys {keys}")
+    att = tuner.cache["attention_512_64_8_8_gpu"]
+    impls = {r["params"]["impl"] for r in att["all_results"]}
+    check(impls == {"xla", "flash"} and n["flash_fwd"] > 0,
+          f"tune kernels: attention trials {impls}, launches {n}")
+    mm = tuner.cache["matmul_1024x1024x1024_gpu"]
+    print(f"19g tune kernels: matmul best {mm['best_params']} "
+          f"{mm['best_latency_ms']:.4f} ms of {mm['num_evaluated']}; "
+          f"attention best {att['best_params']} "
+          f"{att['best_latency_ms']:.4f} ms of {att['num_evaluated']}; "
+          f"cache read back ({len(keys)} entries) [{card}]", flush=True)
+    return {"matmul": mm["best_params"], "attention": att["best_params"],
+            "launches": n}
+
+
+def tools_dataloader(tm, tmp: Path, card: str) -> dict:
+    """19h: `bench dataloader` over shards this phase writes (file://,
+    prefetch 2): the native packer built and used; its batches equal
+    LLMCTL_NO_NATIVE=1's byte for byte."""
+    data, native = tm["data"], tm["native"]
+    rng = np.random.default_rng(19)
+    root = tmp / "shards"
+    for i in range(4):
+        data.write_token_shard(root / f"part-{i}.bin", [
+            rng.integers(1, 50304, size=int(rng.integers(64, 4096)))
+            for _ in range(256)])
+    native.NativePacker.batches = 0
+    rc, out = cli_run(tm["cli"], [
+        "bench", "dataloader", "--path", f"file://{root}", "--batch", "8",
+        "--seq-len", "2048", "--batches", "50", "--prefetch", "2",
+        "--step-ms", "5"])
+    check(rc == 0, f"bench dataloader exited {rc}")
+    res = json_of(out)
+    packed = native.NativePacker.batches
+    check(packed >= 51 and native.library_path().is_file(),
+          f"native packer: {packed} batches, library "
+          f"{native.library_path()}")
+    kw = dict(seed=0, prefetch=2)
+    fast = data.make_dataset(f"file://{root}", 8, 2048, 50304, **kw)
+    os.environ["LLMCTL_NO_NATIVE"] = "1"
+    try:
+        slow = data.make_dataset(f"file://{root}", 8, 2048, 50304, **kw)
+    finally:
+        del os.environ["LLMCTL_NO_NATIVE"]
+    try:
+        check(slow.inner._native is None and fast.inner._native is not None,
+              "LLMCTL_NO_NATIVE did not choose the numpy packer")
+        for i in range(20):
+            a, b = next(fast), next(slow)
+            check(all(a[k].tobytes() == b[k].tobytes() for k in a),
+                  f"native batch {i} differs from numpy's")
+    finally:
+        fast.close()
+        slow.close()
+    # the packers alone: synchronous fetch ms a batch, native and numpy
+    sync = {}
+    for packer, env in (("native", None), ("numpy", "1")):
+        if env:
+            os.environ["LLMCTL_NO_NATIVE"] = env
+        try:
+            rc, out = cli_run(tm["cli"], [
+                "bench", "dataloader", "--path", f"file://{root}",
+                "--batch", "8", "--seq-len", "2048", "--batches", "50"])
+        finally:
+            os.environ.pop("LLMCTL_NO_NATIVE", None)
+        check(rc == 0, f"bench dataloader ({packer}) exited {rc}")
+        sync[packer] = json_of(out)["fetch_ms_per_batch"]
+    print(f"19h bench dataloader file:// 8 x 2048, prefetch 2, 5 ms step: "
+          f"{res['tokens_per_sec']:.0f} tok/s, stall "
+          f"{res['stall_ms_per_batch']:.3f} ms a batch; {packed} batches "
+          f"packed natively; 20 batches equal numpy's byte for byte; "
+          f"synchronous fetch {sync['native']:.3f} ms a batch native, "
+          f"{sync['numpy']:.3f} numpy [{card}]", flush=True)
+    return {"results": res, "native_batches": packed,
+            "fetch_ms_per_batch": sync}
+
+
+def tools_admin(tm, ck: str, card: str) -> dict:
+    """19i: `admin inspect` and `admin gc --dry-run` on 19e's checkpoint."""
+    t0 = time.time()
+    rc, out = cli_run(tm["cli"], ["admin", "inspect", "--ckpt", ck,
+                                  "--limit", "5"])
+    inspect_s = time.time() - t0
+    check(rc == 0 and "step 2:" in out and "opt_state.count" in out,
+          f"admin inspect: {out[-300:]}")
+    rc, gc_out = cli_run(tm["cli"], ["admin", "gc", "--ckpt", ck,
+                                     "--keep-latest", "1", "--dry-run"])
+    check(rc == 0 and "nothing to collect" in gc_out, f"admin gc: {gc_out}")
+    print(f"19i admin inspect in {inspect_s:.1f}s: "
+          f"{out.strip().splitlines()[-2]}; admin gc --dry-run: "
+          f"{gc_out.strip()} [{card}]", flush=True)
+    return {"inspect_s": inspect_s}
+
+
+def tools_engine_ab(torch, tm, tmp: Path, card: str) -> dict:
+    """19j: what the engine's data and profiler settings cost a gpt-1b step
+    (4 x 2048), on one engine: the training set prefetched as
+    ``data.prefetch_factor`` 2 (the default) makes it, a PrefetchLoader
+    of depth 2 over the synthetic set, against the bare set (0); and the
+    prefetched set with ``training.profile`` on. Runs alternate
+    (prefetched, bare, profiled; twice), each TOOLS_AB_STEPS steps from
+    step 0; a run's tok/s are its steps after the first. The A/B times
+    the step loop, so the engine's end-of-run save is skipped."""
+    cfg = train_cfg(tm, str(tmp / "ab"), max_steps=TOOLS_AB_STEPS,
+                    profile_dir=str(tmp / "ab-traces"))
+    cfg.data.prefetch_factor = 0
+    log: list = []
+    eng = tm["TrainingEngine"](
+        cfg, observer=lambda e, p: (log.append(p["tokens_per_sec"])
+                                    if e == "train_step" else None))
+    eng.save = lambda step: None
+    bare = eng.train_data
+    check(type(bare).__name__ == "SyntheticDataset",
+          f"19j: the bare training set is a {type(bare).__name__}")
+    eng.initialize(resume=False)
+    tok_s: dict = {"prefetched": [], "bare": [], "profiled": []}
+    try:
+        for _ in range(TOOLS_AB_ROUNDS):
+            for arm in tok_s:
+                eng.cfg.training.profile = arm == "profiled"
+                if arm != "bare":
+                    eng.train_data = tm["data"].PrefetchLoader(bare, depth=2)
+                del log[:]
+                try:
+                    eng.train(resume=False)
+                finally:
+                    if eng.train_data is not bare:
+                        eng.train_data.close()
+                        eng.train_data = bare
+                check(len(log) == TOOLS_AB_STEPS, f"19j {arm}: {len(log)} "
+                      f"logged steps")
+                tok_s[arm] += log[1:]
+    finally:
+        eng.close()
+    med = {arm: float(np.median(v)) for arm, v in tok_s.items()}
+    out = {"tok_s": tok_s, "median_tok_s": med,
+           "prefetch_gain": med["prefetched"] / med["bare"] - 1.0,
+           "profiler_step_cost": med["prefetched"] / med["profiled"] - 1.0}
+    print(f"19j gpt-1b 4 x 2048, one engine, {TOOLS_AB_ROUNDS} rounds of "
+          f"{TOOLS_AB_STEPS} steps: median tok/s over steps 2..: "
+          f"prefetched (the default) {med['prefetched']:.0f}, bare "
+          f"{med['bare']:.0f} (prefetch {out['prefetch_gain']:+.1%}), "
+          f"profiled {med['profiled']:.0f} (a traced step costs "
+          f"{out['profiler_step_cost']:+.1%}); per step "
+          + "; ".join(f"{a} " + " ".join(f"{v:.0f}" for v in vs)
+                      for a, vs in tok_s.items()) + f" [{card}]", flush=True)
+    return out
+
+
+def tools_phase(torch, tm, qm, kernels: dict, card: str) -> dict:
+    """Phase 19: the operator's tools on the card."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="llmctl-smoke-tools-") as d:
+        tmp = Path(d)
+        flash = {n: kernels[n] for n in ("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv", "adamw")}
+        paged = {n: kernels[n] for n in ("paged_attention",
+                                         "paged_attention_int8",
+                                         "paged_attention_int4")}
+        for name, fn in (
+                ("kernels", lambda: tools_kernels(tm["cli"], card, flash)),
+                ("kv_decode", lambda: tools_kv_decode(torch, tm, qm, card,
+                                                      paged)),
+                ("serve_load", lambda: tools_serve_load(torch, tm, card,
+                                                        paged)),
+                ("train", lambda: tools_train(tm, card, flash)),
+                ("trace", lambda: tools_trace_replay(tm, tmp, card, flash)),
+                ("tune", lambda: tools_tune(tm, tmp, card, flash)),
+                ("dataloader", lambda: tools_dataloader(tm, tmp, card))):
+            t0 = time.time()
+            out[name] = fn()
+            out[name]["seconds"] = time.time() - t0
+            print(f"19 {name} took {out[name]['seconds']:.1f} s", flush=True)
+            torch.cuda.empty_cache()
+        out["admin"] = tools_admin(tm, out["trace"]["ckpt"], card)
+        t0 = time.time()
+        out["engine_ab"] = tools_engine_ab(torch, tm, tmp, card)
+        out["engine_ab"]["seconds"] = time.time() - t0
+        print(f"19 engine_ab took {out['engine_ab']['seconds']:.1f} s",
+              flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements here (JSON)")
@@ -4073,6 +4539,12 @@ def main() -> int:
         import launcher
     from distributed_llm_training_and_inference_system_tpu_torch.utils.\
         tomlio import load_config_file
+    from distributed_llm_training_and_inference_system_tpu_torch.cli.\
+        commands import bench as bench_cmd
+    from distributed_llm_training_and_inference_system_tpu_torch.io import \
+        native
+    from distributed_llm_training_and_inference_system_tpu_torch.plugins \
+        import autotuning
     qmods = {"pa": pa, "pac": pac, "w4": w4, "w8": w8, "tq": tq, "rn": rn,
              "layers": layers,
              "kernels": {
@@ -4108,6 +4580,11 @@ def main() -> int:
                 "checkpoint_tree": weights.checkpoint_tree,
                 "params_from_jax": weights.params_from_jax,
                 "load_config_file": load_config_file}
+    tool_mods = {"cli": cli_main, "bench": bench_cmd, "loadgen": loadgen,
+                 "data": iodata, "native": native, "autotuning": autotuning,
+                 "get_model_config": get_model_config,
+                 "load_run_config": load_run_config,
+                 "TrainingEngine": TrainingEngine}
     train_kernels = {"flash_fwd": fac.flash_fwd,
                      "flash_bwd_dq": fac.flash_bwd_dq,
                      "flash_bwd_dkv": fac.flash_bwd_dkv,
@@ -4261,6 +4738,16 @@ def main() -> int:
             "int4_matmul": w4.int4_matmul_kernel}, smi)
         cli["seconds"] = time.time() - t18
         print(f"phase 18 took {cli['seconds']:.1f} s", flush=True)
+
+        phase("19 the operator's tools: bench, trace, replay, tune, admin, "
+              "the native and prefetched data loader", t0)
+        t19 = time.time()
+        tools = tools_phase(torch, tool_mods, qmods, {
+            **train_kernels, "paged_attention": paged_attention_kernel,
+            "paged_attention_int8": pac.paged_attention_int8_kernel,
+            "paged_attention_int4": pac.paged_attention_int4_kernel}, smi)
+        tools["seconds"] = time.time() - t19
+        print(f"phase 19 took {tools['seconds']:.1f} s", flush=True)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -4285,7 +4772,9 @@ def main() -> int:
             "launches": (trained["launches"][name]
                          + moe["train"]["launches"][name]
                          + remnants["train"]["launches"][name]
-                         + cli["train"]["launches"][name]),
+                         + cli["train"]["launches"][name]
+                         + sum(tools[part]["launches"][name] for part in
+                               ("kernels", "train", "trace", "tune"))),
             "max_abs_err": errors[name],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
@@ -4304,7 +4793,9 @@ def main() -> int:
                      + remnants["awq"]["serve"]["launches"][
                          "paged_attention"]
                      + cli["serve"]["launches"]
-                     + cli["export"]["launches"]["paged_attention"]),
+                     + cli["export"]["launches"]["paged_attention"]
+                     + tools["kv_decode"]["launches"]["paged_attention"]
+                     + tools["serve_load"]["launches"]["paged_attention"]),
         "max_abs_err": max(max_err, moe["kernels"]["paged_attention"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -4323,7 +4814,9 @@ def main() -> int:
                                "ops/int8_matmul_pallas.py:54"),
         "rmsnorm": ("rmsnorm.cu", "ops/rmsnorm.py:20")}
     quant_launches = {"rmsnorm": norm_path["launches"],
-                      "int4_matmul": cli["export"]["launches"]["int4_matmul"]}
+                      "int4_matmul": cli["export"]["launches"]["int4_matmul"],
+                      **{n: tools["kv_decode"]["launches"][n] for n in (
+                          "paged_attention_int8", "paged_attention_int4")}}
     for res in [*quant_served.values(), moe["serve"]["runs"]["int8"],
                 remnants["awq"]["serve"]]:
         for name, n in res["launches"].items():
@@ -4349,7 +4842,7 @@ def main() -> int:
         record.update(quant_max_abs_err=quant_err, quant_timing=quant_timing,
                       serve_quantized=quant_served, rmsnorm_path=norm_path,
                       serve_features=features, moe=moe,
-                      remnants=remnants, cli=cli)
+                      remnants=remnants, cli=cli, tools=tools)
         record.update(kernels=kernels, timing=timing, serve=served,
                       paged_vs_dense=dense, flash_vs_plain=flash,
                       adamw_max_abs_err=adamw_err, train_timing=train_timing,

@@ -14,9 +14,11 @@ value (``--nodes > 1``, ``--chips-per-node > 1``, a cluster launcher)
 raises naming ROADMAP queue 1 item 7.
 
 Each command's module is imported only when it runs, so ``--help`` stays
-fast. The commands ``plan``, ``fleet``, ``bench``, ``trace``, ``replay``,
-``tune`` and ``admin`` are not ported yet: they exit 2 with a message
-naming their ROADMAP item.
+fast. The commands ``plan`` (it needs the planner of ROADMAP queue 1 item
+7) and ``fleet`` (item 9) are not ported yet: they exit 2 with a message
+naming their ROADMAP item, as do the parts of ported commands that wait
+for one (``admin lint``, ``bench comms``, ``tune comms|sp|full``, the
+fleet options of ``bench e2e`` and ``serve start``).
 """
 
 from __future__ import annotations
@@ -39,17 +41,17 @@ COMMANDS = {
     "export": ("export", "Model export and conversion."),
     "serve": ("serve", "Inference serving."),
     "health": ("health", "System health."),
+    "bench": ("bench", "Benchmarks (kernels, end-to-end, dataloader)."),
+    "trace": ("trace", "Profiler traces."),
+    "replay": ("replay", "Deterministic replay."),
+    "tune": ("tune", "Autotuning."),
+    "admin": ("admin", "Maintenance utilities."),
 }
 
 # command -> the ROADMAP item it waits for
 NOT_PORTED = {
-    "plan": "ROADMAP queue 1 item 8 (it needs the planner of item 7)",
+    "plan": "ROADMAP queue 1 item 7 (it needs the planner)",
     "fleet": "ROADMAP queue 1 item 9",
-    "bench": "ROADMAP queue 1 item 8",
-    "trace": "ROADMAP queue 1 item 8",
-    "replay": "ROADMAP queue 1 item 8",
-    "tune": "ROADMAP queue 1 item 8",
-    "admin": "ROADMAP queue 1 item 8",
 }
 
 MULTI_HOST = "ROADMAP queue 1 item 7"

@@ -7,13 +7,20 @@ The port's counterpart of the JAX package's ``runtime/engine.py``
 and run manifest. ``attn_impl="auto"`` resolves to the flash kernels on a
 card and to the plain attention on the CPU. MFU is taken against
 ``HardwareConfig.peak_bf16_tflops`` (an H100's 989 by default).
-Multi-device training waits for ROADMAP queue 1 item 7.
+``data.num_workers`` and ``data.prefetch_factor`` size the training
+dataset's download pool and prefetch depth, as in the JAX engine.
+``training.profile`` records the step loop with ``torch.profiler`` (CPU
+and, on a card, CUDA activity) and writes a Chrome trace into
+``training.profile_dir``: the counterpart of the JAX engine's
+``jax.profiler`` trace. Multi-device training waits for ROADMAP queue 1
+item 7.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Callable, Optional
@@ -52,11 +59,14 @@ class TrainingEngine:
         self.observer = observer or (lambda event, payload: None)
         self.state: Optional[TrainState] = None
         self._start_step = 0
+        self.profile_trace: Optional[Path] = None
 
         batch = self.par.global_batch_size
         self.train_data = make_dataset(
             cfg.data.train, batch, cfg.data.max_length, cfg.model.vocab_size,
-            seed=cfg.data.seed, pack=cfg.data.pack_sequences)
+            seed=cfg.data.seed, pack=cfg.data.pack_sequences,
+            num_workers=cfg.data.num_workers,
+            prefetch=cfg.data.prefetch_factor)
         self.val_data = make_dataset(
             cfg.data.val, batch, cfg.data.max_length, cfg.model.vocab_size,
             seed=cfg.data.seed + 1, pack=cfg.data.pack_sequences)
@@ -98,8 +108,16 @@ class TrainingEngine:
         return self._start_step
 
     def close(self) -> None:
-        """Flush a checkpoint still being written."""
-        self.ckpt.wait()
+        """Flush a checkpoint still being written and release the
+        datasets' threads (the prefetch worker, a remote dataset's
+        download pool and its temporary cache). Idempotent; the engine is
+        not reusable after it."""
+        try:
+            self.ckpt.wait()
+        finally:
+            for ds in (self.train_data, self.val_data):
+                if hasattr(ds, "close"):
+                    ds.close()
 
     def save(self, step: int) -> None:
         self.ckpt.save(step, state_to_dict(self.state), extra={
@@ -128,6 +146,7 @@ class TrainingEngine:
         last_metrics: dict = {}
         last_saved: Optional[int] = None
 
+        prof = self._start_profile() if t_cfg.profile else None
         for step in range(start, max_steps):
             batch = self._device_batch(next(self.train_data))
             self.state, metrics = self.train_step(self.state, batch)
@@ -170,11 +189,38 @@ class TrainingEngine:
                 self.save(step + 1)
                 last_saved = step + 1
 
+        if prof is not None:
+            self._stop_profile(prof)
         if last_saved != max_steps:
             self.save(max_steps)
         self.ckpt.wait()
         self._write_manifest(start, max_steps, last_metrics)
         return last_metrics
+
+    def _start_profile(self):
+        """A started torch.profiler session over CPU and, on a card, CUDA
+        activity."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> Path:
+        """Stop the session and write its Chrome trace (open it in
+        Perfetto or chrome://tracing) into ``training.profile_dir``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = Path(self.cfg.training.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / (f"{self.cfg.model.name}-{os.getpid()}-"
+                      f"{time.strftime('%Y%m%d-%H%M%S')}.trace.json")
+        prof.export_chrome_trace(str(path))
+        self.profile_trace = path
+        logger.info("profiler trace written to %s", path)
+        return path
 
     def _write_manifest(self, start_step: int, end_step: int,
                         final_metrics: dict) -> None:

@@ -1820,3 +1820,101 @@ def test_flash_forward_launches_under_selective_attn(remat, per_layer):
     torch.cuda.synchronize()
     assert fac.flash_fwd.launches - before == per_layer * cfg.num_layers
     assert torch.isfinite(m["loss"])
+
+
+# -- the operator's tools on the card -----------------------------------------
+
+@pytest.mark.gpu
+def test_tuner_attention_trial_runs_the_flash_kernel():
+    """tune kernels' attention space on a card: flash is valid (one block
+    pair a dtype), its trial launches the flash forward, and its output is
+    the plain version's."""
+    _need_card()
+    import itertools
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        attention as fa, attention_cuda as fac)
+    from distributed_llm_training_and_inference_system_tpu_torch.plugins \
+        import autotuning as tat
+    t = tat.AttentionTuner(256, 64, 4, 2, device="cuda")
+    space = t.parameter_space()
+    valid = [p for p in (dict(zip(space, c))
+                         for c in itertools.product(*space.values()))
+             if t.validate(p)]
+    flash = [p for p in valid if p["impl"] == "flash"]
+    assert len(valid) == 4 and len(flash) == 2
+    before = fac.flash_fwd.launches
+    assert t.benchmark(flash[0], 1, 2) > 0
+    assert fac.flash_fwd.launches - before == 3
+    fn, args = t.build(flash[0])                       # bf16
+    out = fn(*args)
+    ref = fa.flash_attention(*args, causal=True, impl="plain")
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+def test_bench_kv_decode_reaches_the_paged_kernel_for_each_page_kind(capsys):
+    _need_card()
+    import json
+    from distributed_llm_training_and_inference_system_tpu_torch.cli import (
+        main as cli)
+    from distributed_llm_training_and_inference_system_tpu_torch.cli.\
+        commands import bench
+    from distributed_llm_training_and_inference_system_tpu_torch.ops import (
+        paged_attention_cuda as pac)
+    kernels = (pac.paged_attention_kernel, pac.paged_attention_int8_kernel,
+               pac.paged_attention_int4_kernel)
+    inp = bench.kv_decode_inputs(4, 2, 128, 8, 64, 300,
+                                 torch.device("cuda"))
+    for mode in ("paged", "scatter"):
+        before = [k.launches for k in kernels]
+        rc = cli.main(["bench", "kv-decode", "--slots", "4", "--kv-heads",
+                       "2", "--q-heads", "8", "--head-dim", "128",
+                       "--page-size", "64", "--context", "300", "--steps",
+                       "3", "--layers", "2", "--write-mode", mode])
+        out = json.loads(capsys.readouterr().out)
+        assert rc == 0 and out["backend"] == "gpu"
+        # a warm-up step and 3 timed steps of each page kind
+        assert [k.launches - b for k, b in zip(kernels, before)] == [4] * 3
+        for kind in bench.KV_KINDS:
+            got = bench.kv_decode_step(
+                bench.kv_decode_pages(kind, inp["kf"]), inp, mode)
+            pages = bench.kv_decode_pages(kind, inp["kf"])
+            ref = bench.kv_decode_step(pages, inp, mode, impl="gather")
+            err = (got.float() - ref.float()).abs().max().item()
+            assert err <= TOL[torch.bfloat16], (mode, kind, err)
+            # and against the gather over the written pages in fp32, the
+            # kernel's own precision (the flash kernels' bf16 limits)
+            fp32 = (pages.float() if kind == "bf16"
+                    else pages.dequant(torch.float32))
+            exact = pa.paged_attention(inp["q"], fp32, fp32, inp["tables"],
+                                       inp["lengths"], impl="gather")
+            _assert_bf16_close(got, exact)
+
+
+@pytest.mark.gpu
+def test_trace_capture_names_the_flash_and_adamw_kernels(tmp_path, capsys):
+    """trace capture on a card: a bf16 model with D 64 and leaves past the
+    fused AdamW's size floor; the Chrome trace's kernel events name the
+    three flash kernels and the AdamW kernel."""
+    _need_card()
+    import json
+    from distributed_llm_training_and_inference_system_tpu_torch.cli import (
+        main as cli)
+    cfg = tmp_path / "run.toml"
+    cfg.write_text(
+        '[model]\nname = "gpt-trace"\nnum_layers = 2\nhidden_size = 256\n'
+        'ffn_size = 512\nnum_heads = 4\nnum_kv_heads = 2\nhead_dim = 64\n'
+        'vocab_size = 256\nmax_position_embeddings = 128\n'
+        'dtype = "bfloat16"\n[data]\nmax_length = 128\n'
+        '[parallel]\nmicro_batch_size = 2\nglobal_batch_size = 2\n'
+        f'[checkpoint]\npath = "{tmp_path / "ck"}"\n')
+    out = tmp_path / "traces"
+    assert cli.main(["trace", "capture", "--config", str(cfg), "--steps",
+                     "2", "--out", str(out)]) == 0
+    [trace] = list(out.iterdir())
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = " ".join(e.get("name", "") for e in events
+                       if e.get("cat") == "kernel")
+    for name in ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                 "flash_bwd_dkv_bf16_kernel", "adamw_kernel"):
+        assert name in kernels, name

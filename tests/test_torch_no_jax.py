@@ -115,3 +115,36 @@ def test_quantization_keeps_its_own_numpy_helpers():
     assert {"delta_encode_planes_np", "delta_decode_planes_np",
             "unpack_nibbles_np", "pack_nibbles_np", "nibble_delta_encode_np",
             "nibble_delta_decode_np"} <= defined
+
+
+OPERATOR_MODULES = ("io/remote.py", "io/native.py", "io/data.py",
+                    "plugins/__init__.py", "plugins/autotuning.py",
+                    "cli/commands/bench.py", "cli/commands/trace.py",
+                    "cli/commands/replay.py", "cli/commands/tune.py",
+                    "cli/commands/admin.py", "runtime/engine.py")
+
+
+@pytest.mark.parametrize("module", OPERATOR_MODULES)
+def test_walk_covers_the_operator_modules(module):
+    """The walk above reaches the operator's tools, plugins/ included, and
+    none of them imports from the JAX package by a relative path either."""
+    names = {str(p.relative_to(ROOT / PORT)) for p in SOURCES[:-1]}
+    assert module in names
+    tree = ast.parse((ROOT / PORT / module).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            assert "distributed_llm_training_and_inference_system_tpu" \
+                not in (node.module or "")
+
+
+def test_native_source_is_the_ports_own_copy():
+    """native/ holds the packer's C++ source (no Python, no JAX) and no
+    built library: io/native.py builds it under build/native/."""
+    native = ROOT / PORT / "native"
+    assert sorted(p.name for p in native.iterdir()
+                  if p.name != "__pycache__") == ["dataloader.cpp"]
+    src = (native / "dataloader.cpp").read_text()
+    includes = [line for line in src.splitlines()
+                if line.startswith("#include")]
+    assert includes == ["#include <cstdint>", "#include <cstring>"]
+    assert "Python.h" not in src

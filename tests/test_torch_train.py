@@ -342,8 +342,11 @@ def test_memmap_batches_byte_identical(tmp_path, pack, monkeypatch):
     again = tdata.make_dataset(str(tmp_path), 2, 24, 1000, seed=5, pack=pack)
     again.load_state_dict(state)
     assert next(again)["tokens"].tobytes() == next(t)["tokens"].tobytes()
-    with pytest.raises(NotImplementedError):
-        tdata.make_dataset("s3://bucket/x", 2, 24, 1000)
+    # a remote scheme no store serves is refused as the JAX package
+    # refuses it (remote shards themselves: tests/test_torch_remote_data.py)
+    for pkg in (jdata, tdata):
+        with pytest.raises(ValueError, match="no shard store registered"):
+            pkg.make_dataset("nostore://bucket/x", 2, 24, 1000)
 
 
 # -- the engine --------------------------------------------------------------------
