@@ -234,6 +234,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              --dry-run` on (e)'s checkpoint; (j) one gpt-1b engine at 4 x
              2048, runs alternating: tok/s with the training set
              prefetched (the default) and bare, and with the profiler on.
+20. fleet  — run after 15, on phase 5's weights: ServeFleet with two
+             in-process llama-8b-gqa replicas at full width and depth
+             sharing the weights (each parameter's data_ptr checked), the
+             default ServeConfig, 8 greedy requests of 256-1024 prompt
+             tokens and 64 new tokens (two sharing a 256-token prefix),
+             each arm on a fleet of its own: (a) routing, the prefix pair
+             on one replica; (b) replica 0 drained mid-decode with KV
+             migration over the courier (codec none, bf16 pages): 0
+             re-prefill tokens, courier bytes > 0; (c) a crash injected
+             before replica 1's 5th busy step: nothing dropped, the
+             supervisor restarts replica 1, which then serves, and the
+             memory allocated after the restart within 5% of before; (d)
+             (b) with int8 and with int4 pages under delta-zlib. Every
+             stream is held to one engine with the same page kind:
+             identical, or every token within 2 x NEAR_TIE_DELTA of the
+             best under the dense forward (bf16 pages) or the plain paged
+             path over the same page kind, and where the two part, within
+             that of each other; paged launches summed over the arm's
+             engines = 32 x (dispatched steps + suffix prefills + chunks).
+             Printed: each arm's wall, TTFT and TPOT p50, decode steps per
+             replica, courier bytes/chunks/resends, each migration's
+             pause and each transfer's time and GB/s (host clock),
+             requeues and restarts.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} record. Without a CUDA card, or without the rest of the
@@ -4459,6 +4482,345 @@ def tools_phase(torch, tm, qm, kernels: dict, card: str) -> dict:
     return out
 
 
+# -- phase 20: the serving fleet in one process -------------------------------
+
+# 8 prompts of 256-1024 tokens; requests 0 and 1 share their first 256
+FLEET_LENGTHS = (768, 512, 1024, 896, 640, 384, 256, 960)
+FLEET_SHARED = 256
+FLEET_TOKENS = 64
+FLEET_DRAIN_AT = 16           # (b): drain once a stream there has these
+FLEET_CRASH_STEP = 5          # (c): replica 1 dies before this busy step
+FLEET_MEM_SHARE = 0.05        # (c): memory after the restart within this
+FLEET_WAIT_S = 300.0          # every wait of the phase is bounded by this
+# arms (b)-(d) place by least outstanding tokens alone, so that both
+# replicas hold streams when replica 0 drains or replica 1 crashes; (a)
+# keeps the default prefix affinity. (d) deflates at zlib level 1: pages
+# of random weights barely compress, and the default level moves them at
+# ~0.017 GB/s on the host
+FLEET_SPREAD = {"affinity_prefix_tokens": 0}
+# (arm, serve-config overrides, fleet-config overrides, fault plan)
+FLEET_ARMS = (
+    ("a routing", {}, {}, None),
+    ("b drain migration", {}, {"courier_codec": "none", **FLEET_SPREAD},
+     None),
+    ("c crash requeue", {}, FLEET_SPREAD,
+     {"crash_replica": 1, "crash_after_steps": FLEET_CRASH_STEP}),
+    ("d int8 drain migration", {"kv_quantization": "int8"},
+     {"courier_codec": "delta-zlib", "courier_zlib_level": 1,
+      **FLEET_SPREAD}, None),
+    ("d int4 drain migration", {"kv_quantization": "int4"},
+     {"courier_codec": "delta-zlib", "courier_zlib_level": 1,
+      **FLEET_SPREAD}, None),
+)
+FLEET_KERNEL = {"none": "paged_attention", "int8": "paged_attention_int8",
+                "int4": "paged_attention_int4"}
+
+
+def fleet_prompts(seed: int = 20) -> list:
+    """FLEET_LENGTHS prompts of random ids below 32000; request 1 starts
+    with request 0's first FLEET_SHARED tokens."""
+    rng = random.Random(seed)
+    out = [[rng.randrange(1, 32000) for _ in range(n)]
+           for n in FLEET_LENGTHS]
+    out[1][:FLEET_SHARED] = out[0][:FLEET_SHARED]
+    return out
+
+
+def paged_reference_scores(torch, mods, model, cfg, kind: str, prompt,
+                           tokens) -> "torch.Tensor":
+    """Scores [K, V] of each of ``tokens`` (K of them) after ``prompt``
+    under the plain path over pages of ``kind``, as the engine computes
+    them: the prompt's dense prefill, its K/V written to a fresh pool of
+    that kind (``InferenceEngine._prefill_dense``), then one window of
+    tokens[:-1] through ``extend_step_forward`` with the gather attention
+    over those pages (each token's K/V quantized as a decode step
+    quantizes it)."""
+    from types import SimpleNamespace
+    n, K = len(prompt), len(tokens)
+    ps = 64
+    bucket = -(-n // ps) * ps
+    total = bucket + K
+    pool = mods["kv_cache"].PagedKVCache(
+        cfg, num_slots=1, max_seq_len=total + ps, page_size=ps,
+        num_pages=-(-total // ps) + 2, dtype=torch.bfloat16, device="cuda",
+        quantized=kind)
+    pool.allocate(0, total)
+    shim = SimpleNamespace(cfg=cfg, kv=pool, device=model.device,
+                           params=model)
+    dense = np.zeros((1, bucket), np.int64)
+    dense[0, :n] = prompt
+    with torch.inference_mode():
+        first = mods["InferenceEngine"]._prefill_dense(
+            shim, dense, n, pool.block_tables[0, :bucket // ps].copy())
+        rest, _, _ = mods["decode"].extend_step_forward(
+            model, torch.tensor([tokens[:-1]], device="cuda"),
+            torch.tensor([n], device="cuda"), pool.k_pages, pool.v_pages,
+            torch.as_tensor(pool.block_tables[:1], device="cuda"), cfg,
+            w4_kernel_ok=False, w8_kernel_ok=False, attn_impl="gather")
+    scores = torch.cat([first.float(), rest[0].float()])
+    del pool, rest
+    return scores
+
+
+def held_to_single(torch, mods, model, cfg, kind: str, prompts, got,
+                   want) -> dict:
+    """The near-tie bar of phases 13 and 15 for each stream ``got[i]``
+    against ``want[i]`` (the same request on one engine with the same page
+    kind): under the reference (the dense bf16 forward for bf16 pages,
+    the plain paged path over the same page kind for quantized ones),
+    every token of both within 2 delta of the best score, and where the
+    two part, their tokens' scores within 2 delta of each other."""
+    bound = 2 * NEAR_TIE_DELTA
+    worst, identical, faults = 0.0, 0, []
+    for i, (prompt, a, b) in enumerate(zip(prompts, got, want)):
+        first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None if len(a) == len(b) else min(len(a), len(b)))
+        if first is None:
+            identical += 1
+        for toks in ((a,) if first is None else (a, b)):
+            if kind == "none":
+                sc = teacher_forced(torch, mods, model, cfg, prompt, toks,
+                                    {"temperature": 0.0})["scores"]
+            else:
+                sc = paged_reference_scores(torch, mods, model, cfg, kind,
+                                            prompt, toks)
+            picked = sc.gather(1, torch.tensor(toks, device="cuda")[:, None])
+            d = float((sc.max(dim=1).values - picked[:, 0]).max())
+            worst = max(worst, d)
+            if d > bound:
+                faults.append(f"stream {i}: a token lies {d:.4f} under the "
+                              f"reference's best (bound {bound})")
+            if toks is a and first is not None and first < min(len(a),
+                                                                len(b)):
+                gap = abs(float(sc[first, a[first]] - sc[first, b[first]]))
+                if gap > bound:
+                    faults.append(f"stream {i}: parts from one engine at "
+                                  f"token {first}, scores {gap:.4f} apart "
+                                  f"(bound {bound})")
+            del sc
+    torch.cuda.empty_cache()
+    check(not faults, "; ".join(faults))
+    return {"identical": identical, "streams": len(got),
+            "max_deficit": worst}
+
+
+def fleet_arm(torch, mods, fm, model, cfg, kernels: dict, arm: tuple,
+              prompts, refs: dict, card: str) -> dict:
+    """One arm of phase 20: two in-process replicas of ``cfg`` sharing
+    ``model``, the 8 requests, the arm's fault or drain, every stream held
+    to one engine with the same page kind, the paged launches (summed over
+    every engine the arm ran, a restarted one too) = layers x (dispatched
+    steps + suffix prefills + chunks)."""
+    name, sover, fover, plan = arm
+    t_arm = time.time()
+    kind = sover.get("kv_quantization", "none")
+    scfg = mods["ServeConfig"](model=cfg.name, **sover)
+    fcfg = mods["schema"].FleetConfig(
+        replicas=2, restart_backoff_s=0.05, probe_interval_s=0.05, **fover)
+    fault = fm["FaultPlan"](**plan) if plan else None
+    fleet = fm["ServeFleet"](cfg, scfg, fcfg, params=model,
+                             fault_plan=fault, supervise=False, seed=0)
+    engines = [r.engine for r in fleet.replicas]
+    leaves = [(n, [dict(r.engine.params.named_parameters())[n].data_ptr()
+                   for r in fleet.replicas])
+              for n, _ in model.named_parameters()]
+    check(all(a == b == dict(model.named_parameters())[n].data_ptr()
+              for n, (a, b) in leaves),
+          f"{name}: the replicas do not share the weights")
+    transfers = []
+    courier = fleet.courier.local_transport
+    orig_transfer = courier.transfer
+
+    def timed_transfer(payload, **kw):
+        t = time.perf_counter()
+        out = orig_transfer(payload, **kw)
+        transfers.append((fm["payload_nbytes"](payload),
+                          (time.perf_counter() - t) * 1e3))
+        return out
+    courier.transfer = timed_transfer
+    mem0 = torch.cuda.memory_allocated()
+    sp = mods["SamplingParams"](temperature=0.0, max_tokens=FLEET_TOKENS)
+    for k in kernels.values():
+        k.launches = 0                               # the main path starts
+    t0 = time.time()
+    fleet.start()
+    try:
+        events, reqs = [], []
+        for p in prompts:
+            ev = threading.Event()
+            reqs.append(fleet.submit(p, sp, on_complete=lambda _r, ev=ev:
+                                     ev.set()))
+            events.append(ev)
+        deadline = time.monotonic() + FLEET_WAIT_S
+        drained = "drain" not in name
+        while not all(e.is_set() for e in events):
+            # drain once every stream has its first token (so no first
+            # prefill is left to run after it, and every stream on
+            # replica 0 migrates) and one there has FLEET_DRAIN_AT
+            there = [r for r, e in zip(reqs, events) if not e.is_set()
+                     and fleet.router.replica_of(r.request_id) == 0]
+            if not drained and there and all(
+                    r.generated_tokens for r in reqs) and any(
+                    len(r.generated_tokens) >= FLEET_DRAIN_AT
+                    for r in there):
+                check(fleet.drain(0), f"{name}: drain refused")
+                pre_prefill = sum(e.total_prefill_tokens for e in engines)
+                drained = True
+            fleet.supervisor.poll_once()
+            # the supervisor's cadence: a tighter loop takes the
+            # interpreter from the two engine threads
+            time.sleep(0.02)
+            check(time.monotonic() < deadline, f"{name}: the fleet did not "
+                  f"finish in {FLEET_WAIT_S} s")
+        wall = time.time() - t0
+        check(drained, f"{name}: no stream on replica 0 reached "
+              f"{FLEET_DRAIN_AT} tokens before the run ended")
+        for r in fleet.replicas:
+            if all(r.engine is not e for e in engines):
+                engines.append(r.engine)        # a restart's new engine
+        launches = {n: k.launches for n, k in kernels.items()}   # it ended
+        status = fleet.status()
+        stats = fleet.router.stats()
+        out = {"wall_s": wall, "launches": launches,
+               "requeues": stats["requeues"],
+               "restarts": sum(r.restarts for r in fleet.replicas),
+               "decode_steps": [r.engine.total_decode_steps
+                                for r in fleet.replicas],
+               "courier": status["courier"],
+               "migrations": [dict(d) for r in fleet.replicas
+                              for d in r.migration_log],
+               "transfers": transfers}
+        check(stats["completed"] == len(prompts) and stats["failed"] == 0
+              and stats["in_flight"] == 0, f"{name}: router ledger {stats}")
+        for r in reqs:
+            check(r.error is None and (len(r.generated_tokens) == FLEET_TOKENS
+                                       or r.finish_reason == "stop"),
+                  f"{name}: {r.request_id} ended after "
+                  f"{len(r.generated_tokens)} tokens ({r.error})")
+        L = cfg.num_layers
+        passes = sum(e.total_dispatched_steps + e.total_extend_prefills
+                     + e.total_prefill_chunks for e in engines)
+        kname = FLEET_KERNEL[kind]
+        check(launches[kname] == L * passes and passes > 0,
+              f"{name}: {kname} launches {launches[kname]} != {L} x "
+              f"{passes} passes of {len(engines)} engines")
+        check(all(n == 0 for k, n in launches.items() if k != kname),
+              f"{name}: other paged kernels launched {launches}")
+        if name.startswith("a"):
+            home = [r.fleet_meta.get("replica") for r in reqs[:2]]
+            check(home[0] == home[1] is not None, f"{name}: the two "
+                  f"prefix-sharing requests went to replicas {home}")
+            out["homes"] = [r.fleet_meta.get("replica") for r in reqs]
+        if "drain" in name:
+            post_prefill = sum(e.total_prefill_tokens for e in engines)
+            mig = status["migration"]
+            check(mig["migrations"] >= 1 and post_prefill == pre_prefill,
+                  f"{name}: {mig['migrations']} migrations, prefill tokens "
+                  f"{pre_prefill} -> {post_prefill} across the drain")
+            check(status["courier"]["bytes_moved"] > 0,
+                  f"{name}: the courier moved no bytes")
+            out["reprefill_tokens"] = post_prefill - pre_prefill
+        if plan:
+            check(stats["requeues"] >= 1, f"{name}: nothing was requeued")
+            deadline = time.monotonic() + FLEET_WAIT_S
+            while fleet.replicas[1].state != "healthy":
+                fleet.supervisor.poll_once()
+                time.sleep(0.01)
+                check(time.monotonic() < deadline,
+                      f"{name}: replica 1 never restarted")
+            check(fleet.replicas[1].restarts == 1, f"{name}: restarts "
+                  f"{fleet.replicas[1].restarts}")
+            # one request each: least outstanding tokens gives replica 1
+            # the second
+            after = fleet.generate([prompts[6], prompts[6]], sp,
+                                   timeout_s=FLEET_WAIT_S)
+            served = [r.fleet_meta.get("replica") for r in after]
+            check(1 in served and all(r.generated_tokens == after[0]
+                                      .generated_tokens for r in after),
+                  f"{name}: after the restart replica 1 served nothing "
+                  f"({served})")
+            torch.cuda.synchronize()
+            mem1 = torch.cuda.memory_allocated()
+            check(abs(mem1 - mem0) <= FLEET_MEM_SHARE * mem0,
+                  f"{name}: memory {mem0} B before the crash, {mem1} B "
+                  f"after the restart (the crashed pool not freed?)")
+            out["memory_bytes"] = (mem0, mem1)
+        got = [list(r.generated_tokens) for r in reqs]
+        ttft = sorted(r.ttft_ms for r in reqs)
+        tpot = sorted((r.finish_time - r.first_token_time) * 1e3
+                      / (len(r.generated_tokens) - 1) for r in reqs)
+        out.update(ttft_p50_ms=ttft[len(ttft) // 2],
+                   tpot_p50_ms=tpot[len(tpot) // 2])
+    finally:
+        courier.transfer = orig_transfer
+        fleet.shutdown()
+        del fleet
+        torch.cuda.empty_cache()
+    out["held"] = held_to_single(torch, mods, model, cfg, kind, prompts,
+                                 got, refs[kind])
+    c = out["courier"]
+    print(f"20 {name}: wall {wall:.2f} s, TTFT p50 "
+          f"{out['ttft_p50_ms']:.1f} ms, TPOT p50 {out['tpot_p50_ms']:.2f} "
+          f"ms; decode steps per replica {out['decode_steps']}; "
+          f"{kname} launches {launches[kname]} = {cfg.num_layers} x "
+          f"{launches[kname] // cfg.num_layers}; requeues "
+          f"{out['requeues']}, restarts {out['restarts']}; courier "
+          f"{c['transfers']} transfers, {c['bytes_moved']} B raw, "
+          f"{c['bytes_wire']} B on the wire, {c['chunks']} chunks, "
+          f"{c['retries']} resends; {out['held']['identical']} of "
+          f"{out['held']['streams']} streams token-identical to one engine, "
+          f"largest deficit {out['held']['max_deficit']:.4f} [{card}]",
+          flush=True)
+    for d in out["migrations"]:
+        print(f"20 {name}: migration of {d['request_id']} ({d['reason']}): "
+              f"{d['precopy_pages']} pages pre-copied + {d['stop_pages']} "
+              f"stop-copied, {d['payload_bytes']} B, pause "
+              f"{d['pause_ms']:.2f} ms (host clock) [{card}]", flush=True)
+    for nbytes, ms in transfers:
+        print(f"20 {name}: courier transfer {nbytes} B in {ms:.2f} ms, "
+              f"{nbytes / ms / 1e6:.3f} GB/s (host clock) [{card}]",
+              flush=True)
+    if "memory_bytes" in out:
+        print(f"20 {name}: memory allocated {out['memory_bytes'][0]} B "
+              f"before the crash, {out['memory_bytes'][1]} B after the "
+              f"restart [{card}]", flush=True)
+    out["seconds"] = time.time() - t_arm
+    print(f"20 {name}: {out['seconds']:.1f} s with its checks", flush=True)
+    return out
+
+
+def fleet_phase(torch, mods, fm, model, cfg, kernels: dict,
+                card: str) -> dict:
+    """Phase 20: ServeFleet with two llama-8b-gqa replicas at full width
+    and depth over ``model`` (phase 5's bf16 weights, shared), the default
+    ServeConfig, arms (a)-(d) of FLEET_ARMS, each held to one engine with
+    the same page kind."""
+    t20 = time.time()
+    prompts = fleet_prompts()
+    sp = mods["SamplingParams"](temperature=0.0, max_tokens=FLEET_TOKENS)
+    refs = {}
+    t_refs = time.time()
+    for kind in ("none", "int8", "int4"):
+        eng = mods["InferenceEngine"](
+            cfg, mods["ServeConfig"](model=cfg.name, kv_quantization=kind),
+            params=model, seed=0)
+        refs[kind] = [list(r.generated_tokens)
+                      for r in eng.generate(prompts, sp)]
+        eng.release()
+        del eng
+    torch.cuda.empty_cache()
+    print(f"20: one engine's tokens for each page kind in "
+          f"{time.time() - t_refs:.1f} s", flush=True)
+    out = {"arms": {arm[0]: fleet_arm(torch, mods, fm, model, cfg, kernels,
+                                      arm, prompts, refs, card)
+                    for arm in FLEET_ARMS}}
+    out["launches"] = {n: sum(a["launches"][n] for a in out["arms"].values())
+                       for n in kernels}
+    out["seconds"] = time.time() - t20
+    print(f"phase 20 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements here (JSON)")
@@ -4545,6 +4907,10 @@ def main() -> int:
         native
     from distributed_llm_training_and_inference_system_tpu_torch.plugins \
         import autotuning
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        import fleet as sfleet
+    from distributed_llm_training_and_inference_system_tpu_torch.serve.\
+        fleet import migration as fmigration
     qmods = {"pa": pa, "pac": pac, "w4": w4, "w8": w8, "tq": tq, "rn": rn,
              "layers": layers,
              "kernels": {
@@ -4585,6 +4951,9 @@ def main() -> int:
                  "get_model_config": get_model_config,
                  "load_run_config": load_run_config,
                  "TrainingEngine": TrainingEngine}
+    fleet_mods = {"ServeFleet": sfleet.ServeFleet,
+                  "FaultPlan": sfleet.FaultPlan,
+                  "payload_nbytes": fmigration.payload_nbytes}
     train_kernels = {"flash_fwd": fac.flash_fwd,
                      "flash_bwd_dq": fac.flash_bwd_dq,
                      "flash_bwd_dkv": fac.flash_bwd_dkv,
@@ -4675,6 +5044,17 @@ def main() -> int:
                                   dense["max_abs_diff"])
         features["seconds"] = time.time() - t15
         print(f"phase 15 took {features['seconds']:.1f} s", flush=True)
+
+        # numbered 20, run while phase 5's weights are still on the card
+        phase("20 the serving fleet: two llama-8b-gqa replicas, routing, "
+              "drain migration, crash requeue, quantized pages", t0)
+        fleet = fleet_phase(torch, {**mods, "decode": sdecode}, fleet_mods,
+                            bf16_model, llama_cfg, {
+                                "paged_attention": paged_attention_kernel,
+                                "paged_attention_int8":
+                                    pac.paged_attention_int8_kernel,
+                                "paged_attention_int4":
+                                    pac.paged_attention_int4_kernel}, smi)
 
         # numbered 17, its parts (b) and (c) on phase 5's weights
         t17 = time.time()
@@ -4795,7 +5175,8 @@ def main() -> int:
                      + cli["serve"]["launches"]
                      + cli["export"]["launches"]["paged_attention"]
                      + tools["kv_decode"]["launches"]["paged_attention"]
-                     + tools["serve_load"]["launches"]["paged_attention"]),
+                     + tools["serve_load"]["launches"]["paged_attention"]
+                     + fleet["launches"]["paged_attention"]),
         "max_abs_err": max(max_err, moe["kernels"]["paged_attention"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -4815,7 +5196,8 @@ def main() -> int:
         "rmsnorm": ("rmsnorm.cu", "ops/rmsnorm.py:20")}
     quant_launches = {"rmsnorm": norm_path["launches"],
                       "int4_matmul": cli["export"]["launches"]["int4_matmul"],
-                      **{n: tools["kv_decode"]["launches"][n] for n in (
+                      **{n: tools["kv_decode"]["launches"][n]
+                         + fleet["launches"][n] for n in (
                           "paged_attention_int8", "paged_attention_int4")}}
     for res in [*quant_served.values(), moe["serve"]["runs"]["int8"],
                 remnants["awq"]["serve"]]:
@@ -4842,7 +5224,7 @@ def main() -> int:
         record.update(quant_max_abs_err=quant_err, quant_timing=quant_timing,
                       serve_quantized=quant_served, rmsnorm_path=norm_path,
                       serve_features=features, moe=moe,
-                      remnants=remnants, cli=cli, tools=tools)
+                      remnants=remnants, cli=cli, tools=tools, fleet=fleet)
         record.update(kernels=kernels, timing=timing, serve=served,
                       paged_vs_dense=dense, flash_vs_plain=flash,
                       adamw_max_abs_err=adamw_err, train_timing=train_timing,

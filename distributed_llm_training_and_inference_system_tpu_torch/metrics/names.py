@@ -8,7 +8,9 @@ the two equal).
 - :data:`COUNTER_FLOW` declares how each ``total_*`` running counter
   flows from its owning class into snapshot/stats keys and (optionally)
   a registered Prometheus name. Its owners' paths are the JAX package's;
-  the fleet owners are not ported yet (ROADMAP queue 1 item 9).
+  the port has the in-process fleet's owners (serve/fleet/), not those of
+  the store tier, the fronts or the remote workers (ROADMAP queue 1 item
+  9, steps 9c and 9d).
 
 The text exposition appends ``_total`` to counters at scrape time (a
 declared ``_total`` is stripped first); :func:`scraped_name` gives the

@@ -15,8 +15,8 @@ package's ``metrics/observability.py``), on the standard library.
   emitted.
 - ``PrometheusExporter`` builds one metric per ``names.METRICS`` entry and
   serves the registry on its own port (``serve()``; port 0 binds a free
-  one). A failure to bind raises. ``export_fleet`` raises: the fleet is
-  ROADMAP queue 1 item 9.
+  one). A failure to bind raises. ``export_fleet`` takes the fleet
+  supervisor's snapshot, as the JAX exporter does.
 - ``OTLPExporter`` imports ``opentelemetry`` when built, as the JAX
   package does; without it, it raises naming the missing package.
 - ``ObservabilityManager`` composes them; unlike the JAX manager it lets
@@ -484,6 +484,142 @@ class PrometheusExporter:
         self.infer_preemptions = mk("llmctl_inference_preemptions")
         self.infer_swap_ins = mk("llmctl_inference_swap_ins")
         self.infer_swapped_bytes = mk("llmctl_inference_swapped_host_bytes")
+        # serve-fleet control plane (serve/fleet/): per-replica health the
+        # operator alarms on. Queue depth + outstanding tokens are the
+        # routing signals themselves; restarts/requeues/rejections are the
+        # failure-path counters the fault-injection tests exercise.
+        self.fleet_queue_depth = mk("llmctl_fleet_replica_queue_depth")
+        self.fleet_outstanding = mk(
+            "llmctl_fleet_replica_outstanding_tokens")
+        self.fleet_active = mk("llmctl_fleet_replica_active")
+        self.fleet_healthy = mk("llmctl_fleet_replica_healthy")
+        self.fleet_restarts = mk("llmctl_fleet_replica_restarts")
+        self.fleet_requeues = mk("llmctl_fleet_requeues")
+        self.fleet_rejected = mk("llmctl_fleet_rejected")
+        # KV migration plane (serve/fleet/migration.py): how much work
+        # moved between replicas and what it saved vs re-prefill
+        self.fleet_migrations = mk("llmctl_fleet_migrations")
+        self.fleet_migrated_tokens = mk("llmctl_fleet_migrated_tokens")
+        self.fleet_reprefill_avoided = mk(
+            "llmctl_fleet_reprefill_tokens_avoided")
+        self.fleet_migration_pause = mk("llmctl_fleet_migration_pause_ms")
+        self.fleet_prefix_hit_rate = mk(
+            "llmctl_fleet_replica_prefix_hit_rate")
+        # disaggregated prefill/decode plane (serve/fleet/ roles)
+        self.fleet_handoffs = mk("llmctl_fleet_handoffs")
+        self.fleet_handoff_stall = mk("llmctl_fleet_handoff_stall_ms")
+        self.fleet_replica_role = mk("llmctl_fleet_replica_role")
+        # courier transport plane (serve/fleet/transport.py)
+        self.fleet_courier_chunks = mk("llmctl_fleet_courier_chunks")
+        self.fleet_courier_retries = mk("llmctl_fleet_courier_retries")
+        self.fleet_courier_corruptions = mk(
+            "llmctl_fleet_courier_corruptions")
+        self.fleet_courier_resumes = mk("llmctl_fleet_courier_resumes")
+        self.fleet_courier_aborts = mk("llmctl_fleet_courier_aborts")
+        self.fleet_courier_wire_bytes = mk(
+            "llmctl_fleet_courier_wire_bytes")
+        self.fleet_courier_raw_bytes = mk(
+            "llmctl_fleet_courier_raw_bytes")
+        self.fleet_courier_expired = mk("llmctl_fleet_courier_expired")
+        self.fleet_courier_transfer = mk(
+            "llmctl_fleet_courier_transfer_ms")
+        # fleet-global prefix cache (serve/fleet/ prefix fetch)
+        self.fleet_prefix_fetch_pages = mk(
+            "llmctl_fleet_prefix_fetch_pages")
+        self.fleet_prefix_fetch_bytes = mk(
+            "llmctl_fleet_prefix_fetch_bytes")
+        self.fleet_prefix_fetch_misses = mk(
+            "llmctl_fleet_prefix_fetch_misses")
+        self.fleet_prefix_fetch_aborts = mk(
+            "llmctl_fleet_prefix_fetch_aborts")
+        self.fleet_prefix_fetch = mk("llmctl_fleet_prefix_fetch_ms")
+        # inventory TTL cache (FleetConfig.prefix_inventory_ttl_ms)
+        self.fleet_inventory_cache_hits = mk(
+            "llmctl_fleet_prefix_inventory_cache_hits")
+        self.fleet_inventory_cache_misses = mk(
+            "llmctl_fleet_prefix_inventory_cache_misses")
+        # tiered fleet KV store (serve/fleet/kv_store.py)
+        self.fleet_kvstore_hits = mk("llmctl_fleet_kvstore_hits")
+        self.fleet_kvstore_misses = mk("llmctl_fleet_kvstore_misses")
+        self.fleet_kvstore_demotions = mk(
+            "llmctl_fleet_kvstore_demotions")
+        self.fleet_kvstore_evictions = mk(
+            "llmctl_fleet_kvstore_evictions")
+        self.fleet_kvstore_bytes = mk("llmctl_fleet_kvstore_bytes")
+        # networked KV fabric: the standalone-store client's own view
+        # (serve/fleet/store_service.py) + courier weight distribution
+        # (serve/fleet/weights.py)
+        self.fleet_kvstore_remote_hits = mk(
+            "llmctl_fleet_kvstore_remote_hits")
+        self.fleet_kvstore_remote_misses = mk(
+            "llmctl_fleet_kvstore_remote_misses")
+        # replicated store tier (serve/fleet/store_tier.py): client
+        # failover + member fencing/anti-entropy
+        self.fleet_kvstore_retry = mk("llmctl_fleet_kvstore_retry")
+        self.fleet_kvstore_failovers = mk(
+            "llmctl_fleet_kvstore_failovers")
+        self.fleet_kvstore_hedges = mk("llmctl_fleet_kvstore_hedges")
+        self.fleet_kvstore_fenced_rejects = mk(
+            "llmctl_fleet_kvstore_fenced_rejects")
+        self.fleet_kvstore_sync_pulls = mk(
+            "llmctl_fleet_kvstore_sync_pulls")
+        self.fleet_weights_chunks = mk("llmctl_fleet_weights_chunks")
+        self.fleet_weights_resumes = mk("llmctl_fleet_weights_resumes")
+        self.fleet_weights_bytes = mk("llmctl_fleet_weights_bytes")
+        # pipelined multi-replica prefill (serve/fleet/pipeline.py)
+        self.fleet_pipeline_prefills = mk(
+            "llmctl_fleet_pipeline_prefills")
+        self.fleet_pipeline_stages = mk("llmctl_fleet_pipeline_stages")
+        self.fleet_pipeline_collapses = mk(
+            "llmctl_fleet_pipeline_collapses")
+        self.fleet_pipeline_preshipped_pages = mk(
+            "llmctl_fleet_pipeline_preshipped_pages")
+        self.fleet_pipeline_stage = mk("llmctl_fleet_pipeline_stage_ms")
+        self.fleet_pipeline_preship_timeouts = mk(
+            "llmctl_fleet_pipeline_preship_timeouts")
+        self.fleet_store_hint_remote_skips = mk(
+            "llmctl_fleet_store_hint_remote_skips")
+        # fleet SSE streaming (serve/fleet/streams.py): the exactly-once
+        # delivery ledger
+        self.fleet_stream_active = mk("llmctl_fleet_stream_active")
+        self.fleet_stream_tokens = mk("llmctl_fleet_stream_tokens")
+        self.fleet_stream_duplicates = mk(
+            "llmctl_fleet_stream_duplicates")
+        self.fleet_stream_replayed = mk(
+            "llmctl_fleet_stream_replayed_tokens")
+        self.fleet_stream_reconnects = mk(
+            "llmctl_fleet_stream_reconnects")
+        self.fleet_stream_gaps_healed = mk(
+            "llmctl_fleet_stream_gaps_healed")
+        self.fleet_stream_backpressure_drops = mk(
+            "llmctl_fleet_stream_backpressure_drops")
+        self.fleet_stream_replay = mk("llmctl_fleet_stream_replay_tokens")
+        self.fleet_stream_orphan_gcs = mk(
+            "llmctl_fleet_stream_orphan_gcs")
+        # HA front tier (serve/fleet/front.py + state.py)
+        self.fleet_front_failovers = mk("llmctl_fleet_front_failovers")
+        self.fleet_front_reconnects = mk(
+            "llmctl_fleet_front_reconnects")
+        self.fleet_front_up = mk("llmctl_fleet_front_up")
+        self.fleet_front_active_streams = mk(
+            "llmctl_fleet_front_active_streams")
+        # speculative decode plane (serve/speculative.py SpecState)
+        self.fleet_spec_dispatches = mk("llmctl_fleet_spec_dispatches")
+        self.fleet_spec_drafts = mk("llmctl_fleet_spec_drafts")
+        self.fleet_spec_accepted = mk("llmctl_fleet_spec_accepted")
+        self.fleet_spec_resumes = mk("llmctl_fleet_spec_resumes")
+        # elastic autoscaler + SLO tiers (serve/fleet/autoscaler.py)
+        self.fleet_autoscale_scale_ups = mk(
+            "llmctl_fleet_autoscale_scale_ups")
+        self.fleet_autoscale_scale_downs = mk(
+            "llmctl_fleet_autoscale_scale_downs")
+        self.fleet_autoscale_spawn_failures = mk(
+            "llmctl_fleet_autoscale_spawn_failures")
+        self.fleet_autoscale_retire_rollbacks = mk(
+            "llmctl_fleet_autoscale_retire_rollbacks")
+        self.fleet_autoscale_preemptions = mk(
+            "llmctl_fleet_autoscale_preemptions")
+        self.fleet_replicas = mk("llmctl_fleet_replicas")
         self._last_totals: dict[str, float] = {}
         self._totals_lock = threading.Lock()
         self._server: Optional[ThreadingHTTPServer] = None
@@ -543,9 +679,274 @@ class PrometheusExporter:
             self.infer_swapped_bytes.set(m["swapped_host_bytes"])
 
     def export_fleet(self, snap: dict) -> None:
-        raise NotImplementedError(
-            "fleet metrics are not ported to the PyTorch package yet "
-            "(ROADMAP queue 1 item 9)")
+        """Export a supervisor snapshot (serve/fleet/supervisor.py
+        ``snapshot()``): per-replica gauges and the fleet's counters, each
+        counter inc'ed by its running total's growth since the last
+        snapshot; the histograms take the newest entries of their bounded
+        windows. Sections the port's fleet never fills (the KV store,
+        the weight courier, the fronts) stay at zero."""
+        with self._totals_lock:
+            self._export_fleet(snap)
+
+    def _export_fleet(self, snap: dict) -> None:
+        """Export a supervisor snapshot (serve/fleet/supervisor.py
+        ``snapshot()``): per-replica gauges + fleet counters. Counters
+        arrive as running totals, so the delta since the last snapshot is
+        inc'ed (same convention as preemptions/swap_ins above)."""
+        for rep in snap.get("replicas", []):
+            rid = str(rep["replica"])
+            self.fleet_queue_depth.labels(replica=rid).set(
+                rep.get("queue_depth", 0))
+            self.fleet_outstanding.labels(replica=rid).set(
+                rep.get("outstanding_tokens", 0))
+            self.fleet_active.labels(replica=rid).set(rep.get("active", 0))
+            self.fleet_healthy.labels(replica=rid).set(
+                1.0 if rep.get("state") == "healthy" else 0.0)
+            key = f"fleet_restarts_{rid}"
+            delta = rep.get("restarts", 0) - self._last_totals.get(key, 0)
+            if delta > 0:
+                self.fleet_restarts.labels(replica=rid).inc(delta)
+            self._last_totals[key] = rep.get("restarts", 0)
+            if "prefix_hit_rate" in rep:
+                self.fleet_prefix_hit_rate.labels(replica=rid).set(
+                    rep["prefix_hit_rate"])
+            if "role" in rep:
+                self.fleet_replica_role.labels(replica=rid).set(
+                    {"mixed": 0, "prefill": 1, "decode": 2}.get(
+                        rep["role"], 0))
+        router = snap.get("router", {})
+        for key, counter in (
+                ("requeues", self.fleet_requeues),
+                ("rejected", self.fleet_rejected),
+                ("inventory_cache_hits", self.fleet_inventory_cache_hits),
+                ("inventory_cache_misses",
+                 self.fleet_inventory_cache_misses),
+                ("store_hint_remote_skips",
+                 self.fleet_store_hint_remote_skips)):
+            total = router.get(key, 0)
+            delta = total - self._last_totals.get(f"fleet_{key}", 0)
+            if delta > 0:
+                counter.inc(delta)
+            self._last_totals[f"fleet_{key}"] = total
+        mig = snap.get("migration", {})
+        for key, counter in (
+                ("migrations", self.fleet_migrations),
+                ("migrated_tokens", self.fleet_migrated_tokens),
+                ("reprefill_tokens_avoided", self.fleet_reprefill_avoided)):
+            total = mig.get(key, 0)
+            delta = total - self._last_totals.get(f"fleet_mig_{key}", 0)
+            if delta > 0:
+                counter.inc(delta)
+            self._last_totals[f"fleet_mig_{key}"] = total
+        # pauses arrive as a bounded recent list + a cumulative count:
+        # observe only the count delta's worth of newest entries, so a
+        # repeated snapshot can't double-fill the histogram
+        count = mig.get("pause_count", 0)
+        new = int(count - self._last_totals.get("fleet_mig_pauses", 0))
+        pauses = mig.get("pauses_ms", [])
+        if new > 0:
+            for p in pauses[-min(new, len(pauses)):]:
+                self.fleet_migration_pause.observe(p)
+        self._last_totals["fleet_mig_pauses"] = count
+        # disaggregation plane: handoff counter + stall histogram follow
+        # the same delta-on-running-totals contract as migration above
+        ho = snap.get("handoff", {})
+        total = ho.get("handoffs", 0)
+        delta = total - self._last_totals.get("fleet_handoffs", 0)
+        if delta > 0:
+            self.fleet_handoffs.inc(delta)
+        self._last_totals["fleet_handoffs"] = total
+        count = ho.get("stall_count", 0)
+        new = int(count - self._last_totals.get("fleet_handoff_stalls", 0))
+        stalls = ho.get("stalls_ms", [])
+        if new > 0:
+            for s in stalls[-min(new, len(stalls)):]:
+                self.fleet_handoff_stall.observe(s)
+        self._last_totals["fleet_handoff_stalls"] = count
+        # courier transport plane: counters on running totals, the
+        # transfer histogram on the bounded recent window (same delta
+        # contract as migration pauses / handoff stalls above)
+        cour = snap.get("courier", {})
+        for key, counter in (
+                ("chunks", self.fleet_courier_chunks),
+                ("retries", self.fleet_courier_retries),
+                ("corruptions", self.fleet_courier_corruptions),
+                ("resumes", self.fleet_courier_resumes),
+                ("aborts", self.fleet_courier_aborts),
+                ("bytes_wire", self.fleet_courier_wire_bytes),
+                ("bytes_raw", self.fleet_courier_raw_bytes),
+                ("expired", self.fleet_courier_expired)):
+            total = cour.get(key, 0)
+            delta = total - self._last_totals.get(f"fleet_cour_{key}", 0)
+            if delta > 0:
+                counter.inc(delta)
+            self._last_totals[f"fleet_cour_{key}"] = total
+        count = cour.get("transfer_count", 0)
+        new = int(count - self._last_totals.get("fleet_cour_transfers", 0))
+        xfers = cour.get("transfer_ms", [])
+        if new > 0:
+            for t in xfers[-min(new, len(xfers)):]:
+                self.fleet_courier_transfer.observe(t)
+        self._last_totals["fleet_cour_transfers"] = count
+        # fleet-global prefix-fetch plane: same delta-on-running-totals
+        # contract; the latency histogram fills from the bounded recent
+        # window gated by the cumulative attempt count
+        pf = snap.get("prefix_fetch", {})
+        for key, counter in (
+                ("pages", self.fleet_prefix_fetch_pages),
+                ("bytes", self.fleet_prefix_fetch_bytes),
+                ("misses", self.fleet_prefix_fetch_misses),
+                ("aborts", self.fleet_prefix_fetch_aborts)):
+            total = pf.get(key, 0)
+            delta = total - self._last_totals.get(f"fleet_pf_{key}", 0)
+            if delta > 0:
+                counter.inc(delta)
+            self._last_totals[f"fleet_pf_{key}"] = total
+        count = pf.get("fetch_count", 0)
+        new = int(count - self._last_totals.get("fleet_pf_fetches", 0))
+        window = pf.get("fetch_ms", [])
+        if new > 0:
+            for t in window[-min(new, len(window)):]:
+                self.fleet_prefix_fetch.observe(t)
+        self._last_totals["fleet_pf_fetches"] = count
+        # tiered fleet KV store: demotion/hit/miss/eviction counters and
+        # the compressed bytes replayed on hits, delta'd from the
+        # snapshot's running totals like every other fleet counter
+        ks = snap.get("kv_store", {})
+        for key, counter in (
+                ("hits", self.fleet_kvstore_hits),
+                ("misses", self.fleet_kvstore_misses),
+                ("demotions", self.fleet_kvstore_demotions),
+                ("evictions", self.fleet_kvstore_evictions),
+                ("bytes_served", self.fleet_kvstore_bytes),
+                # networked backend only: the client-side replay/miss
+                # counts (the in-proc store never sets these keys)
+                ("remote_hits", self.fleet_kvstore_remote_hits),
+                ("remote_misses", self.fleet_kvstore_remote_misses),
+                # replicated tier: client failover counters plus the
+                # member-side fencing/anti-entropy counts (the latter
+                # appear when this process scrapes a member's status)
+                ("retries", self.fleet_kvstore_retry),
+                ("failovers", self.fleet_kvstore_failovers),
+                ("hedges", self.fleet_kvstore_hedges),
+                ("fenced_rejects", self.fleet_kvstore_fenced_rejects),
+                ("sync_pulls", self.fleet_kvstore_sync_pulls)):
+            total = ks.get(key, 0)
+            delta = total - self._last_totals.get(f"fleet_ks_{key}", 0)
+            if delta > 0:
+                counter.inc(delta)
+            self._last_totals[f"fleet_ks_{key}"] = total
+        # courier weight distribution: chunks/resumes/bytes this
+        # process moved through the store service (supervisor snapshot
+        # "weights" section; running totals like every fleet counter)
+        wt = snap.get("weights", {})
+        for key, counter in (
+                ("chunks", self.fleet_weights_chunks),
+                ("resumes", self.fleet_weights_resumes),
+                ("bytes", self.fleet_weights_bytes)):
+            total = wt.get(key, 0)
+            delta = total - self._last_totals.get(f"fleet_wt_{key}", 0)
+            if delta > 0:
+                counter.inc(delta)
+            self._last_totals[f"fleet_wt_{key}"] = total
+        # pipelined multi-replica prefill: counters on running totals,
+        # the stage-latency histogram on the bounded recent window gated
+        # by the cumulative stage count (same contract as courier
+        # transfers above)
+        pl = snap.get("pipeline", {})
+        for key, counter in (
+                ("pipelines", self.fleet_pipeline_prefills),
+                ("stages", self.fleet_pipeline_stages),
+                ("collapses", self.fleet_pipeline_collapses),
+                ("preshipped_pages",
+                 self.fleet_pipeline_preshipped_pages),
+                ("preship_timeouts",
+                 self.fleet_pipeline_preship_timeouts)):
+            total = pl.get(key, 0)
+            delta = total - self._last_totals.get(f"fleet_pl_{key}", 0)
+            if delta > 0:
+                counter.inc(delta)
+            self._last_totals[f"fleet_pl_{key}"] = total
+        count = pl.get("stage_count", 0)
+        new = int(count - self._last_totals.get("fleet_pl_stages_obs", 0))
+        window = pl.get("stage_ms", [])
+        if new > 0:
+            for t in window[-min(new, len(window)):]:
+                self.fleet_pipeline_stage.observe(t)
+        self._last_totals["fleet_pl_stages_obs"] = count
+        # speculative-decode plane: per-replica counters arrive fleet-
+        # aggregated as running totals (supervisor snapshot "spec"
+        # section); the pump deltas them like every other fleet counter
+        sp = snap.get("spec", {})
+        for key, counter in (
+                ("dispatches", self.fleet_spec_dispatches),
+                ("drafts", self.fleet_spec_drafts),
+                ("accepted", self.fleet_spec_accepted),
+                ("resumes", self.fleet_spec_resumes)):
+            total = sp.get(key, 0)
+            delta = total - self._last_totals.get(f"fleet_sp_{key}", 0)
+            if delta > 0:
+                counter.inc(delta)
+            self._last_totals[f"fleet_sp_{key}"] = total
+        # fleet SSE streaming plane: counters on running totals; the
+        # replay-size histogram fills from the bounded recent window
+        # gated by the cumulative reconnect count (same delta contract)
+        st = snap.get("streams", {})
+        if st:
+            self.fleet_stream_active.set(st.get("active", 0))
+        for key, counter in (
+                ("tokens", self.fleet_stream_tokens),
+                ("duplicates", self.fleet_stream_duplicates),
+                ("replayed", self.fleet_stream_replayed),
+                ("reconnects", self.fleet_stream_reconnects),
+                ("gaps_healed", self.fleet_stream_gaps_healed),
+                ("backpressure_drops",
+                 self.fleet_stream_backpressure_drops),
+                ("orphan_logs_gc", self.fleet_stream_orphan_gcs),
+                ("front_resumes", self.fleet_front_reconnects)):
+            total = st.get(key, 0)
+            delta = total - self._last_totals.get(f"fleet_st_{key}", 0)
+            if delta > 0:
+                counter.inc(delta)
+            self._last_totals[f"fleet_st_{key}"] = total
+        count = st.get("replay_count", 0)
+        new = int(count - self._last_totals.get("fleet_st_replays", 0))
+        sizes = st.get("replay_sizes", [])
+        if new > 0:
+            for s in sizes[-min(new, len(sizes)):]:
+                self.fleet_stream_replay.observe(s)
+        self._last_totals["fleet_st_replays"] = count
+        # HA front tier: per-front liveness/load gauges from the shared
+        # store's registry + the tier failover counter (running total,
+        # delta'd like every other fleet counter)
+        ft = snap.get("front_tier", {})
+        for fid, entry in (ft.get("fronts") or {}).items():
+            self.fleet_front_up.labels(front=fid).set(
+                1.0 if entry.get("alive") else 0.0)
+            self.fleet_front_active_streams.labels(front=fid).set(
+                entry.get("active_streams", 0))
+        total = ft.get("failovers", 0)
+        delta = total - self._last_totals.get("fleet_front_failovers", 0)
+        if delta > 0:
+            self.fleet_front_failovers.inc(delta)
+        self._last_totals["fleet_front_failovers"] = total
+        # elastic autoscaler: scale/preempt counters (running totals,
+        # delta'd) + the live fleet-size gauge
+        au = snap.get("autoscale", {})
+        if au:
+            self.fleet_replicas.set(au.get("replicas", 0))
+        for key, counter in (
+                ("scale_ups", self.fleet_autoscale_scale_ups),
+                ("scale_downs", self.fleet_autoscale_scale_downs),
+                ("spawn_failures", self.fleet_autoscale_spawn_failures),
+                ("retire_rollbacks",
+                 self.fleet_autoscale_retire_rollbacks),
+                ("preemptions", self.fleet_autoscale_preemptions)):
+            total = au.get(key, 0)
+            delta = total - self._last_totals.get(f"fleet_au_{key}", 0)
+            if delta > 0:
+                counter.inc(delta)
+            self._last_totals[f"fleet_au_{key}"] = total
 
 
 class OTLPExporter:
@@ -658,7 +1059,7 @@ class ObservabilityManager:
             self.otlp.record_inference_request(m)
 
     def record_fleet(self, snap: dict) -> None:
-        """Per-replica fleet snapshot: not ported yet (item 9)."""
+        """Per-replica fleet snapshot (supervisor poll cadence)."""
         if self.prometheus:
             self.prometheus.export_fleet(snap)
 

@@ -159,8 +159,7 @@ def adamw_multi_kernel(params, grads, mus, nus, scalars: torch.Tensor, *,
             if rc != 0:
                 raise RuntimeError(f"adamw kernel launch failed: CUDA error "
                                    f"{rc}")
-            adamw_kernel.launches += 1
-            adamw_kernel.leaves += len(launch["leaves"])
+            build.count_launch(adamw_kernel, leaves=len(launch["leaves"]))
     return len(plan)
 
 

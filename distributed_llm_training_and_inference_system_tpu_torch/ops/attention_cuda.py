@@ -86,7 +86,7 @@ def flash_fwd(q, k, v, q_segments, kv_segments, q_positions, kv_positions,
             Skv, D, int(causal), float(scale), _DTYPES[q.dtype], _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
-    flash_fwd.launches += 1
+    build.count_launch(flash_fwd)
     return out, lse
 
 
@@ -113,7 +113,7 @@ def flash_bwd_dq(q, k, v, q_segments, kv_segments, q_positions,
     if rc != 0:
         raise RuntimeError(
             f"flash_bwd_dq kernel launch failed: CUDA error {rc}")
-    flash_bwd_dq.launches += 1
+    build.count_launch(flash_bwd_dq)
     return dq
 
 
@@ -141,7 +141,7 @@ def flash_bwd_dkv(q, k, v, q_segments, kv_segments, q_positions,
     if rc != 0:
         raise RuntimeError(
             f"flash_bwd_dkv kernel launch failed: CUDA error {rc}")
-    flash_bwd_dkv.launches += 1
+    build.count_launch(flash_bwd_dkv)
     return dk, dv
 
 

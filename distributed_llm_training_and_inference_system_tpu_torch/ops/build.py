@@ -33,6 +33,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, launches: int = 1, **more: int) -> None:
+    """Add ``launches`` to ``wrapper.launches`` (and each of ``more`` to
+    the attribute of that name) under one lock: fleet replicas step their
+    engines on threads of their own, and ``+=`` on an attribute is a read
+    and a write another thread can come between. Callers read and reset
+    the plain integer attributes as before."""
+    with _count_lock:
+        wrapper.launches += launches
+        for name, n in more.items():
+            setattr(wrapper, name, getattr(wrapper, name) + n)
 
 
 def nvcc_path() -> str:

@@ -108,7 +108,7 @@ def int4_matmul_kernel(x: torch.Tensor, packed: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"int4_matmul kernel launch failed: CUDA error "
                            f"{rc}")
-    int4_matmul_kernel.launches += 1
+    build.count_launch(int4_matmul_kernel)
     return y
 
 

@@ -155,7 +155,7 @@ def int8_matmul_kernel(x: torch.Tensor, values: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
     """The whole-reduction route: [B, out] in x's dtype."""
     y = _launch("int8_matmul_whole_k", x, values, scale)
-    int8_matmul_kernel.launches += 1
+    build.count_launch(int8_matmul_kernel)
     return y
 
 
@@ -163,7 +163,7 @@ def int8_matmul_ksplit_kernel(x: torch.Tensor, values: torch.Tensor,
                               scale: torch.Tensor) -> torch.Tensor:
     """The k-split route: [B, out] in x's dtype."""
     y = _launch("int8_matmul_ksplit", x, values, scale)
-    int8_matmul_ksplit_kernel.launches += 1
+    build.count_launch(int8_matmul_ksplit_kernel)
     return y
 
 

@@ -152,7 +152,7 @@ def _launch(wrapper, kind, q, k_vals, v_vals, k_scale, v_scale, PS,
     if rc != 0:
         raise RuntimeError(
             f"paged_attention kernel launch failed: CUDA error {rc}")
-    wrapper.launches += 1
+    build.count_launch(wrapper)
     return out
 
 

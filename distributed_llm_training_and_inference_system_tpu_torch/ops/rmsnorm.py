@@ -115,7 +115,7 @@ def rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor,
                    torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {rc}")
-    rmsnorm_kernel.launches += 1
+    build.count_launch(rmsnorm_kernel)
     return out
 
 

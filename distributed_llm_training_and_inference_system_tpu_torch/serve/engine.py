@@ -47,9 +47,17 @@ serving path:
   plus K - 1 decode steps; after 64 dispatches under
   ``speculative_min_acceptance`` it switches itself off.
 
-Features that the port does not carry yet raise ``NotImplementedError``,
-naming their ROADMAP item: at construction, and for a fleet request
-(pipeline stage, partial payload) when it is admitted.
+- **Fleet hooks** (``serve/fleet/``): ``on_prefill_complete`` (the
+  disaggregated handoff boundary), ``prefix_fetch_hook`` (pages fetched
+  from another replica's prefix cache before a prefill, and the tail of a
+  crash-salvaged partial payload), ``pipeline_chunk_hook`` with the
+  chunk-by-chunk page publishing of a pipeline-stage request, partial
+  restores (a payload's full pages written back, only the tail
+  re-prefilled) and ``expect_pure_decode`` (a decode-role replica counts
+  the prefills it still runs).
+
+Features that the port does not carry yet raise ``NotImplementedError``
+at construction, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -78,7 +86,8 @@ from ..ops.quantization import (QuantTensor, Quant4Tensor, int4_group_for,
                                 quantize_int8, to_runtime_quant)
 from ..weights import jax_path, model_from_named, params_from_jax
 from .decode import decode_scan, extend_step_forward
-from .kv_cache import PagedKVCache, payload_bytes, prefix_page_hashes
+from .kv_cache import (PagedKVCache, concat_page_payloads, payload_bytes,
+                       prefix_page_hashes, slice_page_payload)
 from .sampling import gumbel_noise, prng_key, randint, sample_tokens
 from .speculative import SpecState, propose_ngram_draft, verify_and_decode
 from .scheduler import (ContinuousBatchingScheduler, Request, RequestState,
@@ -91,11 +100,6 @@ _NOT_PORTED = (
     (lambda c: c.tensor_parallel > 1, "tensor_parallel > 1",
      "queue 1 item 7 (multi-GPU)"),
 )
-
-
-# a request that only the fleet makes (ROADMAP queue 1 item 9)
-_FLEET_ONLY = ("is a fleet request; the PyTorch engine does not serve it "
-               "yet (ROADMAP queue 1 item 9, serve/fleet/)")
 
 QUANT_MIN_SIZE = 4096    # elements of the stacked [L, in, out] kernel
 
@@ -245,6 +249,29 @@ class InferenceEngine:
         self.on_finish: Optional[Callable[[Request], None]] = None
         # fired on the engine thread with each batch of accepted tokens
         self.on_token: Optional[Callable[[Request, list], None]] = None
+        # fired on the engine thread, no lock held, for each request still
+        # RUNNING after its prefill step and before any decode dispatch:
+        # a prefill-role fleet replica hands the sequence off here
+        self.on_prefill_complete: Optional[Callable[[Request], None]] = None
+        # a decode-role replica: a prefill still runs (a restore that does
+        # not fit falls back to one) but is counted and logged
+        self.expect_pure_decode = False
+        self.total_unexpected_prefills = 0
+        # partial payloads restored: their full pages written back, the
+        # tail re-prefilled
+        self.total_partial_restores = 0
+        # (request, uncovered page hashes) -> {"hashes", "pages"} fetched
+        # from another replica's prefix cache, or None; called on the
+        # engine thread before a prefill. None fetches nothing.
+        self.prefix_fetch_hook: Optional[Callable] = None
+        # (request, done tokens, finished) after each chunk of a
+        # pipeline-stage request, once its full pages are published; no
+        # lock held
+        self.pipeline_chunk_hook: Optional[Callable] = None
+        # context tokens covered by pages fetched from another replica
+        self.total_prefix_fetched_tokens = 0
+        # of those, tokens fetched onto a partial payload's tail
+        self.total_salvage_tail_fetched_tokens = 0
 
         # per-slot host state
         self.last_tokens = np.zeros(S, np.int64)
@@ -290,6 +317,9 @@ class InferenceEngine:
         self.total_decode_steps = 0
         self.total_prefill_tokens = 0        # tokens actually computed
         self.total_prefix_cached_tokens = 0  # prompt tokens served by cache
+        # prefill tokens a fleet requeue, fetch or partial restore did not
+        # compute again (the fleet's reprefill_tokens_avoided)
+        self.total_requeue_cached_tokens = 0
         self.total_padded_slot_steps = 0
         # decode steps enqueued (a pipelined group still in flight is
         # counted here, not in total_decode_steps) and suffix prefills:
@@ -464,6 +494,9 @@ class InferenceEngine:
             self._prefix_pins[req.request_id] = pins
         self.kv.prefix_queries += usable
         self.kv.prefix_hits += len(pins)
+        if pins and req.fleet_requeued:
+            # a fleet orphan whose prompt pages are warm here
+            self.total_requeue_cached_tokens += len(pins) * self.kv.page_size
         self._reserved_pages += need
         self._reserved_by[req.request_id] = need
         return True
@@ -580,22 +613,174 @@ class InferenceEngine:
         if req.prefill_dispatch_time is None:
             req.prefill_dispatch_time = time.monotonic()
 
+    def _maybe_fetch_prefix(self, req: Request) -> None:
+        """Fleet prefix fetch, on the engine thread before a prefill, no
+        lock held across the hook: when the local cache leaves full pages
+        of the context uncovered and the router named a ``prefix_owner``,
+        fetch those pages, import them into the cache and pin them for
+        this request, so the prefill computes only the rest. Every failure
+        (no hook, miss, abort, malformed payload, dry pool) leaves the
+        request as it was: a plain prefill."""
+        hook = self.prefix_fetch_hook
+        if (hook is None or not self.serve_cfg.prefix_caching
+                or req.swapped_kv is not None
+                or getattr(req, "prefix_owner", None) is None
+                or not req.prefix_hashes):
+            return
+        rid = req.request_id
+        n = len(req.context_tokens)
+        PS = self.kv.page_size
+        # >= 1 suffix token stays to produce the next token's logits
+        usable = min(len(req.prefix_hashes), max((n - 1) // PS, 0))
+        if usable == 0:
+            return
+        with self.lock:
+            pins = list(self._prefix_pins.get(rid, ()))
+            # coverage now, not at admission: a sibling's fetch or
+            # prefill may have published the pages since
+            chain = self.kv.lookup_prefix(req.prefix_hashes[:usable])
+            if len(chain) > len(pins):
+                extra = chain[len(pins):]
+                self.kv.pin_pages(extra)
+                pins += extra
+                self._prefix_pins[rid] = pins
+        uncovered = req.prefix_hashes[len(pins):usable]
+        if not uncovered:
+            return
+        got = hook(req, uncovered)      # may cross a link: no lock held
+        if not got:
+            return
+        hashes, pages = got.get("hashes") or [], got.get("pages")
+        # the owner must answer with a prefix of what was asked
+        k = 0
+        while k < min(len(hashes), len(uncovered)) \
+                and hashes[k] == uncovered[k]:
+            k += 1
+        if k == 0 or not isinstance(pages, dict):
+            return
+        with self.lock:
+            try:
+                inserted = self.kv.insert_prefix_pages(uncovered[:k], pages)
+            except (ValueError, KeyError, TypeError) as e:
+                logger.warning(
+                    "fetched prefix payload for %s rejected (%s); "
+                    "re-prefilling", rid, e)
+                return
+            # pin the longer chain under the same lock as the insert
+            chain = self.kv.lookup_prefix(req.prefix_hashes[:usable])
+            if len(chain) > len(pins):
+                extra = chain[len(pins):]
+                self.kv.pin_pages(extra)
+                self._prefix_pins[rid] = pins + extra
+            if inserted:
+                tokens = len(inserted) * PS
+                self.total_prefix_fetched_tokens += tokens
+                self.total_requeue_cached_tokens += tokens
+                logger.info(
+                    "prefix fetch for %s: imported %d page(s) (%d "
+                    "tokens) from replica %s", rid, len(inserted),
+                    tokens, getattr(req, "prefix_owner", None))
+
+    def _maybe_fetch_salvage_tail(self, req: Request) -> None:
+        """A crash-salvaged partial payload whose router hint names an
+        owner: fetch the chain pages past the payload's coverage and
+        splice them onto it, so the tail prefill shrinks to what no
+        replica holds. Every failure leaves the payload as it was."""
+        hook = self.prefix_fetch_hook
+        kvp = req.swapped_kv
+        if (hook is None or not self.serve_cfg.prefix_caching
+                or not isinstance(kvp, dict) or not kvp.get("partial")
+                or getattr(req, "prefix_owner", None) is None
+                or not req.prefix_hashes):
+            return
+        PS = self.kv.page_size
+        n = len(req.context_tokens)
+        covered = int(kvp.get("positions", 0)) // PS
+        pages = kvp.get("pages")
+        if not isinstance(pages, dict) \
+                or int(pages.get("num_pages", -1)) != covered:
+            return
+        usable = min(len(req.prefix_hashes), max((n - 1) // PS, 0))
+        if covered >= usable:
+            return
+        missing = req.prefix_hashes[covered:usable]
+        got = hook(req, missing)
+        if not got:
+            return
+        hashes, fetched = got.get("hashes") or [], got.get("pages")
+        k = 0
+        while k < min(len(hashes), len(missing)) \
+                and hashes[k] == missing[k]:
+            k += 1
+        if k == 0 or not isinstance(fetched, dict):
+            return
+        try:
+            merged = concat_page_payloads(pages,
+                                          slice_page_payload(fetched, k))
+        except (ValueError, KeyError, TypeError) as e:
+            logger.warning(
+                "salvage-tail fetch payload for %s rejected (%s); "
+                "re-prefilling the tail", req.request_id, e)
+            return
+        kvp["pages"] = merged
+        kvp["positions"] = (covered + k) * PS
+        self.total_salvage_tail_fetched_tokens += k * PS
+        self.total_prefix_fetched_tokens += k * PS
+
+    def _note_unexpected_prefill(self, req: Request, what: str) -> None:
+        if self.expect_pure_decode:
+            self.total_unexpected_prefills += 1
+            logger.warning(
+                "pure-decode engine starting %s for %s (restore fallback "
+                "or fleet mis-routing)", what, req.request_id)
+
     def _prefill(self, req: Request):
         """Dispatch one prompt's prefill; returns (req, device token). The
         first-token fetch is deferred to ``_finish_prefill`` so a burst of
-        admitted prompts pays one host round trip."""
+        admitted prompts pays one host round trip. A partial payload
+        (a migration's pre-copy salvaged from a crash) writes its full
+        pages back and only the tail is computed."""
+        self._maybe_fetch_prefix(req)
         slot = req.slot
         ctx = req.context_tokens   # prompt, + generated after a preemption
         n = len(ctx)
         rid = req.request_id
         PS = self.kv.page_size
+        self._note_unexpected_prefill(req, "a prefill")
+        self._maybe_fetch_salvage_tail(req)
+        partial = (req.swapped_kv if req.swapped_kv is not None
+                   and req.swapped_kv.get("partial") else None)
         with self.lock:   # page bookkeeping is shared with cancel/release
             pins = self._prefix_pins.get(rid, [])
+            if partial is not None and pins:
+                # one source for the chain's head: the payload is written
+                # into the slot's own pages from entry 0, never over
+                # shared cache pages; a cache that covers as much wins
+                if len(pins) * PS >= int(partial.get("positions", 0)):
+                    req.swapped_kv = None
+                    partial = None
+                else:
+                    self.kv.unpin_pages(pins)
+                    self._prefix_pins.pop(rid, None)
+                    pins = []
             self.kv.allocate(slot, n + self._admission_tail(req),
                              prefix_pages=pins)
             self._reserved_pages -= self._reserved_by.pop(rid, 0)
             self._req_slot[rid] = slot
             cached = len(pins) * PS       # context tokens served from cache
+            if partial is not None:
+                try:
+                    self.kv.write_slot_pages(slot, partial["pages"])
+                    cached = int(partial["positions"])
+                    self.total_partial_restores += 1
+                    if req.fleet_requeued:
+                        self.total_requeue_cached_tokens += cached
+                except (ValueError, KeyError, TypeError) as e:
+                    # a malformed payload: a whole prefill over the chain
+                    logger.warning(
+                        "partial restore payload for %s rejected (%s); "
+                        "re-prefilling the whole context", rid, e)
+                req.swapped_kv = None
             if cached == 0:
                 # table entries for the bucket: beyond-length -> scratch 0
                 bucket = self._bucket(n)
@@ -646,9 +831,11 @@ class InferenceEngine:
         """Allocate the slot's pages and enqueue the context for chunk-at-
         a-time prefill (one chunk an engine step, interleaved with
         decode)."""
+        self._maybe_fetch_prefix(req)
         slot = req.slot
         ctx = req.context_tokens
         rid = req.request_id
+        self._note_unexpected_prefill(req, "a chunked prefill")
         with self.lock:
             pins = self._prefix_pins.get(rid, [])
             self.kv.allocate(slot, len(ctx) + self._admission_tail(req),
@@ -687,7 +874,11 @@ class InferenceEngine:
                 continue
             ctx = st["ctx"]
             n, done = len(ctx), st["done"]
-            this = min(n - done, C)
+            stage = req.pipeline_stage
+            # a stage request takes chunks even with chunking off: then
+            # at the prefill bucket's size
+            this = min(n - done,
+                       C if C > 0 else max(self.serve_cfg.prefill_chunk, 1))
             bucket = self._suffix_bucket(this)
             if spent > 0 and spent + bucket > budget:
                 self._chunk_rr = rid    # resume at this request next step
@@ -696,12 +887,25 @@ class InferenceEngine:
             tokens = np.zeros((1, bucket), np.int64)
             tokens[0, :this] = ctx[done:done + this]
             last = done + this >= n
+            # a stage request's product is pages: even its last chunk
+            # skips the head
             logits = self._prefill_extend(tokens, done, this,
-                                          st["table_row"], head=last)
+                                          st["table_row"],
+                                          head=last and stage is None)
             self.total_prefill_chunks += 1
             self.total_prefill_tokens += this
             st["done"] = done + this
-            if last:
+            if stage is not None:
+                self._publish_stage_pages(st)
+                if last:
+                    # stage done: pages published, the slot freed without
+                    # arming decode
+                    with self.lock:
+                        self.scheduler.finish_prefill_only(rid)
+                    del self._partial_prefills[rid]
+                if self.pipeline_chunk_hook is not None:
+                    self.pipeline_chunk_hook(req, st["done"], last)
+            elif last:
                 self._nonfinite = self._nonfinite + (
                     ~torch.isfinite(logits).all()).long()
                 token = self._first_token(logits, req, req.assigned_seed, n)
@@ -710,12 +914,23 @@ class InferenceEngine:
                 del self._partial_prefills[rid]
         return completed
 
-    def _refuse(self, req: Request, what: str) -> None:
-        """Fail an admitted request that this engine cannot serve."""
+    def _publish_stage_pages(self, st: dict) -> None:
+        """Register a pipeline-stage request's newly full pages in the
+        prefix cache chunk by chunk, not at the end: the pipeline
+        coordinator ships them to the next stage while later chunks
+        compute."""
+        req: Request = st["req"]
+        if not self.serve_cfg.prefix_caching or not req.prefix_hashes:
+            return
+        full = min(st["done"] // self.kv.page_size, len(req.prefix_hashes))
+        pub = st.setdefault("published", st["pins"])
+        if full <= pub:
+            return
         with self.lock:
-            req.error = f"{what} {_FLEET_ONLY}"
-            logger.warning("refused %s: %s", req.request_id, req.error)
-            self.scheduler._release_slot(req.slot, "error")
+            table = self.kv.block_tables[req.slot]
+            self.kv.register_pages([(req.prefix_hashes[i], int(table[i]))
+                                    for i in range(pub, full)])
+        st["published"] = full
 
     def _arm_slot(self, req: Request, last_token: int, n_written: int,
                   ctx: list) -> None:
@@ -1169,19 +1384,21 @@ class InferenceEngine:
         C = self.serve_cfg.chunked_prefill_tokens
         pending = []
         for req in admitted:
-            if req.pipeline_stage is not None:
-                self._refuse(req, "a pipeline-stage prefill")
-                continue
-            if req.swapped_kv is not None:
-                if req.swapped_kv.get("partial"):
-                    self._refuse(req, "a partial KV payload")
-                    continue
+            if req.swapped_kv is not None \
+                    and not req.swapped_kv.get("partial"):
+                # a whole payload restores with no prefill; a partial one
+                # (a salvaged pre-copy) goes to _prefill, which writes its
+                # pages and computes the tail
                 if self._restore_swapped(req):
                     continue
                 req.swapped_kv = None
             # route on the whole re-prefill context: a preempted request
-            # resumes with prompt + generated, which may pass C
-            if C > 0 and len(req.context_tokens) > C:
+            # resumes with prompt + generated, which may pass C; a
+            # pipeline-stage request always takes chunks (its pages are
+            # published chunk by chunk)
+            if req.swapped_kv is None and (
+                    (C > 0 and len(req.context_tokens) > C)
+                    or req.pipeline_stage is not None):
                 self._start_chunked_prefill(req)
             else:
                 pending.append(self._prefill(req))
@@ -1194,6 +1411,12 @@ class InferenceEngine:
             with self.lock:
                 # prompt-is-whole-request edge: finished on the first token
                 self.scheduler.step_finished(self.eos_token_id)
+            if self.on_prefill_complete is not None:
+                # the disaggregated handoff boundary: no lock held, before
+                # any decode dispatch of these requests
+                for req, _tok in pending:
+                    if req.state is RequestState.RUNNING:
+                        self.on_prefill_complete(req)
         with self.lock:
             # grow chains for one dispatch of writes, preempting if needed,
             # BEFORE the dispatch reads the block tables
@@ -1350,6 +1573,12 @@ class InferenceEngine:
             "short_dispatches": self.total_short_dispatches,
             "prefill_tokens": self.total_prefill_tokens,
             "prefix_cached_tokens": self.total_prefix_cached_tokens,
+            "requeue_cached_tokens": self.total_requeue_cached_tokens,
+            "prefix_fetched_tokens": self.total_prefix_fetched_tokens,
+            "salvage_tail_fetched_tokens":
+                self.total_salvage_tail_fetched_tokens,
+            "unexpected_prefills": self.total_unexpected_prefills,
+            "partial_restores": self.total_partial_restores,
             "padded_slot_steps": self.total_padded_slot_steps,
             "dispatched_steps": self.total_dispatched_steps,
             "extend_prefills": self.total_extend_prefills,

@@ -1,0 +1,335 @@
+"""Serve fleet control plane: N engine replicas behind a router.
+
+The port's copy of the JAX package's ``serve/fleet/``, in one process:
+
+- :class:`~.router.FleetRouter` — prefix-affinity consistent hashing +
+  least-outstanding-tokens placement, fleet admission (429 + Retry-After)
+- :class:`~.replica.EngineReplica` — a threaded engine whose crash and
+  drain paths extract in-flight requests instead of failing them
+- :class:`~.supervisor.ReplicaSupervisor` — health probes, requeue,
+  restart with exponential backoff
+- :class:`~.faults.FaultInjector` — deterministic crash / probe-timeout /
+  straggler / chunk-chaos injection, drawn as the JAX package draws it
+- :class:`~.transport.KVCourier` — every migration, handoff and salvaged
+  partial payload crosses the chunked, checksummed, retrying courier
+- :class:`~.streams.FleetStreamHub` — exactly-once token streams
+- :class:`~.pipeline.PipelineCoordinator` — pipelined prefill over
+  replicas (off by default, ``pipeline_prefill_min_tokens = 0``)
+- :class:`ServeFleet` — the facade wiring them together
+
+Replicas are threads, each stepping its own ``InferenceEngine`` on one
+card; the weights are loaded once, by replica 0, and shared. What needs
+other processes or the store tier is refused at construction, naming its
+ROADMAP step (queue 1 item 9): remote replicas, ``fleet_endpoints``, the
+HTTP courier, the HA fronts and their file state store, and the
+autoscaler (9c); the KV store tier and the weight courier (9d).
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+import uuid
+from typing import Callable, Optional, Sequence
+
+from ...config.schema import FleetConfig, ModelConfig, ServeConfig
+from ..scheduler import Request, SamplingParams
+from .faults import (DestUnreachable, FaultInjector, FaultPlan,
+                     InjectedCrash, ProbeTimeout, RpcBlackhole)
+from .migration import MigrationTicket
+from .pipeline import PipelineCoordinator, plan_stages
+from .replica import (ROLE_DECODE, ROLE_MIXED, ROLE_PREFILL, EngineReplica,
+                      reset_for_requeue)
+from .router import (FleetRouter, FleetSaturated, normalize_priority,
+                     prefix_digest)
+from .state import (FleetStateStore, InMemoryStateStore, StoreFenced,
+                    build_state_store)
+from .streams import FleetStreamHub
+from .supervisor import ReplicaSupervisor
+from .transport import (KV_STORE_OWNER, CourierReceiver,
+                        HTTPCourierTransport, InProcTransport, KVCourier,
+                        TransferAborted, TransportError, build_transport,
+                        is_ticket_stub, ticket_stub)
+
+__all__ = [
+    "CourierReceiver",
+    "DestUnreachable",
+    "EngineReplica",
+    "FaultInjector",
+    "FaultPlan",
+    "FleetRouter",
+    "FleetSaturated",
+    "FleetStateStore",
+    "KV_STORE_OWNER",
+    "FleetStreamHub",
+    "HTTPCourierTransport",
+    "InMemoryStateStore",
+    "InProcTransport",
+    "InjectedCrash",
+    "KVCourier",
+    "MigrationTicket",
+    "PipelineCoordinator",
+    "ProbeTimeout",
+    "RpcBlackhole",
+    "ROLE_DECODE",
+    "ROLE_MIXED",
+    "ROLE_PREFILL",
+    "ReplicaSupervisor",
+    "ServeFleet",
+    "StoreFenced",
+    "TransferAborted",
+    "TransportError",
+    "build_state_store",
+    "build_transport",
+    "is_ticket_stub",
+    "normalize_priority",
+    "plan_stages",
+    "prefix_digest",
+    "reset_for_requeue",
+    "ticket_stub",
+]
+
+logger = logging.getLogger("llmctl.serve.fleet")
+
+_STEP_9C = "ROADMAP queue 1 item 9, step 9c"
+_STEP_9D = "ROADMAP queue 1 item 9, step 9d"
+
+# fleet option -> (is it asked for?, what it is, the step that ports it)
+_NOT_PORTED = (
+    (lambda c: bool(c.remote_replicas), "remote_replicas (fleet workers "
+     "in other processes)", _STEP_9C),
+    (lambda c: bool(c.fleet_endpoints), "fleet_endpoints (the courier's "
+     "HTTP endpoint map)", _STEP_9C),
+    (lambda c: c.courier_transport != "inproc" or bool(c.courier_endpoint),
+     "the HTTP courier transport", _STEP_9C),
+    (lambda c: c.fronts > 1, "fronts > 1 (the HA front tier)", _STEP_9C),
+    (lambda c: c.state_store != "memory", "state_store='file' (the "
+     "fronts' shared state store)", _STEP_9C),
+    (lambda c: bool(c.autoscale), "autoscale (with `fleet worker`)",
+     _STEP_9C),
+    (lambda c: bool(c.kv_store), "kv_store (the fleet KV store tier)",
+     _STEP_9D),
+    (lambda c: bool(c.kv_store_endpoint_list()), "kv_store_endpoint(s) "
+     "(the store service and the weight courier)", _STEP_9D),
+)
+
+
+class ServeFleet:
+    """N replicas + router + supervisor, ready to serve.
+
+    Weights are loaded or initialised once (by replica 0) and shared
+    read-only across replicas: one copy on the card under N KV pools. A
+    quantized serve config quantizes once; the other replicas take
+    replica 0's quantized model as it is.
+
+    ``supervise=True`` runs the supervisor on its own thread;
+    ``supervise=False`` leaves probing, requeue and restart to explicit
+    ``supervisor.poll_once()`` calls (deterministic tests). ``device``
+    is the card by default; tests pass ``"cpu"``."""
+
+    def __init__(self, model_cfg: ModelConfig, serve_cfg: ServeConfig,
+                 fleet_cfg: Optional[FleetConfig] = None, params=None,
+                 fault_plan: Optional[FaultPlan] = None,
+                 observer: Optional[Callable[[str, dict], None]] = None,
+                 eos_token_id: Optional[int] = None, seed: int = 0,
+                 supervise: bool = True, device=None):
+        self.fleet_cfg = fleet_cfg or FleetConfig()
+        self.fleet_cfg.validate()
+        for asked, what, step in _NOT_PORTED:
+            if asked(self.fleet_cfg):
+                raise NotImplementedError(
+                    f"{what} is not ported to the PyTorch fleet yet "
+                    f"({step})")
+        self.serve_cfg = serve_cfg
+        self.injector = FaultInjector(fault_plan) if fault_plan else None
+        roles = self.fleet_cfg.role_list()
+        # every migration / handoff / salvaged-partial payload crosses
+        # the chunked, checksummed courier and attaches by ticket in the
+        # process's receiver
+        self.courier = KVCourier(self.fleet_cfg, injector=self.injector)
+        self.store = build_state_store(self.fleet_cfg)
+        # the per-request token logs: every replica a streaming request
+        # crosses publishes here with monotonic sequence numbers, and the
+        # hub dedupes by sequence, so requeues and migrations are
+        # invisible to a stream's reader
+        self.streams = FleetStreamHub(
+            ttl_ms=self.fleet_cfg.stream_log_ttl_ms,
+            max_buffered_batches=self.fleet_cfg
+            .stream_max_buffered_batches,
+            store=self.store)
+        self.courier_receiver = self.courier.receiver
+        self.replicas: list = []
+        for i in range(self.fleet_cfg.replicas):
+            r = EngineReplica(
+                i, model_cfg, serve_cfg, params=params,
+                # distinct base seeds so unseeded sampled requests do not
+                # mirror each other across replicas
+                seed=seed + 1000 * i, injector=self.injector,
+                on_finish=self._on_request_exit,
+                eos_token_id=eos_token_id,
+                fleet_cfg=self.fleet_cfg, role=roles[i], device=device)
+            if i == 0:
+                # replica 0 owns the load (and the quantization): the
+                # others take the model it serves, one copy on the card
+                params = r.engine.params
+                model_cfg = r.model_cfg
+            self.replicas.append(r)
+        self.model_cfg = model_cfg
+        # the page size the engines hash prefixes with; 0 turns the
+        # fleet prefix cache off
+        page_size = (serve_cfg.kv_block_size
+                     if (serve_cfg.prefix_caching
+                         and self.fleet_cfg.prefix_fetch) else 0)
+        self.router = FleetRouter(self.replicas, self.fleet_cfg,
+                                  observer=observer, courier=self.courier,
+                                  page_size=page_size, store=self.store,
+                                  kv_store=None)
+        # the coordinator exists even when gated off (min_tokens=0) so the
+        # snapshot and metrics keep one shape
+        self.pipeline = PipelineCoordinator(self.fleet_cfg, page_size)
+        self.pipeline.bind(self.router, self.replicas, self.courier)
+        self.router.pipeline = self.pipeline
+        for r in self.replicas:
+            self._wire_replica(r)
+        self.supervisor = ReplicaSupervisor(
+            self.replicas, self.router, self.fleet_cfg,
+            injector=self.injector, params=params, observer=observer,
+            streams=self.streams, store=self.store, kv_store=None,
+            pipeline=self.pipeline)
+        self._supervise = supervise
+
+    def _wire_replica(self, r) -> None:
+        """Attach one replica's fleet-facing callbacks."""
+        r.courier_receiver = self.courier_receiver
+        # streaming: the engine's on_token feeds the hub directly
+        r.on_token = self._on_stream_tokens
+        # disaggregation: a prefill-role replica asks the router for a
+        # decode destination before it extracts, then places the handed-
+        # off sequence from its engine thread
+        r.handoff_dest = self.router.handoff_dest
+        r.on_handoff = self._place_handoff
+        # prefix fetch: each replica serves its cached pages to the fleet
+        # and fetches missing ones through the courier
+        self.courier.prefix_providers[r.replica_id] = \
+            r.request_prefix_extract
+        r.prefix_fetcher = self.courier.fetch_prefix
+        # pipelined prefill: stage chunk progress feeds the coordinator
+        r.on_pipeline_chunk = self.pipeline.on_stage_chunk
+
+    def _on_request_exit(self, replica_id: int, req: Request) -> None:
+        self.router.on_request_exit(replica_id, req)
+
+    def _on_stream_tokens(self, replica_id: int, req: Request,
+                          tokens: list) -> None:
+        self.streams.publish_from_request(req, tokens, replica=replica_id)
+
+    def _place_handoff(self, replica_id: int, req: Request,
+                       dest: Optional[int]) -> None:
+        self.router.place_handoff(req, from_replica=replica_id, dest=dest)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        for r in self.replicas:
+            r.start()
+        if self._supervise:
+            self.supervisor.start()
+
+    def shutdown(self) -> None:
+        """Stop the supervisor and every engine thread, and release the
+        engines' weights references and KV pools."""
+        self.supervisor.stop()
+        for r in self.replicas:
+            r.stop()
+            try:
+                r.engine.release()
+            except Exception:
+                pass
+
+    # -- serving -------------------------------------------------------------
+
+    def submit(self, prompt_tokens: Sequence[int],
+               sampling: Optional[SamplingParams] = None,
+               request_id: Optional[str] = None,
+               on_complete: Optional[Callable[[Request], None]] = None,
+               priority: str = "standard") -> Request:
+        return self.router.submit(prompt_tokens, sampling,
+                                  request_id=request_id,
+                                  on_complete=on_complete,
+                                  priority=priority)
+
+    def submit_streaming(self, prompt_tokens: Sequence[int],
+                         sampling: Optional[SamplingParams] = None,
+                         request_id: Optional[str] = None,
+                         on_complete: Optional[Callable[[Request], None]]
+                         = None, priority: str = "standard") -> Request:
+        """Admit one streaming request: its token batches flow through the
+        stream hub (``self.streams``) with monotonic sequence numbers
+        across every re-placement. The log opens before placement, so no
+        producer can race the first token past it; a rejected submission
+        tears it down. The hub finishes the log on the request's terminal
+        state before the caller's ``on_complete`` fires."""
+        rid = request_id or f"fleet-{uuid.uuid4().hex[:24]}"
+        self.streams.open(rid)
+
+        def _complete(req: Request) -> None:
+            meta = getattr(req, "fleet_meta", {}) or {}
+            self.streams.finish_from_request(req,
+                                             replica=meta.get("replica"))
+            if on_complete is not None:
+                on_complete(req)
+
+        try:
+            return self.router.submit(prompt_tokens, sampling,
+                                      request_id=rid,
+                                      on_complete=_complete, stream=True,
+                                      priority=priority)
+        except Exception:
+            self.streams.discard(rid)
+            raise
+
+    def generate(self, prompts: Sequence[Sequence[int]],
+                 sampling: Optional[SamplingParams] = None,
+                 timeout_s: float = 300.0) -> list[Request]:
+        """Submit every prompt and wait for terminal states. Without a
+        supervisor thread the wait polls the supervisor, so crash and
+        drain recovery still happen, deterministically, on this
+        thread."""
+        events: list[threading.Event] = []
+        reqs: list[Request] = []
+        for p in prompts:
+            ev = threading.Event()
+            reqs.append(self.submit(p, sampling,
+                                    on_complete=lambda _r, ev=ev: ev.set()))
+            events.append(ev)
+        deadline = time.monotonic() + timeout_s
+        for ev in events:
+            while not ev.wait(timeout=0.02):
+                if not self._supervise:
+                    self.supervisor.poll_once()
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"fleet generate: {sum(not e.is_set() for e in events)}"
+                        f" of {len(events)} requests still pending")
+        return reqs
+
+    # -- operator surface ----------------------------------------------------
+
+    def drain(self, replica_id: int) -> bool:
+        return self.supervisor.drain(replica_id)
+
+    def undrain(self, replica_id: int) -> bool:
+        return self.supervisor.undrain(replica_id)
+
+    def migrate(self, request_id: str, dest_replica: int) -> bool:
+        """Move one in-flight request to ``dest_replica`` with its KV
+        pages (no re-prefill)."""
+        return self.supervisor.migrate(request_id, dest_replica)
+
+    def set_role(self, replica_id: int, role: str) -> bool:
+        """Re-role one replica (prefill|decode|mixed)."""
+        return self.supervisor.set_role(replica_id, role)
+
+    def status(self) -> dict:
+        return self.supervisor.snapshot()

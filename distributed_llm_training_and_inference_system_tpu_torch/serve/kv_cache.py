@@ -32,15 +32,22 @@ package's payload holds numpy arrays of the same shapes and bytes:
 ``payload_numpy`` gives them, with a bf16 tensor as its ``uint16`` view
 (numpy has no bf16 without ``ml_dtypes``; JAX's bf16 array viewed as
 ``uint16`` holds the same bytes). A restore takes either form, a
-``uint16`` numpy array standing for bf16 pages.
+``uint16`` numpy array standing for bf16 pages. The ``uint16`` arrays
+that ``payload_numpy`` makes carry the dtype ``BF16_HOST`` (``uint16`` with
+a note in its metadata), so the fleet's courier can name them
+``"bfloat16"`` in a manifest as the JAX package does.
 
-The fleet-only helpers of the JAX module (prefix-page insert, inventory,
-demotion) are not ported yet (ROADMAP queue 1 item 9).
+The fleet helpers: ``slice_page_payload`` / ``concat_page_payloads`` on
+host payloads, ``insert_prefix_pages`` (fetched prefix pages into the
+cache), the prefix inventory, and the demotion queue of evicted pages,
+whose hook stays unset until the fleet's KV store tier is ported (ROADMAP
+queue 1 item 9, step 9d).
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import math
 from collections import OrderedDict
 from typing import Optional
@@ -49,6 +56,19 @@ import numpy as np
 import torch
 
 from ..ops.paged_attention import Int4Pages, QuantPages
+
+logger = logging.getLogger("llmctl.serve.kv_cache")
+
+# the host dtype of a bf16 page array: its bits as uint16, marked so that
+# a manifest can name it (numpy has no bf16 without ml_dtypes)
+BF16_HOST = np.dtype(np.uint16, metadata={"dtype": "bfloat16"})
+
+
+def host_dtype_name(dtype: np.dtype) -> str:
+    """The name a host array's dtype goes by in a courier manifest: the
+    JAX package's ``str(arr.dtype)``, ``"bfloat16"`` for ``BF16_HOST``."""
+    meta = dtype.metadata or {}
+    return meta.get("dtype", str(dtype))
 
 
 def _host_tensor(data, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -82,7 +102,7 @@ def payload_numpy(content: dict) -> dict:
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         if node.dtype == torch.bfloat16:
-            node = node.view(torch.uint16)
+            return node.view(torch.uint16).cpu().numpy().view(BF16_HOST)
         return node.cpu().numpy().copy()
     return {"k": conv(content["k"]), "v": conv(content["v"]),
             "num_pages": int(content["num_pages"])}
@@ -100,6 +120,45 @@ def prefix_page_hashes(tokens, page_size: int) -> list[bytes]:
             digest_size=16).digest()
         out.append(h)
     return out
+
+
+def slice_page_payload(content: dict, n: int) -> dict:
+    """First ``n`` pages of a host payload (plain arrays or quantized
+    {values, scale} dicts; the page axis is 1)."""
+    total = int(content["num_pages"])
+    if not 0 < n <= total:
+        raise ValueError(
+            f"slice_page_payload: want {n} of {total} page(s)")
+
+    def cut(node):
+        if isinstance(node, dict):
+            return {k: cut(v) for k, v in node.items()}
+        return np.asarray(node)[:, :n]
+    return {"k": cut(content["k"]), "v": cut(content["v"]),
+            "num_pages": n}
+
+
+def concat_page_payloads(a: dict, b: dict) -> dict:
+    """Two host payloads joined along the page axis: the salvage-tail
+    splice of the engine (a crash-salvaged partial payload grows by the
+    chain pages a sibling replica's cache still held). Quantized and
+    plain payloads must not mix."""
+
+    def cat(x, y):
+        if isinstance(x, dict) != isinstance(y, dict):
+            raise ValueError(
+                "concat_page_payloads: quantized/plain payload mismatch")
+        if isinstance(x, dict):
+            if set(x) != set(y):
+                raise ValueError(
+                    f"concat_page_payloads: quantized parts differ "
+                    f"({sorted(x)} vs {sorted(y)})")
+            return {k: cat(x[k], y[k]) for k in x}
+        x, y = np.asarray(x), np.asarray(y)
+        # np.concatenate drops dtype metadata: keep BF16_HOST
+        return np.concatenate([x, y], axis=1).view(x.dtype)
+    return {"k": cat(a["k"], b["k"]), "v": cat(a["v"], b["v"]),
+            "num_pages": int(a["num_pages"]) + int(b["num_pages"])}
 
 
 class PagedKVCache:
@@ -175,6 +234,12 @@ class PagedKVCache:
         self._evictable: OrderedDict[int, None] = OrderedDict()
         self.prefix_hits = 0          # pages served from cache
         self.prefix_queries = 0       # full pages looked up
+        # the fleet's KV store tier: when set, called with (hashes, host
+        # payload) for the cached pages an allocation evicted, batched
+        # into one extract an allocation. None (until the store tier is
+        # ported) changes nothing.
+        self.demote_hook = None
+        self._demote_pending: list[tuple[bytes, int]] = []
 
     def _new_pages(self, shape):
         """A zeroed page buffer of the cache's kind. ``shape`` is the
@@ -201,6 +266,9 @@ class PagedKVCache:
     def pages_needed(self, num_tokens: int) -> int:
         return math.ceil(max(num_tokens, 1) / self.page_size)
 
+    def can_allocate(self, num_tokens: int) -> bool:
+        return self.pages_needed(num_tokens) <= self.free_pages
+
     def can_ever_allocate(self, num_tokens: int) -> bool:
         """Whether an EMPTY cache could hold this many tokens (page 0 is
         reserved scratch)."""
@@ -223,8 +291,30 @@ class PagedKVCache:
             h = self._page_to_hash.pop(page, None)
             if h is not None:
                 self._hash_to_page.pop(h, None)
+                if self.demote_hook is not None:
+                    self._demote_pending.append((h, page))
             return page
         raise RuntimeError("KV cache OOM: no free or evictable pages")
+
+    def _flush_demotions(self) -> None:
+        """Hand the evictions queued by ``_take_free_page`` to the demote
+        hook in one extract. Runs before the allocation returns (an
+        evicted page's content holds only until a later dispatch writes
+        it); a failing hook never breaks the allocation."""
+        if not self._demote_pending:
+            return
+        pairs, self._demote_pending = self._demote_pending, []
+        hook = self.demote_hook
+        if hook is None:
+            return
+        try:
+            content = payload_numpy(self._extract_pages_idx(
+                np.asarray([p for _h, p in pairs], np.int64)))
+            hook([h for h, _p in pairs], content)
+        except Exception:
+            logger.exception(
+                "KV page demotion hook failed; %d page(s) evicted "
+                "without demoting", len(pairs))
 
     def _drop_ref(self, page: int) -> None:
         self._ref[page] -= 1
@@ -257,6 +347,11 @@ class PagedKVCache:
         self.block_tables[slot, :] = 0
         self.block_tables[slot, :len(table)] = table
         self._chain_len[slot] = len(table)
+        self._flush_demotions()
+
+    def slot_capacity_tokens(self, slot: int) -> int:
+        """Tokens the slot's current page chain can hold."""
+        return self._chain_len.get(slot, 0) * self.page_size
 
     def extend_slot(self, slot: int, num_tokens: int) -> bool:
         """Grow ``slot``'s chain to cover ``num_tokens``. All or nothing:
@@ -274,6 +369,7 @@ class PagedKVCache:
         self._owned.setdefault(slot, []).extend(pages)
         self.block_tables[slot, start:start + need] = pages
         self._chain_len[slot] = start + need
+        self._flush_demotions()
         return True
 
     def release(self, slot: int) -> None:
@@ -498,6 +594,60 @@ class PagedKVCache:
             if h not in self._hash_to_page and page not in self._page_to_hash:
                 self._hash_to_page[h] = page
                 self._page_to_hash[page] = h
+
+    def insert_prefix_pages(self, hashes: list[bytes],
+                            content: dict) -> list[int]:
+        """Import fetched prefix pages: write ``content``'s page columns
+        (column i for hashes[i]) into pages taken from the free pool and
+        publish them. First writer wins as in ``register_pages``: a hash
+        already cached keeps its page and the fetched copy is skipped. A
+        dry pool stops the import early (the tail re-prefills) rather than
+        evict what a resident request may be about to hit. Inserted pages
+        enter evictable (ref 0); a caller that needs them must pin them
+        under the same lock. Returns the page ids taken."""
+        n = self._validate_pages_content(content)
+        if n < len(hashes):
+            raise ValueError(
+                f"insert_prefix_pages: payload carries {n} page(s) for "
+                f"{len(hashes)} hash(es)")
+        take_pos: list[int] = []
+        pages: list[int] = []
+        for i, h in enumerate(hashes):
+            if h in self._hash_to_page:
+                continue                   # duplicate: first writer wins
+            if not self._free and not self._evictable:
+                break                      # pool dry: partial import
+            pages.append(self._take_free_page())
+            take_pos.append(i)
+        # demotions first: extracting after the write would file the new
+        # content under the evicted pages' old hashes
+        self._flush_demotions()
+        if not pages:
+            return []
+
+        def part(data):
+            if isinstance(data, dict):
+                return {k: part(v) for k, v in data.items()}
+            return np.ascontiguousarray(np.asarray(data)[:, take_pos])
+        self._write_pages_idx(np.asarray(pages, np.int64),
+                              part(content["k"]), part(content["v"]))
+        for i, p in zip(take_pos, pages):
+            self._hash_to_page[hashes[i]] = p
+            self._page_to_hash[p] = hashes[i]
+            self._evictable[p] = None      # ref 0 until a request pins it
+        return pages
+
+    def prefix_cache_pairs(self) -> list[tuple[bytes, int]]:
+        """Every cached (hash, page) pair."""
+        return list(self._hash_to_page.items())
+
+    def prefix_inventory(self, max_entries: int = 0) -> list[bytes]:
+        """The page hashes cached here, in registration order;
+        ``max_entries > 0`` keeps only the newest that many."""
+        keys = list(self._hash_to_page.keys())
+        if max_entries > 0:
+            keys = keys[-max_entries:]
+        return keys
 
     def stats(self) -> dict:
         return {

@@ -1,5 +1,5 @@
-"""Load generation for one inference engine (the JAX package's
-``serve/loadgen.py`` for engine targets).
+"""Load generation for one inference engine or a fleet (the JAX package's
+``serve/loadgen.py``).
 
 Drives ``InferenceEngine.step()`` directly (no HTTP), so the numbers are the
 engine's, not a web stack's:
@@ -19,9 +19,17 @@ high-water mark; ``device_times=True`` adds the TTFT a co-located client
 would see (queue wait + the bucket's on-device prefill,
 ``engine.measure_device_times``).
 
-Fleet targets and the fleet scenarios (``run_returning``,
-``FrontStreamClient``, ``run_stream_fronts``, ``run_scenario``) need the
-fleet (ROADMAP queue 1 item 9) and raise ``NotImplementedError``.
+A ``ServeFleet`` target (``serve/fleet/``) is driven through its router:
+the replica threads step, the generator submits on schedule, polls the
+supervisor when no supervisor thread runs, and the result carries the
+per-replica breakdown, requeues, migrations, handoffs, the courier and
+prefix-fetch ledgers, the streaming client's exactly-once readout
+(``stream=True``) and the pipelined-prefill readout (``long_prompts``).
+
+The fleet scenarios that need the KV store tier, the HA fronts or the
+autoscaler (``run_returning``, ``FrontStreamClient``,
+``run_stream_fronts``, ``run_scenario``) raise ``NotImplementedError``,
+naming their ROADMAP step (queue 1 item 9, steps 9c and 9d).
 """
 
 from __future__ import annotations
@@ -34,8 +42,9 @@ import numpy as np
 
 from .scheduler import Request, RequestState, SamplingParams
 
-_FLEET = ("is a fleet target; the PyTorch port has no fleet yet (ROADMAP "
-          "queue 1 item 9, serve/fleet/)")
+_NOT_PORTED = ("is not ported to the PyTorch fleet yet: it needs the fleet "
+               "KV store tier, the HA fronts or the autoscaler (ROADMAP "
+               "queue 1 item 9, steps 9c and 9d)")
 
 
 @dataclass
@@ -52,6 +61,35 @@ class LoadResult:
     queue_peak: int = 0
     goodput_tokens_per_s: float = 0.0
     decode_ms_per_token_device: Optional[float] = None
+    # fleet targets only: 429-rejected submissions, cross-replica requeues
+    # and the per-replica breakdown {rid: {requests, p50/p99_ttft_ms,
+    # requeues}}
+    rejected: int = 0
+    requeues: int = 0
+    per_replica: dict = field(default_factory=dict)
+    # Retry-After resubmissions (``rejected`` then counts final ones)
+    retries: int = 0
+    # sequences moved with their pages, and prefill tokens the fleet did
+    # not compute again
+    migrations: int = 0
+    migrated_tokens: int = 0
+    reprefill_tokens_avoided: int = 0
+    # disaggregated prefill/decode: handoffs, local-decode fallbacks and
+    # the per-phase breakdown
+    handoffs: int = 0
+    handoffs_local: int = 0
+    phases: dict = field(default_factory=dict)
+    # the KV courier: transfers, chunks, retries, aborts, wire bytes and
+    # transfer-time percentiles
+    courier: dict = field(default_factory=dict)
+    # the fleet prefix cache: pages fetched from sibling replicas
+    prefix_fetch: dict = field(default_factory=dict)
+    # streaming client mode: streamed-token identity against the final
+    # completion, gaps and duplicates (0 both), delivery-gap percentiles
+    stream: dict = field(default_factory=dict)
+    # pipelined prefill: stage counts, overlap, the long/short split and
+    # every request's tokens in submission order
+    pipeline: dict = field(default_factory=dict)
 
     def percentile(self, xs, q):
         return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
@@ -79,6 +117,22 @@ class LoadResult:
                 "decode_ms_per_token_device":
                 round(self.decode_ms_per_token_device, 3)}
                if self.ttft_device_ms else {}),
+            **({"rejected": self.rejected, "requeues": self.requeues,
+                "retries": self.retries,
+                "migrations": self.migrations,
+                "migrated_tokens": self.migrated_tokens,
+                "reprefill_tokens_avoided": self.reprefill_tokens_avoided,
+                "per_replica": self.per_replica}
+               if self.per_replica else {}),
+            **({"handoffs": self.handoffs,
+                "handoffs_local": self.handoffs_local,
+                "phases": self.phases}
+               if self.phases else {}),
+            **({"courier": self.courier} if self.courier else {}),
+            **({"prefix_fetch": self.prefix_fetch}
+               if self.prefix_fetch else {}),
+            **({"stream": self.stream} if self.stream else {}),
+            **({"pipeline": self.pipeline} if self.pipeline else {}),
         }
 
 
@@ -120,9 +174,355 @@ def attach_device_times(res: LoadResult, reqs: list, engine) -> LoadResult:
     return res
 
 
-def _refuse_fleet(target) -> None:
-    if hasattr(target, "router"):
-        raise NotImplementedError(f"{type(target).__name__} {_FLEET}")
+def _is_fleet(target) -> bool:
+    """Fleet targets (serve/fleet ServeFleet) quack with a .router; plain
+    engines are stepped inline by the generator."""
+    return hasattr(target, "router")
+
+
+class _StreamClient:
+    """One streamed request's client-side consumer: subscribes to the
+    fleet stream hub, asserts the per-subscriber ordering contract
+    (contiguous seqs — any gap or duplicate is counted and would fail
+    the run's identity check), and records per-batch delivery times for
+    the jitter percentiles. Callbacks arrive on producer threads under
+    the hub lock, so this only appends."""
+
+    def __init__(self):
+        self.tokens: list[int] = []
+        self.next_seq = 0
+        self.gaps = 0
+        self.dups = 0
+        self.batch_times: list[float] = []   # one stamp per batch burst
+        self.finished = False
+        # set right after subscribe: consumes are instantaneous here, so
+        # every delivered batch acks immediately (the backpressure cap
+        # is for stalled SSE sockets, not in-process consumers). Safe
+        # under the hub lock — it is re-entrant.
+        self.acker = None
+
+    def __call__(self, ev):
+        if ev[0] == "tokens":
+            _kind, start, toks = ev
+            if start > self.next_seq:
+                self.gaps += 1
+            elif start < self.next_seq:
+                self.dups += 1
+            self.tokens.extend(toks)
+            self.next_seq = start + len(toks)
+            self.batch_times.append(time.monotonic())
+            if self.acker is not None:
+                self.acker()
+        else:
+            self.finished = True
+
+    def delivery_gaps_ms(self) -> list:
+        """Inter-batch delivery gaps — the client-observed inter-token
+        stall profile (a migration/crash resume shows up as one long
+        gap; steady decode as the dispatch cadence)."""
+        return [(b - a) * 1e3 for a, b in
+                zip(self.batch_times, self.batch_times[1:])]
+
+
+def _finalize_fleet(res: LoadResult, reqs: list, fleet,
+                    t0: float,
+                    stream_clients: Optional[dict] = None,
+                    long_prompt_len: int = 0) -> LoadResult:
+    """Fleet-side accounting: aggregate latencies like _finalize, then the
+    per-replica breakdown (requests, p50/p99 TTFT, requeues) from each
+    request's routing metadata + the router ledger."""
+    res.duration_s = time.monotonic() - t0
+    done_tokens = 0
+    by_replica: dict[int, dict] = {}
+    for r in reqs:
+        if r.state is RequestState.FINISHED:
+            res.completed += 1
+            done_tokens += len(r.generated_tokens)
+            if r.ttft_ms is not None:
+                res.ttft_ms.append(r.ttft_ms)
+            if len(r.generated_tokens) > 1 and r.finish_time is not None \
+                    and r.first_token_time is not None:
+                res.tpot_ms.append(
+                    (r.finish_time - r.first_token_time) * 1000.0
+                    / (len(r.generated_tokens) - 1))
+            meta = getattr(r, "fleet_meta", None) or {}
+            rid = meta.get("replica")
+            if rid is not None:
+                slot = by_replica.setdefault(
+                    rid, {"requests": 0, "ttfts": []})
+                slot["requests"] += 1
+                if r.ttft_ms is not None:
+                    slot["ttfts"].append(r.ttft_ms)
+        elif r.state in (RequestState.FAILED, RequestState.CANCELLED):
+            res.failed += 1
+    stats = fleet.router.stats()
+    res.requeues = stats["requeues"]
+    snap = fleet.supervisor.snapshot()
+    mig = snap.get("migration", {})
+    res.migrations = mig.get("migrations", 0)
+    res.migrated_tokens = mig.get("migrated_tokens", 0)
+    res.reprefill_tokens_avoided = mig.get("reprefill_tokens_avoided", 0)
+    res.preemptions = sum(rep.engine.total_preemptions
+                          for rep in fleet.replicas)
+    res.goodput_tokens_per_s = done_tokens / max(res.duration_s, 1e-9)
+    def pct(xs, q):
+        # None, not NaN: summaries are JSON-serialized and NaN is not a
+        # standard JSON token (same rule as offered_rps above)
+        return round(res.percentile(xs, q), 1) if xs else None
+
+    # disaggregated fleets (any non-mixed role): per-phase breakdown.
+    # TTFT is the prefill phase's latency (queue + prefill + the handoff
+    # crossing); ITL/TPOT is the decode phase's. The handoff stalls come
+    # from the supervisor snapshot (bounded recent window).
+    roles = {rep.replica_id: getattr(rep, "role", "mixed")
+             for rep in fleet.replicas}
+    ho = snap.get("handoff", {})
+    if ho.get("handoffs", 0) or set(roles.values()) - {"mixed"}:
+        res.handoffs = ho.get("handoffs", 0)
+        res.handoffs_local = ho.get("local_fallbacks", 0)
+        stalls = ho.get("stalls_ms", [])
+
+        def pct2(xs, q):
+            return round(res.percentile(xs, q), 2) if xs else None
+
+        res.phases = {
+            "prefill": {
+                "p50_ttft_ms": pct(res.ttft_ms, 50),
+                "p99_ttft_ms": pct(res.ttft_ms, 99),
+                "replicas": sorted(rid for rid, ro in roles.items()
+                                   if ro in ("prefill", "mixed")),
+            },
+            "decode": {
+                "p50_itl_ms": pct2(res.tpot_ms, 50),
+                "p99_itl_ms": pct2(res.tpot_ms, 99),
+                "replicas": sorted(rid for rid, ro in roles.items()
+                                   if ro in ("decode", "mixed")),
+            },
+            "handoff": {
+                "count": res.handoffs,
+                "local_fallbacks": res.handoffs_local,
+                "p50_stall_ms": pct2(stalls, 50),
+                "p99_stall_ms": pct2(stalls, 99),
+                # the transport's share of the crossing: how much of the
+                # handoff stall was the courier link itself
+                "p50_transfer_ms": pct2(
+                    snap.get("courier", {}).get("transfer_ms", []), 50),
+                "p99_transfer_ms": pct2(
+                    snap.get("courier", {}).get("transfer_ms", []), 99),
+            },
+        }
+
+    # courier transport plane: any payload that crossed replicas rode it
+    cour = snap.get("courier", {})
+    if cour.get("transfers", 0) or cour.get("aborts", 0):
+        def pct3(xs, q):
+            return round(res.percentile(xs, q), 2) if xs else None
+        xfer = cour.get("transfer_ms", [])
+        res.courier = {
+            "transfers": cour.get("transfers", 0),
+            "chunks": cour.get("chunks", 0),
+            "retries": cour.get("retries", 0),
+            "corruptions": cour.get("corruptions", 0),
+            "resumes": cour.get("resumes", 0),
+            "aborts": cour.get("aborts", 0),
+            # wire codec ledger: bytes that actually traveled vs the raw
+            # payload bytes they covered (the A/B signal for
+            # --serve-courier-codec)
+            "bytes_wire": cour.get("bytes_wire", 0),
+            "bytes_raw": cour.get("bytes_raw", 0),
+            "compression_ratio": cour.get("compression_ratio", 1.0),
+            "p50_transfer_ms": pct3(xfer, 50),
+            "p99_transfer_ms": pct3(xfer, 99),
+        }
+
+    # fleet-global prefix cache: fetched-instead-of-recomputed pages —
+    # nonzero whenever admission spilled off a warm owner and the fetch
+    # plane recovered the pages
+    pf = snap.get("prefix_fetch", {})
+    if pf.get("pages", 0) or pf.get("misses", 0) or pf.get("aborts", 0):
+        def pct4(xs, q):
+            return round(res.percentile(xs, q), 2) if xs else None
+        window = pf.get("fetch_ms", [])
+        res.prefix_fetch = {
+            "fetches": pf.get("fetches", 0),
+            "pages": pf.get("pages", 0),
+            "bytes": pf.get("bytes", 0),
+            "misses": pf.get("misses", 0),
+            "aborts": pf.get("aborts", 0),
+            "p50_fetch_ms": pct4(window, 50),
+            "p99_fetch_ms": pct4(window, 99),
+        }
+
+    # pipelined multi-replica prefill: the coordinator's counters plus
+    # the interference split — long-prompt TTFT (the pipelining payoff)
+    # vs the co-resident SHORT requests' TPOT (the protection readout).
+    # token_lists rides along (submission order) for on/off identity.
+    pl = snap.get("pipeline", {})
+    if pl.get("pipelines", 0) or long_prompt_len > 0:
+        def pct6(xs, q):
+            return round(res.percentile(xs, q), 2) if xs else None
+        long_ttft, short_ttft, short_tpot = [], [], []
+        for r in reqs:
+            if r.state is not RequestState.FINISHED:
+                continue
+            is_long = (long_prompt_len > 0
+                       and len(r.prompt_tokens) >= long_prompt_len)
+            if r.ttft_ms is not None:
+                (long_ttft if is_long else short_ttft).append(r.ttft_ms)
+            if not is_long and len(r.generated_tokens) > 1 \
+                    and r.finish_time is not None \
+                    and r.first_token_time is not None:
+                short_tpot.append(
+                    (r.finish_time - r.first_token_time) * 1000.0
+                    / (len(r.generated_tokens) - 1))
+        pipes = pl.get("pipelines", 0)
+        res.pipeline = {
+            "pipelines": pipes,
+            "completed": pl.get("completed", 0),
+            "stages": pl.get("stages", 0),
+            "mean_stages": (round(pl.get("stages", 0) / pipes, 2)
+                            if pipes else None),
+            "collapses": pl.get("collapses", 0),
+            "preshipped_pages": pl.get("preshipped_pages", 0),
+            "preship_ms": pl.get("preship_ms", 0),
+            "preship_hidden_ms": pl.get("preship_hidden_ms", 0),
+            "overlap_ratio": pl.get("overlap_ratio"),
+            "long_prompts": len(long_ttft),
+            "p50_long_ttft_ms": pct6(long_ttft, 50),
+            "p99_long_ttft_ms": pct6(long_ttft, 99),
+            "p50_short_ttft_ms": pct6(short_ttft, 50),
+            "p99_short_ttft_ms": pct6(short_ttft, 99),
+            "p50_short_tpot_ms": pct6(short_tpot, 50),
+            "p99_short_tpot_ms": pct6(short_tpot, 99),
+            "token_lists": [[int(t) for t in r.generated_tokens]
+                            for r in reqs],
+        }
+
+    # streaming client mode: per-token delivery jitter + the
+    # exactly-once ledger. ``identity_ok`` is the headline assertion:
+    # every request's STREAMED token sequence equals its final
+    # completion, with zero client-observed seq gaps or duplicates —
+    # across whatever crashes/migrations the run injected.
+    if stream_clients is not None:
+        by_rid = {r.request_id: r for r in reqs}
+        identity_ok = True
+        streamed_tokens = 0
+        gaps = dups = 0
+        all_gaps_ms: list = []
+        for rid, sc in stream_clients.items():
+            req = by_rid.get(rid)
+            if req is not None and req.state is RequestState.FINISHED \
+                    and sc.tokens != req.generated_tokens:
+                identity_ok = False
+            streamed_tokens += len(sc.tokens)
+            gaps += sc.gaps
+            dups += sc.dups
+            all_gaps_ms.extend(sc.delivery_gaps_ms())
+        hub = fleet.streams.stats()
+
+        def pct5(xs, q):
+            return round(res.percentile(xs, q), 2) if xs else None
+
+        res.stream = {
+            "streams": len(stream_clients),
+            "tokens": streamed_tokens,
+            "identity_ok": identity_ok,
+            "gaps": gaps,
+            "duplicates": dups,
+            # producer-side re-sends the hub absorbed (never delivered)
+            "suppressed_duplicates": hub.get("duplicates", 0),
+            "replayed": hub.get("replayed", 0),
+            "p50_gap_ms": pct5(all_gaps_ms, 50),
+            "p99_gap_ms": pct5(all_gaps_ms, 99),
+            "max_gap_ms": (round(max(all_gaps_ms), 2)
+                           if all_gaps_ms else None),
+        }
+
+    for rid, slot in sorted(by_replica.items()):
+        res.per_replica[rid] = {
+            "requests": slot["requests"],
+            "p50_ttft_ms": pct(slot["ttfts"], 50),
+            "p99_ttft_ms": pct(slot["ttfts"], 99),
+            "requeues": stats["requeues_per_replica"].get(rid, 0),
+        }
+    # replicas that served nothing still appear (an operator reading the
+    # breakdown must see the idle replica, not infer it from absence)
+    for rep in fleet.replicas:
+        res.per_replica.setdefault(rep.replica_id, {
+            "requests": 0, "p50_ttft_ms": None, "p99_ttft_ms": None,
+            "requeues": stats["requeues_per_replica"].get(
+                rep.replica_id, 0)})
+    return res
+
+
+def _submit_fleet(fleet, prompt, max_tokens, reqs, events, res,
+                  retryq: Optional[list] = None, max_retries: int = 0,
+                  tries: int = 0,
+                  stream_clients: Optional[dict] = None,
+                  priority: str = "standard"):
+    """One fleet submission; 429-style rejections are counted, not raised.
+
+    With ``max_retries > 0`` a saturated submission honors the server's
+    Retry-After hint: it re-enters ``retryq`` as (due_time, prompt, tries)
+    and is resubmitted by the drive loop once due — the client half of the
+    backpressure contract. Budget exhausted -> counted rejected+failed,
+    exactly like max_retries=0.
+
+    ``stream_clients`` (a dict, streaming mode): submit through the
+    stream hub and attach a :class:`_StreamClient` subscriber — tokens
+    are then consumed as a live stream, not just read off the finished
+    request."""
+    import threading
+
+    from .fleet.router import FleetSaturated
+    ev = threading.Event()
+    try:
+        if stream_clients is not None:
+            req = fleet.submit_streaming(
+                prompt,
+                SamplingParams(temperature=0.0, max_tokens=max_tokens),
+                on_complete=lambda _r, ev=ev: ev.set(),
+                priority=priority)
+            sc = _StreamClient()
+            sub = fleet.streams.subscribe(req.request_id, 0, sc)
+            if sub is not None:
+                sc.acker = (lambda rid=req.request_id,
+                            sid=sub["sub"]:
+                            fleet.streams.ack(rid, sid))
+                if sub["tokens"]:
+                    sc(("tokens", sub["start"], sub["tokens"]))
+                if sub["finished"]:
+                    sc(("finish", sub["finish_reason"], sub["error"]))
+            stream_clients[req.request_id] = sc
+            reqs.append(req)
+        else:
+            reqs.append(fleet.submit(
+                prompt,
+                SamplingParams(temperature=0.0, max_tokens=max_tokens),
+                on_complete=lambda _r, ev=ev: ev.set(),
+                priority=priority))
+        events.append(ev)
+    except FleetSaturated as e:
+        if retryq is not None and tries < max_retries:
+            res.retries += 1
+            retryq.append((time.monotonic() + e.retry_after_s, prompt,
+                           tries + 1, priority))
+        else:
+            res.rejected += 1
+            res.failed += 1
+
+
+def _drain_retryq(fleet, retryq, max_tokens, reqs, events, res,
+                  max_retries, stream_clients=None) -> None:
+    """Resubmit every due Retry-After entry (oldest first)."""
+    now = time.monotonic()
+    due = [x for x in retryq if x[0] <= now]
+    for x in sorted(due, key=lambda x: x[0]):
+        retryq.remove(x)
+        _submit_fleet(fleet, x[1], max_tokens, reqs, events, res,
+                      retryq=retryq, max_retries=max_retries, tries=x[2],
+                      stream_clients=stream_clients,
+                      priority=x[3] if len(x) > 3 else "standard")
 
 
 def _hot_prefix(rng, hi, prompt_len, hot_prefix_len: int) -> list:
@@ -132,15 +532,133 @@ def _hot_prefix(rng, hi, prompt_len, hot_prefix_len: int) -> list:
     return [int(t) for t in rng.integers(1, hi, size=k)] if k else []
 
 
+def _run_poisson_fleet(fleet, *, offered_rps, num_requests, prompt_len,
+                       max_tokens, seed, vocab_hi, prompt_pool,
+                       max_retries=0, hot_prefix_len=0,
+                       stream=False, long_prompts=0,
+                       long_prompt_len=0) -> LoadResult:
+    """Open-loop arrivals against a fleet router: replica threads do the
+    stepping; the generator only submits on schedule and waits. The
+    supervisor is polled inline when no background supervisor runs, so
+    injected faults recover deterministically inside the measured window.
+
+    ``long_prompts > 0`` is the long-context scenario: that many
+    ``long_prompt_len``-token summarization prompts join the SAME
+    Poisson arrival stream, evenly interleaved with the short chat
+    traffic. Their prompts are drawn up front from the run seed, so two
+    runs differing only in fleet config (pipelining on vs off) offer a
+    token-identical workload — LoadResult.pipeline carries the A/B."""
+    rng = np.random.default_rng(seed)
+    hi = vocab_hi or fleet.model_cfg.vocab_size
+    total = num_requests + max(long_prompts, 0)
+    gaps = rng.exponential(1.0 / offered_rps, size=total)
+    arrivals = np.cumsum(gaps)
+    hot = _hot_prefix(rng, hi, prompt_len, hot_prefix_len)
+    pool = [hot + rng.integers(1, hi,
+                               size=prompt_len - len(hot)).tolist()
+            for _ in range(max(prompt_pool, 1))]
+    # long prompts drawn up front (deterministic across fleet-config
+    # A/Bs) and spread evenly through the arrival order
+    long_pool = [rng.integers(1, hi, size=long_prompt_len).tolist()
+                 for _ in range(max(long_prompts, 0))]
+    long_at = {(k * total) // max(long_prompts, 1) + 1: k
+               for k in range(max(long_prompts, 0))} \
+        if long_prompts > 0 else {}
+    reqs: list[Request] = []
+    events: list = []
+    retryq: list = []
+    stream_clients: Optional[dict] = {} if stream else None
+    res = LoadResult(offered_rps=offered_rps)
+    supervised = fleet.supervisor._thread is not None
+    t0 = time.monotonic()
+    i = 0
+    while i < total or retryq \
+            or not all(e.is_set() for e in events):
+        now = time.monotonic() - t0
+        while i < total and arrivals[i] <= now:
+            if i in long_at:
+                prompt = long_pool[long_at[i]]
+            elif prompt_pool:
+                prompt = pool[int(rng.integers(len(pool)))]
+            else:
+                prompt = hot + rng.integers(
+                    1, hi, size=prompt_len - len(hot)).tolist()
+            _submit_fleet(fleet, prompt, max_tokens, reqs, events, res,
+                          retryq=retryq, max_retries=max_retries,
+                          stream_clients=stream_clients)
+            i += 1
+        _drain_retryq(fleet, retryq, max_tokens, reqs, events, res,
+                      max_retries, stream_clients=stream_clients)
+        res.queue_peak = max(res.queue_peak, fleet.router.pending_total())
+        if not supervised:
+            fleet.supervisor.poll_once()
+        time.sleep(0.005)
+    return _finalize_fleet(res, reqs, fleet, t0,
+                           stream_clients=stream_clients,
+                           long_prompt_len=long_prompt_len
+                           if long_prompts > 0 else 0)
+
+
+def _run_closed_loop_fleet(fleet, *, concurrency, num_requests, prompt_len,
+                           max_tokens, seed, vocab_hi,
+                           max_retries=0, hot_prefix_len=0,
+                           stream=False) -> LoadResult:
+    rng = np.random.default_rng(seed)
+    hi = vocab_hi or fleet.model_cfg.vocab_size
+    hot = _hot_prefix(rng, hi, prompt_len, hot_prefix_len)
+    reqs: list[Request] = []
+    events: list = []
+    retryq: list = []
+    stream_clients: Optional[dict] = {} if stream else None
+    res = LoadResult(offered_rps=float("inf"))
+    supervised = fleet.supervisor._thread is not None
+    submitted = 0
+    t0 = time.monotonic()
+    while submitted < num_requests or retryq \
+            or not all(e.is_set() for e in events):
+        in_flight = sum(1 for e in events if not e.is_set())
+        while submitted < num_requests and in_flight < concurrency:
+            _submit_fleet(fleet,
+                          hot + rng.integers(
+                              1, hi,
+                              size=prompt_len - len(hot)).tolist(),
+                          max_tokens, reqs, events, res,
+                          retryq=retryq, max_retries=max_retries,
+                          stream_clients=stream_clients)
+            submitted += 1
+            in_flight += 1
+        _drain_retryq(fleet, retryq, max_tokens, reqs, events, res,
+                      max_retries, stream_clients=stream_clients)
+        res.queue_peak = max(res.queue_peak, fleet.router.pending_total())
+        if not supervised:
+            fleet.supervisor.poll_once()
+        time.sleep(0.005)
+    return _finalize_fleet(res, reqs, fleet, t0,
+                           stream_clients=stream_clients)
+
+
 def run_poisson(engine, *, offered_rps: float, num_requests: int,
                 prompt_len: int, max_tokens: int, seed: int = 0,
                 vocab_hi: Optional[int] = None, prompt_pool: int = 0,
-                hot_prefix_len: int = 0, device_times: bool = False
+                max_retries: int = 0, hot_prefix_len: int = 0,
+                stream: bool = False, device_times: bool = False,
+                long_prompts: int = 0, long_prompt_len: int = 0
                 ) -> LoadResult:
     """Open-loop run; steps until everything admitted drains.
     ``prompt_pool > 0`` draws prompts from that many distinct prompts;
-    ``hot_prefix_len > 0`` gives every prompt the same seeded head."""
-    _refuse_fleet(engine)
+    ``hot_prefix_len > 0`` gives every prompt the same seeded head. A
+    fleet target goes through ``_run_poisson_fleet``, where
+    ``max_retries`` honours Retry-After, ``stream`` consumes every
+    request as a token stream and ``long_prompts`` mixes long prompts
+    into the traffic; a plain engine ignores those three."""
+    if _is_fleet(engine):
+        return _run_poisson_fleet(
+            engine, offered_rps=offered_rps, num_requests=num_requests,
+            prompt_len=prompt_len, max_tokens=max_tokens, seed=seed,
+            vocab_hi=vocab_hi, prompt_pool=prompt_pool,
+            max_retries=max_retries, hot_prefix_len=hot_prefix_len,
+            stream=stream, long_prompts=long_prompts,
+            long_prompt_len=long_prompt_len)
     rng = np.random.default_rng(seed)
     hi = vocab_hi or engine.cfg.vocab_size
     gaps = rng.exponential(1.0 / offered_rps, size=num_requests)
@@ -183,11 +701,18 @@ def run_poisson(engine, *, offered_rps: float, num_requests: int,
 def run_closed_loop(engine, *, concurrency: int, num_requests: int,
                     prompt_len: int, max_tokens: int, seed: int = 0,
                     vocab_hi: Optional[int] = None,
-                    hot_prefix_len: int = 0,
+                    max_retries: int = 0, hot_prefix_len: int = 0,
+                    stream: bool = False,
                     device_times: bool = False) -> LoadResult:
     """Closed-loop run: ``concurrency`` requests in flight, a new one
-    arriving the moment one finishes."""
-    _refuse_fleet(engine)
+    arriving the moment one finishes. A fleet target routes through the
+    router as in ``run_poisson``."""
+    if _is_fleet(engine):
+        return _run_closed_loop_fleet(
+            engine, concurrency=concurrency, num_requests=num_requests,
+            prompt_len=prompt_len, max_tokens=max_tokens, seed=seed,
+            vocab_hi=vocab_hi, max_retries=max_retries,
+            hot_prefix_len=hot_prefix_len, stream=stream)
     rng = np.random.default_rng(seed)
     hi = vocab_hi or engine.cfg.vocab_size
     hot = _hot_prefix(rng, hi, prompt_len, hot_prefix_len)
@@ -227,21 +752,21 @@ def run_closed_loop(engine, *, concurrency: int, num_requests: int,
 
 def run_returning(*args, **kwargs):
     """The returning-conversation scenario (the fleet KV store's)."""
-    raise NotImplementedError(f"run_returning {_FLEET}")
+    raise NotImplementedError(f"run_returning {_NOT_PORTED}")
 
 
 def run_stream_fronts(*args, **kwargs):
     """Streams through HA fleet fronts."""
-    raise NotImplementedError(f"run_stream_fronts {_FLEET}")
+    raise NotImplementedError(f"run_stream_fronts {_NOT_PORTED}")
 
 
 def run_scenario(*args, **kwargs):
     """The autoscaler's scenario matrix."""
-    raise NotImplementedError(f"run_scenario {_FLEET}")
+    raise NotImplementedError(f"run_scenario {_NOT_PORTED}")
 
 
 class FrontStreamClient:
     """The fleet fronts' reconnecting stream client."""
 
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"FrontStreamClient {_FLEET}")
+        raise NotImplementedError(f"FrontStreamClient {_NOT_PORTED}")

@@ -8,8 +8,9 @@
 - Every request's greedy tokens equal the JAX engine's for that request.
 - ``summary()`` has JAX's keys (with ``device_times`` too); completed,
   failed and token counts agree with the requests.
-- Fleet targets and scenarios raise ``NotImplementedError`` naming the
-  fleet's ROADMAP item.
+- A fleet target runs through its router with the per-replica breakdown;
+  the fleet scenarios that need later steps raise ``NotImplementedError``
+  naming the fleet's ROADMAP item.
 """
 
 import jax
@@ -134,13 +135,31 @@ def test_device_times_add_jax_keys(params):
 
 
 def test_fleet_targets_and_scenarios_name_the_fleet_item(params):
-    class Fleet:
-        router = object()
-    common = dict(num_requests=1, prompt_len=4, max_tokens=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tload.run_poisson(Fleet(), offered_rps=1.0, **common)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tload.run_closed_loop(Fleet(), concurrency=1, **common)
+    """A fleet target runs through its router (both replicas appear in
+    the per-replica breakdown, every request completes as on one engine);
+    the scenarios that need the store tier, the fronts or the autoscaler
+    still raise, naming the fleet's ROADMAP item."""
+    from distributed_llm_training_and_inference_system_tpu_torch.config.schema import (  # noqa: E501
+        FleetConfig)
+    from distributed_llm_training_and_inference_system_tpu_torch.serve.fleet import (  # noqa: E501
+        ServeFleet)
+    _, te = _engines(params)
+    fleet = ServeFleet(torch_cfg("gpt-test"), ServeConfig(**SERVE),
+                       FleetConfig(replicas=2, affinity_prefix_tokens=0),
+                       params=te.params, supervise=False, device="cpu")
+    fleet.start()
+    try:
+        res = tload.run_closed_loop(fleet, concurrency=2, num_requests=3,
+                                    prompt_len=6, max_tokens=3, seed=5)
+    finally:
+        fleet.shutdown()
+    alone = tload.run_closed_loop(te, concurrency=2, num_requests=3,
+                                  prompt_len=6, max_tokens=3, seed=5)
+    assert res.completed == alone.completed == 3
+    assert sorted(res.per_replica) == [0, 1]
+    assert sum(v["requests"] for v in res.per_replica.values()) == 3
+    assert set(res.summary()["per_replica"][0]) == {
+        "requests", "p50_ttft_ms", "p99_ttft_ms", "requeues"}
     for fn in (tload.run_returning, tload.run_stream_fronts,
                tload.run_scenario, tload.FrontStreamClient):
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
