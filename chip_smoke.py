@@ -6,7 +6,11 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. device  — the card's name and power limit (nvidia-smi);
-2. build   — nvcc builds every kernel from csrc/ for sm_90a (-Xptxas -v);
+2. build   — nvcc builds every kernel from csrc/ for sm_90a (-Xptxas -v),
+             all started together; the training kernels' build
+             (flash_attention.cu, adamw.cu) is joined only before phase
+             7, so phases run in the order 1-6, 11-13, 15, 20, 17b-c,
+             7-10, 14, 16, 17a, 17d, 18, 19, 21;
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              at llama-8b-gqa geometry (32 q heads over 8 kv heads, D=128,
              pages of 64, 8 slots with ragged lengths up to 2048), windows
@@ -129,15 +133,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              choices kept and dropped in the same buffer slots, out within
              1e-5 (fp32) / 2e-2 (bf16) of its max, aux within 1e-5; its
              dispatch and whole-block times at N = 8 beside the bound of
-             reading every expert once; (b) gpt-moe-8x1b at full width
-             and depth (16 layers, 4.90B random bf16 parameters from seed
-             0) through InferenceServer, 8 slots, 12 greedy requests of
+             reading every expert once; (b) gpt-moe-8x1b at full width,
+             its depth cut to 8 layers (random bf16 parameters from seed
+             0), through InferenceServer, 8 slots, 12 greedy requests of
              40-1500 tokens (one sharing another's prefix), 24 new tokens
              each: plain, then with chunked prefill (512) and n-gram
              speculation (T = 8), then 4 requests with int8 weights through
              the W8 kernels (q/k/v/o; router and experts dequantized); each
-             run's paged launches = 16 x (decode steps + suffix prefills +
-             chunks + verify windows), W8's = 4 x 16 x decode steps; every
+             run's paged launches = 8 x (decode steps + suffix prefills +
+             chunks + verify windows), W8's = 4 x 8 x decode steps; every
              forward each engine issued replayed in order on a fresh pool
              through the plain paged attention (and the dequant route),
              with its tokens, pad rows and routing held: every position
@@ -161,7 +165,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              the host wall of reading the tier's flag; (b)
              serve/loadgen.py on llama-8b-gqa with phase 5's weights and
              the default ServeConfig: run_closed_loop (8 in flight) and
-             run_poisson (2 rps), 32 requests of 512 + 64 tokens each;
+             run_poisson (2 rps), 16 requests of 512 + 64 tokens each;
              TTFT/TPOT p50/p99, goodput, preemptions; the paged kernel's
              launches = 32 x the dispatched steps; the closed loop's
              on-device TTFT and decode step (attach_device_times); (c)
@@ -172,17 +176,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              4096 -> 14336; export_params to $TMPDIR; an engine on the
              artifact with int4 pages (device peak while loading under
              half the bf16 weights' bytes) through run_closed_loop (8 in
-             flight, 16 requests), W4 launches = 32 x 7 x decode steps,
+             flight, 8 requests), W4 launches = 32 x 7 x decode steps,
              int4-page launches counted, every forward replayed through
              the plain paged attention over int4 pages with the engine's
              tokens held (within the near-tie bound) and over bf16 pages
              (the witness of what 4-bit K/V moves, printed); the same
              weights with bf16 pages
-             (8 requests), every greedy token within the near-tie bound
+             (4 requests), every greedy token within the near-tie bound
              of the dense forward over the dequantized weights; (d)
-             gpt-1b at full width and depth, micro-batch 4 x 2048: 3
-             steps under selective_attn and 3 under selective from one
-             state, bit for bit, 2 x 24 flash forwards a step;
+             gpt-1b at full width, its depth cut to 4 layers,
+             micro-batch 4 x 2048: 3 steps under selective_attn and 3
+             under selective from one state, bit for bit, 2 x 4 flash
+             forwards a step;
              lion, adafactor and sgd: the first update on the card
              within 1e-5 of its largest element (plus one fp32 rounding
              of the largest parameter) of the CPU's from the same
@@ -200,8 +205,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              10 s; (c) `train launch --in-process` on gpt-1b at full
              width and depth, 4 steps of 4 x 2048: the flash and AdamW
              kernels launched, llmctl_train_step and llmctl_train_loss
-             against the manifest, `train status`, then 2 steps through
-             LocalLauncher in a child (exit 0); (d) `eval run --suite
+             against the manifest, `train status`, then 2 steps of gpt-1b
+             cut to 4 layers through LocalLauncher in a child (exit 0);
+             (d) `eval run --suite
              all` on (c)'s checkpoint with 16 multiple-choice and 8
              greedy-match examples: log-likelihoods within 1e-4 relative
              of fp32 on the CPU, picks held where the CPU's top-2 gap
@@ -223,7 +229,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              TTFT/TPOT p50/p99, goodput, each point's paged launches = 32
              x its engine's dispatched steps; (d) `bench e2e --mode train`
              on gpt-1b, 3 steps of 4 x 2048: tokens/s, step ms, flash and
-             AdamW launches; (e) `trace capture` of gpt-1b (2 steps): the
+             AdamW launches; (e) `trace capture` of gpt-1b cut to 4
+             layers (2 steps): the
              Chrome trace's kernel events name the flash and AdamW kernels,
              and `trace summarize`; (f) `replay run` of (e)'s manifest within 1e-4; (g)
              `tune kernels`, its cache read back by AutoTuner.load_results;
@@ -231,7 +238,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              the native packer built and used and its batches equal to
              LLMCTL_NO_NATIVE=1's, and both packers' synchronous fetch
              time a batch; (i) `admin inspect` and `admin gc
-             --dry-run` on (e)'s checkpoint; (j) one gpt-1b engine at 4 x
+             --dry-run` on (e)'s checkpoint; (j) one engine of gpt-1b cut
+             to 4 layers at 4 x
              2048, runs alternating: tok/s with the training set
              prefetched (the default) and bare, and with the profiler on.
 20. fleet  — run after 15, on phase 5's weights: ServeFleet with two
@@ -257,6 +265,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              replica, courier bytes/chunks/resends, each migration's
              pause and each transfer's time and GB/s (host clock),
              requeues and restarts.
+21. wire   — run last, after this process has released every
+             llama-8b-gqa tensor: two `python -m ...cli fleet worker`
+             processes, each llama-8b-gqa at full width and depth from
+             seed 0 (its weights' checksum equal to phase 5's), bf16, the
+             default ServeConfig, seeded chunk chaos at each sender (drop
+             0.2, corrupt 0.15, duplicate 0.1), behind the port's
+             FleetServer in this process (no tensor on the card), phase
+             20's 8 requests held to phase 20's one engine: (a) worker 0
+             drained mid-decode through /fleet/drain, its streams moving
+             worker to worker over the HTTP courier with 0 re-prefill
+             tokens; (b) the pair re-roled prefill/decode through
+             /fleet/role: 8 handoffs, 0 prefill tokens on the decode
+             worker; (c) two `fleet front` processes (--device cpu) over a
+             file state store, SSE clients pinned to front 0, front 0
+             SIGKILLed once every stream is live: 0 gaps, 0 duplicates,
+             the survivor's ledger balanced, the dead front fenced, one
+             failover; (d) worker 1 SIGKILLed mid-decode: its streams
+             re-prefill on worker 0, the ledger balanced. Worker 0 stops
+             on SIGTERM and reports its paged launches = 32 x (decode
+             steps + suffix prefills + chunks); the killed worker reports
+             none. Streams that part from one engine are held within 2
+             NEAR_TIE_DELTA of the dense forward (phase 5's weights
+             rebuilt from seed 0). Printed: each worker's ready time,
+             each arm's wall, TTFT and TPOT p50, pauses and handoff
+             stalls, courier transfers, resends and GB/s (host clock).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} record. Without a CUDA card, or without the rest of the
@@ -296,6 +329,18 @@ DENSE_ERR_FACTOR = 1.5
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+# built behind the serving phases, joined before phase 7
+LATE_KERNELS = ("flash_attention", "adamw")
+
+
+def print_build_logs(build, logs: dict) -> None:
+    for name, log in logs.items():
+        print(f"built {name}: {build.library_path(name).name}")
+        for line in log.splitlines():
+            if "ptxas" in line or "error" in line.lower():
+                print("  " + line.strip())
 
 
 def check(cond: bool, msg: str) -> None:
@@ -655,6 +700,10 @@ def serve_main_path(torch, mods, kernel, card: str) -> dict:
     check(launches == expected, f"launches {launches} != {expected}")
     res["init_s"] = init_s
     print(f"{traffic_line(res)} [{card}]", flush=True)
+    # phase 21's workers build these weights from the same seed
+    res["checksum"] = mods["params_checksum"](eng.params)
+    print(f"llama-8b-gqa weights from seed 0: checksum "
+          f"{res['checksum']!r} (fp64 sum of every parameter)", flush=True)
     res["params"] = eng.params
     res["tokenizer"] = srv.tokenizer
     res["cfg"] = cfg
@@ -2308,6 +2357,7 @@ def serve_features(torch, mods, kernel, model, cfg, card: str,
 # -- phase 16: the MoE family ---------------------------------------------------
 
 MOE_SERVE = "gpt-moe-8x1b"
+MOE_SERVE_LAYERS = 8             # 16b: its full width, its depth cut to these
 MOE_TRAIN = "gpt-moe-1b"
 MOE_BLOCK_N = (8, 2048)          # a decode step's 8 slots; a prefill bucket
 # moe_block on the card against the same function on the CPU: the same
@@ -2746,14 +2796,16 @@ def moe_kernels_against_plain(torch, qm, kernel, cfg, page_size: int,
 
 def serve_moe(torch, mods, mm, kernels: dict, card: str,
               page_size: int) -> dict:
-    """Phase 16b: gpt-moe-8x1b at full width and depth (random bf16 weights
-    from seed 0) through InferenceServer: the MOE_LENGTHS traffic plain,
+    """Phase 16b: gpt-moe-8x1b at full width, its depth cut to
+    MOE_SERVE_LAYERS (random bf16 weights from seed 0) through
+    InferenceServer: the MOE_LENGTHS traffic plain,
     then with chunked prefill and n-gram speculation, then a short int8
     pass through the W8 kernels; every run recorded and replayed, and the
     paged kernel's launches (and W8's) against what the counters imply.
     The engines' pages are of ``page_size``, the geometry the kernels were
     checked at."""
-    cfg = mods["get_model_config"](MOE_SERVE)
+    cfg = dataclasses.replace(mods["get_model_config"](MOE_SERVE),
+                              num_layers=MOE_SERVE_LAYERS)
     L = cfg.num_layers
     t_init = time.time()
     model = mods["gpt"].init(cfg, torch.Generator(device="cuda")
@@ -3012,13 +3064,15 @@ TIER_VOCAB = 128256
 TIER_ROWS = 8
 TIER_K = (1, 40, 256, 300)
 TIER_P = (1.0, 0.9)
-LOAD_RUNS = (("closed", dict(concurrency=8, num_requests=32, prompt_len=512,
+# 17b and 17c: requests cut to these counts (from 32, 16 and 8) to make
+# room for phase 21
+LOAD_RUNS = (("closed", dict(concurrency=8, num_requests=16, prompt_len=512,
                              max_tokens=64, seed=0)),
-             ("poisson", dict(offered_rps=2.0, num_requests=32,
+             ("poisson", dict(offered_rps=2.0, num_requests=16,
                               prompt_len=512, max_tokens=64, seed=0)))
-AWQ_RUN = dict(concurrency=8, num_requests=16, prompt_len=512,
+AWQ_RUN = dict(concurrency=8, num_requests=8, prompt_len=512,
                max_tokens=32, seed=1)
-AWQ_HELD_RUN = dict(concurrency=8, num_requests=8, prompt_len=512,
+AWQ_HELD_RUN = dict(concurrency=8, num_requests=4, prompt_len=512,
                     max_tokens=32, seed=2)
 # chan of one layer, calibrated in bf16 on the card against fp32 on the CPU
 # (the statistic is an RMS over 512 tokens of activations rounded to bf16,
@@ -3026,6 +3080,9 @@ AWQ_HELD_RUN = dict(concurrency=8, num_requests=8, prompt_len=512,
 AWQ_CHAN_TOL = 1e-2
 AWQ_LAYER_LEAVES = ("q", "k", "v", "gate", "up", "down")
 REMAT_STEPS = 3
+# 17d keeps gpt-1b's width and cuts its depth to this many layers: the
+# CPU side of the optimizer checks scales with the parameters
+REMNANT_LAYERS = 4
 OPT_KINDS = ("lion", "adafactor", "sgd")
 # one optimizer update on the card against the CPU's from the same fp32
 # gradients and state: elementwise arithmetic, and for adafactor two means
@@ -3370,15 +3427,17 @@ def awq_artifact_serve(torch, mods, mm, qm, cfg, path, card: str) -> dict:
 
 
 def train_remnants(torch, mods, fac, kernels: dict, card: str) -> dict:
-    """17d: gpt-1b at full width and depth, S = 2048, micro-batch 4: 3
-    steps under selective_attn and 3 under selective from the same state
+    """17d: gpt-1b at full width cut to REMNANT_LAYERS layers, S = 2048,
+    micro-batch 4: 3 steps under selective_attn and 3 under selective
+    from the same state
     (losses, grad norms and parameter checksums bit for bit; flash forward
     launches a step); then lion, adafactor and sgd: the first update on the
     card against the CPU's from the same gradients and state, and a second
     step."""
     gpt, tts, topt = mods["gpt"], mods["train_step"], mods["optimizer"]
     schema = mods["schema"]
-    cfg = mods["get_model_config"]("gpt-1b")
+    cfg = dataclasses.replace(mods["get_model_config"]("gpt-1b"),
+                              num_layers=REMNANT_LAYERS)
     S, B = 2048, TRAIN_MICRO_BATCH
     model = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                      device="cuda")
@@ -3418,7 +3477,8 @@ def train_remnants(torch, mods, fac, kernels: dict, card: str) -> dict:
                        "checksums": sums, "launches": launches,
                        "step_s": times, "tokens_per_s": tok_s, "mfu": mfu,
                        "peak_bytes": torch.cuda.max_memory_allocated()}
-        print(f"gpt-1b {remat}: losses {losses}, grad norms {norms}; flash "
+        print(f"gpt-1b ({cfg.num_layers} layers) {remat}: losses {losses}, "
+              f"grad norms {norms}; flash "
               f"forward launches a step {launches['flash_fwd'] / REMAT_STEPS}"
               f" (backward {launches['flash_bwd_dq'] / REMAT_STEPS}), AdamW "
               f"{launches['adamw']}; {tok_s:.0f} tok/s, MFU {mfu:.1%}, peak "
@@ -3511,6 +3571,7 @@ CLI_HEALTH_TIMEOUT_S = 300.0   # 18b: the child answers /health within this
 CLI_STOP_TIMEOUT_S = 10.0      # 18b: and exits 0 this long after SIGTERM
 CLI_TRAIN_STEPS = 4            # 18c, in process
 CLI_LAUNCH_STEPS = 2           # 18c, through LocalLauncher
+CLI_LAUNCH_LAYERS = 4          # 18c's launched child: gpt-1b cut to these
 CLI_TRAIN_SETS = ("parallel.global_batch_size=4", "data.max_length=2048",
                   "parallel.activation_checkpoint=selective",
                   "training.log_interval=1")
@@ -3764,10 +3825,13 @@ def cli_train(torch, mods, cm, kernels: dict, tmp: Path, card: str) -> dict:
                                   str(status_toml)])
     check(rc == 0 and f"latest {CLI_TRAIN_STEPS} of max" in out,
           f"train status: {out}")
-    # the same entry point through the local launcher, in a child
+    # the same entry point through the local launcher, in a child, on
+    # gpt-1b's width cut to CLI_LAUNCH_LAYERS layers
     launch_dir = tmp / "launched"
     lcfg = cm["launcher"].LaunchConfig(extra_args=[
-        "--model", "gpt-1b", "--max-steps", str(CLI_LAUNCH_STEPS),
+        "--set", "model.name=gpt-1b",
+        "--set", f"model.num_layers={CLI_LAUNCH_LAYERS}",
+        "--max-steps", str(CLI_LAUNCH_STEPS),
         "--set", f"checkpoint.path={launch_dir}",
         "--set", "data.max_length=512"] + sets[:2] + sets[4:])
     t1 = time.time()
@@ -3785,8 +3849,9 @@ def cli_train(torch, mods, cm, kernels: dict, tmp: Path, card: str) -> dict:
           f"llmctl_train_loss), llmctl_train_step {CLI_TRAIN_STEPS}; last "
           f"step {final['tokens_per_sec']:.0f} tok/s, MFU "
           f"{(mfu or 0):.1%}; launches {launches}; train status read step "
-          f"{CLI_TRAIN_STEPS}; LocalLauncher child, {CLI_LAUNCH_STEPS} steps "
-          f"of 4 x 512, exit {lrc} in {launch_s:.1f}s [{card}]", flush=True)
+          f"{CLI_TRAIN_STEPS}; LocalLauncher child ({CLI_LAUNCH_LAYERS} "
+          f"layers), {CLI_LAUNCH_STEPS} steps of 4 x 512, exit {lrc} in "
+          f"{launch_s:.1f}s [{card}]", flush=True)
     return {"launches": launches, "wall_s": wall, "final": final,
             "launcher_s": launch_s, "ckpt": str(ckdir)}
 
@@ -4048,6 +4113,7 @@ TOOLS_LOAD = ["--mode", "serve-load",
 TOOLS_SERVE_MODEL, TOOLS_TRAIN_MODEL = "llama-8b-gqa", "gpt-1b"
 TOOLS_TRAIN_STEPS = 3          # 19d, after one warm-up step
 TOOLS_TRACE_STEPS = 2          # 19e
+TOOLS_TRACE_LAYERS = 4         # 19e, 19j: gpt-1b's width cut to these layers
 TOOLS_TRACE_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
                        "flash_bwd_dkv_bf16_kernel", "adamw_kernel")
 REPLAY_TOL = 1e-4              # replay run's own default
@@ -4229,25 +4295,27 @@ def trace_kernel_names(path: Path) -> set:
 
 
 def tools_trace_replay(tm, tmp: Path, card: str, kernels: dict) -> dict:
-    """19e: `trace capture` of gpt-1b (4 x 2048, 2 steps): the Chrome
-    trace's kernel events name the flash and AdamW kernels; `trace
-    summarize`. 19f: `replay run` of that run's manifest within 1e-4."""
+    """19e: `trace capture` of gpt-1b at full width, its depth cut to
+    TOOLS_TRACE_LAYERS (4 x 2048, 2 steps): the Chrome trace's kernel
+    events name the flash and AdamW kernels; `trace summarize`. 19f:
+    `replay run` of that run's manifest within 1e-4."""
     cfg = tmp / "trace.toml"
     ck = tmp / "trace-ck"
-    cfg.write_text(f'[checkpoint]\npath = "{ck}"\n[data]\nmax_length = '
+    cfg.write_text(f'[model]\nname = "{TOOLS_TRAIN_MODEL}"\nnum_layers = '
+                   f'{TOOLS_TRACE_LAYERS}\n'
+                   f'[checkpoint]\npath = "{ck}"\n[data]\nmax_length = '
                    f'2048\n[parallel]\nmicro_batch_size = 4\n'
                    f'global_batch_size = 4\n')
     out_dir = tmp / "traces"
     reset(kernels)
     t0 = time.time()
     rc, _ = cli_run(tm["cli"], ["trace", "capture", "--config", str(cfg),
-                                "--model", TOOLS_TRAIN_MODEL, "--steps",
-                                str(TOOLS_TRACE_STEPS), "--out",
+                                "--steps", str(TOOLS_TRACE_STEPS), "--out",
                                 str(out_dir)])
     trace_s = time.time() - t0
     n = counts(kernels)
     check(rc == 0, f"trace capture exited {rc}")
-    L = tm["get_model_config"](TOOLS_TRAIN_MODEL).num_layers
+    L = TOOLS_TRACE_LAYERS
     steps = TOOLS_TRACE_STEPS
     check(n["flash_fwd"] == 2 * L * steps and n["flash_bwd_dq"] == L * steps
           and n["adamw"] > 0, f"trace capture launches {n}")
@@ -4259,7 +4327,7 @@ def tools_trace_replay(tm, tmp: Path, card: str, kernels: dict) -> dict:
           f"({len(names)} kernel names)")
     rc, out = cli_run(tm["cli"], ["trace", "summarize", str(out_dir)])
     check(rc == 0 and "Chrome traces present" in out, "trace summarize")
-    print(f"19e trace capture gpt-1b 4 x 2048, {steps} steps in "
+    print(f"19e trace capture gpt-1b ({L} layers) 4 x 2048, {steps} steps in "
           f"{trace_s:.1f}s (save included): {trace.name}, "
           f"{trace.stat().st_size / 1e6:.1f} MB, {len(names)} kernel names, "
           f"{', '.join(TOOLS_TRACE_KERNELS)} present; launches {n} "
@@ -4393,8 +4461,9 @@ def tools_admin(tm, ck: str, card: str) -> dict:
 
 
 def tools_engine_ab(torch, tm, tmp: Path, card: str) -> dict:
-    """19j: what the engine's data and profiler settings cost a gpt-1b step
-    (4 x 2048), on one engine: the training set prefetched as
+    """19j: what the engine's data and profiler settings cost a step of
+    gpt-1b cut to TOOLS_TRACE_LAYERS layers (4 x 2048), on one engine: the
+    training set prefetched as
     ``data.prefetch_factor`` 2 (the default) makes it, a PrefetchLoader
     of depth 2 over the synthetic set, against the bare set (0); and the
     prefetched set with ``training.profile`` on. Runs alternate
@@ -4403,6 +4472,7 @@ def tools_engine_ab(torch, tm, tmp: Path, card: str) -> dict:
     the step loop, so the engine's end-of-run save is skipped."""
     cfg = train_cfg(tm, str(tmp / "ab"), max_steps=TOOLS_AB_STEPS,
                     profile_dir=str(tmp / "ab-traces"))
+    cfg.model = dataclasses.replace(cfg.model, num_layers=TOOLS_TRACE_LAYERS)
     cfg.data.prefetch_factor = 0
     log: list = []
     eng = tm["TrainingEngine"](
@@ -4436,7 +4506,8 @@ def tools_engine_ab(torch, tm, tmp: Path, card: str) -> dict:
     out = {"tok_s": tok_s, "median_tok_s": med,
            "prefetch_gain": med["prefetched"] / med["bare"] - 1.0,
            "profiler_step_cost": med["prefetched"] / med["profiled"] - 1.0}
-    print(f"19j gpt-1b 4 x 2048, one engine, {TOOLS_AB_ROUNDS} rounds of "
+    print(f"19j gpt-1b ({cfg.model.num_layers} layers) 4 x 2048, one engine, "
+          f"{TOOLS_AB_ROUNDS} rounds of "
           f"{TOOLS_AB_STEPS} steps: median tok/s over steps 2..: "
           f"prefetched (the default) {med['prefetched']:.0f}, bare "
           f"{med['bare']:.0f} (prefetch {out['prefetch_gain']:+.1%}), "
@@ -4816,8 +4887,456 @@ def fleet_phase(torch, mods, fm, model, cfg, kernels: dict,
                     for arm in FLEET_ARMS}}
     out["launches"] = {n: sum(a["launches"][n] for a in out["arms"].values())
                        for n in kernels}
+    out["prompts"], out["refs"] = prompts, refs["none"]     # for phase 21
     out["seconds"] = time.time() - t20
     print(f"phase 20 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# -- phase 21: the fleet over the wire ----------------------------------------
+
+# each worker's chunk faults at its sender, as the JAX package's
+# serve.fleet2+remote regime seeds them
+WIRE_CHAOS = {"chunk_drop_rate": 0.2, "chunk_corrupt_rate": 0.15,
+              "chunk_duplicate_rate": 0.1}
+# a patient courier (12 resend rounds: a chunk is lost for good with
+# probability 0.35^13) whose 256 KB frames get a second to be acked
+WIRE_COURIER = ["--courier-retries", "12", "--courier-deadline-ms", "1000"]
+WIRE_READY_S = 300.0          # a spawned worker or front prints its line
+WIRE_WORKER_GB = 16.06 + 2.156   # llama-8b-gqa's bf16 weights + its pool
+WIRE_SLACK_GB = 3.0           # a worker's CUDA context and activations
+WIRE_DRAIN_AT = 16            # (a), (d): a stream there has these tokens
+
+
+class Spawned:
+    """One `llmctl-torch` child: stdout read for its ready line, stderr
+    to a log file; stopped with SIGTERM (SIGKILL past a bound)."""
+
+    def __init__(self, argv: list, log: Path, prefix: str):
+        self.log = log
+        self._fh = open(log, "w")
+        self.proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=self._fh, text=True,
+                                     start_new_session=True)
+        self.prefix = prefix
+        self.t0 = time.time()
+        self.port = None
+        self.ready_s = None
+
+    def wait_ready(self, deadline: float) -> int:
+        import select
+        while time.monotonic() < deadline:
+            if self.proc.poll() is not None:
+                raise SmokeFailure(
+                    f"{self.prefix}: exited {self.proc.returncode} before "
+                    f"its ready line: {self.log.read_text()[-3000:]}")
+            ready, _, _ = select.select([self.proc.stdout], [], [], 0.5)
+            if ready:
+                line = self.proc.stdout.readline()
+                if line.startswith(self.prefix):
+                    self.port = int(line.split("port=")[1].split()[0])
+                    self.ready_s = time.time() - self.t0
+                    return self.port
+        raise SmokeFailure(f"{self.prefix} not printed within "
+                           f"{WIRE_READY_S} s")
+
+    @property
+    def endpoint(self) -> str:
+        return f"http://127.0.0.1:{self.port}"
+
+    def stop(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._fh.close()
+        return self.proc.returncode
+
+    def kill(self) -> None:
+        self.proc.kill()
+        self.proc.wait()
+
+    def stderr_lines(self, prefix: str) -> list:
+        return [line[len(prefix):].strip()
+                for line in self.log.read_text().splitlines()
+                if line.startswith(prefix)]
+
+
+def wire_get(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def wire_post(url: str, body: dict) -> dict:
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def wire_statuses(workers: list) -> list:
+    return [wire_get(f"{w.endpoint}/worker/status") for w in workers]
+
+
+def wire_run(fleet, prompts, sp, name: str, trigger=None) -> dict:
+    """Submit every prompt as a stream, fire ``trigger(reqs)`` once it
+    returns True, wait for every request; tokens, TTFT and TPOT p50."""
+    events, reqs = [], []
+    t0 = time.time()
+    for p in prompts:
+        ev = threading.Event()
+        reqs.append(fleet.submit_streaming(
+            p, sp, on_complete=lambda _r, ev=ev: ev.set()))
+        events.append(ev)
+    fired = trigger is None
+    deadline = time.monotonic() + FLEET_WAIT_S
+    while not all(e.is_set() for e in events):
+        if not fired:
+            fired = bool(trigger(reqs))
+        time.sleep(0.02)
+        check(time.monotonic() < deadline, f"{name}: the fleet did not "
+              f"finish in {FLEET_WAIT_S} s")
+    check(fired, f"{name}: the fault never fired")
+    for r in reqs:
+        check(r.error is None and (len(r.generated_tokens) == FLEET_TOKENS
+                                   or r.finish_reason == "stop"),
+              f"{name}: {r.request_id} ended after "
+              f"{len(r.generated_tokens)} tokens ({r.error})")
+    ttft = sorted(r.ttft_ms for r in reqs)
+    tpot = sorted((r.finish_time - r.first_token_time) * 1e3
+                  / (len(r.generated_tokens) - 1) for r in reqs)
+    return {"tokens": [list(r.generated_tokens) for r in reqs],
+            "ttft_p50_ms": ttft[len(ttft) // 2],
+            "tpot_p50_ms": tpot[len(tpot) // 2], "wall_s": time.time() - t0,
+            "reqs": reqs}
+
+
+def wire_trigger(fleet, replica: int, action):
+    """Fire ``action`` once every stream has its first token (so each is
+    prefilled) and one still on ``replica`` has WIRE_DRAIN_AT tokens."""
+    def trigger(reqs) -> bool:
+        there = [r for r in reqs if r.finish_time is None
+                 and fleet.router.replica_of(r.request_id) == replica]
+        if there and all(r.generated_tokens for r in reqs) and any(
+                len(r.generated_tokens) >= WIRE_DRAIN_AT for r in there):
+            action()
+            return True
+        return False
+    return trigger
+
+
+def courier_rate(status: dict) -> float:
+    """GB/s of a worker's completed courier transfers (host clock)."""
+    c = status["courier"]
+    ms = sum(c["transfer_ms"])
+    return c["bytes_moved"] / ms / 1e6 if ms else 0.0
+
+
+def wire_pauses(worker: "Spawned", word: str) -> list:
+    """The pause (or stall) ms of each migration (or handoff) the worker
+    logged."""
+    out = []
+    for line in worker.log.read_text().splitlines():
+        if f" {word} " in line and ("pause " in line or "stall " in line):
+            out.append(float(line.rsplit(" ", 2)[-2]))
+    return out
+
+
+def wire_fleet_phase(torch, mods, cfg, prompts: list, refs: list,
+                     checksum: float, card: str) -> dict:
+    """Phase 21: two `llmctl-torch fleet worker` processes, each serving
+    llama-8b-gqa at full width and depth from seed 0 (phase 5's weights,
+    checked by checksum), behind the port's fleet front over HTTP: (a) a
+    drain moving streams worker to worker over the HTTP courier under
+    seeded chunk chaos, (b) a prefill/decode pair re-roled through
+    /fleet/role, (c) the HA front tier (two `fleet front` processes over a
+    file store, SSE clients on front 0, front 0 SIGKILLed mid-stream), (d)
+    worker 1 SIGKILLed mid-decode. Every stream is held to phase 20's one
+    engine; worker 0 stops cleanly and reports its paged launches."""
+    import gc
+    t21 = time.time()
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import schema
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        .fleet.front import FleetFrontTier
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        .fleet.http import FleetServer
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        .fleet.state import SharedFileStateStore
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        .loadgen import FrontStreamClient, run_stream_fronts
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    need = 2 * (WIRE_WORKER_GB + WIRE_SLACK_GB) * 1e9
+    print(f"21: this process holds {held} B on the card; {free / 1e9:.2f} "
+          f"of {total / 1e9:.2f} GB free, two workers need "
+          f"{need / 1e9:.2f} [{card}]", flush=True)
+    check(held < 1e9, f"21: the script still holds {held} B of tensors")
+    check(free >= need, f"21: {free / 1e9:.2f} GB free < {need / 1e9:.2f}")
+    tmp = Path(tempfile.mkdtemp(prefix="llmctl-smoke-wire-"))
+    sp = mods["SamplingParams"](temperature=0.0, max_tokens=FLEET_TOKENS)
+    n_prompt = sum(len(p) for p in prompts)
+    workers, tier, srv = [], None, None
+    out: dict = {"arms": {}}
+    got: dict = {}
+
+    def front(name: str):
+        fc = schema.FleetConfig(
+            replicas=2, remote_replicas="0,1",
+            fleet_endpoints={i: w.endpoint for i, w in enumerate(workers)},
+            probe_interval_s=0.05, restart_backoff_s=0.05,
+            migrate_on_drain=True, courier_max_retries=12,
+            courier_chunk_deadline_ms=1000.0, courier_ship_timeout_s=300.0,
+            remote_timeout_s=30.0, **FLEET_SPREAD)
+        s = FleetServer(cfg, mods["ServeConfig"](
+            model=cfg.name, host="127.0.0.1", port=0), fc)
+        s.start()
+        check(torch.cuda.memory_allocated() == held,
+              f"{name}: the front put tensors on the card")
+        return s
+
+    def report(name: str, res: dict, extra: str = "") -> None:
+        same = sum(a == b for a, b in zip(res["tokens"], refs))
+        res["identical"] = same
+        got[name] = res.pop("tokens")
+        res.pop("reqs", None)
+        out["arms"][name] = res
+        print(f"21 {name}: wall {res['wall_s']:.2f} s, TTFT p50 "
+              f"{res['ttft_p50_ms']:.1f} ms, TPOT p50 "
+              f"{res['tpot_p50_ms']:.2f} ms; {same} of {len(refs)} streams "
+              f"token-identical to one engine (phase 20){extra} [{card}]",
+              flush=True)
+
+    try:
+        for i in range(2):
+            plan = json.dumps(dict(WIRE_CHAOS, seed=5 + i))
+            workers.append(Spawned(
+                [sys.executable, "-m", f"{PORT}.cli", "fleet", "worker",
+                 "--model", cfg.name, "--replica-id", str(i), "--role",
+                 "mixed", "--host", "127.0.0.1", "--port", "0",
+                 "--param-seed", "0", "--seed", str(1000 * i),
+                 "--restart-backoff", "0.05", *WIRE_COURIER,
+                 "--fault-plan", plan],
+                tmp / f"worker{i}.log", "LLMCTL_WORKER_READY"))
+        deadline = time.monotonic() + WIRE_READY_S
+        for i, w in enumerate(workers):
+            w.wait_ready(deadline)
+            [line] = w.stderr_lines("LLMCTL_WORKER_PARAMS checksum=")
+            print(f"21: worker {i} ready in {w.ready_s:.1f} s on "
+                  f"{w.endpoint}; weights checksum {line} (phase 5: "
+                  f"{checksum!r}) [{card}]", flush=True)
+            check(float(line) == checksum,
+                  f"21: worker {i}'s weights are not phase 5's")
+        out["ready_s"] = [w.ready_s for w in workers]
+
+        # (a) a drain mid-decode, worker to worker over the HTTP courier
+        srv = front("a")
+        base = f"http://127.0.0.1:{srv.bound_port}"
+        pre: dict = {}
+
+        def drain0():
+            pre["prefill"] = sum(s["total_prefill_tokens"]
+                                 for s in wire_statuses(workers))
+            wire_post(f"{base}/fleet/drain", {"replica": 0})
+        res = wire_run(srv.fleet, prompts, sp, "a",
+                       wire_trigger(srv.fleet, 0, drain0))
+        st = wire_statuses(workers)
+        post = sum(s["total_prefill_tokens"] for s in st)
+        c = st[0]["courier"]
+        check(post == pre["prefill"], f"a: prefill tokens {pre['prefill']} "
+              f"-> {post} across the drain (re-prefill)")
+        check(st[0]["migrations"] >= 1 and c["transfers"] >= 1
+              and c["aborts"] == 0, f"a: migrations {st[0]['migrations']}, "
+              f"courier {c}")
+        check(c["retries"] > 0, "a: the chunk chaos never fired")
+        rt = srv.fleet.router.stats()
+        check(rt["failed"] == 0 and rt["in_flight"] == 0
+              and rt["completed"] == len(prompts), f"a: ledger {rt}")
+        res.update(reprefill_tokens=post - pre["prefill"],
+                   migrations=st[0]["migrations"],
+                   pauses_ms=wire_pauses(workers[0], "migrated"),
+                   courier={k: c[k] for k in ("transfers", "bytes_moved",
+                                              "chunks", "retries",
+                                              "corruptions", "duplicates",
+                                              "aborts")},
+                   courier_gb_s=courier_rate(st[0]))
+        report("a drain over the HTTP courier", res,
+               f"; {res['migrations']} migrations, 0 re-prefill tokens, "
+               f"pauses {[round(x, 2) for x in res['pauses_ms']]} ms; "
+               f"courier {c['transfers']} transfers, {c['bytes_moved']} B, "
+               f"{c['chunks']} chunks, {c['retries']} resends, "
+               f"{c['corruptions']} corrupt, {res['courier_gb_s']:.3f} GB/s "
+               f"(host clock)")
+        wire_post(f"{base}/fleet/undrain", {"replica": 0})
+
+        # (b) disaggregated prefill/decode: the pair re-roled in place
+        for i, role in enumerate(("prefill", "decode")):
+            wire_post(f"{base}/fleet/role", {"replica": i, "role": role})
+        b0 = wire_statuses(workers)
+        res = wire_run(srv.fleet, prompts, sp, "b")
+        b1 = wire_statuses(workers)
+        handoffs = b1[0]["handoffs"] - b0[0]["handoffs"]
+        decode_prefill = (b1[1]["total_prefill_tokens"]
+                          - b0[1]["total_prefill_tokens"])
+        check(handoffs == len(prompts), f"b: {handoffs} handoffs")
+        check(decode_prefill == 0 and b1[1]["total_unexpected_prefills"]
+              == b0[1]["total_unexpected_prefills"],
+              f"b: the decode worker prefilled {decode_prefill} tokens")
+        rt = srv.fleet.router.stats()
+        check(rt["failed"] == 0 and rt["in_flight"] == 0, f"b: ledger {rt}")
+        stalls = wire_pauses(workers[0], "handed")
+        res.update(handoffs=handoffs, stalls_ms=stalls,
+                   courier_gb_s=courier_rate(b1[0]))
+        report("b prefill/decode pair", res,
+               f"; {handoffs} handoffs, 0 decode-side prefill tokens, "
+               f"handoff stalls p50 {sorted(stalls)[len(stalls) // 2]:.2f} "
+               f"ms, courier {res['courier_gb_s']:.3f} GB/s (host clock)")
+        for i in range(2):
+            wire_post(f"{base}/fleet/role", {"replica": i, "role": "mixed"})
+        srv.stop()          # its outbox polls would race the fronts'
+        srv = None
+
+        # (c) the HA front tier: SSE clients on front 0, front 0 killed
+        store_dir = tmp / "store"
+
+        def front_cmd(index, front_id):
+            argv = [sys.executable, "-m", f"{PORT}.cli", "--device", "cpu",
+                    "fleet", "front", "--model", cfg.name, "--front-id",
+                    front_id, "--host", "127.0.0.1", "--port", "0",
+                    "--replicas", "2", "--remote-replicas", "0,1",
+                    "--state-store-dir", str(store_dir),
+                    "--probe-interval", "0.05", "--remote-timeout", "30"]
+            for i, w in enumerate(workers):
+                argv += ["--fleet-endpoint", f"{i}={w.endpoint}"]
+            return argv
+        tier = FleetFrontTier(SharedFileStateStore(store_dir,
+                                                   front_id="tier"),
+                              front_cmd, fronts=2, respawn=False,
+                              ready_timeout_s=WIRE_READY_S)
+        t_front = time.time()
+        fronts = [f"http://127.0.0.1:{p}" for p in tier.start()]
+        front_ready = time.time() - t_front
+        client = FrontStreamClient(fronts, max_attempts=40, backoff_s=0.05,
+                                   read_timeout_s=FLEET_WAIT_S)
+        box: dict = {}
+        loader = threading.Thread(target=lambda: box.update(res=(
+            run_stream_fronts(fronts, num_requests=len(prompts),
+                              prompt_len=0, max_tokens=FLEET_TOKENS,
+                              prompts=prompts, concurrency=len(prompts),
+                              client=client, pin_front=0))), daemon=True)
+        t_c = time.time()
+        loader.start()
+        deadline = time.monotonic() + FLEET_WAIT_S
+        while True:
+            try:
+                live = wire_get(f"{fronts[1]}/fleet/status")["streams"]
+                if live.get("active", 0) >= len(prompts) and live.get(
+                        "tokens", 0) >= 2 * len(prompts):
+                    break
+            except OSError:
+                pass
+            check(time.monotonic() < deadline, "c: the streams never went "
+                  "live")
+            time.sleep(0.02)
+        tier.kill(0)
+        tier.poll()
+        loader.join(timeout=FLEET_WAIT_S)
+        check(not loader.is_alive(), "c: the stream clients hung")
+        lr = box["res"]
+        snap = wire_get(f"{fronts[1]}/fleet/status")
+        rt, ft = snap["router"], snap["front_tier"]
+        check(lr.failed == 0 and lr.completed == len(prompts),
+              f"c: {lr.failed} streams failed")
+        check(lr.stream["gaps"] == 0 and lr.stream["duplicates"] == 0,
+              f"c: gaps {lr.stream['gaps']}, duplicates "
+              f"{lr.stream['duplicates']}")
+        check(rt["failed"] == 0 and rt["in_flight"] == 0
+              and rt["completed"] == rt["submitted"] >= len(prompts),
+              f"c: the survivor's ledger {rt}")
+        check(tier.total_front_failovers == 1 and ft["failovers"] >= 1
+              and any(e.get("fenced") for e in ft["fronts"].values()),
+              f"c: failovers {tier.total_front_failovers}, tier {ft}")
+        ttft = sorted(lr.stream["ttft_ms"])
+        tpot = sorted(lr.stream["tpot_ms"])
+        res = {"tokens": lr.stream["token_lists"],
+               "ttft_p50_ms": ttft[len(ttft) // 2],
+               "tpot_p50_ms": tpot[len(tpot) // 2],
+               "wall_s": time.time() - t_c, "front_ready_s": front_ready,
+               "reconnects": lr.stream["reconnects_per_front"],
+               "resumes": snap["streams"]["front_resumes"]}
+        report("c HA fronts, front 0 SIGKILLed", res,
+               f"; fronts ready in {front_ready:.1f} s; 0 gaps, 0 "
+               f"duplicates; reconnects {res['reconnects']}; survivor "
+               f"ledger {rt['completed']}/{rt['submitted']}, "
+               f"{ft['failovers']} failover, the dead front fenced "
+               f"(client clock)")
+        tier.stop()
+        tier = None
+
+        # (d) worker 1 SIGKILLed mid-decode
+        srv = front("d")
+        res = wire_run(srv.fleet, prompts, sp, "d",
+                       wire_trigger(srv.fleet, 1, workers[1].kill))
+        rt = srv.fleet.router.stats()
+        check(rt["failed"] == 0 and rt["in_flight"] == 0
+              and rt["completed"] == rt["submitted"] - rt["rejected"]
+              and rt["requeues"] >= 1, f"d: ledger {rt}")
+        res.update(requeues=rt["requeues"])
+        report("d worker 1 SIGKILLed", res,
+               f"; {rt['requeues']} requeues, the ledger balanced "
+               f"({rt['completed']} of {rt['submitted']})")
+        srv.stop()
+        srv = None
+    finally:
+        if srv is not None:
+            srv.stop()
+        if tier is not None:
+            tier.stop()
+        rcs = [w.stop() for w in workers]
+    check(rcs == [0, -9], f"21: worker exits {rcs} (want 0 and SIGKILL)")
+    [line] = workers[0].stderr_lines("LLMCTL_WORKER_LAUNCHES ")
+    rep = json.loads(line)
+    passes = (rep["dispatched_steps"] + rep["extend_prefills"]
+              + rep["prefill_chunks"])
+    paged = rep["launches"]["paged_attention"]
+    check(paged == rep["layers"] * passes and passes > 0,
+          f"21: worker 0's paged launches {paged} != {rep['layers']} x "
+          f"{passes}")
+    check(not workers[1].stderr_lines("LLMCTL_WORKER_LAUNCHES "),
+          "21: a SIGKILLed worker reported launches")
+    print(f"21: worker 0 stopped cleanly: paged launches {paged} = "
+          f"{rep['layers']} x ({rep['dispatched_steps']} decode steps + "
+          f"{rep['extend_prefills']} suffix prefills + "
+          f"{rep['prefill_chunks']} chunks); worker 1 was SIGKILLed and "
+          f"reports nothing [{card}]", flush=True)
+    out["launches"] = {"paged_attention": paged}
+    out["worker0"] = rep
+    # streams that part from one engine are held to the dense forward
+    parted = [(name, i) for name, toks in got.items()
+              for i, t in enumerate(toks) if t != refs[i]]
+    if parted:
+        model = mods["gpt"].init(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda", dtype=torch.bfloat16)
+        out["held"] = held_to_single(
+            torch, mods, model, cfg, "none",
+            [prompts[i] for _, i in parted],
+            [got[n][i] for n, i in parted], [refs[i] for _, i in parted])
+        del model
+        torch.cuda.empty_cache()
+        print(f"21: {len(parted)} streams part from one engine; every token "
+              f"of them within 2 delta of the dense forward's best, largest "
+              f"deficit {out['held']['max_deficit']:.4f} [{card}]",
+              flush=True)
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.time() - t21
+    print(f"phase 21 took {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -4911,6 +5430,8 @@ def main() -> int:
         import fleet as sfleet
     from distributed_llm_training_and_inference_system_tpu_torch.serve.\
         fleet import migration as fmigration
+    from distributed_llm_training_and_inference_system_tpu_torch.serve.\
+        fleet.worker import params_checksum
     qmods = {"pa": pa, "pac": pac, "w4": w4, "w8": w8, "tq": tq, "rn": rn,
              "layers": layers,
              "kernels": {
@@ -4930,6 +5451,7 @@ def main() -> int:
             "KERNEL_MIN_ELEMENTS": fu.KERNEL_MIN_ELEMENTS,
             "adamw_plan": adamw_plan,
             "flops_per_token": gpt.flops_per_token,
+            "params_checksum": params_checksum,
             "kv_cache": kv_cache, "gumbel_noise": gumbel_noise,
             "loadgen": loadgen, "sampling": sampling, "export": export,
             "weights": weights, "SamplingParams": SamplingParams,
@@ -4973,12 +5495,21 @@ def main() -> int:
                             "cuda": torch.version.cuda}
 
         phase("2 build", t0)
-        build_logs = build.build()
-        for name, log in build_logs.items():
-            print(f"built {name}: {build.library_path(name).name}")
-            for line in log.splitlines():
-                if "ptxas" in line or "error" in line.lower():
-                    print("  " + line.strip())
+        # every nvcc starts now; the training kernels' (the slowest to
+        # build) are waited for only before phase 7, so the serving phases
+        # that need none of them run meanwhile
+        late: dict = {}
+
+        def build_late():
+            try:
+                late["logs"] = build.build(list(LATE_KERNELS))
+            except BaseException as e:          # re-raised at the join
+                late["error"] = e
+        builder = threading.Thread(target=build_late, daemon=True)
+        builder.start()
+        build_logs = build.build([n for n in build.SOURCES
+                                  if n not in LATE_KERNELS])
+        print_build_logs(build, build_logs)
         torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32
 
         phase("3 kernel against plain", t0)
@@ -4994,29 +5525,10 @@ def main() -> int:
         phase("6 paged against dense", t0)
         with torch.inference_mode():          # serving is gradient-free
             dense = paged_against_dense(torch, mods, served)
-        # phase 13 quantizes from these weights: they wait on the host
-        bf16_model = served.pop("params").to("cpu")
+        bf16_model = served.pop("params")      # phases 13-17c serve them
         served.pop("tokenizer", None)
         llama_cfg = served.pop("cfg")
         torch.cuda.empty_cache()
-
-        phase("7 flash kernels against plain", t0)
-        flash = flash_against_plain(torch, fa, fac)
-
-        phase("8 adamw kernel against plain", t0)
-        adamw_err = adamw_against_plain(torch, fu, adamw_kernel)
-
-        phase("9 training kernel timing", t0)
-        cfg1b = get_model_config("gpt-1b")
-        train_timing = flash_timing(torch, F, fa, fac, cfg1b,
-                                    TRAIN_MICRO_BATCH,
-                                    build_logs.get("flash_attention", ""))
-        train_timing["adamw"] = adamw_timing(torch, gpt, fu, adamw_kernel,
-                                             cfg1b,
-                                             build_logs.get("adamw", ""))
-
-        phase("10 train gpt-1b at full width and depth", t0)
-        trained = train_main_path(torch, mods, train_kernels, smi)
 
         phase("11 quantized kernels against plain", t0)
         quant_err = quant_kernels_against_plain(torch, qmods)
@@ -5029,7 +5541,6 @@ def main() -> int:
             build_logs.get("rmsnorm", ""))
 
         phase("13 serve quantized llama-8b-gqa at full width and depth", t0)
-        bf16_model = bf16_model.to("cuda")
         quant_served = {
             name: serve_quantized(torch, mods, qmods, llama_cfg, bf16_model,
                                   name, smi, **settings)
@@ -5077,6 +5588,33 @@ def main() -> int:
         remnants["seconds"] = time.time() - t17
         torch.cuda.empty_cache()
 
+        t_join = time.time()
+        builder.join()
+        if "error" in late:
+            raise late["error"]
+        print(f"the training kernels' build joined after "
+              f"{time.time() - t_join:.1f} s of waiting", flush=True)
+        print_build_logs(build, late["logs"])
+        build_logs.update(late["logs"])
+
+        phase("7 flash kernels against plain", t0)
+        flash = flash_against_plain(torch, fa, fac)
+
+        phase("8 adamw kernel against plain", t0)
+        adamw_err = adamw_against_plain(torch, fu, adamw_kernel)
+
+        phase("9 training kernel timing", t0)
+        cfg1b = get_model_config("gpt-1b")
+        train_timing = flash_timing(torch, F, fa, fac, cfg1b,
+                                    TRAIN_MICRO_BATCH,
+                                    build_logs.get("flash_attention", ""))
+        train_timing["adamw"] = adamw_timing(torch, gpt, fu, adamw_kernel,
+                                             cfg1b,
+                                             build_logs.get("adamw", ""))
+
+        phase("10 train gpt-1b at full width and depth", t0)
+        trained = train_main_path(torch, mods, train_kernels, smi)
+
         phase("14 RMSNorm on the entry forward", t0)
         norm_path = rmsnorm_on_entry(torch, gpt, qmods)
 
@@ -5104,7 +5642,8 @@ def main() -> int:
         t17 = time.time()
         phase("17a the 256-candidate sampling tier", t0)
         remnants["tier"] = sampling_tier_on_card(torch, sampling, smi)
-        phase("17d gpt-1b under selective_attn; lion, adafactor, sgd", t0)
+        phase("17d gpt-1b (4 layers) under selective_attn; lion, adafactor, "
+              "sgd", t0)
         remnants["train"] = train_remnants(torch, mods, fac, train_kernels,
                                            smi)
         remnants["seconds"] += time.time() - t17
@@ -5128,6 +5667,12 @@ def main() -> int:
             "paged_attention_int4": pac.paged_attention_int4_kernel}, smi)
         tools["seconds"] = time.time() - t19
         print(f"phase 19 took {tools['seconds']:.1f} s", flush=True)
+
+        phase("21 the fleet over the wire: two llama-8b-gqa worker "
+              "processes, the HTTP courier, disaggregation, HA fronts, a "
+              "killed worker", t0)
+        wire = wire_fleet_phase(torch, mods, llama_cfg, fleet.pop("prompts"),
+                                fleet.pop("refs"), served["checksum"], smi)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -5176,7 +5721,8 @@ def main() -> int:
                      + cli["export"]["launches"]["paged_attention"]
                      + tools["kv_decode"]["launches"]["paged_attention"]
                      + tools["serve_load"]["launches"]["paged_attention"]
-                     + fleet["launches"]["paged_attention"]),
+                     + fleet["launches"]["paged_attention"]
+                     + wire["launches"]["paged_attention"]),
         "max_abs_err": max(max_err, moe["kernels"]["paged_attention"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -5224,7 +5770,8 @@ def main() -> int:
         record.update(quant_max_abs_err=quant_err, quant_timing=quant_timing,
                       serve_quantized=quant_served, rmsnorm_path=norm_path,
                       serve_features=features, moe=moe,
-                      remnants=remnants, cli=cli, tools=tools, fleet=fleet)
+                      remnants=remnants, cli=cli, tools=tools, fleet=fleet,
+                      wire=wire)
         record.update(kernels=kernels, timing=timing, serve=served,
                       paged_vs_dense=dense, flash_vs_plain=flash,
                       adamw_max_abs_err=adamw_err, train_timing=train_timing,

@@ -12,15 +12,22 @@ command's options and JSON keys, on the global ``--device``.
   engine's ``serve-load`` sweeps through ``serve/loadgen.py`` (Poisson and
   closed loop, ``--device-times``, quantized weights and pages, an
   artifact). On a card, as the JAX command does on a TPU: bf16, pages of
-  64 and the flash kernels. The fleet options (``--serve-replicas > 1``,
-  ``--serve-disagg``, the courier, returning, long-prompt, scenario and
-  stream options and ``--serve-max-retries``) exit 2 when they differ from
-  their defaults, naming ROADMAP queue 1 item 9.
+  64 and the flash kernels. With ``--serve-replicas > 1`` each sweep
+  point is an in-process ``ServeFleet`` (``--serve-disagg`` splits it into
+  prefill and decode roles, ``--serve-courier-chaos`` seeds chunk faults,
+  ``--serve-courier-codec`` picks the wire codec, ``--serve-stream``
+  streams, ``--serve-max-retries`` honours 429s), and
+  ``--serve-long-prompts`` adds the JAX command's pipelined-prefill A/B.
+  The returning-conversation and scenario options (``--serve-returning*``,
+  ``--serve-scenario*``, ``--serve-ttft-target-ms``) need the fleet KV
+  store or the autoscaler: they exit 2 when they differ from their
+  defaults, naming ROADMAP queue 1 item 9, step 9d.
 - ``kv-decode``: one layer's paged attention plus the KV append a step,
   over fp, int8 and int4 pages (on a card through
-  ``csrc/paged_attention.cu``), with the traffic and capacity ledgers. The
-  JAX command's courier wire-codec section needs the fleet's courier
-  (item 9): its keys are kept and name the item.
+  ``csrc/paged_attention.cu``), with the traffic and capacity ledgers, and
+  the JAX command's courier wire-codec A/B: one activation-shaped page
+  payload of each kind through the courier's encoder and reassembler
+  under each codec (host work).
 - ``dataloader``: dataset throughput, and the prefetch loader's stall
   under a simulated step.
 - ``battery``: a TOML/JSON list of commands run with per-item timeouts,
@@ -47,20 +54,16 @@ from ...device import resolve_device
 from ...utils.timing import time_fn
 from ..main import CommandError
 
-FLEET = "ROADMAP queue 1 item 9"
+STORE_TIER = "ROADMAP queue 1 item 9, step 9d"
 MULTI_GPU = "ROADMAP queue 1 item 7"
 
-# e2e options that drive the serving fleet, with their defaults: any other
-# value exits 2 naming FLEET
-FLEET_DEFAULTS = {
-    "serve_max_retries": 0, "serve_replicas": 1, "serve_disagg": False,
-    "serve_courier_chaos": 0.0, "serve_courier_codec": "none",
-    "serve_courier_zlib_level": -1, "serve_returning": 0,
-    "serve_returning_history": 96, "serve_long_prompts": 0,
-    "serve_long_prompt_len": 384, "serve_scenario": "",
-    "serve_scenario_duration": 10.0, "serve_scenario_base_rps": 3.0,
-    "serve_scenario_peak_rps": 12.0, "serve_ttft_target_ms": 2000.0,
-    "serve_stream": False,
+# e2e options that need the fleet KV store or the autoscaler, with their
+# defaults: any other value exits 2 naming STORE_TIER
+STORE_TIER_DEFAULTS = {
+    "serve_returning": 0, "serve_returning_history": 96,
+    "serve_scenario": "", "serve_scenario_duration": 10.0,
+    "serve_scenario_base_rps": 3.0, "serve_scenario_peak_rps": 12.0,
+    "serve_ttft_target_ms": 2000.0,
 }
 
 
@@ -128,7 +131,8 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
     e.add_argument("--serve-hot-prefix", default=0, type=int,
                    help="serve-load: every prompt shares a hot prefix of "
                         "this many tokens (the engine's prefix cache).")
-    fleet = e.add_argument_group(f"fleet options (not ported: {FLEET})")
+    fleet = e.add_argument_group("fleet options (--serve-returning* and "
+                                 f"--serve-scenario*: {STORE_TIER})")
     fleet.add_argument("--serve-max-retries", default=0, type=int)
     fleet.add_argument("--serve-replicas", default=1, type=int)
     _bool(fleet, "--serve-disagg", False)
@@ -387,16 +391,36 @@ def _serve(args, cfg, device, on_card: bool) -> dict:
             "tokens_per_sec": total_tokens / dt, "requests": args.requests}
 
 
+def _fleet_counters(fleet) -> dict:
+    """engine_counters summed over a fleet's replicas."""
+    per = [engine_counters(r.engine) for r in fleet.replicas]
+    agg = {k: sum(p[k] for p in per) for k in per[0]
+           if k != "decode_slot_utilization"}
+    B = fleet.replicas[0].engine.serve_cfg.max_batch_size
+    agg["decode_slot_utilization"] = round(
+        1.0 - agg["padded_slot_steps"] / max(agg["decode_steps"] * B, 1), 4)
+    return agg
+
+
+def _drop(target, device: torch.device) -> None:
+    """Release a sweep point's engine or shut down its fleet."""
+    if hasattr(target, "router"):
+        target.shutdown()
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    else:
+        _release(target, device)
+
+
 def _serve_load(args, cfg, device, on_card: bool) -> dict:
-    from ...config.schema import ServeConfig
+    from ...config.schema import FleetConfig, ServeConfig
     from ...serve import InferenceEngine, SamplingParams
+    from ...serve.fleet import FaultPlan, ServeFleet
     from ...serve.loadgen import run_closed_loop, run_poisson
 
-    def warmed_engine():
-        """A fresh engine a sweep point, warmed by one request before its
-        counters are zeroed (the previous point's engine is released
-        first)."""
-        eng = InferenceEngine(cfg, ServeConfig(
+    def point_serve_cfg():
+        return ServeConfig(
             model=args.model_name,
             max_batch_size=args.slots or min(max(args.requests, 8), 16),
             max_seq_len=min(args.prompt_len + args.gen_len + 16,
@@ -410,32 +434,160 @@ def _serve_load(args, cfg, device, on_card: bool) -> dict:
             artifact=args.artifact, quantization=args.quant,
             kv_quantization="none" if args.kv_quant == "fp"
             else args.kv_quant,
-            dtype="bfloat16" if on_card else "float32"), device=device)
-        eng.generate([list(range(1, args.prompt_len + 1))],
-                     SamplingParams(temperature=0.0, max_tokens=2))
+            dtype="bfloat16" if on_card else "float32")
+
+    def warm(eng, lengths=(args.prompt_len,)):
+        for n in lengths:
+            eng.generate([list(range(1, n + 1))],
+                         SamplingParams(temperature=0.0, max_tokens=2))
         _reset_counters(eng)
+
+    def warmed_fleet():
+        """A sweep point's fleet: each replica warmed before its thread
+        starts, counters zeroed, then live."""
+        fc = dict(replicas=args.serve_replicas,
+                  courier_codec=args.serve_courier_codec,
+                  courier_zlib_level=args.serve_courier_zlib_level)
+        if args.serve_disagg and args.serve_replicas >= 2:
+            n_pre = max(args.serve_replicas // 2, 1)
+            fc["roles"] = ",".join(["prefill"] * n_pre + ["decode"] * (
+                args.serve_replicas - n_pre))
+        plan = None
+        if args.serve_courier_chaos > 0:
+            # lossy link: small chunks so every payload spans many frames,
+            # a generous retry budget so the run measures the stall
+            fc.update(courier_chunk_bytes=1024, courier_max_retries=12,
+                      courier_retry_backoff_ms=0.5,
+                      courier_retry_backoff_max_ms=8.0,
+                      courier_chunk_deadline_ms=50.0)
+            rate = args.serve_courier_chaos / 3.0
+            plan = FaultPlan(seed=0, chunk_drop_rate=rate,
+                             chunk_corrupt_rate=rate, chunk_delay_rate=rate,
+                             chunk_delay_ms=60.0)
+        fleet = ServeFleet(cfg, point_serve_cfg(), FleetConfig(**fc),
+                           fault_plan=plan, device=device)
+        for r in fleet.replicas:
+            warm(r.engine)
+        fleet.start()
+        return fleet
+
+    def warmed_target():
+        """A fresh engine (or fleet) a sweep point, warmed by one request
+        before its counters are zeroed (the previous point's is released
+        first)."""
+        if args.serve_replicas > 1:
+            return warmed_fleet()
+        eng = InferenceEngine(cfg, point_serve_cfg(), device=device)
+        warm(eng)
         return eng
+
+    def counters(target) -> dict:
+        return (_fleet_counters(target) if hasattr(target, "router")
+                else engine_counters(target))
 
     common = dict(num_requests=args.requests, prompt_len=args.prompt_len,
                   max_tokens=args.gen_len, seed=0,
                   hot_prefix_len=args.serve_hot_prefix,
+                  max_retries=args.serve_max_retries,
+                  stream=args.serve_stream,
                   device_times=args.device_times)
     out = {"admission": args.admission, "preemption": args.preemption,
            "open_loop": [], "closed_loop": []}
     for r in [float(x) for x in str(args.rps).split(",") if x]:
-        eng = warmed_engine()
-        s = run_poisson(eng, offered_rps=r, **common).summary()
-        s["engine"] = engine_counters(eng)
+        target = warmed_target()
+        s = run_poisson(target, offered_rps=r, **common).summary()
+        s["engine"] = counters(target)
         out["open_loop"].append(s)
-        _release(eng, device)
+        _drop(target, device)
     for c in [int(x) for x in str(args.concurrency).split(",") if x]:
-        eng = warmed_engine()
-        s = run_closed_loop(eng, concurrency=c, **common).summary()
+        target = warmed_target()
+        s = run_closed_loop(target, concurrency=c, **common).summary()
         s["concurrency"] = c
-        s["engine"] = engine_counters(eng)
+        s["engine"] = counters(target)
         out["closed_loop"].append(s)
-        _release(eng, device)
+        _drop(target, device)
+    if args.serve_long_prompts > 0:
+        out["pipeline"] = _pipeline_ab(args, cfg, device, point_serve_cfg,
+                                       warm)
     return out
+
+
+def _pipeline_ab(args, cfg, device, point_serve_cfg, warm) -> dict:
+    """The JAX command's pipelined-prefill A/B: one fleet an arm, the same
+    traffic with ``--serve-long-prompts`` long prompts; the OFF arm
+    prefills each on one replica, the ON arm splits it across the prefill
+    pool, and a chaos arm (a stage crash and chunk faults) must collapse
+    to single-replica prefill. Tokens must agree across the arms."""
+    from ...config.schema import FleetConfig
+    from ...serve.fleet import FaultPlan, ServeFleet
+    from ...serve.loadgen import run_poisson
+
+    L = args.serve_long_prompt_len
+    n_reps = max(args.serve_replicas, 2)
+    chunk = 64
+    rps = [float(x) for x in str(args.rps).split(",") if x][0]
+    min_on = max(args.prompt_len + 1, L // 2)
+
+    def arm(min_tokens, fault_plan=None, warm_lap=True):
+        scfg = point_serve_cfg()
+        scfg.max_seq_len = min(L + args.gen_len + 16,
+                               cfg.max_position_embeddings)
+        scfg.chunked_prefill_tokens = chunk
+        scfg.prefill_budget_tokens = chunk
+        fleet = ServeFleet(
+            cfg, scfg,
+            FleetConfig(replicas=n_reps, prefix_fetch=True,
+                        pipeline_prefill_min_tokens=min_tokens,
+                        pipeline_prefill_max_stages=min(n_reps, 4),
+                        pipeline_prefill_stage_timeout_ms=240_000.0,
+                        courier_codec=args.serve_courier_codec,
+                        courier_zlib_level=args.serve_courier_zlib_level),
+            fault_plan=fault_plan, supervise=False, device=device)
+        for r in fleet.replicas:
+            warm(r.engine, (L, args.prompt_len))
+        fleet.start()
+        try:
+            def lap(seed):
+                return run_poisson(
+                    fleet, offered_rps=rps, num_requests=args.requests,
+                    prompt_len=args.prompt_len, max_tokens=args.gen_len,
+                    seed=seed, max_retries=args.serve_max_retries,
+                    long_prompts=args.serve_long_prompts, long_prompt_len=L)
+            if warm_lap:
+                lap(0)
+                fleet.pipeline.reset_counters()
+                for r in fleet.replicas:
+                    _reset_counters(r.engine)
+                    with r.engine.lock:
+                        r.engine.kv.flush_prefix_cache()
+            return lap(1)
+        finally:
+            _drop(fleet, device)
+
+    off = arm(0)
+    on = arm(min_on)
+    # no warm lap: the injected stage crash fires once
+    chaos = arm(min_on, warm_lap=False, fault_plan=FaultPlan(
+        seed=0, chunk_drop_rate=0.1, chunk_corrupt_rate=0.1,
+        crash_request_substr="::stage", crash_request_after_steps=4))
+    ref = off.pipeline.get("token_lists")
+    pl = {"replicas": n_reps, "stages_planned": min(n_reps, 4),
+          "long_prompts": args.serve_long_prompts, "long_prompt_len": L,
+          "pipeline_on": on.summary(), "pipeline_off": off.summary(),
+          "chaos": chaos.summary(),
+          "token_identical": on.pipeline.get("token_lists") == ref,
+          "chaos_token_identical": chaos.pipeline.get("token_lists") == ref}
+    on_t, off_t = (on.pipeline.get("p50_long_ttft_ms"),
+                   off.pipeline.get("p50_long_ttft_ms"))
+    if on_t and off_t:
+        pl["long_ttft_speedup_p50"] = round(off_t / on_t, 3)
+    on_d, off_d = (on.pipeline.get("p99_short_tpot_ms"),
+                   off.pipeline.get("p99_short_tpot_ms"))
+    if on_d and off_d:
+        pl["short_tpot_p99_ratio_on_vs_off"] = round(on_d / off_d, 3)
+    for a in ("pipeline_on", "pipeline_off", "chaos"):
+        pl[a].get("pipeline", {}).pop("token_lists", None)
+    return pl
 
 
 def e2e(args, device: torch.device) -> dict:
@@ -443,13 +595,14 @@ def e2e(args, device: torch.device) -> dict:
     single engine's load sweeps."""
     from ...config.presets import get_model_config
 
-    fleet = sorted(k for k, v in FLEET_DEFAULTS.items()
+    later = sorted(k for k, v in STORE_TIER_DEFAULTS.items()
                    if getattr(args, k) != v)
-    if fleet:
+    if later:
         raise NotImplementedError(
-            "--" + ", --".join(k.replace("_", "-") for k in fleet)
-            + f": the serving fleet is not ported to the PyTorch package "
-              f"yet ({FLEET})")
+            "--" + ", --".join(k.replace("_", "-") for k in later)
+            + ": the returning-conversation and scenario runs need the "
+              "fleet KV store tier and the autoscaler, not ported to the "
+              f"PyTorch package yet ({STORE_TIER})")
     cfg = get_model_config(args.model_name)
     on_card = device.type == "cuda"
     seq_len = args.seq_len or min(1024 if on_card else 128,
@@ -581,12 +734,85 @@ def kv_decode(args, device: torch.device) -> dict:
     results["int4_vs_bf16_slots_per_hbm_byte"] = round(
         results["bf16"]["capacity"]["bytes_per_slot"]
         / results["int4"]["capacity"]["bytes_per_slot"], 3)
-    # the courier's wire codecs belong to the serving fleet
-    results["courier_codec_ab"] = {"not_ported": FLEET}
-    results["delta_zlib_vs_none_int8_wire"] = None
+    maxP = (context + PS - 1) // PS
+    results["courier_codec_ab"] = codec_ab = courier_codec_ab(
+        maxP, Nkv, PS, D)
+    results["delta_zlib_vs_none_int8_wire"] = round(
+        codec_ab["int8"]["none"]["bytes_wire"]
+        / max(codec_ab["int8"]["delta-zlib"]["bytes_wire"], 1), 3)
     results["write_mode"] = args.write_mode
     results["backend"] = "gpu" if device.type == "cuda" else device.type
     return results
+
+
+def courier_codec_ab(maxP: int, Nkv: int, PS: int, D: int) -> dict:
+    """What one extracted page payload of each KV kind costs on the wire
+    under none / zlib / delta-zlib, with the host's encode-and-frame and
+    reassemble-and-decode times (the JAX command's section, the same
+    arrays). The pages are activation-shaped (channel-static structure, a
+    few large stable outlier channels, AR(1) drift along the tokens), not
+    iid noise, which would make every codec look useless."""
+    from ...serve.fleet.transport import (ChunkReassembler, encode_payload,
+                                          make_chunks)
+    rng = np.random.default_rng(0)
+    n_pages = min(maxP, 8)
+    *lead, _PS, _D = shp = (2, n_pages, max(Nkv // 8, 1), PS, D)
+
+    def activation_planes():
+        base = rng.standard_normal((*lead, 1, _D)).astype(np.float32)
+        hot = rng.choice(_D, size=max(_D // 16, 1), replace=False)
+        base[..., hot] *= 10.0
+        drift = np.zeros(shp, np.float32)
+        drift[..., 0, :] = 0.1 * rng.standard_normal((*lead, _D))
+        for t in range(1, _PS):
+            drift[..., t, :] = (0.99 * drift[..., t - 1, :]
+                                + 0.1 * rng.standard_normal((*lead, _D)))
+        return base + drift
+
+    def quant(x, levels):
+        scale = np.abs(x).max(-1) / levels + 1e-9
+        return (np.clip(np.round(x / scale[..., None]), -levels,
+                        levels).astype(np.int8), scale)
+
+    def extract_payload(kind):
+        k, v = activation_planes(), activation_planes()
+        if kind == "bf16":
+            pages = {"k": k, "v": v}
+        else:
+            pages = {}
+            for name, x in (("k", k), ("v", v)):
+                q, sc = quant(x, 127 if kind == "int8" else 7)
+                if kind == "int4":           # two slots a byte
+                    q = ((q[..., 0::2, :] & 0xF)
+                         | ((q[..., 1::2, :] & 0xF) << 4)).astype(np.uint8)
+                pages[name] = {"values": q, "scale": sc.astype(np.float32)}
+        return {"pages": {**pages, "num_pages": n_pages},
+                "positions": n_pages * PS, "last_token": 1}
+
+    out: dict = {}
+    for kind in KV_KINDS:
+        payload = extract_payload(kind)
+        arms = {}
+        for codec in ("none", "zlib", "delta-zlib"):
+            t0 = time.perf_counter()
+            manifest, blob = encode_payload(payload, codec=codec)
+            chunks = make_chunks("bench", manifest, blob, 256 * 1024)
+            enc_ms = (time.perf_counter() - t0) * 1e3
+            wire = sum(len(c.data) for c in chunks)
+            t0 = time.perf_counter()
+            r = ChunkReassembler(len(chunks))
+            for c in chunks:
+                r.add(c)
+            r.payload()
+            dec_ms = (time.perf_counter() - t0) * 1e3
+            arms[codec] = {
+                "bytes_raw": manifest["nbytes"], "bytes_wire": wire,
+                "compression_ratio": round(manifest["nbytes"]
+                                           / max(wire, 1), 3),
+                "encode_ms": round(enc_ms, 3),
+                "decode_ms": round(dec_ms, 3)}
+        out[kind] = arms
+    return out
 
 
 # -- dataloader ----------------------------------------------------------------

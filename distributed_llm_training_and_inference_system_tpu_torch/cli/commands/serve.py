@@ -1,9 +1,12 @@
 """`llmctl-torch serve` — start the inference server (the JAX package's
-``serve start`` for one engine).
+``serve start``).
 
-The single-engine options keep the JAX command's names and defaults.
-``build_server(args)`` turns a parsed ``serve start`` line into an
-``InferenceServer`` (not started) on the global ``--device``:
+The options keep the JAX command's names and defaults. ``build_server(args)``
+turns a parsed ``serve start`` line into an ``InferenceServer`` (not
+started) on the global ``--device``, or with ``--replicas > 1`` a fleet
+front (``serve/fleet/http.py``) over in-process replicas and, with
+``--fleet-remote-replicas`` and ``--fleet-endpoint``, fleet worker
+processes:
 
 - ``--dtype`` defaults to bfloat16 on the card and float32 on the CPU;
 - ``--prometheus-port P`` (0 = a free port) starts the process's
@@ -11,13 +14,18 @@ The single-engine options keep the JAX command's names and defaults.
   its exporter, ``server.metrics.port`` the bound port), feeds it every
   finished request and serves the same registry at the server's
   ``/metrics``; the global ``--otlp-endpoint`` adds OTLP spans;
-- ``--replicas > 1`` and every ``--fleet-*`` option raise (the fleet is
-  ROADMAP queue 1 item 9); ``--tensor-parallel > 1`` raises in the engine
-  (item 7).
+- the ``--fleet-*`` options build the ``FleetConfig`` as the JAX command
+  does; the fleet KV store's (``--fleet-kv-store*``) and the
+  autoscaler's (``--fleet-autoscale*``) exit 2 naming ROADMAP queue 1
+  item 9, step 9d; ``--tensor-parallel > 1`` raises in the engine (item
+  7).
 
 ``start`` binds ``--host:--port`` (0 = a free port), prints one line with
 the bound ports, and serves until SIGTERM or SIGINT, then stops the
-server, the engine thread and the scrape endpoint and exits 0.
+server, the engine threads and the scrape endpoint and exits 0. With
+``--fleet-fronts N > 1`` it runs the HA front tier instead: N `fleet
+front` processes over the shared ``--fleet-state-store-dir``, babysat
+(fenced, counted, respawned) until SIGTERM.
 """
 
 from __future__ import annotations
@@ -26,7 +34,115 @@ import argparse
 import signal
 import threading
 
-FLEET = "ROADMAP queue 1 item 9"
+STORE_TIER = "ROADMAP queue 1 item 9, step 9d"
+
+# the fleet options of `serve start`: (flag, FleetConfig field, default,
+# type or choices); a bool default makes a --fleet-x/--fleet-no-x toggle
+FLEET_OPTIONS = (
+    ("--fleet-max-pending", "max_pending", 512, int),
+    ("--fleet-probe-interval", "probe_interval_s", 0.5, float),
+    ("--fleet-probe-failures", "probe_failures", 3, int),
+    ("--fleet-restart-backoff", "restart_backoff_s", 0.5, float),
+    ("--fleet-max-restarts", "max_restarts", 0, int),
+    ("--fleet-max-requeues", "max_requeues", 3, int),
+    ("--fleet-prefix-inventory-max", "prefix_inventory_max", 512, int),
+    ("--fleet-affinity-tokens", "affinity_prefix_tokens", 64, int),
+    ("--fleet-migrate-on-drain", "migrate_on_drain", True, bool),
+    ("--fleet-rebalance-ratio", "rebalance_imbalance_ratio", 0.0, float),
+    ("--fleet-rebalance-hysteresis", "rebalance_poll_hysteresis", 3, int),
+    ("--fleet-max-migrations", "max_concurrent_migrations", 2, int),
+    ("--fleet-roles", "roles", "", str),
+    ("--fleet-role-balance-ratio", "role_balance_ratio", 0.0, float),
+    ("--fleet-courier-transport", "courier_transport", "inproc",
+     ("inproc", "http")),
+    ("--fleet-courier-codec", "courier_codec", "none",
+     ("none", "zlib", "delta-zlib")),
+    ("--fleet-courier-zlib-level", "courier_zlib_level", -1, int),
+    ("--fleet-courier-chunk-bytes", "courier_chunk_bytes", 256 * 1024, int),
+    ("--fleet-courier-retries", "courier_max_retries", 4, int),
+    ("--fleet-courier-deadline-ms", "courier_chunk_deadline_ms", 100.0,
+     float),
+    ("--fleet-courier-endpoint", "courier_endpoint", "", str),
+    ("--fleet-courier-ticket-ttl-ms", "courier_ticket_ttl_ms", 60_000.0,
+     float),
+    ("--fleet-remote-replicas", "remote_replicas", "", str),
+    ("--fleet-prefix-fetch", "prefix_fetch", True, bool),
+    ("--fleet-prefix-fetch-min-pages", "prefix_fetch_min_pages", 1, int),
+    ("--fleet-kv-store", "kv_store", False, bool),
+    ("--fleet-kv-store-dram-mb", "kv_store_dram_mb", 256.0, float),
+    ("--fleet-kv-store-dir", "kv_store_dir", "", str),
+    ("--fleet-kv-store-disk-mb", "kv_store_disk_mb", 1024.0, float),
+    ("--fleet-kv-store-ttl-ms", "kv_store_ttl_ms", 0.0, float),
+    ("--fleet-kv-store-endpoint", "kv_store_endpoint", "", str),
+    ("--fleet-kv-store-endpoints", "kv_store_endpoints", "", str),
+    ("--fleet-kv-store-retry-max", "kv_store_retry_max", 2, int),
+    ("--fleet-kv-store-retry-backoff-ms", "kv_store_retry_backoff_ms", 10.0,
+     float),
+    ("--fleet-kv-store-write-ack", "kv_store_write_ack", 1, int),
+    ("--fleet-kv-store-hedge-ms", "kv_store_hedge_ms", 0.0, float),
+    ("--fleet-pipeline-min-tokens", "pipeline_prefill_min_tokens", 0, int),
+    ("--fleet-pipeline-max-stages", "pipeline_prefill_max_stages", 4, int),
+    ("--fleet-pipeline-stage-timeout-ms",
+     "pipeline_prefill_stage_timeout_ms", 30000.0, float),
+    ("--fleet-inventory-ttl-ms", "prefix_inventory_ttl_ms", 0.0, float),
+    ("--fleet-stream-ttl-ms", "stream_log_ttl_ms", 60000.0, float),
+    ("--fleet-stream-max-buffered", "stream_max_buffered_batches", 256, int),
+    ("--fleet-fronts", "fronts", 1, int),
+    ("--fleet-state-store", "state_store", "memory", ("memory", "file")),
+    ("--fleet-state-store-dir", "state_store_dir", "", str),
+    ("--fleet-state-compact-every", "state_compact_every", 1024, int),
+    ("--fleet-autoscale", "autoscale", False, bool),
+    ("--fleet-autoscale-min-replicas", "autoscale_min_replicas", 1, int),
+    ("--fleet-autoscale-max-replicas", "autoscale_max_replicas", 0, int),
+    ("--fleet-autoscale-up-queue-per-replica",
+     "autoscale_up_queue_per_replica", 4.0, float),
+    ("--fleet-autoscale-down-queue-per-replica",
+     "autoscale_down_queue_per_replica", 0.5, float),
+    ("--fleet-autoscale-hysteresis-polls", "autoscale_hysteresis_polls", 2,
+     int),
+    ("--fleet-autoscale-cooldown-polls", "autoscale_cooldown_polls", 10,
+     int),
+    ("--fleet-autoscale-spawn", "autoscale_spawn", "",
+     ("", "engine", "worker")),
+    ("--fleet-autoscale-up-free-page-ratio", "autoscale_up_free_page_ratio",
+     0.0, float),
+    ("--fleet-autoscale-spawn-timeout-s", "autoscale_spawn_timeout_s", 30.0,
+     float),
+    ("--fleet-priority-headroom-requests", "priority_headroom_requests", 0,
+     int),
+    ("--fleet-interactive-ttft-target-ms", "interactive_ttft_target_ms",
+     0.0, float),
+)
+
+
+class _Toggle(argparse.Action):
+    """``--fleet-x`` sets True, ``--fleet-no-x`` False (click's pair)."""
+
+    def __init__(self, option_strings, dest, **kw):
+        super().__init__(option_strings, dest, nargs=0, **kw)
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        setattr(namespace, self.dest,
+                not option_string.startswith("--fleet-no-"))
+
+
+def fleet_dest(flag: str) -> str:
+    return flag[2:].replace("-", "_")
+
+
+def _add_fleet_options(add) -> None:
+    for flag, field, default, kind in FLEET_OPTIONS:
+        dest = fleet_dest(flag)
+        if kind is bool:
+            add(flag, "--fleet-no-" + flag[len("--fleet-"):], dest=dest,
+                default=default, action=_Toggle)
+        elif isinstance(kind, tuple):
+            add(flag, dest=dest, default=default, choices=list(kind))
+        else:
+            add(flag, dest=dest, default=default, type=kind)
+    add("--fleet-endpoint", dest="fleet_endpoints", action="append",
+        default=[], help="replica=url entries of the fleet's endpoint map "
+                         "(repeat per replica).")
 
 
 def build_parser(prog: str) -> argparse.ArgumentParser:
@@ -108,21 +224,14 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
         help="CORS allowed origins: '*', a comma-separated list, or '' to "
              "disable.")
     add("--replicas", default=1, type=int,
-        help="Engine replicas behind the fleet router (ROADMAP queue 1 "
-             "item 9; only 1 is ported).")
+        help="Engine replicas behind the fleet router (> 1 serves the "
+             "fleet front).")
+    _add_fleet_options(add)
     add("--stream-abort-on-disconnect",
         dest="stream_abort_on_disconnect", default=True,
         action=argparse.BooleanOptionalAction,
         help="Abort a streamed request whose client disconnected.")
     return ap
-
-
-def refuse_unknown(unknown: list[str]) -> None:
-    fleet = [a for a in unknown if a.startswith("--fleet-")]
-    if fleet:
-        raise NotImplementedError(
-            f"{fleet[0].split('=')[0]}: the serving fleet is not ported to "
-            f"the PyTorch package yet ({FLEET})")
 
 
 def run(args) -> int:
@@ -132,20 +241,60 @@ def run(args) -> int:
     return start(args)
 
 
+def fleet_config(args):
+    """The ``FleetConfig`` of a parsed ``serve start`` line (None for one
+    engine). Raises naming step 9d for the KV store's and the
+    autoscaler's options."""
+    from ...config.schema import FleetConfig, parse_fleet_endpoints
+
+    for flag, field, default, _kind in FLEET_OPTIONS:
+        if (flag.startswith(("--fleet-kv-store", "--fleet-autoscale"))
+                and getattr(args, fleet_dest(flag)) != default):
+            raise NotImplementedError(
+                f"{flag}: the fleet KV store tier and the autoscaler are not "
+                f"ported to the PyTorch package yet ({STORE_TIER})")
+    if args.replicas <= 1:
+        return None
+    cfg = FleetConfig(
+        replicas=args.replicas,
+        fleet_endpoints=parse_fleet_endpoints(list(args.fleet_endpoints)),
+        **{field: getattr(args, fleet_dest(flag))
+           for flag, field, _d, _k in FLEET_OPTIONS})
+    cfg.validate()
+    return cfg
+
+
+def front_tier(args, fleet_cfg):
+    """The HA front tier of ``--fleet-fronts N > 1``: this process
+    babysits N `fleet front` children over the shared state store and the
+    same remote workers."""
+    from ...serve.fleet.front import FleetFrontTier, default_spawn_cmd
+    from ...serve.fleet.state import SharedFileStateStore
+
+    store = SharedFileStateStore(fleet_cfg.state_store_dir, front_id="tier")
+    return FleetFrontTier(
+        store, default_spawn_cmd(
+            model=args.model_name, store_dir=fleet_cfg.state_store_dir,
+            replicas=fleet_cfg.replicas, endpoints=fleet_cfg.endpoint_map(),
+            remote_replicas=fleet_cfg.remote_replicas, host=args.host,
+            artifact=args.artifact,
+            extra=["--max-seq-len", str(args.max_seq_len),
+                   "--max-batch-size", str(args.max_batch_size),
+                   "--kv-block-size", str(args.kv_block_size)]),
+        fronts=fleet_cfg.fronts)
+
+
 def build_server(args):
-    """The ``InferenceServer`` of a parsed ``serve start`` line (not
-    started)."""
+    """The ``InferenceServer`` of a parsed ``serve start`` line, or with
+    ``--replicas > 1`` its ``FleetServer`` (not started)."""
     from ...config.presets import get_model_config
     from ...config.schema import ServeConfig
     from ...device import resolve_device
     from ...metrics.observability import (reset_observability,
                                           setup_observability)
-    from ...serve.server import InferenceServer
+    from ...serve.server import create_server
 
-    if args.replicas > 1:
-        raise NotImplementedError(
-            f"--replicas {args.replicas}: the serving fleet is not ported to "
-            f"the PyTorch package yet ({FLEET})")
+    fleet_cfg = fleet_config(args)
     device = resolve_device(args.root.device)
     dtype = args.dtype or ("bfloat16" if device.type == "cuda"
                            else "float32")
@@ -179,11 +328,15 @@ def build_server(args):
         exporter = obs.prometheus
 
         def observer(event: str, payload: dict) -> None:
-            if event == "inference_request":
+            # fleet supervisor snapshots carry the per-replica gauges
+            if event == "fleet":
+                obs.record_fleet(payload)
+            elif event == "inference_request":
                 obs.record_inference(payload)
     try:
-        return InferenceServer(model_cfg, serve_cfg, device=device,
-                               observer=observer, metrics=exporter)
+        return create_server(model_cfg, serve_cfg, fleet_cfg=fleet_cfg,
+                             device=device, observer=observer,
+                             metrics=exporter)
     except BaseException:
         reset_observability()        # no scrape endpoint outlives a refusal
         raise
@@ -194,22 +347,39 @@ def start(args) -> int:
     or SIGINT."""
     from ...metrics.observability import reset_observability
 
-    server = build_server(args)
+    fleet_cfg = fleet_config(args)
+    tier = server = None
+    if fleet_cfg is not None and fleet_cfg.fronts > 1:
+        tier = front_tier(args, fleet_cfg)
+    else:
+        server = build_server(args)
     stop = threading.Event()
     previous = {sig: signal.signal(sig, lambda *_: stop.set())
                 for sig in (signal.SIGTERM, signal.SIGINT)}
     try:
+        if tier is not None:
+            ports = tier.start()
+            print(f"HA front tier up: {fleet_cfg.fronts} fronts on ports "
+                  f"{ports} over {fleet_cfg.state_store_dir}", flush=True)
+            while not stop.wait(0.25):
+                tier.poll()
+            return 0
         port = server.start()
         metrics = (f", metrics on :{server.metrics.port}"
                    if server.metrics is not None else "")
+        replicas = (f", replicas={args.replicas}" if args.replicas > 1
+                    else "")
         print(f"serving {args.model_name} on {args.host}:{port} "
-              f"(device={server.engine.device}, "
+              f"(device={args.root.device}, "
               f"dtype={server.serve_cfg.dtype}, "
-              f"scheduler={args.scheduler}{metrics})", flush=True)
+              f"scheduler={args.scheduler}{replicas}{metrics})", flush=True)
         while not stop.wait(0.5):
             pass
     finally:
-        server.stop()
+        if tier is not None:
+            tier.stop()
+        if server is not None:
+            server.stop()
         reset_observability()
         for sig, handler in previous.items():
             signal.signal(sig, handler)

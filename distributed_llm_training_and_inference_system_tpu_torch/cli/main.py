@@ -14,11 +14,12 @@ value (``--nodes > 1``, ``--chips-per-node > 1``, a cluster launcher)
 raises naming ROADMAP queue 1 item 7.
 
 Each command's module is imported only when it runs, so ``--help`` stays
-fast. The commands ``plan`` (it needs the planner of ROADMAP queue 1 item
-7) and ``fleet`` (item 9) are not ported yet: they exit 2 with a message
-naming their ROADMAP item, as do the parts of ported commands that wait
-for one (``admin lint``, ``bench comms``, ``tune comms|sp|full``, the
-fleet options of ``bench e2e`` and ``serve start``).
+fast. The command ``plan`` (it needs the planner of ROADMAP queue 1 item
+7) is not ported yet: it exits 2 with a message naming its ROADMAP item,
+as do the parts of ported commands that wait for one (``admin lint``,
+``bench comms``, ``tune comms|sp|full``, ``fleet store|ship-weights`` and
+the fleet KV store and autoscaler options of ``serve start`` and ``bench
+e2e``).
 """
 
 from __future__ import annotations
@@ -46,12 +47,12 @@ COMMANDS = {
     "replay": ("replay", "Deterministic replay."),
     "tune": ("tune", "Autotuning."),
     "admin": ("admin", "Maintenance utilities."),
+    "fleet": ("fleet", "Serve-fleet operations, workers and fronts."),
 }
 
 # command -> the ROADMAP item it waits for
 NOT_PORTED = {
     "plan": "ROADMAP queue 1 item 7 (it needs the planner)",
-    "fleet": "ROADMAP queue 1 item 9",
 }
 
 MULTI_HOST = "ROADMAP queue 1 item 7"

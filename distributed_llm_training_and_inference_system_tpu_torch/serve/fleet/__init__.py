@@ -15,14 +15,21 @@ The port's copy of the JAX package's ``serve/fleet/``, in one process:
 - :class:`~.streams.FleetStreamHub` — exactly-once token streams
 - :class:`~.pipeline.PipelineCoordinator` — pipelined prefill over
   replicas (off by default, ``pipeline_prefill_min_tokens = 0``)
+- :class:`~.remote.RemoteReplica` — a `llmctl-torch fleet worker`
+  process (serve/fleet/worker.py) behind the same duck-typed surface
+- :class:`~.state.SharedFileStateStore` and :class:`~.front.FleetFrontTier`
+  — the HA front tier: stateless fronts (serve/fleet/http.py) over one
+  journal
 - :class:`ServeFleet` — the facade wiring them together
 
-Replicas are threads, each stepping its own ``InferenceEngine`` on one
-card; the weights are loaded once, by replica 0, and shared. What needs
-other processes or the store tier is refused at construction, naming its
-ROADMAP step (queue 1 item 9): remote replicas, ``fleet_endpoints``, the
-HTTP courier, the HA fronts and their file state store, and the
-autoscaler (9c); the KV store tier and the weight courier (9d).
+In-process replicas are threads, each stepping its own ``InferenceEngine``
+on one card; their weights are loaded once, by the first in-process
+replica, and shared. A remote replica (``FleetConfig.remote_replicas`` +
+its ``fleet_endpoints`` entry) is a worker process holding its own weights;
+KV payloads reach it over the HTTP courier. What needs the store tier is
+refused at construction, naming its ROADMAP step (queue 1 item 9, step
+9d): the KV store tier, the store service and weight courier, and the
+autoscaler (which retires replicas into the KV store).
 """
 
 from __future__ import annotations
@@ -37,14 +44,16 @@ from ...config.schema import FleetConfig, ModelConfig, ServeConfig
 from ..scheduler import Request, SamplingParams
 from .faults import (DestUnreachable, FaultInjector, FaultPlan,
                      InjectedCrash, ProbeTimeout, RpcBlackhole)
+from .front import FleetFrontTier
 from .migration import MigrationTicket
 from .pipeline import PipelineCoordinator, plan_stages
+from .remote import RemoteReplica, RemoteUnavailable
 from .replica import (ROLE_DECODE, ROLE_MIXED, ROLE_PREFILL, EngineReplica,
                       reset_for_requeue)
 from .router import (FleetRouter, FleetSaturated, normalize_priority,
                      prefix_digest)
-from .state import (FleetStateStore, InMemoryStateStore, StoreFenced,
-                    build_state_store)
+from .state import (FleetStateStore, InMemoryStateStore,
+                    SharedFileStateStore, StoreFenced, build_state_store)
 from .streams import FleetStreamHub
 from .supervisor import ReplicaSupervisor
 from .transport import (KV_STORE_OWNER, CourierReceiver,
@@ -58,6 +67,7 @@ __all__ = [
     "EngineReplica",
     "FaultInjector",
     "FaultPlan",
+    "FleetFrontTier",
     "FleetRouter",
     "FleetSaturated",
     "FleetStateStore",
@@ -71,12 +81,15 @@ __all__ = [
     "MigrationTicket",
     "PipelineCoordinator",
     "ProbeTimeout",
+    "RemoteReplica",
+    "RemoteUnavailable",
     "RpcBlackhole",
     "ROLE_DECODE",
     "ROLE_MIXED",
     "ROLE_PREFILL",
     "ReplicaSupervisor",
     "ServeFleet",
+    "SharedFileStateStore",
     "StoreFenced",
     "TransferAborted",
     "TransportError",
@@ -92,22 +105,12 @@ __all__ = [
 
 logger = logging.getLogger("llmctl.serve.fleet")
 
-_STEP_9C = "ROADMAP queue 1 item 9, step 9c"
 _STEP_9D = "ROADMAP queue 1 item 9, step 9d"
 
 # fleet option -> (is it asked for?, what it is, the step that ports it)
 _NOT_PORTED = (
-    (lambda c: bool(c.remote_replicas), "remote_replicas (fleet workers "
-     "in other processes)", _STEP_9C),
-    (lambda c: bool(c.fleet_endpoints), "fleet_endpoints (the courier's "
-     "HTTP endpoint map)", _STEP_9C),
-    (lambda c: c.courier_transport != "inproc" or bool(c.courier_endpoint),
-     "the HTTP courier transport", _STEP_9C),
-    (lambda c: c.fronts > 1, "fronts > 1 (the HA front tier)", _STEP_9C),
-    (lambda c: c.state_store != "memory", "state_store='file' (the "
-     "fronts' shared state store)", _STEP_9C),
-    (lambda c: bool(c.autoscale), "autoscale (with `fleet worker`)",
-     _STEP_9C),
+    (lambda c: bool(c.autoscale), "autoscale (it retires replicas into "
+     "the fleet KV store)", _STEP_9D),
     (lambda c: bool(c.kv_store), "kv_store (the fleet KV store tier)",
      _STEP_9D),
     (lambda c: bool(c.kv_store_endpoint_list()), "kv_store_endpoint(s) "
@@ -118,10 +121,12 @@ _NOT_PORTED = (
 class ServeFleet:
     """N replicas + router + supervisor, ready to serve.
 
-    Weights are loaded or initialised once (by replica 0) and shared
-    read-only across replicas: one copy on the card under N KV pools. A
-    quantized serve config quantizes once; the other replicas take
-    replica 0's quantized model as it is.
+    In-process replicas load or initialise the weights once (the first
+    of them) and share them read-only: one copy on the card under N KV
+    pools. A quantized serve config quantizes once; the others take that
+    quantized model as it is. Remote replicas hold their own weights in
+    their own processes; a fleet whose replicas are all remote builds no
+    engine and never touches the device.
 
     ``supervise=True`` runs the supervisor on its own thread;
     ``supervise=False`` leaves probing, requeue and restart to explicit
@@ -133,9 +138,10 @@ class ServeFleet:
                  fault_plan: Optional[FaultPlan] = None,
                  observer: Optional[Callable[[str, dict], None]] = None,
                  eos_token_id: Optional[int] = None, seed: int = 0,
-                 supervise: bool = True, device=None):
+                 supervise: bool = True,
+                 front_id: Optional[str] = None, device=None):
         self.fleet_cfg = fleet_cfg or FleetConfig()
-        self.fleet_cfg.validate()
+        self.fleet_cfg.validate()    # incl. endpoint-map/remote mismatch
         for asked, what, step in _NOT_PORTED:
             if asked(self.fleet_cfg):
                 raise NotImplementedError(
@@ -144,11 +150,18 @@ class ServeFleet:
         self.serve_cfg = serve_cfg
         self.injector = FaultInjector(fault_plan) if fault_plan else None
         roles = self.fleet_cfg.role_list()
+        remote_ids = self.fleet_cfg.remote_replica_ids()
+        endpoints = self.fleet_cfg.endpoint_map()
         # every migration / handoff / salvaged-partial payload crosses
-        # the chunked, checksummed courier and attaches by ticket in the
-        # process's receiver
+        # the chunked, checksummed courier: in-process destinations attach
+        # by ticket in this process's receiver, remote ones are pushed over
+        # HTTP per the fleet_endpoints map
         self.courier = KVCourier(self.fleet_cfg, injector=self.injector)
-        self.store = build_state_store(self.fleet_cfg)
+        # the stream logs and the router ledger live behind this store:
+        # in memory by default; `state_store = "file"` shares them between
+        # the HA fronts
+        self.store = build_state_store(self.fleet_cfg, front_id=front_id)
+        self.front_id = self.store.front_id
         # the per-request token logs: every replica a streaming request
         # crosses publishes here with monotonic sequence numbers, and the
         # hub dedupes by sequence, so requeues and migrations are
@@ -160,7 +173,14 @@ class ServeFleet:
             store=self.store)
         self.courier_receiver = self.courier.receiver
         self.replicas: list = []
+        loaded = False
         for i in range(self.fleet_cfg.replicas):
+            if i in remote_ids:
+                self.replicas.append(RemoteReplica(
+                    i, endpoints[i], fleet_cfg=self.fleet_cfg,
+                    injector=self.injector,
+                    on_finish=self._on_request_exit, role=roles[i]))
+                continue
             r = EngineReplica(
                 i, model_cfg, serve_cfg, params=params,
                 # distinct base seeds so unseeded sampled requests do not
@@ -169,11 +189,12 @@ class ServeFleet:
                 on_finish=self._on_request_exit,
                 eos_token_id=eos_token_id,
                 fleet_cfg=self.fleet_cfg, role=roles[i], device=device)
-            if i == 0:
-                # replica 0 owns the load (and the quantization): the
-                # others take the model it serves, one copy on the card
+            if not loaded:
+                # the first in-process replica owns the load (and the
+                # quantization): the others take the model it serves
                 params = r.engine.params
                 model_cfg = r.model_cfg
+                loaded = True
             self.replicas.append(r)
         self.model_cfg = model_cfg
         # the page size the engines hash prefixes with; 0 turns the
@@ -185,6 +206,9 @@ class ServeFleet:
                                   observer=observer, courier=self.courier,
                                   page_size=page_size, store=self.store,
                                   kv_store=None)
+        # HA front tier: a terminal record folded from a sibling front
+        # completes the local Request object (waiters, SSE finish)
+        self.router.on_store_pop = self._complete_from_store
         # the coordinator exists even when gated off (min_tokens=0) so the
         # snapshot and metrics keep one shape
         self.pipeline = PipelineCoordinator(self.fleet_cfg, page_size)
@@ -201,6 +225,14 @@ class ServeFleet:
 
     def _wire_replica(self, r) -> None:
         """Attach one replica's fleet-facing callbacks."""
+        if getattr(r, "remote", False):
+            # multi-front: finished entries for requests another front
+            # submitted still close the shared log and ledger; a remote
+            # worker publishes its token batches, handoffs and prefix
+            # fetches through its outbox and the submit wire
+            r.on_foreign = self._on_foreign_finished
+            r.on_tokens = self._on_remote_stream_tokens
+            return
         r.courier_receiver = self.courier_receiver
         # streaming: the engine's on_token feeds the hub directly
         r.on_token = self._on_stream_tokens
@@ -224,6 +256,38 @@ class ServeFleet:
                           tokens: list) -> None:
         self.streams.publish_from_request(req, tokens, replica=replica_id)
 
+    def _on_remote_stream_tokens(self, replica_id: int, request_id: str,
+                                 start: int, tokens: list) -> None:
+        self.streams.publish(request_id, start, tokens,
+                             replica=replica_id)
+
+    # -- HA front tier seams -------------------------------------------------
+
+    def _on_foreign_finished(self, replica_id: int, entry: dict) -> None:
+        """A worker's finished entry for a request another front submitted
+        (the outbox drains to whichever front polls first): final-sync
+        and finish the shared stream log, then close the shared ledger.
+        The journaled pop record carries the terminal tokens, so the
+        owning front folds it and completes its local waiter."""
+        rid = str(entry.get("request_id", ""))
+        if not rid:
+            return
+        tokens = [int(t) for t in entry.get("generated_tokens", [])]
+        if self.streams.has(rid):
+            self.streams.sync(rid, tokens, replica=replica_id)
+            self.streams.finish(rid, entry.get("finish_reason"),
+                                entry.get("error"))
+        self.router.foreign_exit(rid, entry, replica_id)
+
+    def _complete_from_store(self, rid: str, rec: dict) -> None:
+        """Folded terminal ledger record: if this front still holds the
+        Request object (it submitted it; the finish drained elsewhere),
+        complete it so HTTP waiters and SSE finish frames resolve."""
+        for r in self.replicas:
+            fn = getattr(r, "complete_foreign", None)
+            if fn is not None and fn(rid, rec):
+                return
+
     def _place_handoff(self, replica_id: int, req: Request,
                        dest: Optional[int]) -> None:
         self.router.place_handoff(req, from_replica=replica_id, dest=dest)
@@ -242,10 +306,12 @@ class ServeFleet:
         self.supervisor.stop()
         for r in self.replicas:
             r.stop()
-            try:
-                r.engine.release()
-            except Exception:
-                pass
+            engine = getattr(r, "engine", None)   # remote: no engine here
+            if engine is not None:
+                try:
+                    engine.release()
+                except Exception:
+                    pass
 
     # -- serving -------------------------------------------------------------
 
@@ -333,3 +399,36 @@ class ServeFleet:
 
     def status(self) -> dict:
         return self.supervisor.snapshot()
+
+    def serve_prefix_fetch(self, body: dict) -> dict:
+        """Owner side of ``POST /fleet/courier/fetch`` when the owning
+        replica runs in this process: extract the cached prefix pages (on
+        that replica's engine thread) and push them, chunked, to the
+        remote fetcher's courier endpoint."""
+        try:
+            owner = int(body.get("replica", -1))
+            hashes = [bytes.fromhex(h) for h in body.get("hashes", [])]
+        except (TypeError, ValueError):
+            return {"ok": False, "error": "malformed replica/hashes"}
+        ticket = str(body.get("ticket") or "")
+        dest_ep = str(body.get("dest_endpoint") or "").rstrip("/")
+        if not hashes or not ticket or not dest_ep:
+            return {"ok": False, "error":
+                    "body must be {replica, hashes, ticket, dest_endpoint}"}
+        provider = self.courier.prefix_providers.get(owner)
+        if provider is None:
+            return {"ok": False,
+                    "error": f"no in-proc replica {owner} here"}
+        payload = provider(hashes, self.fleet_cfg.prefix_fetch_timeout_s)
+        if not payload:
+            return {"ok": False, "error": "prefix pages not cached"}
+        transport = HTTPCourierTransport(
+            self.fleet_cfg, injector=self.injector,
+            stats=self.courier.stats, endpoint=dest_ep)
+        try:
+            transport.transfer(payload, src=owner,
+                               dest=body.get("dest"), ticket=ticket)
+        except TransportError as e:
+            return {"ok": False, "error": str(e)}
+        return {"ok": True, "ticket": ticket,
+                "covered": int(payload["pages"]["num_pages"])}

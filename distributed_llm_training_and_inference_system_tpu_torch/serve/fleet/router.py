@@ -487,9 +487,10 @@ class FleetRouter:
         """Serializable resume form for the shared ledger (prompt +
         progress + sampling; KV payloads stay host-local — an adopted
         request re-prefills, degraded never wrong)."""
-        raise NotImplementedError(
-            "a shared fleet ledger needs the wire form of the remote "
-            "replicas: ROADMAP queue 1 item 9, step 9c")
+        from .remote import request_to_wire
+        wire = request_to_wire(req)
+        wire.pop("ticket", None)      # the ticket dies with its host
+        return wire
 
     def knows(self, request_id: str) -> bool:
         """Ledger membership — fleet-wide when the store is shared. The
@@ -1086,11 +1087,9 @@ class FleetRouter:
                     continue
                 self._parked_remote.pop(rid, None)
                 self._rec({"op": "unpark", "rid": rid})
+            from .remote import request_from_wire
             try:
-                raise NotImplementedError(
-                    "adopting a dead front's parked requests needs the "
-                    "wire form of the remote replicas: ROADMAP queue 1 "
-                    "item 9, step 9c")
+                req = request_from_wire(wire)
             except (KeyError, TypeError, ValueError):
                 logger.warning("adoption: malformed parked wire for %s",
                                rid)

@@ -26,14 +26,17 @@ per-replica breakdown, requeues, migrations, handoffs, the courier and
 prefix-fetch ledgers, the streaming client's exactly-once readout
 (``stream=True``) and the pipelined-prefill readout (``long_prompts``).
 
-The fleet scenarios that need the KV store tier, the HA fronts or the
-autoscaler (``run_returning``, ``FrontStreamClient``,
-``run_stream_fronts``, ``run_scenario``) raise ``NotImplementedError``,
-naming their ROADMAP step (queue 1 item 9, steps 9c and 9d).
+``FrontStreamClient`` and ``run_stream_fronts`` drive an HA front tier
+over HTTP: SSE streams that reconnect to the next front with
+``Last-Event-ID`` when theirs dies, counting gaps and duplicates. The
+scenarios that need the KV store tier or the autoscaler
+(``run_returning``, ``run_scenario``) raise ``NotImplementedError``,
+naming their ROADMAP step (queue 1 item 9, step 9d).
 """
 
 from __future__ import annotations
 
+import threading as _threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -43,8 +46,8 @@ import numpy as np
 from .scheduler import Request, RequestState, SamplingParams
 
 _NOT_PORTED = ("is not ported to the PyTorch fleet yet: it needs the fleet "
-               "KV store tier, the HA fronts or the autoscaler (ROADMAP "
-               "queue 1 item 9, steps 9c and 9d)")
+               "KV store tier or the autoscaler (ROADMAP queue 1 item 9, "
+               "step 9d)")
 
 
 @dataclass
@@ -755,18 +758,215 @@ def run_returning(*args, **kwargs):
     raise NotImplementedError(f"run_returning {_NOT_PORTED}")
 
 
-def run_stream_fronts(*args, **kwargs):
-    """Streams through HA fleet fronts."""
-    raise NotImplementedError(f"run_stream_fronts {_NOT_PORTED}")
-
-
 def run_scenario(*args, **kwargs):
     """The autoscaler's scenario matrix."""
     raise NotImplementedError(f"run_scenario {_NOT_PORTED}")
 
 
 class FrontStreamClient:
-    """The fleet fronts' reconnecting stream client."""
+    """HTTP SSE client over an HA front tier's front list, hardened for
+    front death (serve/fleet/front.py).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"FrontStreamClient {_NOT_PORTED}")
+    One ``stream()`` call drives one request end to end: POST
+    ``/v1/completions`` (``stream: true``) to a front, consume SSE
+    frames, and on ANY connection failure — refused, reset mid-read,
+    timeout, a 404 from a front that hasn't folded the journal yet —
+    retry with **doubling backoff across the configured front list
+    (round-robin)** instead of failing the request: reconnect at
+    ``GET /v1/streams/{rid}`` with the last delivered seq as
+    ``Last-Event-ID`` so only the unacked tail replays. Client-side
+    dedupe-by-seq mirrors the hub's, so ``gaps``/``dups`` count real
+    contract violations (both must be 0 across a front SIGKILL).
+
+    ``reconnects_per_front`` is the failover ledger LoadResult.stream
+    surfaces: which surviving front picked each dropped client up. Each
+    stream's result also carries its TTFT and TPOT on the client's clock
+    (``ttft_ms``, ``tpot_ms``; the JAX client records no times).
+    """
+
+    def __init__(self, fronts, max_attempts: int = 16,
+                 backoff_s: float = 0.05, backoff_max_s: float = 2.0,
+                 read_timeout_s: float = 60.0):
+        self.fronts = [str(f).rstrip("/") for f in fronts]
+        self.max_attempts = int(max_attempts)
+        self.backoff_s = float(backoff_s)
+        self.backoff_max_s = float(backoff_max_s)
+        self.read_timeout_s = float(read_timeout_s)
+        self._lock = _threading.Lock()
+        self.reconnects_per_front = {f: 0 for f in self.fronts}
+        self.total_reconnects = 0
+        self.total_retries = 0          # failed attempts retried
+
+    def _count_reconnect(self, front: str) -> None:
+        with self._lock:
+            self.reconnects_per_front[front] = (
+                self.reconnects_per_front.get(front, 0) + 1)
+            self.total_reconnects += 1
+
+    def stream(self, prompt_tokens, max_tokens: int,
+               temperature: float = 0.0, seed=None,
+               start_front: int = 0) -> dict:
+        import json as _json
+        import urllib.request
+
+        rid = None
+        last_seq = -1
+        tokens: list[int] = []
+        gaps = dups = 0
+        finish_reason = None
+        done = False
+        error = None
+        fi = int(start_front)
+        backoff = self.backoff_s
+        attempts_left = self.max_attempts
+        # the client's clock: the first and the latest fresh token
+        t0 = time.monotonic()
+        t_first = t_last = None
+        while not done and attempts_left > 0:
+            front = self.fronts[fi % len(self.fronts)]
+            resumed = rid is not None
+            try:
+                if not resumed:
+                    body = {"prompt": [int(t) for t in prompt_tokens],
+                            "max_tokens": int(max_tokens),
+                            "temperature": float(temperature),
+                            "stream": True}
+                    if seed is not None:
+                        body["seed"] = int(seed)
+                    wire = urllib.request.Request(
+                        f"{front}/v1/completions",
+                        data=_json.dumps(body).encode(),
+                        headers={"Content-Type": "application/json"},
+                        method="POST")
+                else:
+                    wire = urllib.request.Request(
+                        f"{front}/v1/streams/{rid}"
+                        f"?last_event_id={last_seq}", method="GET")
+                with urllib.request.urlopen(
+                        wire, timeout=self.read_timeout_s) as resp:
+                    if resumed:
+                        self._count_reconnect(front)
+                    backoff = self.backoff_s
+                    for raw in resp:
+                        line = raw.decode("utf-8", "replace").strip()
+                        if not line.startswith("data:"):
+                            continue
+                        payload = line[len("data:"):].strip()
+                        if payload == "[DONE]":
+                            done = True
+                            break
+                        ev = _json.loads(payload)
+                        rid = ev.get("id", rid)
+                        choice = (ev.get("choices") or [{}])[0]
+                        toks = [int(t) for t in
+                                (choice.get("token_ids") or [])]
+                        if toks:
+                            seq_last = int(ev.get("seq",
+                                                  last_seq + len(toks)))
+                            start = seq_last - len(toks) + 1
+                            if start > last_seq + 1:
+                                gaps += 1
+                            elif start <= last_seq:
+                                dups += 1
+                            fresh = toks[max(last_seq + 1 - start, 0):]
+                            tokens.extend(fresh)
+                            if fresh:
+                                t_last = time.monotonic()
+                                t_first = t_first or t_last
+                            last_seq = max(last_seq, seq_last)
+                        if choice.get("finish_reason"):
+                            finish_reason = choice["finish_reason"]
+            except Exception as e:          # refused/reset/timeout/404
+                error = e
+            if done:
+                break
+            # connection ended without [DONE] (killed front, dropped
+            # socket, backpressure drop) or failed outright: rotate to
+            # the next front under doubling backoff and resume
+            attempts_left -= 1
+            with self._lock:
+                self.total_retries += 1
+            if attempts_left <= 0:
+                break
+            time.sleep(backoff)
+            backoff = min(backoff * 2, self.backoff_max_s)
+            fi += 1
+        return {"ok": done, "rid": rid, "tokens": tokens, "gaps": gaps,
+                "dups": dups, "finish_reason": finish_reason,
+                "error": None if done else repr(error),
+                # time to the first token and between the later ones, on
+                # the client's clock (reconnects included)
+                "ttft_ms": None if t_first is None
+                else (t_first - t0) * 1e3,
+                "tpot_ms": None if t_first is None or len(tokens) < 2
+                else (t_last - t_first) * 1e3 / (len(tokens) - 1)}
+
+
+def run_stream_fronts(fronts, *, num_requests: int, prompt_len: int,
+                      max_tokens: int, seed: int = 0,
+                      vocab_hi: int = 1000, concurrency: int = 4,
+                      temperature: float = 0.0,
+                      client: Optional[FrontStreamClient] = None,
+                      prompts=None, pin_front: Optional[int] = None
+                      ) -> LoadResult:
+    """Closed-loop HTTP streaming load against an HA front tier.
+
+    Unlike the in-process stream mode (``run_poisson(stream=True)``),
+    every request here crosses real sockets to a front process and is
+    consumed as SSE — so killing a front mid-run exercises the full
+    failover path: reconnect to a survivor, Last-Event-ID replay,
+    shared-log delivery. ``LoadResult.stream`` reports the client-side
+    ledger: gaps/dups (must be 0), per-front reconnect counts, and the
+    per-request token lists (``token_lists``, submission order) for
+    token-identity assertions against an undisturbed engine.
+    ``pin_front`` starts every request on one front (the
+    kill-the-connection-holder scenario); default spreads round-robin.
+    """
+    rng = np.random.default_rng(seed)
+    if prompts is None:
+        prompts = [rng.integers(1, vocab_hi, size=prompt_len).tolist()
+                   for _ in range(num_requests)]
+    client = client or FrontStreamClient(fronts)
+    results: list = [None] * len(prompts)
+    sem = _threading.Semaphore(max(int(concurrency), 1))
+    t0 = time.monotonic()
+
+    def drive(i: int) -> None:
+        with sem:
+            results[i] = client.stream(
+                prompts[i], max_tokens, temperature=temperature,
+                start_front=(pin_front if pin_front is not None else i))
+
+    threads = [_threading.Thread(target=drive, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    res = LoadResult(offered_rps=float("inf"))
+    res.duration_s = time.monotonic() - t0
+    done_tokens = 0
+    gaps = dups = 0
+    for r in results:
+        if r and r["ok"]:
+            res.completed += 1
+            done_tokens += len(r["tokens"])
+        else:
+            res.failed += 1
+        if r:
+            gaps += r["gaps"]
+            dups += r["dups"]
+    res.goodput_tokens_per_s = done_tokens / max(res.duration_s, 1e-9)
+    res.stream = {
+        "streams": len(prompts),
+        "tokens": done_tokens,
+        "gaps": gaps,
+        "duplicates": dups,
+        "reconnects": client.total_reconnects,
+        "retries": client.total_retries,
+        "reconnects_per_front": dict(client.reconnects_per_front),
+        "token_lists": [r["tokens"] if r else None for r in results],
+        "ttft_ms": [r["ttft_ms"] if r else None for r in results],
+        "tpot_ms": [r["tpot_ms"] if r else None for r in results],
+    }
+    return res

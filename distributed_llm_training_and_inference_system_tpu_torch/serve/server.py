@@ -456,3 +456,19 @@ def _make_handler(server: InferenceServer):
                 server.cancel(req)     # client went away mid-stream
 
     return Handler
+
+
+def create_server(model_cfg, serve_cfg, fleet_cfg=None, params=None,
+                  device=None, observer=None, metrics=None):
+    """The serve command's one entry point: one replica -> the
+    ``InferenceServer``; ``fleet_cfg.replicas > 1`` -> the fleet front
+    (serve/fleet/http.py: router + supervisor over in-process engine
+    replicas or fleet worker processes). Both expose the same /v1
+    surface, and neither is started."""
+    if fleet_cfg is not None and fleet_cfg.replicas > 1:
+        from .fleet.http import FleetServer
+        return FleetServer(model_cfg, serve_cfg, fleet_cfg, params=params,
+                           observer=observer, device=device,
+                           metrics=metrics)
+    return InferenceServer(model_cfg, serve_cfg, params=params,
+                           device=device, observer=observer, metrics=metrics)

@@ -19,11 +19,13 @@
   adds no ``XLA_FLAGS``; ``run_with_restarts`` relaunches a failing child
   and counts it; multi-host and the cluster launchers raise (item 7).
 - Serving and health: ``build_server`` answers ``/v1/completions``,
-  ``/health``, ``/v1/stats`` and ``/metrics``; ``--replicas 2`` and
-  ``--fleet-*`` raise (item 9); ``health check --json`` gives JAX's keys;
+  ``/health``, ``/v1/stats`` and ``/metrics``; ``--replicas 2`` and the
+  ``--fleet-*`` options build the fleet front, whose KV store options wait
+  for item 9 step 9d; ``health check --json`` gives JAX's keys;
   ``hw probe --emit`` writes a TOML that ``load_config_file`` reads.
 - Entry points raise without a card unless given ``--device cpu``; the
-  unported commands exit 2 naming their ROADMAP item; ``python -m
+  unported commands (and ``fleet store``) exit 2 naming their ROADMAP
+  item; ``python -m
   ...cli --help`` runs with jax, the JAX package, click, rich, psutil,
   prometheus_client, aiohttp, opentelemetry and ml_dtypes blocked.
 """
@@ -81,8 +83,6 @@ EXCEPTIONS = {
     (None, None, "--device"): "the port's own: cuda (default) or cpu",
     ("init", "scaffold", "--hardware"):
         "default h100 (the JAX default v5e-8 is a TPU preset: item 7)",
-    ("serve", "start", "--fleet-*"): "the serving fleet: ROADMAP queue 1 "
-                                     "item 9",
 }
 PORTED = {"init": ("init", ["scaffold"]), "hw": ("hw", ["probe", "benchmark"]),
           "train": ("train", ["launch", "status"]),
@@ -473,14 +473,29 @@ def test_build_server_answers_every_route():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--replicas", "2"], "item 9"),
-    (["--fleet-kv-store"], "item 9"),
-    (["--fleet-max-pending", "64"], "item 9"),
+    (["--replicas", "2"], "served"),
+    (["--fleet-kv-store"], "item 9, step 9d"),
+    (["--replicas", "2", "--fleet-max-pending", "64"], "served"),
     (["--tensor-parallel", "2"], "item 7"),
-])
+], ids=["extra0-item 9", "extra1-item 9", "extra2-item 9", "extra3-item 7"])
 def test_serve_refuses_what_waits_for_a_roadmap_item(extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tserve.build_server(tmain.parse(SERVE_ARGS + extra))
+    """``--replicas > 1`` and the fleet options build the fleet front; the
+    fleet KV store's options wait for step 9d, tensor parallelism for
+    item 7."""
+    if item != "served":
+        with pytest.raises(NotImplementedError, match=item):
+            tserve.build_server(tmain.parse(SERVE_ARGS + extra))
+        return
+    from distributed_llm_training_and_inference_system_tpu_torch.serve.fleet.http import (  # noqa: E501
+        FleetServer)
+    srv = tserve.build_server(tmain.parse(SERVE_ARGS + extra))
+    try:
+        assert isinstance(srv, FleetServer)
+        assert len(srv.fleet.replicas) == 2
+        assert srv.fleet.fleet_cfg.max_pending == (
+            64 if "--fleet-max-pending" in extra else 512)
+    finally:
+        srv.fleet.shutdown()
 
 
 def test_health_check_json_has_jax_keys():
@@ -538,7 +553,7 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(argv):
 # the unported commands, and the unported subcommand of a ported one
 UNPORTED = {**{cmd: [cmd, "anything"] for cmd in tmain.NOT_PORTED},
             "admin": ["admin", "lint"], "bench": ["bench", "comms"],
-            "tune": ["tune", "comms"]}
+            "tune": ["tune", "comms"], "fleet": ["fleet", "store"]}
 
 
 @pytest.mark.parametrize("cmd", sorted(UNPORTED))

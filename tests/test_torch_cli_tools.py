@@ -19,8 +19,10 @@ on the CPU at gpt-test size (``--device cpu``).
   and dry-runs as JAX's.
 - ``training.profile=True`` writes a Chrome trace on the CPU; ``trace
   capture`` writes one and ``trace summarize`` lists it.
-- ``bench comms``, ``tune comms|sp|full``, ``admin lint`` and every fleet
-  option of ``bench e2e`` exit 2 naming their ROADMAP item.
+- ``bench kv-decode``'s courier wire-codec section gives JAX's bytes.
+- ``bench comms``, ``tune comms|sp|full``, ``admin lint`` and the
+  returning and scenario options of ``bench e2e`` exit 2 naming their
+  ROADMAP item; its other fleet options run a two-replica fleet.
 """
 
 import contextlib
@@ -416,8 +418,16 @@ def test_bench_kv_decode_keys_as_jax():
                   "int4_vs_bf16_slots_per_hbm_byte", "write_mode",
                   "backend"):
             assert got[k] == want[k], k
-        assert got["courier_codec_ab"] == {"not_ported":
-                                           "ROADMAP queue 1 item 9"}
+        # the courier's wire-codec section: JAX's bytes and ratios
+        assert _keys(got["courier_codec_ab"], 4) == _keys(
+            want["courier_codec_ab"], 4)
+        for kind, arms in want["courier_codec_ab"].items():
+            for codec, arm in arms.items():
+                for k in ("bytes_raw", "bytes_wire", "compression_ratio"):
+                    assert got["courier_codec_ab"][kind][codec][k] == \
+                        arm[k], (kind, codec, k)
+        assert got["delta_zlib_vs_none_int8_wire"] == \
+            want["delta_zlib_vs_none_int8_wire"]
 
 
 def test_kv_decode_step_runs_each_page_kind_against_fp32_pages():
@@ -481,27 +491,53 @@ def test_bench_e2e_serve_load_keys_as_jax():
             w["engine"]["prefix_cached_tokens"] > 0
 
 
-@pytest.mark.parametrize("argv,item", [
+# the bench e2e line the served fleet options are added to
+_FLEET_E2E = ["bench", "e2e", "--model", "gpt-test", "--mode", "serve-load",
+              "--requests", "3", "--prompt-len", "6", "--gen-len", "3",
+              "--rps", "50", "--concurrency", "2", "--no-device-times",
+              "--serve-long-prompt-len", "40"]
+_TWO = ["--serve-replicas", "2"]
+_WAITS = [
     (["bench", "comms"], "item 7"),
     (["tune", "comms"], "item 7"),
     (["tune", "sp"], "item 7"),
     (["tune", "full"], "item 7"),
     (["admin", "lint"], "item 9"),
-    (["bench", "e2e", "--serve-replicas", "2"], "item 9"),
-    (["bench", "e2e", "--serve-disagg"], "item 9"),
-    (["bench", "e2e", "--serve-courier-chaos", "0.1"], "item 9"),
-    (["bench", "e2e", "--serve-courier-codec", "zlib"], "item 9"),
-    (["bench", "e2e", "--serve-courier-zlib-level", "1"], "item 9"),
-    (["bench", "e2e", "--serve-returning", "2"], "item 9"),
-    (["bench", "e2e", "--serve-long-prompts", "1"], "item 9"),
-    (["bench", "e2e", "--serve-scenario", "diurnal"], "item 9"),
-    (["bench", "e2e", "--serve-stream"], "item 9"),
-    (["bench", "e2e", "--serve-max-retries", "2"], "item 9"),
-])
+    (["bench", "e2e", "--serve-replicas", "2"], "served"),
+    (["bench", "e2e", "--serve-disagg"] + _TWO, "served"),
+    (["bench", "e2e", "--serve-courier-chaos", "0.1"] + _TWO, "served"),
+    (["bench", "e2e", "--serve-courier-codec", "zlib"] + _TWO, "served"),
+    (["bench", "e2e", "--serve-courier-zlib-level", "1"] + _TWO, "served"),
+    (["bench", "e2e", "--serve-returning", "2"], "item 9, step 9d"),
+    (["bench", "e2e", "--serve-long-prompts", "1"] + _TWO, "served"),
+    (["bench", "e2e", "--serve-scenario", "diurnal"], "item 9, step 9d"),
+    (["bench", "e2e", "--serve-stream"] + _TWO, "served"),
+    (["bench", "e2e", "--serve-max-retries", "2"] + _TWO, "served"),
+]
+
+
+@pytest.mark.parametrize(
+    "argv,item", _WAITS,
+    ids=[f"argv{i}-item {7 if i < 4 else 9}" for i in range(len(_WAITS))])
 def test_what_waits_for_an_item_exits_2(argv, item, capsys):
-    assert tmain.main(["--device", "cpu"] + argv) == 2
-    err = capsys.readouterr().err
-    assert f"ROADMAP queue 1 {item}" in err
+    """What waits for a ROADMAP item exits 2 naming it; the fleet options
+    of ``bench e2e`` that need no store are served: the sweep runs a
+    two-replica fleet (and, with ``--serve-long-prompts``, the pipelined
+    prefill A/B)."""
+    if item != "served":
+        assert tmain.main(["--device", "cpu"] + argv) == 2
+        err = capsys.readouterr().err
+        assert f"ROADMAP queue 1 {item}" in err
+        return
+    rc, out = _run(["--device", "cpu"] + _FLEET_E2E + argv[2:])
+    assert rc == 0
+    load = _json(out)["serve_load"]
+    for point in load["open_loop"] + load["closed_loop"]:
+        assert point["completed"] == 3
+        assert sorted(point["per_replica"]) == ["0", "1"]
+    if "--serve-long-prompts" in argv:
+        assert load["pipeline"]["token_identical"]
+        assert load["pipeline"]["chaos_token_identical"]
 
 
 def _spec(tmp_path, items) -> Path:

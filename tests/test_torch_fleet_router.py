@@ -15,7 +15,8 @@ reports, against the JAX package's.
   a subprocess: prometheus_client's registry is process-wide).
 - Loadgen's fleet ``run_poisson`` and ``run_closed_loop`` offer JAX's
   requests and report JAX's keys, per-replica breakdown and counts.
-- Every option that needs a later step raises, naming the step.
+- The options of step 9c build their fleet; every option of step 9d
+  raises, naming the step.
 - The kernels' launch counters lose no increment under threads.
 """
 
@@ -110,7 +111,7 @@ def test_fleet_config_equals_jax_field_for_field():
         == jschema.parse_fleet_endpoints("0=http://x:1,store=http://y:2")
 
 
-# -- refusals ------------------------------------------------------------------
+# -- the options of step 9c are served; those of 9d raise -------------------
 
 _EP = {0: "http://127.0.0.1:1", 1: "http://127.0.0.1:2"}
 
@@ -122,29 +123,66 @@ _EP = {0: "http://127.0.0.1:1", 1: "http://127.0.0.1:2"}
     ({"fronts": 2, "state_store": "file", "state_store_dir": "/nonexistent",
       "remote_replicas": "0,1", "fleet_endpoints": dict(_EP)}, "9c"),
     ({"state_store": "file", "state_store_dir": "/nonexistent"}, "9c"),
-    ({"autoscale": True, "autoscale_max_replicas": 3}, "9c"),
+    ({"autoscale": True, "autoscale_max_replicas": 3}, "9d"),
     ({"kv_store": True}, "9d"),
     ({"kv_store_endpoint": _EP[0]}, "9d"),
 ], ids=["remote", "endpoints", "http-courier", "fronts", "file-store",
         "autoscale", "kv-store", "store-service"])
-def test_options_of_later_steps_raise_naming_the_step(over, step):
+def test_options_of_later_steps_raise_naming_the_step(over, step, tmp_path):
+    """The options of step 9c build their fleet (remote replicas behind
+    RemoteReplica, the HTTP courier, the fronts' file store); those of
+    9d raise naming it."""
     from distributed_llm_training_and_inference_system_tpu_torch.config import (  # noqa: E501
         ServeConfig, get_model_config)
-    fc = tschema.FleetConfig(replicas=2, **over)
-    with pytest.raises(NotImplementedError,
-                       match=f"queue 1 item 9, step {step}"):
-        ServeFleet(get_model_config("gpt-test"), ServeConfig(**SERVE), fc,
-                   device="cpu", supervise=False)
-
-
-def test_the_file_state_store_and_shared_ledger_raise_naming_9c():
-    cfg = tschema.FleetConfig(state_store="file", state_store_dir="/x")
-    with pytest.raises(NotImplementedError, match="step 9c"):
-        tstate.build_state_store(cfg)
     from distributed_llm_training_and_inference_system_tpu_torch.serve.fleet import (  # noqa: E501
-        router)
-    with pytest.raises(NotImplementedError, match="step 9c"):
-        router.FleetRouter._wire(None)
+        RemoteReplica, SharedFileStateStore)
+    if over.get("state_store_dir"):
+        over = dict(over, state_store_dir=str(tmp_path))
+    fc = tschema.FleetConfig(replicas=2, **over)
+
+    def build():
+        return ServeFleet(get_model_config("gpt-test"), ServeConfig(**SERVE),
+                          fc, device="cpu", supervise=False)
+    if step == "9d":
+        with pytest.raises(NotImplementedError,
+                           match=f"queue 1 item 9, step {step}"):
+            build()
+        return
+    fleet = build()
+    try:
+        remote = fc.remote_replica_ids()
+        for r in fleet.replicas:
+            assert isinstance(r, RemoteReplica) == (r.replica_id in remote)
+            if r.replica_id in remote:
+                assert r.endpoint == fc.endpoint_map()[r.replica_id]
+                assert not hasattr(r, "engine")
+        assert isinstance(fleet.store, SharedFileStateStore) == (
+            fc.state_store == "file")
+        assert fleet.courier.force_http == (fc.courier_transport == "http")
+    finally:
+        fleet.shutdown()
+
+
+def test_the_file_state_store_and_shared_ledger_raise_naming_9c(tmp_path):
+    """The file store is built, and the shared ledger's wire form is
+    JAX's request wire without its host-local ticket."""
+    cfg = tschema.FleetConfig(state_store="file",
+                              state_store_dir=str(tmp_path))
+    store = tstate.build_state_store(cfg, front_id="A")
+    assert isinstance(store, tstate.SharedFileStateStore)
+    assert store.shared and store.front_id == "A"
+    assert store.expiry_s == max(3 * cfg.probe_interval_s, 0.25)
+    from distributed_llm_training_and_inference_system_tpu_torch.serve import (  # noqa: E501
+        scheduler)
+    from distributed_llm_training_and_inference_system_tpu_torch.serve.fleet import (  # noqa: E501
+        remote, router)
+    req = scheduler.Request(request_id="r", prompt_tokens=[1, 2],
+                            sampling=scheduler.SamplingParams())
+    req.swapped_kv = {"courier_ticket": "t", "at": 0, "partial": False}
+    wire = router.FleetRouter._wire(req)
+    assert "ticket" not in wire
+    assert wire == {k: v for k, v in remote.request_to_wire(req).items()
+                    if k != "ticket"}
 
 
 # -- fleet metrics -------------------------------------------------------------

@@ -9,8 +9,8 @@
 - ``summary()`` has JAX's keys (with ``device_times`` too); completed,
   failed and token counts agree with the requests.
 - A fleet target runs through its router with the per-replica breakdown;
-  the fleet scenarios that need later steps raise ``NotImplementedError``
-  naming the fleet's ROADMAP item.
+  the HA fronts' stream client runs; the scenarios that need the store
+  tier raise ``NotImplementedError`` naming its ROADMAP step (9d).
 """
 
 import jax
@@ -137,8 +137,9 @@ def test_device_times_add_jax_keys(params):
 def test_fleet_targets_and_scenarios_name_the_fleet_item(params):
     """A fleet target runs through its router (both replicas appear in
     the per-replica breakdown, every request completes as on one engine);
-    the scenarios that need the store tier, the fronts or the autoscaler
-    still raise, naming the fleet's ROADMAP item."""
+    the HA fronts' stream client is served (an unreachable front list
+    reports a failed stream); the scenarios that need the store tier or
+    the autoscaler still raise, naming step 9d of the fleet's item."""
     from distributed_llm_training_and_inference_system_tpu_torch.config.schema import (  # noqa: E501
         FleetConfig)
     from distributed_llm_training_and_inference_system_tpu_torch.serve.fleet import (  # noqa: E501
@@ -160,7 +161,12 @@ def test_fleet_targets_and_scenarios_name_the_fleet_item(params):
     assert sum(v["requests"] for v in res.per_replica.values()) == 3
     assert set(res.summary()["per_replica"][0]) == {
         "requests", "p50_ttft_ms", "p99_ttft_ms", "requeues"}
-    for fn in (tload.run_returning, tload.run_stream_fronts,
-               tload.run_scenario, tload.FrontStreamClient):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    for fn in (tload.run_returning, tload.run_scenario):
+        with pytest.raises(NotImplementedError,
+                           match="queue 1 item 9, step 9d"):
             fn()
+    dead = tload.run_stream_fronts(
+        ["http://127.0.0.1:9"], num_requests=1, prompt_len=3, max_tokens=2,
+        client=tload.FrontStreamClient(["http://127.0.0.1:9"],
+                                       max_attempts=2, backoff_s=0.001))
+    assert dead.failed == 1 and dead.stream["gaps"] == 0

@@ -148,3 +148,43 @@ def test_native_source_is_the_ports_own_copy():
                 if line.startswith("#include")]
     assert includes == ["#include <cstdint>", "#include <cstring>"]
     assert "Python.h" not in src
+
+
+FRONT_SCRIPT = """
+import sys, torch
+for m in ("jax", "jaxlib", "aiohttp", "click", "rich",
+          "distributed_llm_training_and_inference_system_tpu"):
+    sys.modules[m] = None
+def _touched(*a, **k):
+    raise AssertionError("the front touched CUDA")
+torch.cuda._lazy_init = _touched
+torch.cuda.init = _touched
+from distributed_llm_training_and_inference_system_tpu_torch.config import (
+    ServeConfig, get_model_config)
+from distributed_llm_training_and_inference_system_tpu_torch.config.schema \\
+    import FleetConfig
+from distributed_llm_training_and_inference_system_tpu_torch.serve.fleet.http \\
+    import FleetServer
+srv = FleetServer(
+    get_model_config("gpt-test"),
+    ServeConfig(model="gpt-test", host="127.0.0.1", port=0),
+    FleetConfig(replicas=2, remote_replicas="0,1", fleet_endpoints={
+        0: "http://127.0.0.1:9", 1: "http://127.0.0.1:10"},
+        state_store="file", state_store_dir=sys.argv[1], fronts=2))
+srv.start()
+srv.fleet.status()
+srv.stop()
+assert not torch.cuda.is_initialized()
+print("no cuda")
+"""
+
+
+def test_a_front_of_remote_replicas_never_initialises_cuda(tmp_path):
+    """A ``FleetServer`` whose replicas are all remote holds no model: with
+    JAX and aiohttp blocked and CUDA's initialisers made to fail, it
+    starts, snapshots and stops, and CUDA stays uninitialised."""
+    res = subprocess.run([sys.executable, "-c", FRONT_SCRIPT, str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "no cuda"

@@ -6,6 +6,7 @@ the ``fleets`` fixture of each test file."""
 import threading
 import time
 from types import SimpleNamespace
+from typing import Optional
 
 import jax
 import numpy as np
@@ -141,3 +142,163 @@ def ledger_balanced(st) -> bool:
 
 def prefill_tokens(fleet) -> int:
     return sum(r.engine.total_prefill_tokens for r in fleet.replicas)
+
+
+def on_the_port(name: str, leave_out=()) -> dict:
+    """The namespace of the JAX package's test file ``name`` run with the
+    package's name swapped for the port's, without the test functions
+    named in ``leave_out`` (their source lines are cut before the swap)."""
+    import ast
+    import re
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / name
+    lines = path.read_text().splitlines(keepends=True)
+    cut = set()
+    for node in ast.walk(ast.parse("".join(lines))):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                and node.name in leave_out:
+            first = min([node.lineno] + [d.lineno
+                                         for d in node.decorator_list])
+            cut.update(range(first - 1, node.end_lineno))
+    missing = set(leave_out) - {n.name for n in ast.walk(ast.parse(
+        "".join(lines))) if isinstance(n, ast.FunctionDef)}
+    assert not missing, f"{name} has no {sorted(missing)}"
+    jax_pkg = "distributed_llm_training_and_inference_system_tpu"
+    src = "".join(line for i, line in enumerate(lines) if i not in cut)
+    src = src.replace(f"{jax_pkg}.", f"{jax_pkg}_torch.")
+    assert not re.search(r"^\s*(import|from) jax", src, re.M)
+    ns: dict = {"__name__": f"{path.stem}_on_the_port"}
+    exec(compile(src, str(path), "exec"), ns)
+    return ns
+
+
+# -- spawned port workers and fronts ------------------------------------------
+
+PORT_CLI = "distributed_llm_training_and_inference_system_tpu_torch.cli"
+WORKER_SERVE = ["--max-batch-size", "2", "--max-seq-len", "256",
+                "--prefill-chunk", "32", "--kv-block-size", "8",
+                "--dtype", "float32"]
+# the JAX regime's chunk chaos at each worker's sender
+CHAOS = {"chunk_drop_rate": 0.2, "chunk_corrupt_rate": 0.15,
+         "chunk_duplicate_rate": 0.1}
+# small chunks and a patient courier, so chaos lands and is absorbed
+COURIER = ["--courier-chunk-bytes", "1024", "--courier-retries", "12",
+           "--courier-deadline-ms", "50", "--courier-backoff-ms", "0.2",
+           "--courier-backoff-max-ms", "2"]
+
+
+def jax_artifact(params, tmp_path) -> str:
+    """JAX's params exported by the JAX package's io/export.py."""
+    from distributed_llm_training_and_inference_system_tpu.io import (
+        export as jexp)
+    path = tmp_path / "gpt-test.safetensors"
+    jexp.export_params(jax.tree_util.tree_map(np.asarray, params["jax"]),
+                       path)
+    return str(path)
+
+
+class Proc:
+    """One spawned CLI process: its Popen, bound port, stderr file."""
+
+    def __init__(self, argv, log_path, prefix: str):
+        import os
+        import subprocess
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        self.log_path = log_path
+        self._log = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            argv, stdout=subprocess.PIPE, stderr=self._log, env=env,
+            text=True, start_new_session=True)
+        self.prefix = prefix
+        self.port = None
+        self.ready_line = None
+
+    def wait_ready(self, deadline: float) -> int:
+        import select
+        while time.monotonic() < deadline:
+            assert self.proc.poll() is None, (
+                f"process died during startup (rc={self.proc.returncode}):"
+                f" {open(self.log_path).read()[-2000:]}")
+            rd, _, _ = select.select([self.proc.stdout], [], [], 0.5)
+            if rd:
+                line = self.proc.stdout.readline()
+                if line.startswith(self.prefix):
+                    self.ready_line = line.strip()
+                    self.port = int(line.split("port=")[1].split()[0])
+                    return self.port
+        raise AssertionError(f"{self.prefix} never printed")
+
+    @property
+    def endpoint(self) -> str:
+        return f"http://127.0.0.1:{self.port}"
+
+    def stop(self) -> int:
+        """SIGTERM (then SIGKILL past a bound); the exit code."""
+        import subprocess
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._log.close()
+        return self.proc.returncode
+
+    def kill(self) -> None:
+        self.proc.kill()
+        self.proc.wait()
+
+    def stderr_line(self, prefix: str):
+        for line in open(self.log_path):
+            if line.startswith(prefix):
+                return line[len(prefix):].strip()
+        return None
+
+
+def spawn_worker(tmp_path, artifact: str, rid: int, role: str = "mixed",
+                 plan: Optional[dict] = None, extra=()) -> Proc:
+    import json
+    import sys
+    argv = [sys.executable, "-m", PORT_CLI, "--device", "cpu", "fleet",
+            "worker", "--model", "gpt-test", "--artifact", artifact,
+            "--replica-id", str(rid), "--role", role, "--host", "127.0.0.1",
+            "--port", "0", "--seed", str(1000 * rid),
+            "--restart-backoff", "0.05", *WORKER_SERVE, *COURIER, *extra]
+    if plan:
+        argv += ["--fault-plan", json.dumps(plan)]
+    return Proc(argv, tmp_path / f"worker{rid}-{time.monotonic_ns()}.log",
+                "LLMCTL_WORKER_READY")
+
+
+@pytest.fixture()
+def procs():
+    """Every process a test spawns; all stopped when it ends."""
+    made = []
+    yield made
+    for p in made:
+        try:
+            p.stop()
+        except Exception:
+            p.proc.kill()
+
+
+def remote_fleet_cfg(endpoints: dict, **kw):
+    fc = dict(replicas=len(endpoints),
+              remote_replicas=",".join(str(i) for i in sorted(endpoints)),
+              fleet_endpoints=dict(endpoints), affinity_prefix_tokens=0,
+              probe_interval_s=0.05, restart_backoff_s=0.05,
+              probe_failures=2, migrate_on_drain=True, remote_timeout_s=5.0,
+              courier_chunk_bytes=1024, courier_max_retries=12,
+              courier_retry_backoff_ms=0.2,
+              courier_retry_backoff_max_ms=2.0,
+              courier_chunk_deadline_ms=50.0)
+    fc.update(kw)
+    return torch_schema.FleetConfig(**fc)
+
+
+def get_json(url: str) -> dict:
+    import json
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        return json.loads(resp.read().decode())
