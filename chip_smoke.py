@@ -9,8 +9,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 2. build   — nvcc builds every kernel from csrc/ for sm_90a (-Xptxas -v),
              all started together; the training kernels' build
              (flash_attention.cu, adamw.cu) is joined only before phase
-             7, so phases run in the order 1-6, 11-13, 15, 20, 17b-c,
-             7-10, 14, 16, 17a, 17d, 18, 19, 21;
+             7, so phases run in the order 1-6, 11-13, 15, 20, 22,
+             17b-c, 7-10, 14, 16, 17a, 17d, 18, 19, 21, 23;
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              at llama-8b-gqa geometry (32 q heads over 8 kv heads, D=128,
              pages of 64, 8 slots with ragged lengths up to 2048), windows
@@ -165,7 +165,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              the host wall of reading the tier's flag; (b)
              serve/loadgen.py on llama-8b-gqa with phase 5's weights and
              the default ServeConfig: run_closed_loop (8 in flight) and
-             run_poisson (2 rps), 16 requests of 512 + 64 tokens each;
+             run_poisson (2 rps), 8 requests of 512 + 64 tokens each;
              TTFT/TPOT p50/p99, goodput, preemptions; the paged kernel's
              launches = 32 x the dispatched steps; the closed loop's
              on-device TTFT and decode step (attach_device_times); (c)
@@ -243,10 +243,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              2048, runs alternating: tok/s with the training set
              prefetched (the default) and bare, and with the profiler on.
 20. fleet  — run after 15, on phase 5's weights: ServeFleet with two
-             in-process llama-8b-gqa replicas at full width and depth
-             sharing the weights (each parameter's data_ptr checked), the
+             in-process llama-8b-gqa replicas at full width, the depth
+             cut to phase 5's first 8 layers (phase 21 serves the full
+             depth), sharing the weights (each parameter's data_ptr
+             checked), the
              default ServeConfig, 8 greedy requests of 256-1024 prompt
-             tokens and 64 new tokens (two sharing a 256-token prefix),
+             tokens and 32 new tokens (two sharing a 256-token prefix),
              each arm on a fleet of its own: (a) routing, the prefix pair
              on one replica; (b) replica 0 drained mid-decode with KV
              migration over the courier (codec none, bf16 pages): 0
@@ -260,7 +262,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              best under the dense forward (bf16 pages) or the plain paged
              path over the same page kind, and where the two part, within
              that of each other; paged launches summed over the arm's
-             engines = 32 x (dispatched steps + suffix prefills + chunks).
+             engines = 8 x (dispatched steps + suffix prefills + chunks).
              Printed: each arm's wall, TTFT and TPOT p50, decode steps per
              replica, courier bytes/chunks/resends, each migration's
              pause and each transfer's time and GB/s (host clock),
@@ -290,6 +292,55 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              rebuilt from seed 0). Printed: each worker's ready time,
              each arm's wall, TTFT and TPOT p50, pauses and handoff
              stalls, courier transfers, resends and GB/s (host clock).
+22. store  — run after 20, on phase 5's weights at full width and depth,
+             bf16 pages: (a) two replicas with the in-process KV store
+             (DRAM ring 1024 MB; a page is 8.4 MB): two conversations of
+             a 256-token history warm on replica 0, which is drained
+             (its prefix pages flushed to the store); a returning
+             conversation (history + 16) lands on replica 1, restores the
+             history's 4 pages from the store and prefills only its tail
+             through the paged kernel; the store wiped, the next one
+             counts a miss and prefills in full; (b) the JAX regime
+             serve.fleet2+autoscale (max_batch_size 2, polls explicit):
+             a burst of 8 scales 2 -> 3 by adopting the warm spare, the
+             fade retires it with its pages flushed and a returning
+             conversation prefills only its tail, and the TTFT guard (25
+             ms) migrates a best-effort resident for a queued interactive
+             request, which finishes first; event kinds checked. Every
+             stream held to one engine as phase 20 holds them, the
+             ledgers balanced, paged launches = 32 x passes of every
+             engine (the spare's warm-up included). Printed: walls, TTFT
+             and TPOT p50, pages demoted, held, hit and missed, deflated
+             bytes, flush and restore s (host clock).
+23. net store — run last, after phase 21 (its four `fleet store`
+             members, --device cpu, start once phase 21's arm (b) is
+             done, and (d)'s checkpoint ships meanwhile): two members over one
+             membership directory and two `fleet
+             worker` processes of llama-8b-gqa from seed 0 (checksums
+             equal to phase 5's) with --store-endpoints, behind a
+             ServeFleet in this process holding no tensor: (c) worker 0
+             warms three conversations, is drained (its prefix pages
+             flushed to the first member and mirrored to the second,
+             both checked), released and stopped; returning
+             conversations on worker 1 restore from the store with a
+             tail-only prefill (remote hits >= 4, 0 misses), the member
+             that served the first is SIGKILLed and the second restores
+             from the survivor with 0 misses, the survivor SIGKILLed and
+             the third counts a remote miss and prefills in full; worker
+             1's SIGTERM report gives its paged launches = 32 x passes;
+             (d), on a thread beside (c), gpt-125m (whole) shipped by
+             `fleet ship-weights
+             --param-seed 0` to two other members; a worker on
+             synthesize_worker_argv's command line (--weights-from-store
+             --weights-spool) SIGKILLed with the member serving it at a
+             batch boundary past a third of the download; respawned on
+             the same spool it fails over to the survivor and resumes;
+             the combined per-seq serve ledger one serve a chunk; its
+             weights' checksum that of a gpt-125m built here from seed 0,
+             its greedy tokens for 4 prompts that model's engine's; a
+             fenced member's upload answered with a FATAL ack and /health
+             503. Printed: walls, TTFT and TPOT p50, pages and bytes, ship
+             and fetch GB/s (host clock), ready times.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} record. Without a CUDA card, or without the rest of the
@@ -3065,10 +3116,10 @@ TIER_ROWS = 8
 TIER_K = (1, 40, 256, 300)
 TIER_P = (1.0, 0.9)
 # 17b and 17c: requests cut to these counts (from 32, 16 and 8) to make
-# room for phase 21
-LOAD_RUNS = (("closed", dict(concurrency=8, num_requests=16, prompt_len=512,
+# room for phases 21-23
+LOAD_RUNS = (("closed", dict(concurrency=8, num_requests=8, prompt_len=512,
                              max_tokens=64, seed=0)),
-             ("poisson", dict(offered_rps=2.0, num_requests=16,
+             ("poisson", dict(offered_rps=2.0, num_requests=8,
                               prompt_len=512, max_tokens=64, seed=0)))
 AWQ_RUN = dict(concurrency=8, num_requests=8, prompt_len=512,
                max_tokens=32, seed=1)
@@ -4558,7 +4609,7 @@ def tools_phase(torch, tm, qm, kernels: dict, card: str) -> dict:
 # 8 prompts of 256-1024 tokens; requests 0 and 1 share their first 256
 FLEET_LENGTHS = (768, 512, 1024, 896, 640, 384, 256, 960)
 FLEET_SHARED = 256
-FLEET_TOKENS = 64
+FLEET_TOKENS = 32
 FLEET_DRAIN_AT = 16           # (b): drain once a stream there has these
 FLEET_CRASH_STEP = 5          # (c): replica 1 dies before this busy step
 FLEET_MEM_SHARE = 0.05        # (c): memory after the restart within this
@@ -4583,6 +4634,9 @@ FLEET_ARMS = (
      {"courier_codec": "delta-zlib", "courier_zlib_level": 1,
       **FLEET_SPREAD}, None),
 )
+# the fleet's depth in phase 20: phase 21 covers the full depth over the
+# wire, and this cut pays for phases 22 and 23
+FLEET_LAYERS = 8
 FLEET_KERNEL = {"none": "paged_attention", "int8": "paged_attention_int8",
                 "int4": "paged_attention_int4"}
 
@@ -4595,6 +4649,15 @@ def fleet_prompts(seed: int = 20) -> list:
            for n in FLEET_LENGTHS]
     out[1][:FLEET_SHARED] = out[0][:FLEET_SHARED]
     return out
+
+
+def cut_depth(model, cfg, layers: int) -> tuple:
+    """(model, config) of ``model``'s first ``layers`` blocks over its
+    embedding, final norm and head: the same tensors, no copy."""
+    cut = model.with_block_leaves([b.leaves()
+                                   for b in model.blocks[:layers]])
+    cut.cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cut, cut.cfg
 
 
 def paged_reference_scores(torch, mods, model, cfg, kind: str, prompt,
@@ -5046,7 +5109,7 @@ def wire_pauses(worker: "Spawned", word: str) -> list:
 
 
 def wire_fleet_phase(torch, mods, cfg, prompts: list, refs: list,
-                     checksum: float, card: str) -> dict:
+                     checksum: float, card: str, after_b=None) -> dict:
     """Phase 21: two `llmctl-torch fleet worker` processes, each serving
     llama-8b-gqa at full width and depth from seed 0 (phase 5's weights,
     checked by checksum), behind the port's fleet front over HTTP: (a) a
@@ -5055,7 +5118,8 @@ def wire_fleet_phase(torch, mods, cfg, prompts: list, refs: list,
     /fleet/role, (c) the HA front tier (two `fleet front` processes over a
     file store, SSE clients on front 0, front 0 SIGKILLed mid-stream), (d)
     worker 1 SIGKILLed mid-decode. Every stream is held to phase 20's one
-    engine; worker 0 stops cleanly and reports its paged launches."""
+    engine; worker 0 stops cleanly and reports its paged launches.
+    ``after_b`` is called once arm (b) is done."""
     import gc
     t21 = time.time()
     from distributed_llm_training_and_inference_system_tpu_torch.config \
@@ -5200,6 +5264,8 @@ def wire_fleet_phase(torch, mods, cfg, prompts: list, refs: list,
             wire_post(f"{base}/fleet/role", {"replica": i, "role": "mixed"})
         srv.stop()          # its outbox polls would race the fronts'
         srv = None
+        if after_b is not None:
+            after_b()
 
         # (c) the HA front tier: SSE clients on front 0, front 0 killed
         store_dir = tmp / "store"
@@ -5337,6 +5403,911 @@ def wire_fleet_phase(torch, mods, cfg, prompts: list, refs: list,
     shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.time() - t21
     print(f"phase 21 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# -- phase 22: the fleet's KV store tier and autoscaler, in process ----------
+
+STORE_HISTORY = 256           # a conversation's history: 4 pages of 64
+STORE_WARM_TAIL = 8           # its first turn's tail
+STORE_TAIL = 16               # a returning turn's tail
+STORE_TOKENS = 32
+STORE_DRAM_MB = 1024.0        # a page of llama-8b-gqa is 8.4 MB
+# the in-process stores deflate at zlib level 1, as phase 20 (d) does:
+# pages of random weights barely compress, and the default level takes
+# ~0.8 s a page on the host
+STORE_ZLIB_LEVEL = 1
+# (b): the JAX regime serve.fleet2+autoscale at full width
+AUTO_HOT = 192                # the hot prefix: 3 pages of 64
+AUTO_BURST = 8                # 8 requests into 2 replicas of 2 slots
+AUTO_TOKENS = 16
+AUTO_BE_TOKENS = 64           # the best-effort residents' length (4x the
+                              # interactive run's, so its victim finishes later)
+AUTO_TTFT_MS = 25.0
+
+
+def store_prompts(seed: int, histories: int) -> tuple:
+    """``histories`` conversations of STORE_HISTORY random ids below
+    32000: their first turns (history + STORE_WARM_TAIL) and returning
+    turns (history + STORE_TAIL)."""
+    rng = random.Random(seed)
+    hist = [[rng.randrange(1, 32000) for _ in range(STORE_HISTORY)]
+            for _ in range(histories)]
+    warm = [h + [rng.randrange(1, 32000) for _ in range(STORE_WARM_TAIL)]
+            for h in hist]
+    ret = [h + [rng.randrange(1, 32000) for _ in range(STORE_TAIL)]
+           for h in hist]
+    return warm, ret
+
+
+def one_engine(mods, model, cfg, prompts, sp, alone: bool = True,
+               **serve) -> list:
+    """The prompts' tokens on one engine: each alone, or all at once."""
+    eng = mods["InferenceEngine"](cfg, mods["ServeConfig"](
+        model=cfg.name, **serve), params=model, seed=0)
+    try:
+        if not alone:
+            return [list(r.generated_tokens)
+                    for r in eng.generate(prompts, sp)]
+        return [list(eng.generate([p], sp)[0].generated_tokens)
+                for p in prompts]
+    finally:
+        eng.release()
+
+
+def fleet_wait(fleet, cond, what: str) -> None:
+    deadline = time.monotonic() + FLEET_WAIT_S
+    while not cond():
+        fleet.supervisor.poll_once()
+        time.sleep(0.01)
+        check(time.monotonic() < deadline, f"{what}: not within "
+              f"{FLEET_WAIT_S} s")
+
+
+def fleet_drain(fleet, rid: int, name: str) -> None:
+    check(fleet.drain(rid), f"{name}: drain of replica {rid} refused")
+    fleet_wait(fleet, lambda: fleet.replicas[rid].state == "drained",
+               f"{name}: drain of replica {rid}")
+
+
+def fleet_ledger(fleet, name: str) -> dict:
+    st = fleet.router.stats()
+    check(st["failed"] == 0 and st["in_flight"] == 0
+          and st["completed"] + st["rejected"] == st["submitted"],
+          f"{name}: router ledger {st}")
+    return st
+
+
+def p50(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def request_times(reqs) -> dict:
+    return {"ttft_p50_ms": p50([r.ttft_ms for r in reqs]),
+            "tpot_p50_ms": p50([(r.finish_time - r.first_token_time) * 1e3
+                                / max(len(r.generated_tokens) - 1, 1)
+                                for r in reqs])}
+
+
+def engine_passes(engines) -> int:
+    return sum(e.total_dispatched_steps + e.total_extend_prefills
+               + e.total_prefill_chunks for e in engines)
+
+
+def store_restore_arm(torch, mods, fm, model, cfg, kernel, card: str) -> dict:
+    """22 (a): two replicas with the in-process KV store; replica 0 retired
+    with a store flush; a returning conversation restores its history from
+    the store and prefills only its tail through the paged kernel; after
+    the store is wiped, the next one counts a miss and prefills in full."""
+    t_arm = time.time()
+    name = "22 a store restore"
+    warm, ret = store_prompts(22, 2)
+    sp = mods["SamplingParams"](temperature=0.0, max_tokens=STORE_TOKENS)
+    refs = one_engine(mods, model, cfg, ret, sp)
+    fleet = fm["ServeFleet"](
+        cfg, mods["ServeConfig"](model=cfg.name),
+        mods["schema"].FleetConfig(
+            replicas=2, affinity_prefix_tokens=0, restart_backoff_s=0.05,
+            probe_interval_s=0.05, kv_store=True,
+            kv_store_dram_mb=STORE_DRAM_MB,
+            courier_zlib_level=STORE_ZLIB_LEVEL,
+            prefix_inventory_ttl_ms=60_000.0),
+        params=model, supervise=False, seed=0)
+    engines = [r.engine for r in fleet.replicas]
+    kernel.launches = 0                              # the main path starts
+    t0 = time.time()
+    fleet.start()
+    try:
+        for r in fleet.replicas:
+            r.engine.kv.flush_prefix_cache()
+        fleet_drain(fleet, 1, name)                  # warm on replica 0
+        fleet.generate(warm, sp, timeout_s=FLEET_WAIT_S)
+        fleet.undrain(1)
+        t_flush = time.time()
+        fleet_drain(fleet, 0, name)                  # retire: flush
+        flush_s = time.time() - t_flush
+        snap0 = fleet.kv_store.snapshot()
+        pages = len(ret) * STORE_HISTORY // 64
+        check(snap0["demotions"] >= pages and
+              fleet.replicas[0].store_flush_pages >= pages,
+              f"{name}: the retire flushed {snap0['demotions']} pages, "
+              f"want {pages}")
+        fleet.replicas[0].engine.kv.flush_prefix_cache()
+        fleet.router.invalidate_inventories()
+        eng1 = fleet.replicas[1].engine
+        pre, fetched0 = eng1.total_prefill_tokens, \
+            eng1.total_prefix_fetched_tokens
+        t_ret = time.time()
+        [ret_a] = fleet.generate([ret[0]], sp, timeout_s=FLEET_WAIT_S)
+        ret_s = time.time() - t_ret
+        snap1 = fleet.kv_store.snapshot()
+        spent = eng1.total_prefill_tokens - pre
+        fetched = eng1.total_prefix_fetched_tokens - fetched0
+        check(snap1["hits"] >= STORE_HISTORY // 64 and snap1["misses"] == 0,
+              f"{name}: store {snap1}")
+        check(fetched == STORE_HISTORY and spent == len(ret[0])
+              - STORE_HISTORY, f"{name}: the return turn fetched {fetched} "
+              f"and prefilled {spent} tokens, want {STORE_HISTORY} and "
+              f"{len(ret[0]) - STORE_HISTORY}")
+        fleet.kv_store.clear()
+        pre = eng1.total_prefill_tokens
+        miss0 = fleet.replicas[1].prefix_fetch_misses
+        [ret_b] = fleet.generate([ret[1]], sp, timeout_s=FLEET_WAIT_S)
+        snap2 = fleet.kv_store.snapshot()
+        check(snap2["misses"] >= 1
+              and fleet.replicas[1].prefix_fetch_misses > miss0,
+              f"{name}: the wiped store counted no miss ({snap2})")
+        check(eng1.total_prefill_tokens - pre == len(ret[1]),
+              f"{name}: the miss did not prefill the whole prompt")
+        st = fleet_ledger(fleet, name)
+        wall = time.time() - t0
+        launches = kernel.launches
+        passes = engine_passes(engines)
+        check(launches == cfg.num_layers * passes and passes > 0,
+              f"{name}: paged launches {launches} != {cfg.num_layers} x "
+              f"{passes}")
+        got = [list(ret_a.generated_tokens), list(ret_b.generated_tokens)]
+        times = request_times([ret_a, ret_b])
+        kv = eng1.kv
+        page_bytes = 2 * kv.k_pages[:, :1].numel() * kv.k_pages.element_size()
+    finally:
+        fleet.shutdown()
+        del fleet
+        torch.cuda.empty_cache()
+    held = held_to_single(torch, mods, model, cfg, "none", ret, got, refs)
+    out = {"wall_s": wall, "launches": launches, "demoted": snap0[
+        "demotions"], "held_pages": snap0["dram_entries"],
+        "hits": snap1["hits"], "misses": snap2["misses"],
+        "bytes_stored": snap0["bytes_stored"],
+        "raw_bytes": snap0["demotions"] * page_bytes,
+        "flush_s": flush_s, "restore_s": ret_s, "tail_prefill": spent,
+        "requests": st["completed"], "held": held, **times}
+    print(f"{name}: wall {wall:.2f} s, return-turn TTFT p50 "
+          f"{out['ttft_p50_ms']:.1f} ms, TPOT p50 {out['tpot_p50_ms']:.2f} "
+          f"ms; retire flushed {out['demoted']} pages ({out['bytes_stored']} "
+          f"B deflated of {out['raw_bytes']} B) in {flush_s:.2f} s; the "
+          f"return turn restored {snap1['hits']} pages (fetched "
+          f"{fetched} tokens, prefilled {spent}) in {ret_s:.2f} s; the wiped "
+          f"store counted {snap2['misses']} miss and a full prefill; paged "
+          f"launches {launches} = {cfg.num_layers} x {passes}; "
+          f"{held['identical']} of {held['streams']} streams token-identical "
+          f"to one engine, largest deficit {held['max_deficit']:.4f} (host "
+          f"clock) [{card}]", flush=True)
+    out["seconds"] = time.time() - t_arm
+    print(f"{name}: {out['seconds']:.1f} s with its checks", flush=True)
+    return out
+
+
+def autoscale_arm(torch, mods, fm, model, cfg, kernel, card: str) -> dict:
+    """22 (b): the JAX regime serve.fleet2+autoscale at full width, driven
+    by explicit supervisor polls: a burst scales 2 -> 3 by adopting the
+    warm spare; the fade retires it with its pages flushed to the store and
+    a returning conversation prefills only its tail; the TTFT guard
+    migrates a best-effort resident for a queued interactive request."""
+    t_arm = time.time()
+    name = "22 b autoscale"
+    rng = random.Random(222)
+    hot = [rng.randrange(1, 32000) for _ in range(AUTO_HOT)]
+    burst = [hot + [rng.randrange(1, 32000)] for _ in range(AUTO_BURST)]
+    warm_p = hot + [rng.randrange(1, 32000)]
+    ret_p = hot + [rng.randrange(1, 32000) for _ in range(2)]
+    be_ps = [[rng.randrange(1, 32000) for _ in range(5)] for _ in range(4)]
+    ia_p = [rng.randrange(1, 32000) for _ in range(4)]
+    sp = mods["SamplingParams"](temperature=0.0, max_tokens=AUTO_TOKENS)
+    be = mods["SamplingParams"](temperature=0.0, max_tokens=AUTO_BE_TOKENS)
+    serve = {"max_batch_size": 2}
+    refs = (one_engine(mods, model, cfg, burst + [warm_p, ret_p, ia_p], sp,
+                       alone=False, **serve)
+            + one_engine(mods, model, cfg, be_ps, be, alone=False, **serve))
+    built = []                 # every engine a spare or scale-up built
+    cls = fm["ServeFleet"]
+    orig_build = cls._build_engine_replica
+
+    def recording_build(self, rid):
+        r = orig_build(self, rid)
+        built.append(r.engine)
+        return r
+    kernel.launches = 0                 # the spare's warm-up counts too
+    cls._build_engine_replica = recording_build
+    try:
+        fleet = cls(cfg, mods["ServeConfig"](model=cfg.name, **serve),
+                    mods["schema"].FleetConfig(
+                        replicas=2, affinity_prefix_tokens=0,
+                        restart_backoff_s=0.05, probe_interval_s=0.05,
+                        kv_store=True, kv_store_dram_mb=STORE_DRAM_MB,
+                        courier_zlib_level=STORE_ZLIB_LEVEL,
+                        autoscale=True, autoscale_min_replicas=3,
+                        autoscale_max_replicas=3,
+                        autoscale_up_queue_per_replica=1.0,
+                        autoscale_down_queue_per_replica=0.5,
+                        autoscale_hysteresis_polls=1,
+                        autoscale_cooldown_polls=0,
+                        interactive_ttft_target_ms=AUTO_TTFT_MS),
+                    params=model, supervise=False, seed=0)
+        engines = [r.engine for r in fleet.replicas]
+        t_spare = time.time()
+        check(fleet.wait_warm_spares(FLEET_WAIT_S),
+              f"{name}: the spare never warmed")
+        spare_s = time.time() - t_spare
+    finally:
+        cls._build_engine_replica = orig_build
+    scaler = fleet.autoscaler
+    t0 = time.time()
+    fleet.start()
+    try:
+        for r in fleet.replicas:
+            r.engine.kv.flush_prefix_cache()
+        # (a) the burst
+        evs, reqs = [], []
+        for i, p in enumerate(burst):
+            ev = threading.Event()
+            reqs.append(fleet.submit(
+                p, sp, priority=("interactive", "standard",
+                                 "best-effort")[i % 3],
+                on_complete=lambda _r, ev=ev: ev.set()))
+            evs.append(ev)
+        fleet_wait(fleet, lambda: all(e.is_set() for e in evs)
+                   and scaler.total_scale_ups >= 1, f"{name}: the burst")
+        check(len(fleet.replicas) == 3, f"{name}: the burst never scaled "
+              f"up: {scaler.snapshot()}")
+        burst_got = [list(r.generated_tokens) for r in reqs]
+        # (b) the fade: a hot turn pinned on the spawned replica, the store
+        # wiped of the operator drains' flushes, the floor lowered
+        fleet_drain(fleet, 0, name)
+        fleet_drain(fleet, 1, name)
+        [warm_r] = fleet.generate([warm_p], sp, timeout_s=FLEET_WAIT_S)
+        fleet.undrain(0)
+        fleet.undrain(1)
+        fleet.kv_store.clear()
+        fleet.fleet_cfg.autoscale_min_replicas = 2
+        fleet_wait(fleet, lambda: scaler.total_scale_downs >= 1,
+                   f"{name}: the scale-down")
+        check(sorted(r.replica_id for r in fleet.replicas) == [0, 1],
+              f"{name}: the retire left replicas "
+              f"{[r.replica_id for r in fleet.replicas]}")
+        down = [e for e in scaler.events if e["kind"] == "scale_down"]
+        check(down[0]["flushed_pages"] >= AUTO_HOT // 64,
+              f"{name}: the retire flushed {down[0]['flushed_pages']} pages")
+        for r in fleet.replicas:
+            r.engine.kv.flush_prefix_cache()
+        fleet.router.invalidate_inventories()
+        pre = sum(r.engine.total_prefill_tokens for r in fleet.replicas)
+        hits0 = fleet.kv_store.snapshot()["hits"]
+        [ret_r] = fleet.generate([ret_p], sp, timeout_s=FLEET_WAIT_S)
+        spent = sum(r.engine.total_prefill_tokens
+                    for r in fleet.replicas) - pre
+        restored = fleet.kv_store.snapshot()["hits"] - hits0
+        check(restored >= AUTO_HOT // 64 and spent == len(ret_p) - AUTO_HOT,
+              f"{name}: the return turn restored {restored} pages and "
+              f"prefilled {spent} tokens")
+        # (c) the TTFT guard: every slot held by a best-effort run (the
+        # burst's interactive requests may have preempted already)
+        n_events = len(scaler.events)
+        preempts0 = scaler.total_preemptions
+        # the ceiling lowered to the fleet's size: the residents' queue
+        # must not buy a third replica
+        fleet.fleet_cfg.autoscale_max_replicas = 2
+        order, be_evs, be_reqs = [], [], []
+        for i, p in enumerate(be_ps):
+            ev = threading.Event()
+            be_reqs.append(fleet.submit(
+                p, be, priority="best-effort",
+                on_complete=lambda _r, ev=ev, i=i: (order.append(f"be{i}"),
+                                                    ev.set())))
+            be_evs.append(ev)
+        fleet_wait(fleet, lambda: sum(r.active_count()
+                                      for r in fleet.replicas) >= 4,
+                   f"{name}: the best-effort runs never became resident")
+        ia_ev = threading.Event()
+        ia = fleet.submit(ia_p, sp, priority="interactive",
+                          on_complete=lambda _r: (order.append("ia"),
+                                                  ia_ev.set()))
+        fleet_wait(fleet, lambda: scaler.total_preemptions > preempts0,
+                   f"{name}: the TTFT guard never preempted")
+        fleet_wait(fleet, lambda: ia_ev.is_set()
+                   and all(e.is_set() for e in be_evs), f"{name}: act c")
+        pev = [e for e in list(scaler.events)[n_events:]
+               if e["kind"] == "preempt"]
+        victim = next(f"be{i}" for i, r in enumerate(be_reqs)
+                      if r.request_id == pev[0]["request"])
+        check(order.index("ia") < order.index(victim),
+              f"{name}: the interactive request finished after its victim "
+              f"({order})")
+        st = fleet_ledger(fleet, name)
+        wall = time.time() - t0
+        engines += [e for e in built if all(e is not x for x in engines)]
+        launches = kernel.launches
+        passes = engine_passes(engines)
+        check(launches == cfg.num_layers * passes and passes > 0,
+              f"{name}: paged launches {launches} != {cfg.num_layers} x "
+              f"{passes} of {len(engines)} engines")
+        kinds = [e["kind"] for e in scaler.events]
+        check([k for k in kinds if k != "preempt"] == [
+            "scale_up", "retire_begin", "scale_down"], f"{name}: events "
+            f"{kinds}")
+        snap = scaler.snapshot()
+        got = (burst_got + [list(warm_r.generated_tokens),
+                            list(ret_r.generated_tokens),
+                            list(ia.generated_tokens)]
+               + [list(r.generated_tokens) for r in be_reqs])
+        times = request_times(reqs)
+    finally:
+        fleet.shutdown()
+        del fleet
+        torch.cuda.empty_cache()
+    prompts = burst + [warm_p, ret_p, ia_p] + be_ps
+    held = held_to_single(torch, mods, model, cfg, "none", prompts, got,
+                          refs)
+    out = {"wall_s": wall, "launches": launches, "spare_ready_s": spare_s,
+           "events": list(snap["events"]), "preemptions": snap[
+               "preemptions"], "flushed_pages": down[0]["flushed_pages"],
+           "restored_pages": restored, "tail_prefill": spent,
+           "requests": st["completed"], "held": held, **times}
+    print(f"{name}: wall {wall:.2f} s, burst TTFT p50 "
+          f"{out['ttft_p50_ms']:.1f} ms, TPOT p50 {out['tpot_p50_ms']:.2f} "
+          f"ms; the spare warmed in {spare_s:.1f} s; events {kinds}; the "
+          f"retire flushed {out['flushed_pages']} pages and the return turn "
+          f"restored {restored} (prefilled {spent} tokens); "
+          f"{snap['preemptions']} preemption(s), the interactive request "
+          f"first; paged launches {launches} = {cfg.num_layers} x {passes}; "
+          f"{held['identical']} of {held['streams']} streams token-identical "
+          f"to one engine, largest deficit {held['max_deficit']:.4f} (host "
+          f"clock) [{card}]", flush=True)
+    out["seconds"] = time.time() - t_arm
+    print(f"{name}: {out['seconds']:.1f} s with its checks", flush=True)
+    return out
+
+
+def store_phase(torch, mods, fm, model, cfg, kernel, card: str) -> dict:
+    """Phase 22 on phase 5's weights: (a) the store restore and (b) the
+    autoscaler at full width and depth."""
+    t22 = time.time()
+    out = {"a": store_restore_arm(torch, mods, fm, model, cfg, kernel, card),
+           "b": autoscale_arm(torch, mods, fm, model, cfg, kernel, card)}
+    out["launches"] = {"paged_attention": out["a"]["launches"]
+                       + out["b"]["launches"]}
+    # phase 23's returning conversations, on one engine while the weights
+    # are on the card
+    warm, ret = store_prompts(23, 3)
+    sp = mods["SamplingParams"](temperature=0.0, max_tokens=STORE_TOKENS)
+    out["net_refs"] = one_engine(mods, model, cfg, ret, sp)
+    out["seconds"] = time.time() - t22
+    print(f"phase 22 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# -- phase 23: the store tier over the wire ----------------------------------
+
+NET_WEIGHTS = "gpt-125m"      # ships whole in seconds (llama-8b-gqa: 16 GB)
+NET_CUT_SHARE = 3             # (d): cut the download after 1/3 of its chunks
+NET_PROMPTS = 4               # (d): greedy prompts held to one engine
+
+
+def spool_records(path: Path) -> int:
+    """Verified records of a weight spool (the courier's own reading)."""
+    import zlib
+    n = 0
+    try:
+        with open(path, "rb") as fh:
+            while True:
+                line = fh.readline()
+                if not line:
+                    break
+                head = json.loads(line)
+                data = fh.read(int(head["len"]))
+                if len(data) != int(head["len"]) \
+                        or zlib.crc32(data) != int(head["crc"]):
+                    break
+                n += 1
+    except (OSError, ValueError, KeyError):
+        pass
+    return n
+
+
+def served_total(endpoint: str, name: str) -> int:
+    st = wire_get(f"{endpoint}/store/weights/status?name={name}")
+    return sum(st.get("served", {}).values()) if st.get("ok") else 0
+
+
+class NetStores:
+    """Phase 23's four `fleet store` members (--device cpu): (c)'s pair
+    and (d)'s pair, each over a membership directory of its own (so
+    anti-entropy stays within a pair), then the `fleet ship-weights` child
+    shipping (d)'s checkpoint. Started on a thread while phase 21 runs
+    (they hold no tensor); stopped with everything phase 23 spawns."""
+
+    def __init__(self, card: str):
+        self.tmp = Path(tempfile.mkdtemp(prefix="llmctl-smoke-store-"))
+        self.cli = [sys.executable, "-m", f"{PORT}.cli"]
+        self.members: list = []
+        self.ship = None
+        self.ready_s = None
+        self._shipped: dict = {}
+        self._error = None
+        self._up = threading.Event()
+        self._stopped = False
+        self._thread = threading.Thread(target=self._start, args=(card,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _start(self, card: str) -> None:
+        from distributed_llm_training_and_inference_system_tpu_torch.serve \
+            .fleet.store_tier import wait_store_ready
+        try:
+            t0 = time.time()
+            for tag in ("s", "w"):
+                for i in range(2):
+                    if self._stopped:
+                        return
+                    self.members.append(Spawned(
+                        self.cli + ["--device", "cpu", "fleet", "store",
+                                    "--port", "0", "--dram-mb",
+                                    str(STORE_DRAM_MB), "--member-id",
+                                    f"{tag}{i}", "--membership-dir",
+                                    str(self.tmp / f"members-{tag}")],
+                        self.tmp / f"store-{tag}{i}.log",
+                        "LLMCTL_STORE_READY"))
+            deadline = time.monotonic() + WIRE_READY_S
+            for m in self.members:
+                m.wait_ready(deadline)
+            check(wait_store_ready([m.endpoint for m in self.members],
+                                   timeout_s=60.0),
+                  "23: the store members never passed /health")
+            self.ready_s = time.time() - t0
+            self._up.set()
+            print(f"23: four store members ready in {self.ready_s:.1f} s; "
+                  f"{NET_WEIGHTS} shipping to two of them [{card}]",
+                  flush=True)
+            t_ship = time.time()
+            self.ship = subprocess.Popen(
+                self.cli + ["fleet", "ship-weights", "--store-endpoint",
+                            ",".join(m.endpoint for m in self.members[2:]),
+                            "--model", NET_WEIGHTS, "--param-seed", "0"],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+            out, err = self.ship.communicate()
+            self._shipped.update(rc=self.ship.returncode, out=out, err=err,
+                                 s=time.time() - t_ship)
+        except BaseException as e:              # re-raised by the waits
+            self._error = e
+            self._up.set()
+
+    def up(self) -> list:
+        """The members, once every one answers /health."""
+        self._up.wait(WIRE_READY_S)
+        if self._error is not None:
+            raise self._error
+        check(self._up.is_set(), "23: the store members never came up")
+        return self.members
+
+    def shipped(self) -> dict:
+        """The ship child's exit code, output and wall (s)."""
+        self._thread.join(timeout=2 * WIRE_READY_S)
+        if self._error is not None:
+            raise self._error
+        check(not self._thread.is_alive(),
+              f"23: ship-weights still running after {2 * WIRE_READY_S} s")
+        return self._shipped
+
+    def stop(self) -> None:
+        self._stopped = True
+        if self.ship is not None and self.ship.poll() is None:
+            self.ship.kill()
+        self._thread.join(timeout=WIRE_READY_S)
+        for m in self.members:
+            if m.proc.poll() is None:
+                m.kill()
+        import shutil
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def net_store_phase(torch, mods, cfg, refs: list, checksum: float,
+                    stores: NetStores, card: str) -> dict:
+    """Phase 23, over the members ``stores`` started: (c) two llama-8b-gqa
+    `fleet worker` processes from seed 0 with --store-endpoints: worker 0
+    drained (its prefix pages flushed to both members), released and
+    stopped; returning conversations on worker 1 restore from the store
+    tail-only, survive the death of the member that served them with 0
+    misses, and count a miss with a full prefill once no member is left;
+    (d), on a thread beside (c): gpt-125m as `fleet ship-weights` shipped
+    it, a worker on synthesize_worker_argv's line SIGKILLed mid-download
+    with its member, respawned on the same spool, resumed on the
+    survivor; a fenced member's upload gets a FATAL ack."""
+    import gc
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import schema
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        import fleet as sfleet
+    t23 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"23: the script still holds {held} B of tensors")
+    tmp, cli, members = stores.tmp, stores.cli, stores.up()
+    workers = []
+    out: dict = {"members_ready_s": stores.ready_s}
+    warm, ret = store_prompts(23, 3)
+    sp = mods["SamplingParams"](temperature=0.0, max_tokens=STORE_TOKENS)
+    fleet = None
+    arm_d: dict = {}
+    thread_d = None
+    try:
+        eps = [m.endpoint for m in members[:2]]
+        deadline = time.monotonic() + WIRE_READY_S
+        for i in range(2):
+            workers.append(Spawned(
+                cli + ["fleet", "worker", "--model", cfg.name,
+                       "--replica-id", str(i), "--host", "127.0.0.1",
+                       "--port", "0", "--param-seed", "0", "--seed",
+                       str(1000 * i), "--restart-backoff", "0.05",
+                       "--store-endpoints", ",".join(eps)],
+                tmp / f"worker{i}.log", "LLMCTL_WORKER_READY"))
+        for i, w in enumerate(workers):
+            w.wait_ready(deadline)
+            [line] = w.stderr_lines("LLMCTL_WORKER_PARAMS checksum=")
+            check(float(line) == checksum,
+                  f"23: worker {i}'s weights are not phase 5's")
+        out["workers_ready_s"] = [w.ready_s for w in workers]
+        print(f"23: llama-8b-gqa workers ready in "
+              f"{[round(w.ready_s, 1) for w in workers]} s, weights "
+              f"checksum equal to phase 5's [{card}]", flush=True)
+
+        # (c) the returning conversations over the wire
+        name = "23 c net store"
+        fcfg = schema.FleetConfig(
+            replicas=2, remote_replicas="0,1",
+            fleet_endpoints={i: w.endpoint for i, w in enumerate(workers)},
+            kv_store_endpoints=",".join(eps), kv_store_write_ack=2,
+            affinity_prefix_tokens=0, probe_interval_s=0.05,
+            restart_backoff_s=0.05, probe_failures=2, remote_timeout_s=30.0,
+            prefix_inventory_ttl_ms=600_000.0, courier_ship_timeout_s=300.0)
+        fleet = sfleet.ServeFleet(cfg, mods["ServeConfig"](model=cfg.name),
+                                  fcfg, supervise=False)
+        check(torch.cuda.memory_allocated() == held,
+              f"{name}: the front put tensors on the card")
+
+        def run_d():
+            try:
+                arm_d["out"] = weights_arm(torch, mods, members[2:],
+                                           stores.shipped(), tmp, card)
+            except BaseException as e:          # re-raised at the join
+                arm_d["error"] = e
+        thread_d = threading.Thread(target=run_d, daemon=True)
+        thread_d.start()
+        fleet.start()
+        t_c = time.time()
+        fleet_drain(fleet, 1, name)                  # warm on worker 0
+        fleet.generate(warm, sp, timeout_s=FLEET_WAIT_S)
+        fleet.undrain(1)
+        t_flush = time.time()
+        fleet_drain(fleet, 0, name)                  # its pages flushed
+        pages = len(ret) * STORE_HISTORY // 64
+
+        def member_kv(ep):
+            return wire_get(f"{ep}/store/status")["kv_store"]
+        deadline = time.monotonic() + FLEET_WAIT_S
+        while not all(member_kv(ep)["demotions"] >= pages for ep in eps):
+            check(time.monotonic() < deadline,
+                  f"{name}: the members never both held {pages} pages")
+            time.sleep(0.1)
+        flush_s = time.time() - t_flush
+        held_kv = [member_kv(ep) for ep in eps]
+        # worker 0 leaves the fleet (the autoscaler's release of a drained
+        # replica) and stops: its HBM copy of the pages goes with it
+        fleet.release_replica(0)
+        check(workers[0].stop() == 0, f"{name}: worker 0 did not stop "
+              f"cleanly")
+        fleet.router.invalidate_inventories()
+
+        def worker1():
+            st = wire_get(f"{workers[1].endpoint}/worker/status")
+            return st["kv_store"], st["total_prefill_tokens"]
+        got, rets, steps = [], [], []
+        for turn in range(3):
+            ks0, pre = worker1()
+            hits0 = [member_kv(ep)["hits"] if m.proc.poll() is None else 0
+                     for ep, m in zip(eps, members)]
+            t_r = time.time()
+            [r] = fleet.generate([ret[turn]], sp, timeout_s=FLEET_WAIT_S)
+            ks1, post = worker1()
+            steps.append({"hits": ks1["remote_hits"] - ks0["remote_hits"],
+                          "misses": ks1["remote_misses"]
+                          - ks0["remote_misses"],
+                          "prefill": post - pre, "s": time.time() - t_r})
+            got.append(list(r.generated_tokens))
+            rets.append(r)
+            if turn == 0:
+                # the member that served the first restore dies
+                served = [member_kv(ep)["hits"] - h
+                          for ep, h in zip(eps, hits0)]
+                check(max(served) >= STORE_HISTORY // 64,
+                      f"{name}: no member served the restore ({served})")
+                victim = served.index(max(served))
+                members[victim].kill()
+            elif turn == 1:
+                members[1 - victim].kill()           # no member is left
+        tail = len(ret[0]) - STORE_HISTORY
+        for turn in (0, 1):
+            s = steps[turn]
+            check(s["hits"] >= STORE_HISTORY // 64 and s["misses"] == 0
+                  and s["prefill"] == tail, f"{name}: restore {turn}: {s}")
+        s = steps[2]
+        check(s["misses"] >= 1 and s["hits"] == 0
+              and s["prefill"] == len(ret[2]), f"{name}: no member: {s}")
+        st = fleet_ledger(fleet, name)
+        fleet.shutdown()
+        fleet = None
+        check(workers[1].stop() == 0, f"{name}: worker 1 did not stop "
+              f"cleanly")
+        reports = [json.loads(w.stderr_lines("LLMCTL_WORKER_LAUNCHES ")[0])
+                   for w in workers]
+        launches = 0
+        for i, rep in enumerate(reports):
+            passes = (rep["dispatched_steps"] + rep["extend_prefills"]
+                      + rep["prefill_chunks"])
+            paged = rep["launches"]["paged_attention"]
+            check(paged == rep["layers"] * passes and passes > 0,
+                  f"{name}: worker {i}'s paged launches {paged} != "
+                  f"{rep['layers']} x {passes}")
+            launches += paged
+        rep = reports[1]
+        times = request_times(rets)
+        out["c"] = {"wall_s": time.time() - t_c, "flush_s": flush_s,
+                    "members_demoted": [k["demotions"] for k in held_kv],
+                    "bytes_stored": held_kv[0]["bytes_stored"],
+                    "turns": steps, "victim": victim,
+                    "requests": st["completed"], "worker1": rep,
+                    "launches": launches, **times}
+        print(f"{name}: wall {out['c']['wall_s']:.2f} s, return-turn TTFT "
+              f"p50 {times['ttft_p50_ms']:.1f} ms, TPOT p50 "
+              f"{times['tpot_p50_ms']:.2f} ms; worker 0's drain put "
+              f"{out['c']['members_demoted']} pages on the members "
+              f"({out['c']['bytes_stored']} B deflated each) in "
+              f"{flush_s:.2f} s; restores {steps[0]} and, member s{victim} "
+              f"SIGKILLed, {steps[1]}; no member left: {steps[2]}; worker "
+              f"1's paged launches {rep['launches']['paged_attention']} = "
+              f"{rep['layers']} x ({rep['dispatched_steps']} decode steps + "
+              f"{rep['extend_prefills']} suffix prefills + "
+              f"{rep['prefill_chunks']} chunks) (host clock) [{card}]",
+              flush=True)
+        out["c"]["tokens"] = got
+        thread_d.join()
+        thread_d = None
+        if "error" in arm_d:
+            raise arm_d["error"]
+        out["d"] = arm_d["out"]
+    finally:
+        if fleet is not None:
+            fleet.shutdown()
+        if thread_d is not None:
+            thread_d.join(timeout=FLEET_WAIT_S)
+        for w in workers:
+            if w.proc.poll() is None:
+                w.kill()
+        stores.stop()
+    out["launches"] = {"paged_attention": out["c"]["launches"]
+                       + out["d"]["launches"]}
+    parted = [i for i, t in enumerate(out["c"]["tokens"]) if t != refs[i]]
+    if parted:
+        model = mods["gpt"].init(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda", dtype=torch.bfloat16)
+        out["c"]["held"] = held_to_single(
+            torch, mods, model, cfg, "none", [ret[i] for i in parted],
+            [out["c"]["tokens"][i] for i in parted], [refs[i] for i in parted])
+        del model
+        torch.cuda.empty_cache()
+    print(f"23 c: {3 - len(parted)} of 3 returning conversations "
+          f"token-identical to one engine; the others within 2 delta of the "
+          f"dense forward's best [{card}]", flush=True)
+    out["seconds"] = time.time() - t23
+    print(f"phase 23 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def cut_download(worker: "Spawned", member: "Spawned", spool: Path,
+                 total: int) -> dict:
+    """Stop ``worker``'s weight download past a third of its chunks at a
+    batch boundary: every chunk ``member`` served is in the worker's
+    spool and nothing more, read with the worker stopped (SIGSTOP) and the
+    member answering; when the worker was caught mid-batch, the member is
+    stopped, the worker finishes spooling what it received, and the cut is
+    read again. Returns the member's per-seq ledger and the spool count."""
+    import signal
+    name = NET_WEIGHTS
+    deadline = time.monotonic() + FLEET_WAIT_S
+    rng = random.Random(23)
+    while served_total(member.endpoint, name) < total // NET_CUT_SHARE:
+        check(worker.proc.poll() is None, "23 d: the worker died before "
+              "the cut")
+        check(time.monotonic() < deadline, "23 d: the download stalled")
+        time.sleep(0.01)
+    for attempt in range(40):
+        os.kill(worker.proc.pid, signal.SIGSTOP)
+        time.sleep(0.3)
+        ledger = wire_get(f"{member.endpoint}/store/weights/status"
+                          f"?name={name}")["served"]
+        served = sum(ledger.values())
+        check(served < total, "23 d: the download finished before the cut")
+        if spool_records(spool) == served:
+            return {"ledger": ledger, "spooled": served, "attempts": attempt}
+        os.kill(member.proc.pid, signal.SIGSTOP)
+        os.kill(worker.proc.pid, signal.SIGCONT)
+        time.sleep(0.5)
+        if spool_records(spool) == served:
+            return {"ledger": ledger, "spooled": served, "attempts": attempt}
+        os.kill(member.proc.pid, signal.SIGCONT)
+        time.sleep(rng.uniform(0.01, 0.1))
+    raise SmokeFailure("23 d: no batch boundary found for the cut")
+
+
+def weights_arm(torch, mods, members: list, shipped: dict, tmp: Path,
+                card: str) -> dict:
+    """23 (d): gpt-125m shipped whole by `fleet ship-weights --param-seed
+    0` to both members; a worker on synthesize_worker_argv's command line
+    SIGKILLed with its member at a batch boundary past a third of the
+    download, respawned on the same spool, resuming on the survivor; the
+    combined per-seq ledger one serve a chunk; its weights' checksum and
+    greedy tokens those of a gpt-125m built here from seed 0; a fenced
+    member's upload answered with a FATAL ack."""
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import schema
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        import fleet as sfleet
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        .fleet.autoscaler import synthesize_worker_argv
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        .fleet.store_tier import StoreMembership
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        .fleet.weights import WeightCourier
+    name = "23 d weights"
+    t_arm = time.time()
+    check(shipped["rc"] == 0, f"{name}: ship-weights exited "
+          f"{shipped['rc']}: {shipped['err'][-2000:]}")
+    stdout, ship_s = shipped["out"], shipped["s"]
+    eps = [m.endpoint for m in members]
+    st = [wire_get(f"{ep}/store/weights/status?name={NET_WEIGHTS}")
+          for ep in eps]
+    check(all(s["complete"] for s in st), f"{name}: the ship left a member "
+          f"short")
+    total = int(st[0]["total"])
+    wire_bytes = wire_get(f"{eps[0]}/store/status")["weights"]["bytes_held"]
+    print(f"{name}: {stdout.strip()}; {wire_bytes} B in {total} chunks to "
+          f"each of 2 members in {ship_s:.1f} s of the child's wall "
+          f"(process start and weight init included) [{card}]", flush=True)
+    cfg = mods["get_model_config"](NET_WEIGHTS)
+    scfg = mods["ServeConfig"](model=NET_WEIGHTS)
+    spool = tmp / "spool"
+    argv = synthesize_worker_argv(
+        cfg, scfg, schema.FleetConfig(kv_store_endpoints=",".join(eps)),
+        weights_name=NET_WEIGHTS, spool_dir=str(spool), device="cuda") + [
+        "--replica-id", "0", "--port", "0"]
+    first = Spawned(argv, tmp / "wworker-first.log", "LLMCTL_WORKER_READY")
+    try:
+        cut = cut_download(first, members[0], spool /
+                           f"{NET_WEIGHTS}.wspool", total)
+    finally:
+        first.kill()
+        members[0].kill()
+    t_boot = time.time()
+    again = Spawned(argv, tmp / "wworker-again.log", "LLMCTL_WORKER_READY")
+    fleet = None
+    try:
+        again.wait_ready(time.monotonic() + WIRE_READY_S)
+        boot_s = time.time() - t_boot
+        ledger1 = wire_get(f"{eps[1]}/store/weights/status"
+                           f"?name={NET_WEIGHTS}")["served"]
+        combined: dict = {}
+        for one in (cut["ledger"], ledger1):
+            for q, n in one.items():
+                combined[int(q)] = combined.get(int(q), 0) + n
+        check(sorted(combined) == list(range(total))
+              and set(combined.values()) == {1},
+              f"{name}: the combined ledger is not one serve a chunk "
+              f"({sum(combined.values())} serves of {total} chunks)")
+        model = mods["gpt"].init(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda", dtype=torch.bfloat16)
+        want = mods["params_checksum"](model)
+        [line] = again.stderr_lines("LLMCTL_WORKER_PARAMS checksum=")
+        check(float(line) == want, f"{name}: the booted weights' checksum "
+              f"{line} != {want!r}")
+        rng = random.Random(230)
+        prompts = [[rng.randrange(1, cfg.vocab_size)
+                    for _ in range(rng.randrange(16, 200))]
+                   for _ in range(NET_PROMPTS)]
+        sp = mods["SamplingParams"](temperature=0.0, max_tokens=STORE_TOKENS)
+        refs = one_engine(mods, model, cfg, prompts, sp)
+        fleet = sfleet.ServeFleet(
+            cfg, scfg, schema.FleetConfig(
+                replicas=1, remote_replicas="0",
+                fleet_endpoints={0: again.endpoint},
+                probe_interval_s=0.05, remote_timeout_s=30.0),
+            supervise=False)
+        fleet.start()
+        got = [list(fleet.generate([p], sp, timeout_s=FLEET_WAIT_S)[0]
+                    .generated_tokens) for p in prompts]
+        fleet_ledger(fleet, name)
+        fleet.shutdown()
+        fleet = None
+        held = held_to_single(torch, mods, model, cfg, "none", prompts, got,
+                              refs)
+        # the fetch alone, in this process (host clock)
+        t_f = time.time()
+        WeightCourier(endpoint=eps[1]).fetch(NET_WEIGHTS)
+        fetch_s = time.time() - t_f
+        del model
+        # a fenced member's upload: a FATAL ack, and /health 503
+        StoreMembership(str(tmp / "members-w"), "ctl").fence("w1")
+        req = urllib.request.Request(
+            f"{eps[1]}/store/weights/begin",
+            data=json.dumps({"name": "zombie", "manifest": {}, "total": 1,
+                             "nbytes": 0}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            ack = json.loads(r.read())
+        check(ack.get("ok") is False and ack.get("fatal") is True,
+              f"{name}: the fenced member acked {ack}")
+        try:
+            urllib.request.urlopen(f"{eps[1]}/health", timeout=60)
+            health = 200
+        except urllib.error.HTTPError as e:
+            health = e.code
+        check(health == 503, f"{name}: the fenced member's /health {health}")
+        check(again.stop() == 0, f"{name}: the worker did not stop cleanly")
+        [rep] = again.stderr_lines("LLMCTL_WORKER_LAUNCHES ")
+        rep = json.loads(rep)
+        passes = (rep["dispatched_steps"] + rep["extend_prefills"]
+                  + rep["prefill_chunks"])
+        paged = rep["launches"]["paged_attention"]
+        check(paged == rep["layers"] * passes and passes > 0,
+              f"{name}: paged launches {paged} != {rep['layers']} x {passes}")
+    finally:
+        if fleet is not None:
+            fleet.shutdown()
+        if again.proc.poll() is None:
+            again.kill()
+        torch.cuda.empty_cache()
+    out = {"wall_s": time.time() - t_arm, "chunks": total,
+           "wire_bytes": wire_bytes, "ship_child_s": ship_s,
+           "spooled_at_cut": cut["spooled"], "cut_attempts": cut["attempts"],
+           "resumed": total - cut["spooled"], "boot_s": boot_s,
+           "fetch_gb_s": wire_bytes / fetch_s / 1e9,
+           "ship_gb_s": 2 * wire_bytes / ship_s / 1e9, "held": held,
+           "launches": paged, "ack": ack}
+    print(f"{name}: the first worker SIGKILLed with member w0 after "
+          f"{cut['spooled']} of {total} chunks (cut on attempt "
+          f"{cut['attempts']}); respawned on the same spool, it resumed "
+          f"{out['resumed']} chunks from w1 and was ready in {boot_s:.1f} s; "
+          f"the combined ledger one serve a chunk; checksum {want!r} equal "
+          f"to gpt-125m from seed 0; {held['identical']} of "
+          f"{held['streams']} greedy streams token-identical to its engine; "
+          f"fetch {out['fetch_gb_s']:.4f} GB/s in this process, ship "
+          f"{out['ship_gb_s']:.4f} GB/s to two members over the child's wall "
+          f"(host clock); the fenced member's upload "
+          f"acked FATAL, /health 503; paged launches {paged} = "
+          f"{rep['layers']} x {passes} [{card}]", flush=True)
     return out
 
 
@@ -5556,16 +6527,30 @@ def main() -> int:
         features["seconds"] = time.time() - t15
         print(f"phase 15 took {features['seconds']:.1f} s", flush=True)
 
-        # numbered 20, run while phase 5's weights are still on the card
+        # numbered 20, run while phase 5's weights are still on the card,
+        # at a cut depth: phase 21 serves the full depth over the wire
         phase("20 the serving fleet: two llama-8b-gqa replicas, routing, "
               "drain migration, crash requeue, quantized pages", t0)
         fleet = fleet_phase(torch, {**mods, "decode": sdecode}, fleet_mods,
-                            bf16_model, llama_cfg, {
-                                "paged_attention": paged_attention_kernel,
-                                "paged_attention_int8":
-                                    pac.paged_attention_int8_kernel,
-                                "paged_attention_int4":
-                                    pac.paged_attention_int4_kernel}, smi)
+                            *cut_depth(bf16_model, llama_cfg, FLEET_LAYERS),
+                            {"paged_attention": paged_attention_kernel,
+                             "paged_attention_int8":
+                                 pac.paged_attention_int8_kernel,
+                             "paged_attention_int4":
+                                 pac.paged_attention_int4_kernel}, smi)
+        # phase 21's references: one engine at full depth
+        wire_refs = one_engine(mods, bf16_model, llama_cfg, fleet["prompts"],
+                               SamplingParams(temperature=0.0,
+                                              max_tokens=FLEET_TOKENS),
+                               alone=False)
+
+        # numbered 22, run while phase 5's weights are still on the card
+        phase("22 the fleet's KV store tier and autoscaler: a retired "
+              "replica's pages restored from the store, a burst scaled up "
+              "and retired, the TTFT guard", t0)
+        fleet_store = store_phase(torch, {**mods, "decode": sdecode},
+                                  fleet_mods, bf16_model, llama_cfg,
+                                  paged_attention_kernel, smi)
 
         # numbered 17, its parts (b) and (c) on phase 5's weights
         t17 = time.time()
@@ -5671,8 +6656,26 @@ def main() -> int:
         phase("21 the fleet over the wire: two llama-8b-gqa worker "
               "processes, the HTTP courier, disaggregation, HA fronts, a "
               "killed worker", t0)
-        wire = wire_fleet_phase(torch, mods, llama_cfg, fleet.pop("prompts"),
-                                fleet.pop("refs"), served["checksum"], smi)
+        # phase 23's store members (no tensor) start once phase 21's arm
+        # (b) is done, and its checkpoint ships while phase 21 ends
+        box: dict = {}
+        try:
+            wire = wire_fleet_phase(
+                torch, mods, llama_cfg, fleet.pop("prompts"), wire_refs,
+                served["checksum"], smi,
+                after_b=lambda: box.update(stores=NetStores(smi)))
+            fleet.pop("refs")
+            stores = box["stores"]
+
+            phase("23 the store tier over the wire: two `fleet store` "
+                  "members, returning conversations across member deaths, "
+                  "the weights shipped and a worker booted from them", t0)
+            net_store = net_store_phase(torch, mods, llama_cfg,
+                                        fleet_store.pop("net_refs"),
+                                        served["checksum"], stores, smi)
+        finally:
+            if "stores" in box:
+                box["stores"].stop()
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -5722,7 +6725,9 @@ def main() -> int:
                      + tools["kv_decode"]["launches"]["paged_attention"]
                      + tools["serve_load"]["launches"]["paged_attention"]
                      + fleet["launches"]["paged_attention"]
-                     + wire["launches"]["paged_attention"]),
+                     + wire["launches"]["paged_attention"]
+                     + fleet_store["launches"]["paged_attention"]
+                     + net_store["launches"]["paged_attention"]),
         "max_abs_err": max(max_err, moe["kernels"]["paged_attention"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -5771,7 +6776,8 @@ def main() -> int:
                       serve_quantized=quant_served, rmsnorm_path=norm_path,
                       serve_features=features, moe=moe,
                       remnants=remnants, cli=cli, tools=tools, fleet=fleet,
-                      wire=wire)
+                      wire=wire, fleet_store=fleet_store,
+                      net_store=net_store)
         record.update(kernels=kernels, timing=timing, serve=served,
                       paged_vs_dense=dense, flash_vs_plain=flash,
                       adamw_max_abs_err=adamw_err, train_timing=train_timing,

@@ -6,8 +6,9 @@ package's (``host_*.npz`` through ``io/checkpoint.read_jax_checkpoint``),
 and lists a JAX checkpoint's leaves by the JAX command's flattened paths,
 shapes, dtypes and bytes. ``index`` writes the JAX command's JSON.
 ``admin lint`` runs the JAX package's AST checks of the serving fleet's
-thread, lock and counter contracts; the port has no fleet yet, so it
-exits 2 naming ROADMAP queue 1 item 9.
+thread, lock and counter contracts; those passes (``analysis/``) are not
+pointed at the port's tree yet, so it exits 2 naming ROADMAP queue 1 item
+9, step 9e.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from ..main import CommandError
 
-LINT_ITEM = "ROADMAP queue 1 item 9"
+LINT_ITEM = "ROADMAP queue 1 item 9, step 9e"
 
 
 def build_parser(prog: str) -> argparse.ArgumentParser:
@@ -61,8 +62,8 @@ def run(args) -> int:
     if args.sub == "lint":
         raise NotImplementedError(
             "admin lint checks the serving fleet's thread, lock and counter "
-            "contracts, and the fleet is not ported to the PyTorch package "
-            f"yet ({LINT_ITEM})")
+            "contracts, and its analysis passes are not ported to the "
+            f"PyTorch package yet ({LINT_ITEM})")
     if args.sub == "gc":
         return gc(args.ckpt_dir, args.keep_latest, args.dry_run)
     if args.sub == "inspect":

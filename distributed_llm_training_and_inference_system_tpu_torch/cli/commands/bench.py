@@ -17,11 +17,12 @@ command's options and JSON keys, on the global ``--device``.
   prefill and decode roles, ``--serve-courier-chaos`` seeds chunk faults,
   ``--serve-courier-codec`` picks the wire codec, ``--serve-stream``
   streams, ``--serve-max-retries`` honours 429s), and
-  ``--serve-long-prompts`` adds the JAX command's pipelined-prefill A/B.
-  The returning-conversation and scenario options (``--serve-returning*``,
-  ``--serve-scenario*``, ``--serve-ttft-target-ms``) need the fleet KV
-  store or the autoscaler: they exit 2 when they differ from their
-  defaults, naming ROADMAP queue 1 item 9, step 9d.
+  ``--serve-long-prompts`` adds the JAX command's pipelined-prefill A/B,
+  ``--serve-returning N`` its returning-conversation A/B (the fleet KV
+  store on and off, the pool sized so the filler must evict the
+  histories), and ``--serve-scenario`` its scenario matrix (autoscale on
+  and off over one seeded plan, ``--serve-ttft-target-ms`` the
+  interactive class's target).
 - ``kv-decode``: one layer's paged attention plus the KV append a step,
   over fp, int8 and int4 pages (on a card through
   ``csrc/paged_attention.cu``), with the traffic and capacity ledgers, and
@@ -54,17 +55,7 @@ from ...device import resolve_device
 from ...utils.timing import time_fn
 from ..main import CommandError
 
-STORE_TIER = "ROADMAP queue 1 item 9, step 9d"
 MULTI_GPU = "ROADMAP queue 1 item 7"
-
-# e2e options that need the fleet KV store or the autoscaler, with their
-# defaults: any other value exits 2 naming STORE_TIER
-STORE_TIER_DEFAULTS = {
-    "serve_returning": 0, "serve_returning_history": 96,
-    "serve_scenario": "", "serve_scenario_duration": 10.0,
-    "serve_scenario_base_rps": 3.0, "serve_scenario_peak_rps": 12.0,
-    "serve_ttft_target_ms": 2000.0,
-}
 
 
 def _bool(sub, name: str, default: bool, **kw) -> None:
@@ -131,8 +122,7 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
     e.add_argument("--serve-hot-prefix", default=0, type=int,
                    help="serve-load: every prompt shares a hot prefix of "
                         "this many tokens (the engine's prefix cache).")
-    fleet = e.add_argument_group("fleet options (--serve-returning* and "
-                                 f"--serve-scenario*: {STORE_TIER})")
+    fleet = e.add_argument_group("fleet options")
     fleet.add_argument("--serve-max-retries", default=0, type=int)
     fleet.add_argument("--serve-replicas", default=1, type=int)
     _bool(fleet, "--serve-disagg", False)
@@ -506,10 +496,163 @@ def _serve_load(args, cfg, device, on_card: bool) -> dict:
         s["engine"] = counters(target)
         out["closed_loop"].append(s)
         _drop(target, device)
+    if args.serve_returning > 0:
+        out["returning"] = _returning_ab(args, cfg, device, point_serve_cfg,
+                                         warm)
     if args.serve_long_prompts > 0:
         out["pipeline"] = _pipeline_ab(args, cfg, device, point_serve_cfg,
                                        warm)
+    if args.serve_scenario:
+        out["scenario_matrix"] = _scenario_matrix(args, cfg, device,
+                                                  point_serve_cfg, warm)
     return out
+
+
+def _returning_ab(args, cfg, device, point_serve_cfg, warm) -> dict:
+    """The JAX command's returning-conversation A/B: one fleet an arm, the
+    KV pool sized so that the filler turns must evict the conversations'
+    pages; the store-on arm demotes them to the fleet KV store and restores
+    them on the return turn, the store-off arm prefills them again. The
+    arms' returning turns must give the same tokens."""
+    from ...config.schema import FleetConfig
+    from ...serve.fleet import ServeFleet
+    from ...serve.loadgen import run_returning
+
+    hist = args.serve_returning_history
+    B = args.slots or 4
+    ps = 64 if device.type == "cuda" else 16
+    per_req = -(-(hist + 4 + args.gen_len + 16) // ps)     # ceil pages
+    blocks = (B + 1) * per_req + 2
+
+    def arm(store_on: bool):
+        scfg = point_serve_cfg()
+        scfg.max_batch_size = B
+        scfg.max_seq_len = min(hist + 4 + args.gen_len + 16,
+                               cfg.max_position_embeddings)
+        scfg.kv_num_blocks = blocks
+        fleet = ServeFleet(
+            cfg, scfg,
+            FleetConfig(replicas=max(args.serve_replicas, 1),
+                        kv_store=store_on, kv_store_dram_mb=256.0,
+                        courier_codec=args.serve_courier_codec,
+                        courier_zlib_level=args.serve_courier_zlib_level),
+            supervise=False, device=device)
+        for r in fleet.replicas:
+            warm(r.engine, (hist + 4,))
+            r.engine.kv.flush_prefix_cache()
+        fleet.start()
+        try:
+            return run_returning(
+                fleet, conversations=args.serve_returning, history_len=hist,
+                tail_len=4, max_tokens=args.gen_len,
+                filler_requests=max(2 * args.serve_returning, 2 * B, 8),
+                filler_len=hist, seed=0)
+        finally:
+            _drop(fleet, device)
+
+    off = arm(False)
+    on = arm(True)
+    on_t = on.returning["return_p50_ttft_ms"]
+    off_t = off.returning["return_p50_ttft_ms"]
+    ab = {"store_on": on.summary(), "store_off": off.summary(),
+          "token_identical": (on.returning["token_lists"]
+                              == off.returning["token_lists"]),
+          "ttft_speedup_p50": (round(off_t / on_t, 3)
+                               if on_t and off_t else None)}
+    for a in ("store_on", "store_off"):
+        ab[a].get("returning", {}).pop("token_lists", None)
+    return ab
+
+
+def _scenario_matrix(args, cfg, device, point_serve_cfg, warm) -> dict:
+    """The JAX command's scenario matrix: for each scenario an
+    autoscale-on/off A/B over one seeded offered plan. The ON arm may grow
+    the fleet by one replica under pressure, retire it on the fade (its
+    pages flushed to the KV store) and preempt best-effort residents for
+    the interactive class's TTFT target; the OFF arm holds its size.
+    Tokens of requests completed in both arms must agree."""
+    from ...config.schema import FleetConfig
+    from ...serve.fleet import ServeFleet
+    from ...serve.loadgen import SCENARIOS, run_scenario
+
+    names = [n.strip() for n in str(args.serve_scenario).split(",")
+             if n.strip()]
+    if names == ["all"]:
+        names = list(SCENARIOS)
+    bad = [n for n in names if n not in SCENARIOS]
+    if bad:
+        raise CommandError(f"unknown --serve-scenario {bad}; choose from "
+                           f"{SCENARIOS}")
+    target = args.serve_ttft_target_ms
+    ttft_targets = {"interactive": target, "standard": target * 3}
+
+    def arm(name: str, autoscale_on: bool):
+        L = args.serve_long_prompt_len if name == "long-context" else 0
+        scfg = point_serve_cfg()
+        scfg.max_seq_len = min(
+            max(args.prompt_len * 3, L, args.prompt_len * 5)
+            + 2 * args.gen_len + 16, cfg.max_position_embeddings)
+        base = max(args.serve_replicas, 2)
+        fleet = ServeFleet(
+            cfg, scfg,
+            FleetConfig(
+                replicas=base, kv_store=True, max_pending=96,
+                autoscale=autoscale_on, autoscale_min_replicas=base,
+                autoscale_max_replicas=base + 1,
+                autoscale_up_queue_per_replica=2.0,
+                autoscale_down_queue_per_replica=0.25,
+                autoscale_hysteresis_polls=10, autoscale_cooldown_polls=40,
+                priority_headroom_requests=80 if autoscale_on else 0,
+                interactive_ttft_target_ms=target if autoscale_on else 0.0,
+                probe_interval_s=0.05,
+                courier_codec=args.serve_courier_codec),
+            device=device)
+        lengths, n = [], 8
+        while n <= min(512, scfg.max_seq_len - 4):
+            lengths.append(n)
+            n <<= 1
+        for r in fleet.replicas:
+            warm(r.engine, lengths)
+            with r.engine.lock:
+                r.engine.kv.flush_prefix_cache()
+        fleet.start()
+        fleet.wait_warm_spares()
+        try:
+            return run_scenario(
+                fleet, scenario=name, duration_s=args.serve_scenario_duration,
+                base_rps=args.serve_scenario_base_rps,
+                peak_rps=args.serve_scenario_peak_rps,
+                prompt_len=args.prompt_len, max_tokens=args.gen_len,
+                long_prompt_len=args.serve_long_prompt_len, seed=0,
+                max_retries=args.serve_max_retries,
+                ttft_targets_ms=ttft_targets)
+        finally:
+            _drop(fleet, device)
+
+    matrix = {}
+    for name in names:
+        off = arm(name, False)
+        on = arm(name, True)
+        tl_on = on.scenario.pop("token_lists", [])
+        tl_off = off.scenario.pop("token_lists", [])
+        both = [i for i in range(min(len(tl_on), len(tl_off)))
+                if tl_on[i] is not None and tl_off[i] is not None]
+        cell = {"autoscale_on": on.summary(), "autoscale_off": off.summary(),
+                "token_identical": all(tl_on[i] == tl_off[i] for i in both),
+                "common_completed": len(both)}
+        ia_on = on.scenario.get("classes", {}).get("interactive", {})
+        ia_off = off.scenario.get("classes", {}).get("interactive", {})
+        if ia_on.get("attainment") is not None \
+                and ia_off.get("attainment") is not None:
+            cell["interactive_attainment_on"] = ia_on["attainment"]
+            cell["interactive_attainment_off"] = ia_off["attainment"]
+        downs = [e for e in on.scenario.get("scaling", {}).get("events", [])
+                 if e.get("kind") == "scale_down"]
+        if downs:
+            cell["scale_down_flushed_pages"] = sum(
+                e.get("flushed_pages", 0) for e in downs)
+        matrix[name] = cell
+    return matrix
 
 
 def _pipeline_ab(args, cfg, device, point_serve_cfg, warm) -> dict:
@@ -595,14 +738,6 @@ def e2e(args, device: torch.device) -> dict:
     single engine's load sweeps."""
     from ...config.presets import get_model_config
 
-    later = sorted(k for k, v in STORE_TIER_DEFAULTS.items()
-                   if getattr(args, k) != v)
-    if later:
-        raise NotImplementedError(
-            "--" + ", --".join(k.replace("_", "-") for k in later)
-            + ": the returning-conversation and scenario runs need the "
-              "fleet KV store tier and the autoscaler, not ported to the "
-              f"PyTorch package yet ({STORE_TIER})")
     cfg = get_model_config(args.model_name)
     on_card = device.type == "cuda"
     seq_len = args.seq_len or min(1024 if on_card else 128,

@@ -6,15 +6,19 @@
   ``role`` and ``migrate`` post to the front's ``/fleet/*`` routes.
 - ``worker`` runs one replica as its own process (serve/fleet/worker.py)
   on the global ``--device``, from ``--artifact`` (an export artifact or
-  a checkpoint directory, the JAX package's or the port's) or random
-  weights from ``--param-seed``; it prints ``LLMCTL_WORKER_READY port=N``
-  on stdout and its weights' checksum on stderr, and at SIGTERM its
-  kernel launch counts on stderr.
+  a checkpoint directory, the JAX package's or the port's), random
+  weights from ``--param-seed``, or the store service
+  (``--weights-from-store``, resumable through ``--weights-spool``); it
+  prints ``LLMCTL_WORKER_READY port=N`` on stdout and its weights'
+  checksum on stderr, and at SIGTERM its kernel launch counts on stderr.
+  With ``--store-endpoint(s)`` it demotes to and restores from the store.
 - ``front`` runs one stateless front of the HA tier over the shared file
   state store (serve/fleet/front.py); it holds no model.
-- ``store``, ``ship-weights`` and the worker's ``--store-endpoint(s)`` and
-  ``--weights-from-store`` need the fleet KV store tier: they exit 2
-  naming ROADMAP queue 1 item 9, step 9d.
+- ``store`` runs the fleet KV store service (serve/fleet/store_service.py)
+  and prints ``LLMCTL_STORE_READY port=N``; it holds no tensor.
+- ``ship-weights`` registers a checkpoint (``--artifact`` or
+  ``--param-seed``, built on the global ``--device``) in the store
+  service, in the JAX package's tree layout.
 """
 
 from __future__ import annotations
@@ -27,14 +31,7 @@ import urllib.request
 
 from ..main import CommandError
 
-STORE_TIER = "ROADMAP queue 1 item 9, step 9d"
 URL = "http://127.0.0.1:8080"
-
-
-def _store_refusal(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet: it needs the "
-        f"fleet KV store tier ({STORE_TIER})")
 
 
 def build_parser(prog: str) -> argparse.ArgumentParser:
@@ -67,29 +64,54 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
     mi.add_argument("--url", default=URL)
     _worker_parser(sub)
     _front_parser(sub)
-    so = sub.add_parser("store", help="The fleet KV store service "
-                                      f"({STORE_TIER}).")
+    so = sub.add_parser("store", help="Run the fleet KV store as its own "
+                                      "OS process.")
     so.add_argument("--host", default="127.0.0.1")
-    so.add_argument("--port", default=0, type=int)
-    so.add_argument("--dram-mb", default=256.0, type=float)
-    so.add_argument("--dir", dest="spill_dir", default="")
-    so.add_argument("--disk-mb", default=1024.0, type=float)
-    so.add_argument("--ttl-ms", default=0.0, type=float)
+    so.add_argument("--port", default=0, type=int,
+                    help="0 binds a free port; printed as "
+                         "'LLMCTL_STORE_READY port=N'.")
+    so.add_argument("--dram-mb", default=256.0, type=float,
+                    help="DRAM ring capacity, in MB of compressed frames.")
+    so.add_argument("--dir", dest="spill_dir", default="",
+                    help="Disk-spill directory (empty = DRAM only).")
+    so.add_argument("--disk-mb", default=1024.0, type=float,
+                    help="Disk-spill capacity bound.")
+    so.add_argument("--ttl-ms", default=0.0, type=float,
+                    help="Expire entries nobody fetched for this long "
+                         "(0 = keep).")
     so.add_argument("--courier-codec", default="none",
-                    choices=["none", "zlib", "delta-zlib"])
+                    choices=["none", "zlib", "delta-zlib"],
+                    help="Codec of frames encoded here ('none' stores "
+                         "zlib).")
     so.add_argument("--courier-chunk-bytes", default=256 * 1024, type=int)
-    so.add_argument("--member-id", default="")
-    so.add_argument("--membership-dir", default="")
-    so.add_argument("--peer", dest="peers", action="append", default=[])
-    so.add_argument("--sync-interval-ms", default=1000.0, type=float)
+    so.add_argument("--member-id", default="",
+                    help="This process's id in a replicated store tier "
+                         "(with --membership-dir).")
+    so.add_argument("--membership-dir", default="",
+                    help="Shared directory of the tier's fenced member "
+                         "registry.")
+    so.add_argument("--peer", dest="peers", action="append", default=[],
+                    help="Static peer member URL for anti-entropy "
+                         "(repeatable).")
+    so.add_argument("--sync-interval-ms", default=1000.0, type=float,
+                    help="Anti-entropy cadence.")
     sw = sub.add_parser("ship-weights", help="Register a checkpoint in the "
-                                             f"store service ({STORE_TIER}).")
-    sw.add_argument("--store-endpoint", default=None)
-    sw.add_argument("--write-ack", default=0, type=int)
-    sw.add_argument("--model", dest="model_name", default="gpt-125m")
-    sw.add_argument("--artifact", default="")
-    sw.add_argument("--name", dest="weights_name", default="")
-    sw.add_argument("--param-seed", default=-1, type=int)
+                                             "store service over the wire.")
+    sw.add_argument("--store-endpoint", required=True,
+                    help="Store service URL, or comma-separated member "
+                         "URLs of a replicated tier.")
+    sw.add_argument("--write-ack", default=0, type=int,
+                    help="Members that must hold the whole payload (0 = "
+                         "every live member).")
+    sw.add_argument("--model", dest="model_name", default="gpt-125m",
+                    help="Model template name.")
+    sw.add_argument("--artifact", default="",
+                    help="Export artifact file or checkpoint dir to ship.")
+    sw.add_argument("--name", dest="weights_name", default="",
+                    help="Name to register under (default: the model "
+                         "name).")
+    sw.add_argument("--param-seed", default=-1, type=int,
+                    help="Ship the weights initialised from this seed.")
     return ap
 
 
@@ -139,12 +161,20 @@ def _worker_parser(sub) -> None:
              "consecutive crash.")
     add("--migrate-on-drain", default=True,
         action=argparse.BooleanOptionalAction)
-    add("--store-endpoint", default="", help=f"({STORE_TIER})")
-    add("--store-endpoints", default="", help=f"({STORE_TIER})")
+    add("--store-endpoint", default="",
+        help="A `fleet store` service: evicted prefix pages demote there "
+             "and store-held pages restore from it.")
+    add("--store-endpoints", default="",
+        help="Comma-separated member URLs of a replicated store tier "
+             "(overrides --store-endpoint).")
     add("--weights-from-store", action="store_true", default=False,
-        help=f"({STORE_TIER})")
-    add("--weights-name", default="", help=f"({STORE_TIER})")
-    add("--weights-spool", default="", help=f"({STORE_TIER})")
+        help="Boot the weights from the store service instead of an "
+             "artifact.")
+    add("--weights-name", default="",
+        help="Checkpoint name in the store (default: --model).")
+    add("--weights-spool", default="",
+        help="Directory where fetched weight chunks persist, so a "
+             "respawned worker resumes its fetch.")
     add("--fault-plan", default="",
         help="JSON FaultPlan for deterministic chaos (testing).")
 
@@ -332,12 +362,53 @@ def render_status(snap: dict) -> str:
             f"pre-ship timeouts"
             + (f", {overlap:.0%} overlap" if overlap is not None else "")
             + ")")
+    au = snap.get("autoscale")
+    if au and au.get("enabled"):
+        retiring = au.get("retiring")
+        lines.append(
+            f"autoscale: {au.get('replicas', 0)} replicas "
+            f"(floor {au.get('floor', 0)}, ceiling {au.get('ceiling', 0)}"
+            + (f", retiring {retiring}" if retiring is not None else "")
+            + f"), {au.get('scale_ups', 0)} scale-ups / "
+            f"{au.get('scale_downs', 0)} scale-downs, "
+            f"{au.get('spawn_failures', 0)} spawn failures, "
+            f"{au.get('retire_rollbacks', 0)} retire rollbacks, "
+            f"{au.get('preemptions', 0)} best-effort preemptions")
     by_cls = rt.get("submitted_by_class") or {}
     rej_cls = rt.get("rejected_by_class") or {}
     if any(by_cls.values()) or any(rej_cls.values()):
         lines.append("priority: " + ", ".join(
             f"{cls} {by_cls.get(cls, 0)} admitted / {rej_cls.get(cls, 0)} "
             f"shed" for cls in ("interactive", "standard", "best-effort")))
+    if rt.get("store_hint_remote_skips"):
+        lines.append(
+            f"store hints: {rt['store_hint_remote_skips']} skipped for "
+            f"remote destinations (store tier unreachable from workers)")
+    ks = snap.get("kv_store")
+    if ks and (ks.get("demotions") or ks.get("hits") or ks.get("misses")):
+        lines.append(
+            f"kv store: {ks.get('hits', 0)} page hits / "
+            f"{ks.get('misses', 0)} misses "
+            f"({ks.get('bytes_served', 0)} bytes replayed), "
+            f"{ks.get('demotions', 0)} demotions, "
+            f"dram {ks.get('dram_entries', 0)} pages / "
+            f"{ks.get('dram_bytes', 0)} bytes, "
+            f"disk {ks.get('disk_entries', 0)} pages / "
+            f"{ks.get('disk_bytes', 0)} bytes, "
+            f"{ks.get('evictions', 0)} evictions "
+            f"({ks.get('spills', 0)} spills, {ks.get('corrupt', 0)} "
+            f"corrupt) [{ks.get('codec', '?')}]")
+    if ks and len(ks.get("endpoints") or []) > 1:
+        reach = ks.get("members") or {}
+        lines.append(
+            "store tier: "
+            + ", ".join(f"{ep} {'up' if ok else 'DOWN'}"
+                        for ep, ok in reach.items())
+            + f" | {ks.get('retries', 0)} retries, "
+              f"{ks.get('failovers', 0)} failovers, "
+              f"{ks.get('hedges', 0)} hedged fetches, "
+              f"{ks.get('fenced_rejects', 0)} fenced rejects, "
+              f"{ks.get('sync_pulls', 0)} anti-entropy pulls")
     cour = snap.get("courier")
     if cour and (cour.get("transfers") or cour.get("aborts")
                  or cour.get("in_flight") or cour.get("expired")):
@@ -390,15 +461,12 @@ def worker_parts(args, device):
     """(model config, serve config, fleet config, params or None) of a
     parsed ``fleet worker`` line. ``--param-seed S`` builds the weights
     the engine builds from seed S (``InferenceEngine`` with no artifact);
-    without it the engine loads ``--artifact``."""
+    ``--weights-from-store`` fetches them from the store service, and
+    refuses to start, naming the endpoint, when it cannot; without either
+    the engine loads ``--artifact``."""
     from ...config.presets import get_model_config
     from ...config.schema import FleetConfig, ServeConfig
 
-    for flag, asked in (("--store-endpoint", args.store_endpoint),
-                        ("--store-endpoints", args.store_endpoints),
-                        ("--weights-from-store", args.weights_from_store)):
-        if asked:
-            raise _store_refusal(f"fleet worker {flag}")
     dtype = args.dtype or ("bfloat16" if device.type == "cuda"
                            else "float32")
     model_cfg = get_model_config(args.model_name)
@@ -423,17 +491,42 @@ def worker_parts(args, device):
         courier_chunk_deadline_ms=args.courier_deadline_ms,
         courier_retry_backoff_ms=args.courier_backoff_ms,
         courier_retry_backoff_max_ms=args.courier_backoff_max_ms,
-        courier_ticket_ttl_ms=args.ticket_ttl_ms)
+        courier_ticket_ttl_ms=args.ticket_ttl_ms,
+        kv_store_endpoint=args.store_endpoint,
+        kv_store_endpoints=args.store_endpoints,
+        # the fetch plane is how store-held pages restore here
+        prefix_fetch=bool(args.store_endpoint or args.store_endpoints))
     fleet_cfg.validate()
     params = None
     if args.param_seed >= 0:
+        params = seeded_params(model_cfg, args.param_seed, device, dtype)
+    elif args.weights_from_store:
+        if not (args.store_endpoint or args.store_endpoints):
+            raise CommandError("--weights-from-store needs --store-endpoint "
+                               "or --store-endpoints")
         import torch
 
-        from ...models import gpt
-        gen = torch.Generator(device=device).manual_seed(args.param_seed)
-        params = gpt.init(model_cfg, gen, device=device,
-                          dtype=getattr(torch, dtype))
+        from ...serve.fleet.weights import WeightCourier, WeightShipError
+        from ...weights import params_from_jax
+        wc = WeightCourier(fleet_cfg, spool_dir=args.weights_spool)
+        try:
+            tree = wc.fetch(args.weights_name or args.model_name)
+        except WeightShipError as e:
+            raise CommandError(str(e))
+        params = params_from_jax(tree, model_cfg, device=device,
+                                 dtype=getattr(torch, dtype))
     return model_cfg, serve_cfg, fleet_cfg, params
+
+
+def seeded_params(model_cfg, seed: int, device, dtype: str):
+    """The weights ``InferenceEngine`` builds from ``seed`` with no
+    artifact: ``gpt.init`` on ``device`` in ``dtype``."""
+    import torch
+
+    from ...models import gpt
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return gpt.init(model_cfg, gen, device=device,
+                    dtype=getattr(torch, dtype))
 
 
 def worker(args) -> int:
@@ -450,6 +543,66 @@ def worker(args) -> int:
     print(f"{PARAMS_PREFIX} checksum={params_checksum(w.params)!r}",
           file=sys.stderr, flush=True)
     w.run_forever(host=args.host, port=args.port)
+    return 0
+
+
+def store(args) -> int:
+    """Run the fleet KV store service until SIGTERM. It holds no tensor:
+    the global ``--device`` is never touched."""
+    from ...config.schema import FleetConfig
+    from ...serve.fleet.store_service import StoreService
+
+    cfg = FleetConfig(
+        replicas=1, prefix_fetch=True, kv_store=True,
+        kv_store_dram_mb=args.dram_mb, kv_store_dir=args.spill_dir,
+        kv_store_disk_mb=args.disk_mb, kv_store_ttl_ms=args.ttl_ms,
+        courier_codec=args.courier_codec,
+        courier_chunk_bytes=args.courier_chunk_bytes)
+    cfg.validate()
+    # warm=False: the disk scan runs behind the /health readiness gate
+    StoreService(cfg, member_id=args.member_id,
+                 membership_dir=args.membership_dir, peers=list(args.peers),
+                 sync_interval_s=args.sync_interval_ms / 1e3,
+                 warm=False).run_forever(host=args.host, port=args.port)
+    return 0
+
+
+def ship_weights(args) -> int:
+    """Register a checkpoint in the store service: the JAX package's tree
+    layout, upload-resumable."""
+    from ...config.presets import get_model_config
+    from ...device import resolve_device
+    from ...serve.fleet.weights import WeightCourier, WeightShipError
+
+    model_cfg = get_model_config(args.model_name)
+    device = resolve_device(args.root.device)
+    dtype = "bfloat16" if device.type == "cuda" else "float32"
+    if args.param_seed >= 0:
+        params = seeded_params(model_cfg, args.param_seed, device, dtype)
+    elif args.artifact:
+        from types import SimpleNamespace
+
+        import torch
+
+        from ...config.schema import ServeConfig
+        from ...serve.engine import InferenceEngine
+        # the engine's loader alone: no KV pool is allocated
+        serve_cfg = ServeConfig(model=args.model_name,
+                                artifact=args.artifact)
+        params, model_cfg, _ = InferenceEngine._load_params(
+            SimpleNamespace(device=device), model_cfg, serve_cfg, 0,
+            getattr(torch, dtype))
+    else:
+        raise CommandError("ship-weights needs --artifact or --param-seed")
+    wc = WeightCourier(endpoint=args.store_endpoint,
+                       write_ack=args.write_ack)
+    try:
+        out = wc.ship(args.weights_name or args.model_name, params)
+    except WeightShipError as e:
+        raise CommandError(str(e))
+    print(f"weights {out['name']!r} registered on {out['members']} "
+          f"member(s): {out['sent']} chunks sent, {out['skipped']} already "
+          f"held ({out['total']} total)")
     return 0
 
 
@@ -519,4 +672,6 @@ def run(args) -> int:
         return worker(args)
     if args.sub == "front":
         return front(args)
-    raise _store_refusal(f"fleet {args.sub}")
+    if args.sub == "store":
+        return store(args)
+    return ship_weights(args)

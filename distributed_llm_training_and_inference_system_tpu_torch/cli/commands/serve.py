@@ -15,10 +15,9 @@ processes:
   finished request and serves the same registry at the server's
   ``/metrics``; the global ``--otlp-endpoint`` adds OTLP spans;
 - the ``--fleet-*`` options build the ``FleetConfig`` as the JAX command
-  does; the fleet KV store's (``--fleet-kv-store*``) and the
-  autoscaler's (``--fleet-autoscale*``) exit 2 naming ROADMAP queue 1
-  item 9, step 9d; ``--tensor-parallel > 1`` raises in the engine (item
-  7).
+  does, the fleet KV store's (``--fleet-kv-store*``) and the
+  autoscaler's (``--fleet-autoscale*``) included; ``--tensor-parallel >
+  1`` raises in the engine (ROADMAP queue 1 item 7).
 
 ``start`` binds ``--host:--port`` (0 = a free port), prints one line with
 the bound ports, and serves until SIGTERM or SIGINT, then stops the
@@ -33,8 +32,6 @@ from __future__ import annotations
 import argparse
 import signal
 import threading
-
-STORE_TIER = "ROADMAP queue 1 item 9, step 9d"
 
 # the fleet options of `serve start`: (flag, FleetConfig field, default,
 # type or choices); a bool default makes a --fleet-x/--fleet-no-x toggle
@@ -243,16 +240,9 @@ def run(args) -> int:
 
 def fleet_config(args):
     """The ``FleetConfig`` of a parsed ``serve start`` line (None for one
-    engine). Raises naming step 9d for the KV store's and the
-    autoscaler's options."""
+    engine)."""
     from ...config.schema import FleetConfig, parse_fleet_endpoints
 
-    for flag, field, default, _kind in FLEET_OPTIONS:
-        if (flag.startswith(("--fleet-kv-store", "--fleet-autoscale"))
-                and getattr(args, fleet_dest(flag)) != default):
-            raise NotImplementedError(
-                f"{flag}: the fleet KV store tier and the autoscaler are not "
-                f"ported to the PyTorch package yet ({STORE_TIER})")
     if args.replicas <= 1:
         return None
     cfg = FleetConfig(

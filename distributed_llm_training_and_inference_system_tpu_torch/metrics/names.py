@@ -7,10 +7,11 @@ the two equal).
   registry from it.
 - :data:`COUNTER_FLOW` declares how each ``total_*`` running counter
   flows from its owning class into snapshot/stats keys and (optionally)
-  a registered Prometheus name. Its owners' paths are the JAX package's;
-  the port has the in-process fleet's owners (serve/fleet/), not those of
-  the store tier, the fronts or the remote workers (ROADMAP queue 1 item
-  9, steps 9c and 9d).
+  a registered Prometheus name. Its owners' paths are the JAX package's,
+  and the port has every one of them under the same path
+  (serve/engine.py and serve/fleet/: the supervisor, streams, fronts, KV
+  store, store service and client, weight courier, pipeline and
+  autoscaler).
 
 The text exposition appends ``_total`` to counters at scrape time (a
 declared ``_total`` is stripped first); :func:`scraped_name` gives the

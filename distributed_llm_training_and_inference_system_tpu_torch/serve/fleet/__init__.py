@@ -20,16 +20,20 @@ The port's copy of the JAX package's ``serve/fleet/``, in one process:
 - :class:`~.state.SharedFileStateStore` and :class:`~.front.FleetFrontTier`
   — the HA front tier: stateless fronts (serve/fleet/http.py) over one
   journal
+- :class:`~.kv_store.FleetKVStore` — the tiered host KV store that evicted
+  and retired prefix pages demote to; :class:`~.store_service.StoreClient`
+  stands in for it when the store runs as `llmctl-torch fleet store`
+  processes (``kv_store_endpoint(s)``), which also carry checkpoints for
+  :class:`~.weights.WeightCourier`
+- :class:`~.autoscaler.FleetAutoscaler` — scale up and down from queue and
+  pool pressure, and TTFT-guard preemption, from the supervisor poll
 - :class:`ServeFleet` — the facade wiring them together
 
 In-process replicas are threads, each stepping its own ``InferenceEngine``
 on one card; their weights are loaded once, by the first in-process
 replica, and shared. A remote replica (``FleetConfig.remote_replicas`` +
 its ``fleet_endpoints`` entry) is a worker process holding its own weights;
-KV payloads reach it over the HTTP courier. What needs the store tier is
-refused at construction, naming its ROADMAP step (queue 1 item 9, step
-9d): the KV store tier, the store service and weight courier, and the
-autoscaler (which retires replicas into the KV store).
+KV payloads reach it over the HTTP courier.
 """
 
 from __future__ import annotations
@@ -42,9 +46,12 @@ from typing import Callable, Optional, Sequence
 
 from ...config.schema import FleetConfig, ModelConfig, ServeConfig
 from ..scheduler import Request, SamplingParams
+from .autoscaler import (FleetAutoscaler, ProcessWorkerSpawner,
+                         synthesize_worker_argv)
 from .faults import (DestUnreachable, FaultInjector, FaultPlan,
                      InjectedCrash, ProbeTimeout, RpcBlackhole)
 from .front import FleetFrontTier
+from .kv_store import FleetKVStore
 from .migration import MigrationTicket
 from .pipeline import PipelineCoordinator, plan_stages
 from .remote import RemoteReplica, RemoteUnavailable
@@ -54,12 +61,14 @@ from .router import (FleetRouter, FleetSaturated, normalize_priority,
                      prefix_digest)
 from .state import (FleetStateStore, InMemoryStateStore,
                     SharedFileStateStore, StoreFenced, build_state_store)
+from .store_service import StoreClient, StoreService
 from .streams import FleetStreamHub
 from .supervisor import ReplicaSupervisor
 from .transport import (KV_STORE_OWNER, CourierReceiver,
                         HTTPCourierTransport, InProcTransport, KVCourier,
                         TransferAborted, TransportError, build_transport,
                         is_ticket_stub, ticket_stub)
+from .weights import WeightCourier, WeightShipError
 
 __all__ = [
     "CourierReceiver",
@@ -67,7 +76,9 @@ __all__ = [
     "EngineReplica",
     "FaultInjector",
     "FaultPlan",
+    "FleetAutoscaler",
     "FleetFrontTier",
+    "FleetKVStore",
     "FleetRouter",
     "FleetSaturated",
     "FleetStateStore",
@@ -81,6 +92,7 @@ __all__ = [
     "MigrationTicket",
     "PipelineCoordinator",
     "ProbeTimeout",
+    "ProcessWorkerSpawner",
     "RemoteReplica",
     "RemoteUnavailable",
     "RpcBlackhole",
@@ -90,9 +102,13 @@ __all__ = [
     "ReplicaSupervisor",
     "ServeFleet",
     "SharedFileStateStore",
+    "StoreClient",
     "StoreFenced",
+    "StoreService",
     "TransferAborted",
     "TransportError",
+    "WeightCourier",
+    "WeightShipError",
     "build_state_store",
     "build_transport",
     "is_ticket_stub",
@@ -100,23 +116,11 @@ __all__ = [
     "plan_stages",
     "prefix_digest",
     "reset_for_requeue",
+    "synthesize_worker_argv",
     "ticket_stub",
 ]
 
 logger = logging.getLogger("llmctl.serve.fleet")
-
-_STEP_9D = "ROADMAP queue 1 item 9, step 9d"
-
-# fleet option -> (is it asked for?, what it is, the step that ports it)
-_NOT_PORTED = (
-    (lambda c: bool(c.autoscale), "autoscale (it retires replicas into "
-     "the fleet KV store)", _STEP_9D),
-    (lambda c: bool(c.kv_store), "kv_store (the fleet KV store tier)",
-     _STEP_9D),
-    (lambda c: bool(c.kv_store_endpoint_list()), "kv_store_endpoint(s) "
-     "(the store service and the weight courier)", _STEP_9D),
-)
-
 
 class ServeFleet:
     """N replicas + router + supervisor, ready to serve.
@@ -142,11 +146,6 @@ class ServeFleet:
                  front_id: Optional[str] = None, device=None):
         self.fleet_cfg = fleet_cfg or FleetConfig()
         self.fleet_cfg.validate()    # incl. endpoint-map/remote mismatch
-        for asked, what, step in _NOT_PORTED:
-            if asked(self.fleet_cfg):
-                raise NotImplementedError(
-                    f"{what} is not ported to the PyTorch fleet yet "
-                    f"({step})")
         self.serve_cfg = serve_cfg
         self.injector = FaultInjector(fault_plan) if fault_plan else None
         roles = self.fleet_cfg.role_list()
@@ -157,6 +156,26 @@ class ServeFleet:
         # by ticket in this process's receiver, remote ones are pushed over
         # HTTP per the fleet_endpoints map
         self.courier = KVCourier(self.fleet_cfg, injector=self.injector)
+        # the tiered KV store: evicted and drain-flushed prefix pages
+        # demote here as compressed courier frames, the router's hint path
+        # falls back to it, and fetches replay the frames through the
+        # courier's receiver. With kv_store_endpoint(s) the store lives in
+        # `fleet store` processes and a StoreClient stands in for it, so
+        # every front and worker resolve one store.
+        store_eps = self.fleet_cfg.kv_store_endpoint_list()
+        if store_eps:
+            self.kv_store = StoreClient(self.fleet_cfg,
+                                        injector=self.injector)
+        elif self.fleet_cfg.kv_store:
+            self.kv_store = FleetKVStore(self.fleet_cfg)
+        else:
+            self.kv_store = None
+        self.courier.kv_store = self.kv_store
+        # checkpoints ride the same store service: ship_weights() lets a
+        # bare `fleet worker --weights-from-store` boot over the wire
+        self.weight_courier = (
+            WeightCourier(self.fleet_cfg, injector=self.injector)
+            if store_eps else None)
         # the stream logs and the router ledger live behind this store:
         # in memory by default; `state_store = "file"` shares them between
         # the HA fronts
@@ -197,6 +216,11 @@ class ServeFleet:
                 loaded = True
             self.replicas.append(r)
         self.model_cfg = model_cfg
+        # what the autoscaler needs to build replicas after construction
+        self._params = params
+        self._seed = seed
+        self._eos_token_id = eos_token_id
+        self._device = device
         # the page size the engines hash prefixes with; 0 turns the
         # fleet prefix cache off
         page_size = (serve_cfg.kv_block_size
@@ -205,7 +229,7 @@ class ServeFleet:
         self.router = FleetRouter(self.replicas, self.fleet_cfg,
                                   observer=observer, courier=self.courier,
                                   page_size=page_size, store=self.store,
-                                  kv_store=None)
+                                  kv_store=self.kv_store)
         # HA front tier: a terminal record folded from a sibling front
         # completes the local Request object (waiters, SSE finish)
         self.router.on_store_pop = self._complete_from_store
@@ -216,12 +240,47 @@ class ServeFleet:
         self.router.pipeline = self.pipeline
         for r in self.replicas:
             self._wire_replica(r)
+        # the autoscaler, polled by the supervisor. With
+        # autoscale_spawn = "worker" it scales up with `fleet worker`
+        # processes whose command line is made from this fleet's config.
+        spawner = None
+        if self.fleet_cfg.autoscale \
+                and self.fleet_cfg.autoscale_spawn == "worker":
+            # the worker CLI's --device: "cuda" or "cpu" (a torch.device's
+            # type; "cuda:0" is not a choice there)
+            dev = str(getattr(device, "type", device) or "cuda").split(":")[0]
+            spawner = ProcessWorkerSpawner(
+                synthesize_worker_argv(
+                    self.model_cfg, self.serve_cfg, self.fleet_cfg,
+                    weights_name=self.serve_cfg.model, device=dev),
+                spawn_timeout_s=self.fleet_cfg.autoscale_spawn_timeout_s,
+                store_endpoints=store_eps)
+        self.autoscaler = (FleetAutoscaler(self, self.fleet_cfg,
+                                           spawner=spawner)
+                           if self.fleet_cfg.autoscale else None)
         self.supervisor = ReplicaSupervisor(
             self.replicas, self.router, self.fleet_cfg,
             injector=self.injector, params=params, observer=observer,
-            streams=self.streams, store=self.store, kv_store=None,
-            pipeline=self.pipeline)
+            streams=self.streams, store=self.store,
+            kv_store=self.kv_store, pipeline=self.pipeline,
+            autoscaler=self.autoscaler, weights=self.weight_courier)
         self._supervise = supervise
+        # the warm-spare pool: a background thread builds up to two
+        # standby replicas (ids just above the provisioned ones) so that a
+        # scale-up adopts one at once instead of building it mid-burst
+        self._spares: list = []
+        self._spares_pending: set = set()
+        self._spares_cv = threading.Condition()
+        self._spares_closed = False
+        if self.autoscaler is not None and self.autoscaler.spawner is None:
+            n = len(self.replicas)
+            spare_ids = [n + k for k in range(max(
+                min(self.autoscaler.ceiling(), n + 2) - n, 0))]
+            if spare_ids:
+                self._spares_pending.update(spare_ids)
+                threading.Thread(target=self._warm_spares,
+                                 args=(spare_ids,), daemon=True,
+                                 name="fleet-spare-warmer").start()
 
     def _wire_replica(self, r) -> None:
         """Attach one replica's fleet-facing callbacks."""
@@ -248,6 +307,149 @@ class ServeFleet:
         r.prefix_fetcher = self.courier.fetch_prefix
         # pipelined prefill: stage chunk progress feeds the coordinator
         r.on_pipeline_chunk = self.pipeline.on_stage_chunk
+        # the tiered KV store: evicted and retired prefix pages demote
+        # down a tier instead of being destroyed
+        if self.kv_store is not None:
+            r.set_kv_store(self.kv_store)
+
+    # -- elastic membership (the autoscaler's mechanics) ---------------------
+
+    def _build_engine_replica(self, replica_id: int) -> EngineReplica:
+        """One in-process replica on the loaded weights, warmed as the JAX
+        package warms it (greedy prompts of 8, 16, ... 256 tokens, whose
+        pages stay in its prefix cache), with its pass counters reset."""
+        r = EngineReplica(
+            replica_id, self.model_cfg, self.serve_cfg, params=self._params,
+            seed=self._seed + 1000 * replica_id, injector=self.injector,
+            on_finish=self._on_request_exit,
+            eos_token_id=self._eos_token_id, fleet_cfg=self.fleet_cfg,
+            role=ROLE_MIXED, device=self._device)
+        n = 8
+        while n <= min(256, self.serve_cfg.max_seq_len - 4):
+            r.engine.generate([list(range(1, n + 1))],
+                              SamplingParams(temperature=0.0, max_tokens=2))
+            n <<= 1
+        r.engine.total_prefill_tokens = 0
+        r.engine.total_decode_steps = 0
+        r.engine.total_padded_slot_steps = 0
+        r.engine.total_short_dispatches = 0
+        return r
+
+    def _warm_spares(self, ids: list) -> None:
+        """The background warmer: stock the standby pool once."""
+        for rid in ids:
+            if self._spares_closed:
+                return
+            try:
+                r = self._build_engine_replica(rid)
+            except Exception:
+                logger.exception("spare replica %d warm-up failed", rid)
+                with self._spares_cv:
+                    self._spares_pending.discard(rid)
+                    self._spares_cv.notify_all()
+                continue
+            with self._spares_cv:
+                self._spares_pending.discard(rid)
+                if self._spares_closed:
+                    released = r
+                else:
+                    self._spares.append(r)
+                    released = None
+                self._spares_cv.notify_all()
+            if released is not None:
+                try:
+                    released.engine.release()
+                except Exception:
+                    pass
+
+    def wait_warm_spares(self, timeout_s: float = 300.0) -> bool:
+        """Block until the standby pool has finished warming (or the
+        timeout passes); True when no warm-up is still in flight."""
+        deadline = time.monotonic() + timeout_s
+        with self._spares_cv:
+            while self._spares_pending and time.monotonic() < deadline:
+                self._spares_cv.wait(timeout=1.0)
+            return not self._spares_pending
+
+    def spawn_engine_replica(self, replica_id: int) -> EngineReplica:
+        """One in-process replica for a scale-up: from the warm-spare pool
+        when stocked, else built now. If the warmer is building exactly
+        this id, wait for it rather than build a duplicate."""
+        deadline = time.monotonic() + 300.0
+        with self._spares_cv:
+            while replica_id in self._spares_pending \
+                    and time.monotonic() < deadline:
+                self._spares_cv.wait(timeout=1.0)
+            for s in self._spares:
+                if s.replica_id == replica_id:
+                    self._spares.remove(s)
+                    return s
+        return self._build_engine_replica(replica_id)
+
+    def spawn_remote_replica(self, replica_id: int,
+                             endpoint: str) -> RemoteReplica:
+        """The front (neither started nor wired) of a freshly spawned
+        `fleet worker` at its discovered endpoint."""
+        return RemoteReplica(
+            replica_id, endpoint, fleet_cfg=self.fleet_cfg,
+            injector=self.injector, on_finish=self._on_request_exit,
+            role=ROLE_MIXED)
+
+    def adopt_replica(self, replica, endpoint: Optional[str] = None
+                      ) -> None:
+        """Join a started replica to the live fleet: its wiring, the
+        router's ring and endpoint map, the pipeline's candidates.
+        ``self.replicas`` is the list the supervisor iterates, and
+        membership changes only on the supervisor thread."""
+        self._wire_replica(replica)
+        self.replicas.append(replica)
+        if endpoint is not None:
+            self.fleet_cfg.fleet_endpoints[replica.replica_id] = endpoint
+        self.router.add_replica(replica, endpoint=endpoint)
+        self.pipeline.bind(self.router, self.replicas, self.courier)
+
+    def release_replica(self, replica_id: int) -> None:
+        """Remove a drained replica from the live fleet and free its
+        engine (the drain already migrated its residents and flushed its
+        prefix inventory to the KV store)."""
+        r = next((x for x in self.replicas if x.replica_id == replica_id),
+                 None)
+        if r is None:
+            return
+        self.replicas.remove(r)
+        self.router.remove_replica(replica_id)
+        self.pipeline.bind(self.router, self.replicas, self.courier)
+        self.courier.prefix_providers.pop(replica_id, None)
+        self.fleet_cfg.fleet_endpoints.pop(replica_id, None)
+        self.supervisor.forget(replica_id)
+        try:
+            r.stop()
+        except Exception:
+            pass
+        engine = getattr(r, "engine", None)
+        if engine is not None:
+            try:
+                engine.release()
+            except Exception:
+                pass
+
+    def ship_weights(self, name: str = "") -> dict:
+        """Register this fleet's loaded weights in the store service (by
+        default under the model's name) so `fleet worker
+        --weights-from-store` boots over the wire. Idempotent and
+        upload-resumable; raises :class:`WeightShipError` naming the
+        endpoint when the service is unreachable."""
+        if self.weight_courier is None:
+            raise RuntimeError(
+                "ship_weights needs kv_store_endpoint: no store service is "
+                "configured for this fleet")
+        if self._params is None:
+            raise RuntimeError(
+                "ship_weights: this front holds no loaded params (all "
+                "replicas remote); ship from the process that loaded them, "
+                "or with `fleet ship-weights`")
+        return self.weight_courier.ship(name or self.serve_cfg.model,
+                                        self._params)
 
     def _on_request_exit(self, replica_id: int, req: Request) -> None:
         self.router.on_request_exit(replica_id, req)
@@ -301,9 +503,23 @@ class ServeFleet:
             self.supervisor.start()
 
     def shutdown(self) -> None:
-        """Stop the supervisor and every engine thread, and release the
-        engines' weights references and KV pools."""
+        """Stop the supervisor, spawned workers and every engine thread,
+        and release the engines' weights references and KV pools (the
+        unadopted spares' too)."""
         self.supervisor.stop()
+        if self.autoscaler is not None \
+                and self.autoscaler.spawner is not None:
+            self.autoscaler.spawner.shutdown()
+        with self._spares_cv:
+            self._spares_closed = True
+            spares, self._spares = self._spares, []
+            self._spares_pending.clear()
+            self._spares_cv.notify_all()
+        for s in spares:
+            try:
+                s.engine.release()
+            except Exception:
+                pass
         for r in self.replicas:
             r.stop()
             engine = getattr(r, "engine", None)   # remote: no engine here

@@ -22,6 +22,10 @@ the JAX worker's routes:
 - ``POST /worker/drain|undrain|role|migrate|cancel``, ``GET
   /worker/status`` and ``/health``
 
+With store endpoints the worker demotes its evicted and drain-flushed
+prefix pages to the store service and restores store-held pages from it;
+``fleet worker --weights-from-store`` boots its weights from there.
+
 The worker supervises its own engine: a crashed engine thread is rebuilt
 locally under doubling backoff while its orphans flow to the outbox. The
 parent only declares the worker dead when the process stops answering.
@@ -54,6 +58,7 @@ from . import replica as replica_mod
 from .faults import FaultInjector, FaultPlan
 from .remote import request_from_wire, request_to_wire
 from .replica import EngineReplica
+from .store_service import StoreClient
 from .transport import (KV_STORE_OWNER, CourierChunk, CourierReceiver,
                         HTTPCourierTransport, TransportError,
                         TransportStats)
@@ -241,11 +246,6 @@ class FleetWorker:
                  seed: int = 0, fault_plan: Optional[FaultPlan] = None,
                  warmup: bool = True, device=None):
         self.fleet_cfg = fleet_cfg or FleetConfig()
-        if self.fleet_cfg.kv_store_endpoint_list():
-            raise NotImplementedError(
-                "a worker's store endpoint (the fleet KV store client) is "
-                "not ported to the PyTorch fleet yet (ROADMAP queue 1 item "
-                "9, step 9d)")
         self.injector = FaultInjector(fault_plan) if fault_plan else None
         self.receiver = CourierReceiver(
             ttl_ms=self.fleet_cfg.courier_ticket_ttl_ms)
@@ -270,7 +270,16 @@ class FleetWorker:
         # set once the server knows its bound address
         self.self_endpoint: Optional[str] = None
         self.replica.prefix_fetcher = self._fetch_prefix
+        # the store service (serve/fleet/store_service.py): with store
+        # endpoints this worker demotes its evicted and drain-flushed
+        # prefix pages to the shared store, and serves KV_STORE_OWNER
+        # hints from it, so a returning conversation landing here restores
+        # pages that another replica or worker demoted
         self.store_client = None
+        if self.fleet_cfg.kv_store_endpoint_list():
+            self.store_client = StoreClient(self.fleet_cfg,
+                                            injector=self.injector)
+            self.replica.set_kv_store(self.store_client)
         # streaming: a request's token batches ship to the parent as
         # cursor-tagged outbox entries; the deque keeps a request's
         # stream entries ahead of its own terminal entry
@@ -531,6 +540,16 @@ class FleetWorker:
         out = self.probe_dict()
         out["courier"] = {**self.courier_stats.snapshot(),
                           **self.receiver.stats()}
+        sc = self.store_client
+        if sc is not None:
+            # local counters only: status answers while the store is down
+            out["kv_store"] = {"endpoint": sc.endpoint,
+                               "endpoints": sc.endpoints,
+                               "remote_hits": sc.total_remote_hits,
+                               "remote_misses": sc.total_remote_misses,
+                               "retries": sc.total_retries,
+                               "failovers": sc.total_failovers,
+                               "hedges": sc.total_hedges}
         return out
 
     # -- fleet-global prefix cache -------------------------------------------
@@ -542,11 +561,22 @@ class FleetWorker:
         """Fetch half: ask the owner's front (a worker or the parent's
         fleet server; both serve /fleet/courier/fetch) to extract and push
         the pages to this worker's own courier endpoint, then claim them
-        by ticket. None = miss. A store-held hint (the KV store tier, step
-        9d) is a miss here."""
+        by ticket. A store-held hint (``KV_STORE_OWNER``) is pulled from
+        the store service: its frames replay through this worker's own
+        receiver. None = miss."""
         ep = (owner_endpoint or "").rstrip("/")
+        if owner == KV_STORE_OWNER:
+            client = self.store_client
+            if client is None or (ep and ep not in client.endpoints):
+                if not ep:
+                    return None
+                client = StoreClient(self.fleet_cfg, endpoint=ep,
+                                     injector=self.injector)
+                if self.store_client is None:
+                    self.store_client = client
+            return client.fetch(hashes, self.receiver)
         me = self.self_endpoint
-        if owner == KV_STORE_OWNER or not ep or not me:
+        if not ep or not me:
             return None
         ticket = f"courier-{uuid.uuid4().hex[:16]}"
         body = {"replica": owner,

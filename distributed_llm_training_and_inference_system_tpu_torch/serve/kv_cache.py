@@ -40,8 +40,8 @@ a note in its metadata), so the fleet's courier can name them
 The fleet helpers: ``slice_page_payload`` / ``concat_page_payloads`` on
 host payloads, ``insert_prefix_pages`` (fetched prefix pages into the
 cache), the prefix inventory, and the demotion queue of evicted pages,
-whose hook stays unset until the fleet's KV store tier is ported (ROADMAP
-queue 1 item 9, step 9d).
+handed in one ``payload_numpy`` extract an allocation to ``demote_hook``
+(the fleet KV store's, serve/fleet/kv_store.py, when a replica has one).
 """
 
 from __future__ import annotations
@@ -236,8 +236,7 @@ class PagedKVCache:
         self.prefix_queries = 0       # full pages looked up
         # the fleet's KV store tier: when set, called with (hashes, host
         # payload) for the cached pages an allocation evicted, batched
-        # into one extract an allocation. None (until the store tier is
-        # ported) changes nothing.
+        # into one extract an allocation. None changes nothing.
         self.demote_hook = None
         self._demote_pending: list[tuple[bytes, int]] = []
 
@@ -410,7 +409,7 @@ class PagedKVCache:
     def _extract_pages_idx(self, pages: np.ndarray) -> dict:
         idx = torch.as_tensor(np.asarray(pages, np.int64),
                               device=self.device)
-        on_card = torch.device(self.device).type == "cuda"
+        on_card = idx.device.type == "cuda"
 
         def grab(t: torch.Tensor) -> torch.Tensor:
             picked = t.index_select(1, idx)          # one gather, on device

@@ -28,10 +28,12 @@ prefix-fetch ledgers, the streaming client's exactly-once readout
 
 ``FrontStreamClient`` and ``run_stream_fronts`` drive an HA front tier
 over HTTP: SSE streams that reconnect to the next front with
-``Last-Event-ID`` when theirs dies, counting gaps and duplicates. The
-scenarios that need the KV store tier or the autoscaler
-(``run_returning``, ``run_scenario``) raise ``NotImplementedError``,
-naming their ROADMAP step (queue 1 item 9, step 9d).
+``Last-Event-ID`` when theirs dies, counting gaps and duplicates.
+``run_returning`` is the fleet KV store's returning-conversation scenario
+(warm turn, pool churn, return turn restored from the store), and
+``run_scenario`` one cell of the autoscaler's scenario matrix (diurnal,
+flash-crowd, phase-shift, returning-churn, long-context) with per-SLO-class
+attainment and the scaling events.
 """
 
 from __future__ import annotations
@@ -44,11 +46,6 @@ from typing import Optional
 import numpy as np
 
 from .scheduler import Request, RequestState, SamplingParams
-
-_NOT_PORTED = ("is not ported to the PyTorch fleet yet: it needs the fleet "
-               "KV store tier or the autoscaler (ROADMAP queue 1 item 9, "
-               "step 9d)")
-
 
 @dataclass
 class LoadResult:
@@ -90,9 +87,17 @@ class LoadResult:
     # streaming client mode: streamed-token identity against the final
     # completion, gaps and duplicates (0 both), delivery-gap percentiles
     stream: dict = field(default_factory=dict)
+    # the returning-conversation scenario (run_returning): warm-turn and
+    # return-turn TTFT, the prefill tokens the return turns spent, their
+    # tokens; and the fleet KV store's counters
+    returning: dict = field(default_factory=dict)
+    kv_store: dict = field(default_factory=dict)
     # pipelined prefill: stage counts, overlap, the long/short split and
     # every request's tokens in submission order
     pipeline: dict = field(default_factory=dict)
+    # the scenario matrix (run_scenario): per-SLO-class attainment, the
+    # autoscaler's events, plan-order tokens
+    scenario: dict = field(default_factory=dict)
 
     def percentile(self, xs, q):
         return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
@@ -135,7 +140,10 @@ class LoadResult:
             **({"prefix_fetch": self.prefix_fetch}
                if self.prefix_fetch else {}),
             **({"stream": self.stream} if self.stream else {}),
+            **({"returning": self.returning} if self.returning else {}),
+            **({"kv_store": self.kv_store} if self.kv_store else {}),
             **({"pipeline": self.pipeline} if self.pipeline else {}),
+            **({"scenario": self.scenario} if self.scenario else {}),
         }
 
 
@@ -355,6 +363,14 @@ def _finalize_fleet(res: LoadResult, reqs: list, fleet,
             "p50_fetch_ms": pct4(window, 50),
             "p99_fetch_ms": pct4(window, 99),
         }
+    # the fleet KV store: demotion, hit and miss counters and the tiers'
+    # occupancy, when eviction or a drain pushed pages down a tier
+    ks = snap.get("kv_store", {})
+    if ks.get("demotions") or ks.get("hits") or ks.get("misses"):
+        res.kv_store = {k: ks.get(k, 0) for k in (
+            "hits", "misses", "demotions", "evictions", "spills",
+            "corrupt", "bytes_served", "bytes_stored",
+            "dram_entries", "disk_entries")}
 
     # pipelined multi-replica prefill: the coordinator's counters plus
     # the interference split — long-prompt TTFT (the pipelining payoff)
@@ -753,14 +769,109 @@ def run_closed_loop(engine, *, concurrency: int, num_requests: int,
     return res
 
 
-def run_returning(*args, **kwargs):
-    """The returning-conversation scenario (the fleet KV store's)."""
-    raise NotImplementedError(f"run_returning {_NOT_PORTED}")
+def run_returning(fleet, *, conversations: int, history_len: int,
+                  tail_len: int = 4, max_tokens: int = 16,
+                  filler_requests: int = 8, filler_len: int = 64,
+                  think_time_s: float = 0.0, seed: int = 0,
+                  vocab_hi: int = 0) -> LoadResult:
+    """Returning-conversation scenario (the tiered fleet KV store's
+    headline): ``conversations`` multi-turn chats each
+    prefill a ``history_len``-token shared history (warm turn), then go
+    quiet for a think-time gap LONGER than their pages' HBM residency —
+    modeled by ``filler_requests`` distinct prompts churning the pool so
+    LRU eviction demotes the histories down a tier — and finally RETURN
+    with the same history and a fresh tail. With the store on, the
+    return turn fetches its history's pages back (store hits) and
+    prefills only the tail; with it off, the whole history re-prefills.
 
+    ``LoadResult.returning`` carries the warm-vs-return TTFT split, the
+    prefill tokens the return turns actually spent, and the returning
+    token lists (a store-on/store-off A/B must be token-identical —
+    degrade never changes output). Closed-loop per turn; fleet targets
+    only."""
+    rng = np.random.default_rng(seed)
+    hi = vocab_hi or fleet.model_cfg.vocab_size
+    histories = [
+        [int(t) for t in rng.integers(1, hi, size=history_len)]
+        for _ in range(conversations)]
+    reqs: list[Request] = []
+    res = LoadResult(offered_rps=float("inf"))
+    supervised = fleet.supervisor._thread is not None
+    t0 = time.monotonic()
 
-def run_scenario(*args, **kwargs):
-    """The autoscaler's scenario matrix."""
-    raise NotImplementedError(f"run_scenario {_NOT_PORTED}")
+    def turn(prompts) -> list[Request]:
+        events: list = []
+        batch: list[Request] = []
+        for p in prompts:
+            _submit_fleet(fleet, p, max_tokens, batch, events, res)
+        while not all(e.is_set() for e in events):
+            res.queue_peak = max(res.queue_peak,
+                                 fleet.router.pending_total())
+            if not supervised:
+                fleet.supervisor.poll_once()
+            time.sleep(0.005)
+        reqs.extend(batch)
+        return batch
+
+    def engines():
+        return [rep.engine for rep in fleet.replicas
+                if getattr(rep, "engine", None) is not None]
+
+    def prefill_total() -> int:
+        return sum(e.total_prefill_tokens for e in engines())
+
+    warm = turn([h + [int(t) for t in rng.integers(1, hi, size=tail_len)]
+                 for h in histories])
+    # the think-time gap: other tenants' traffic outlives this
+    # conversation's HBM residency
+    deadline = time.monotonic() + max(think_time_s, 0.0)
+    while time.monotonic() < deadline:
+        if not supervised:
+            fleet.supervisor.poll_once()
+        time.sleep(0.005)
+    if filler_requests > 0:
+        turn([[int(t) for t in rng.integers(1, hi, size=filler_len)]
+              for _ in range(filler_requests)])
+    # eviction demotions encode on the store's background worker; the
+    # think-time gap is exactly when that drains in production — make
+    # it deterministic here
+    store = getattr(fleet, "kv_store", None)
+    if store is not None:
+        store.flush_pending()
+    fetched0 = sum(getattr(e, "total_prefix_fetched_tokens", 0)
+                   for e in engines())
+    spent0 = prefill_total()
+    # returns are SEQUENTIAL: real conversations come back after
+    # independent think times, not as a thundering herd — and per-
+    # request TTFT is the honest store-hit-vs-recompute readout only
+    # without co-batching artifacts
+    ret = []
+    for h in histories:
+        ret.extend(turn([h + [int(t) for t in
+                              rng.integers(1, hi, size=tail_len)]]))
+    ret_spent = prefill_total() - spent0
+    ret_fetched = sum(getattr(e, "total_prefix_fetched_tokens", 0)
+                      for e in engines()) - fetched0
+
+    def pct(xs, q):
+        return (round(float(np.percentile(np.asarray(xs), q)), 2)
+                if xs else None)
+
+    warm_ttft = [r.ttft_ms for r in warm if r.ttft_ms is not None]
+    ret_ttft = [r.ttft_ms for r in ret if r.ttft_ms is not None]
+    out = _finalize_fleet(res, reqs, fleet, t0)
+    out.returning = {
+        "conversations": conversations,
+        "history_len": history_len,
+        "warm_p50_ttft_ms": pct(warm_ttft, 50),
+        "warm_p99_ttft_ms": pct(warm_ttft, 99),
+        "return_p50_ttft_ms": pct(ret_ttft, 50),
+        "return_p99_ttft_ms": pct(ret_ttft, 99),
+        "return_prefill_tokens": int(ret_spent),
+        "return_fetched_tokens": int(ret_fetched),
+        "token_lists": [list(r.generated_tokens) for r in ret],
+    }
+    return out
 
 
 class FrontStreamClient:
@@ -968,5 +1079,329 @@ def run_stream_fronts(fronts, *, num_requests: int, prompt_len: int,
         "token_lists": [r["tokens"] if r else None for r in results],
         "ttft_ms": [r["ttft_ms"] if r else None for r in results],
         "tpot_ms": [r["tpot_ms"] if r else None for r in results],
+    }
+    return res
+
+
+#: The scenario matrix ``bench e2e --serve-scenario`` sweeps. Each shapes
+#: the OFFERED load (arrival rate and/or request geometry) over the run
+#: window; the fleet's reaction — scale-ups, drain-retires, preemptions —
+#: is the thing under test, so every plan is drawn up front from the run
+#: seed and is byte-identical across an autoscale-on/off A/B.
+SCENARIOS = ("diurnal", "flash-crowd", "phase-shift",
+             "returning-churn", "long-context")
+
+#: SLO class mix for scenario traffic (seeded per-request draw).
+CLASS_MIX = (("interactive", 0.30), ("standard", 0.45),
+             ("best-effort", 0.25))
+
+#: Default attainment targets. best-effort has NO latency target — its
+#: contract is "eventually, correctly" (it absorbs shedding and
+#: preemption so the paying classes hold theirs).
+DEFAULT_TTFT_TARGETS_MS = {"interactive": 2000.0, "standard": 6000.0,
+                           "best-effort": float("inf")}
+DEFAULT_TPOT_TARGETS_MS = {"interactive": 400.0, "standard": 800.0,
+                           "best-effort": float("inf")}
+
+
+def _scenario_plan(scenario: str, rng, *, duration_s: float,
+                   base_rps: float, peak_rps: float, prompt_len: int,
+                   max_tokens: int, hi: int, long_prompt_len: int,
+                   class_mix) -> list:
+    """Draw the full offered-load plan up front: a list of
+    ``{"t", "cls", "prompt", "max_tokens"}`` entries, arrival times from
+    an inhomogeneous Poisson process (rate follows the scenario's
+    curve), class and prompt from the same seeded stream. Deterministic
+    given (scenario, seed): the A/B invariant."""
+    def rate(t: float) -> float:
+        f = t / max(duration_s, 1e-9)
+        if scenario == "diurnal":
+            # one full day-cycle: trough at the edges, peak mid-window
+            return base_rps + (peak_rps - base_rps) * 0.5 * (
+                1.0 - float(np.cos(2.0 * np.pi * f)))
+        if scenario == "flash-crowd":
+            return peak_rps if 0.35 <= f < 0.60 else base_rps
+        if scenario == "phase-shift":
+            # steady arrivals near the burst peak: the stress is the
+            # composition flip (prefill-heavy -> decode-heavy) under
+            # a rate that overloads the fleet in aggregate but leaves
+            # room for the interactive class alone — at trough rate
+            # the flip is invisible
+            return max(base_rps, 0.9 * peak_rps)
+        return base_rps
+
+    cum = []
+    acc = 0.0
+    for cls, w in class_mix:
+        acc += w
+        cum.append((acc, cls))
+    total_w = acc
+
+    # flash crowds hit ONE piece of content: burst prompts share a hot
+    # head so admission affinity + the prefix planes see the real shape
+    hot = [int(t) for t in rng.integers(1, hi, size=max(prompt_len // 2,
+                                                        1))]
+    plan = []
+    t = 0.0
+    while len(plan) < 4096:
+        t += float(rng.exponential(1.0 / max(rate(t), 1e-6)))
+        if t >= duration_s:
+            break
+        u = float(rng.random()) * total_w
+        cls = next(c for edge, c in cum if u <= edge)
+        f = t / max(duration_s, 1e-9)
+        p_len, m_tok, head = prompt_len, max_tokens, []
+        if scenario == "flash-crowd" and 0.35 <= f < 0.60:
+            head = hot
+        elif scenario == "phase-shift":
+            # prefill-heavy half (long prompts, terse outputs) then a
+            # decode-heavy half (short prompts, full generations —
+            # the batch classes' 3x multiplier below is what makes it
+            # decode-bound)
+            if f < 0.5:
+                p_len, m_tok = prompt_len * 3, max(max_tokens // 4, 4)
+            else:
+                p_len, m_tok = max(prompt_len // 2, 8), max_tokens
+        elif scenario == "long-context" and len(plan) % 6 == 5:
+            p_len = max(long_prompt_len, prompt_len)
+        # SLO classes differ in shape, not just contract: interactive
+        # turns are chat-sized while standard/best-effort carry the
+        # long batch generations — exactly the traffic a class-blind
+        # FCFS queue makes interactive wait behind under overload
+        if cls != "interactive":
+            m_tok *= 2
+        elif scenario == "phase-shift" and f >= 0.5:
+            # interactive chat turns stay short even in the
+            # decode-heavy phase — the batch classes are what flip
+            # the workload
+            m_tok = max(m_tok // 2, 8)
+        tail = rng.integers(1, hi, size=max(p_len - len(head), 1))
+        plan.append({"t": t, "cls": cls,
+                     "prompt": head + [int(x) for x in tail],
+                     "max_tokens": int(m_tok)})
+    return plan
+
+
+def _scenario_scaling(fleet, timeline, replicas_peak: int) -> dict:
+    """The scaling half of the scenario readout: autoscaler counters +
+    the event log (relative timestamps — reset at run start) + the
+    sampled replica-count timeline."""
+    au = fleet.supervisor.snapshot().get("autoscale", {})
+    return {
+        "enabled": bool(au.get("enabled")),
+        "replicas_start": timeline[0][1] if timeline else
+        len(fleet.replicas),
+        "replicas_peak": replicas_peak,
+        "replicas_final": len(fleet.replicas),
+        "replica_timeline": timeline,
+        "scale_ups": au.get("scale_ups", 0),
+        "scale_downs": au.get("scale_downs", 0),
+        "spawn_failures": au.get("spawn_failures", 0),
+        "retire_rollbacks": au.get("retire_rollbacks", 0),
+        "preemptions": au.get("preemptions", 0),
+        "events": au.get("events", []),
+    }
+
+
+def run_scenario(fleet, *, scenario: str, duration_s: float = 8.0,
+                 base_rps: float = 4.0, peak_rps: float = 16.0,
+                 prompt_len: int = 24, max_tokens: int = 12,
+                 long_prompt_len: int = 192, seed: int = 0,
+                 vocab_hi: int = 0, max_retries: int = 0,
+                 ttft_targets_ms: Optional[dict] = None,
+                 tpot_targets_ms: Optional[dict] = None,
+                 class_mix=CLASS_MIX) -> LoadResult:
+    """One cell of the scenario matrix (fleet targets only).
+
+    Offered load follows the scenario's curve with a seeded SLO-class
+    mix; the result's ``scenario`` block reports, per class: admission
+    ledger (submitted/shed/retried), TTFT/TPOT percentiles, attainment
+    against the class targets, and ``slo_goodput_tok_s`` — tokens from
+    requests that MET their targets, the honest "goodput under SLO"
+    figure — plus the autoscaler's scaling events on the run timeline
+    and plan-order ``token_lists`` for the on/off identity assertion.
+
+    ``returning-churn`` delegates the drive loop to :func:`run_returning`
+    (the store churn scenario) and attaches the scaling readout."""
+    from .fleet.router import FleetSaturated
+
+    if scenario not in SCENARIOS:
+        raise ValueError(f"unknown scenario {scenario!r}; "
+                         f"choose from {SCENARIOS}")
+    ttft_targets = dict(DEFAULT_TTFT_TARGETS_MS)
+    ttft_targets.update(ttft_targets_ms or {})
+    tpot_targets = dict(DEFAULT_TPOT_TARGETS_MS)
+    tpot_targets.update(tpot_targets_ms or {})
+    autoscaler = getattr(fleet, "autoscaler", None)
+    if autoscaler is not None:
+        # zero the event clock so event timestamps line up with t0
+        autoscaler.reset_counters()
+
+    if scenario == "returning-churn":
+        n0 = len(fleet.replicas)
+        out = run_returning(
+            fleet, conversations=max(int(base_rps), 2),
+            history_len=max(prompt_len * 4, 32), tail_len=4,
+            max_tokens=max_tokens,
+            filler_requests=max(int(peak_rps), 4),
+            filler_len=prompt_len * 2, seed=seed, vocab_hi=vocab_hi)
+        ret = out.returning
+        out.scenario = {
+            "scenario": scenario,
+            "duration_s": round(out.duration_s, 2),
+            "classes": {"standard": {
+                "submitted": out.completed + out.failed,
+                "completed": out.completed, "rejected": out.rejected,
+                "p50_ttft_ms": ret.get("return_p50_ttft_ms"),
+                "p99_ttft_ms": ret.get("return_p99_ttft_ms"),
+            }},
+            "scaling": _scenario_scaling(
+                fleet, [(0.0, n0)], max(n0, len(fleet.replicas))),
+            "token_lists": ret.get("token_lists", []),
+        }
+        return out
+
+    rng = np.random.default_rng(seed)
+    hi = vocab_hi or fleet.model_cfg.vocab_size
+    plan = _scenario_plan(
+        scenario, rng, duration_s=duration_s, base_rps=base_rps,
+        peak_rps=peak_rps, prompt_len=prompt_len, max_tokens=max_tokens,
+        hi=hi, long_prompt_len=long_prompt_len, class_mix=class_mix)
+    reqs: list[Request] = []
+    events: list = []
+    retryq: list = []                    # (due_time, plan_idx, tries)
+    idx_of: dict[str, int] = {}          # request_id -> plan index
+    ledger = {cls: {"submitted": 0, "rejected": 0, "retries": 0}
+              for cls, _w in class_mix}
+    res = LoadResult(offered_rps=base_rps)
+    supervised = fleet.supervisor._thread is not None
+    n = len(fleet.replicas)
+    timeline = [(0.0, n)]
+    replicas_peak = n
+    t0 = time.monotonic()
+
+    def _try_submit(i: int, tries: int) -> None:
+        entry = plan[i]
+        led = ledger[entry["cls"]]
+        ev = _threading.Event()
+        try:
+            req = fleet.submit(
+                entry["prompt"],
+                SamplingParams(temperature=0.0,
+                               max_tokens=entry["max_tokens"]),
+                on_complete=lambda _r, ev=ev: ev.set(),
+                priority=entry["cls"])
+        except FleetSaturated as e:
+            if tries < max_retries:
+                led["retries"] += 1
+                res.retries += 1
+                retryq.append((time.monotonic() + e.retry_after_s, i,
+                               tries + 1))
+            else:
+                led["rejected"] += 1
+                res.rejected += 1
+                res.failed += 1
+            return
+        led["submitted"] += 1
+        idx_of[req.request_id] = i
+        reqs.append(req)
+        events.append(ev)
+
+    i = 0
+    while i < len(plan) or retryq or not all(e.is_set() for e in events):
+        now = time.monotonic() - t0
+        while i < len(plan) and plan[i]["t"] <= now:
+            _try_submit(i, 0)
+            i += 1
+        nowm = time.monotonic()
+        for x in sorted([x for x in retryq if x[0] <= nowm]):
+            retryq.remove(x)
+            _try_submit(x[1], x[2])
+        res.queue_peak = max(res.queue_peak, fleet.router.pending_total())
+        n = len(fleet.replicas)
+        if n != timeline[-1][1]:
+            timeline.append((round(time.monotonic() - t0, 2), n))
+        replicas_peak = max(replicas_peak, n)
+        if not supervised:
+            fleet.supervisor.poll_once()
+        time.sleep(0.005)
+
+    res = _finalize_fleet(res, reqs, fleet, t0)
+
+    # per-class attainment: did each finished request hold its class's
+    # TTFT/TPOT targets? slo_goodput counts only the tokens of requests
+    # that met BOTH — the figure the A/B headline compares.
+    by_cls: dict[str, dict] = {}
+    token_lists: list = [None] * len(plan)
+    for r in reqs:
+        cls = getattr(r, "priority", "standard")
+        slot = by_cls.setdefault(cls, {
+            "completed": 0, "failed": 0, "tokens": 0, "slo_tokens": 0,
+            "ttft": [], "tpot": [], "met": 0})
+        if r.state is not RequestState.FINISHED:
+            slot["failed"] += 1
+            continue
+        slot["completed"] += 1
+        ntok = len(r.generated_tokens)
+        slot["tokens"] += ntok
+        idx = idx_of.get(r.request_id)
+        if idx is not None:
+            token_lists[idx] = [int(t) for t in r.generated_tokens]
+        tpot = None
+        if ntok > 1 and r.finish_time is not None \
+                and r.first_token_time is not None:
+            tpot = (r.finish_time - r.first_token_time) * 1000.0 \
+                / (ntok - 1)
+            slot["tpot"].append(tpot)
+        if r.ttft_ms is not None:
+            slot["ttft"].append(r.ttft_ms)
+        met = (r.ttft_ms is not None
+               and r.ttft_ms <= ttft_targets.get(cls, float("inf"))
+               and (tpot is None
+                    or tpot <= tpot_targets.get(cls, float("inf"))))
+        if met:
+            slot["met"] += 1
+            slot["slo_tokens"] += ntok
+
+    def pct(xs, q):
+        return round(res.percentile(xs, q), 2) if xs else None
+
+    dur = max(res.duration_s, 1e-9)
+    classes = {}
+    for cls, _w in class_mix:
+        led = ledger[cls]
+        slot = by_cls.get(cls, {})
+        if not (led["submitted"] or led["rejected"]):
+            continue
+        tt = ttft_targets.get(cls, float("inf"))
+        tp = tpot_targets.get(cls, float("inf"))
+        done = slot.get("completed", 0)
+        classes[cls] = {
+            "submitted": led["submitted"],
+            "rejected": led["rejected"],
+            "retries": led["retries"],
+            "completed": done,
+            "failed": slot.get("failed", 0),
+            "p50_ttft_ms": pct(slot.get("ttft", []), 50),
+            "p99_ttft_ms": pct(slot.get("ttft", []), 99),
+            "p50_tpot_ms": pct(slot.get("tpot", []), 50),
+            "p99_tpot_ms": pct(slot.get("tpot", []), 99),
+            "ttft_target_ms": tt if np.isfinite(tt) else None,
+            "tpot_target_ms": tp if np.isfinite(tp) else None,
+            "attainment": (round(slot.get("met", 0) / done, 3)
+                           if done else None),
+            "goodput_tok_s": round(slot.get("tokens", 0) / dur, 1),
+            "slo_goodput_tok_s": round(slot.get("slo_tokens", 0) / dur,
+                                       1),
+        }
+
+    res.scenario = {
+        "scenario": scenario,
+        "duration_s": round(res.duration_s, 2),
+        "offered": {"base_rps": base_rps, "peak_rps": peak_rps,
+                    "planned_requests": len(plan)},
+        "classes": classes,
+        "scaling": _scenario_scaling(fleet, timeline, replicas_peak),
+        "token_lists": token_lists,
     }
     return res

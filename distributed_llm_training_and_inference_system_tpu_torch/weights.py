@@ -95,12 +95,15 @@ def _has(tree, path) -> bool:
 def _host(a) -> torch.Tensor:
     """A host tensor of a leaf: a torch tensor as it is, any other array
     through numpy (JAX's bfloat16, a numpy type torch cannot read, through
-    fp32, exactly)."""
+    fp32, exactly; a ``BF16_HOST`` uint16 array as the bf16 it holds)."""
     if isinstance(a, torch.Tensor):
         return a.detach()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    if (a.dtype.metadata or {}).get("dtype") == "bfloat16":
+        # kv_cache.BF16_HOST: bf16 bits held as uint16 (no ml_dtypes)
+        return torch.from_numpy(np.array(a, np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(np.array(a))
 
 

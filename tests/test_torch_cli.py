@@ -20,12 +20,12 @@
   and counts it; multi-host and the cluster launchers raise (item 7).
 - Serving and health: ``build_server`` answers ``/v1/completions``,
   ``/health``, ``/v1/stats`` and ``/metrics``; ``--replicas 2`` and the
-  ``--fleet-*`` options build the fleet front, whose KV store options wait
-  for item 9 step 9d; ``health check --json`` gives JAX's keys;
+  ``--fleet-*`` options build the fleet front, the KV store's included;
+  ``health check --json`` gives JAX's keys;
   ``hw probe --emit`` writes a TOML that ``load_config_file`` reads.
 - Entry points raise without a card unless given ``--device cpu``; the
-  unported commands (and ``fleet store``) exit 2 naming their ROADMAP
-  item; ``python -m
+  unported commands exit 2 naming their ROADMAP item, and ``fleet
+  store`` (once among them) answers ``/health``; ``python -m
   ...cli --help`` runs with jax, the JAX package, click, rich, psutil,
   prometheus_client, aiohttp, opentelemetry and ml_dtypes blocked.
 """
@@ -474,14 +474,13 @@ def test_build_server_answers_every_route():
 
 @pytest.mark.parametrize("extra,item", [
     (["--replicas", "2"], "served"),
-    (["--fleet-kv-store"], "item 9, step 9d"),
+    (["--replicas", "2", "--fleet-kv-store"], "served"),
     (["--replicas", "2", "--fleet-max-pending", "64"], "served"),
     (["--tensor-parallel", "2"], "item 7"),
 ], ids=["extra0-item 9", "extra1-item 9", "extra2-item 9", "extra3-item 7"])
 def test_serve_refuses_what_waits_for_a_roadmap_item(extra, item):
-    """``--replicas > 1`` and the fleet options build the fleet front; the
-    fleet KV store's options wait for step 9d, tensor parallelism for
-    item 7."""
+    """``--replicas > 1`` and the fleet options build the fleet front, the
+    fleet KV store's included; tensor parallelism waits for item 7."""
     if item != "served":
         with pytest.raises(NotImplementedError, match=item):
             tserve.build_server(tmain.parse(SERVE_ARGS + extra))
@@ -494,6 +493,8 @@ def test_serve_refuses_what_waits_for_a_roadmap_item(extra, item):
         assert len(srv.fleet.replicas) == 2
         assert srv.fleet.fleet_cfg.max_pending == (
             64 if "--fleet-max-pending" in extra else 512)
+        assert (srv.fleet.kv_store is not None) == (
+            "--fleet-kv-store" in extra)
     finally:
         srv.fleet.shutdown()
 
@@ -550,14 +551,32 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(argv):
             tmain.main(argv)
 
 
-# the unported commands, and the unported subcommand of a ported one
+# the unported commands, and the unported subcommand of a ported one;
+# `fleet store`, refused until the store tier was ported, now serves
 UNPORTED = {**{cmd: [cmd, "anything"] for cmd in tmain.NOT_PORTED},
             "admin": ["admin", "lint"], "bench": ["bench", "comms"],
             "tune": ["tune", "comms"], "fleet": ["fleet", "store"]}
 
 
 @pytest.mark.parametrize("cmd", sorted(UNPORTED))
-def test_unported_commands_exit_naming_their_item(cmd, capsys):
+def test_unported_commands_exit_naming_their_item(cmd, capsys, tmp_path):
+    if cmd == "fleet":
+        # `python -m ...cli --device cpu fleet store` answers /health and
+        # stops at SIGTERM with exit code 0
+        import sys
+        import time
+
+        from torch_fleet_harness import Proc
+        p = Proc([sys.executable, "-m", PORT_CLI, "--device", "cpu"]
+                 + UNPORTED[cmd] + ["--port", "0"], tmp_path / "store.log",
+                 "LLMCTL_STORE_READY")
+        try:
+            p.wait_ready(time.monotonic() + 60)
+            status, body = _get(f"{p.endpoint}/health")
+            assert status == 200 and json.loads(body)["epoch"] == 0
+        finally:
+            assert p.stop() == 0
+        return
     assert tmain.main(UNPORTED[cmd]) == 2
     err = capsys.readouterr().err
     assert "not ported" in err and "ROADMAP queue 1 item" in err

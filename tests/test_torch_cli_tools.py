@@ -20,9 +20,10 @@ on the CPU at gpt-test size (``--device cpu``).
 - ``training.profile=True`` writes a Chrome trace on the CPU; ``trace
   capture`` writes one and ``trace summarize`` lists it.
 - ``bench kv-decode``'s courier wire-codec section gives JAX's bytes.
-- ``bench comms``, ``tune comms|sp|full``, ``admin lint`` and the
-  returning and scenario options of ``bench e2e`` exit 2 naming their
-  ROADMAP item; its other fleet options run a two-replica fleet.
+- ``bench comms``, ``tune comms|sp|full`` and ``admin lint`` exit 2
+  naming their ROADMAP item; the fleet options of ``bench e2e`` run a
+  two-replica fleet, the returning-conversation A/B and a scenario cell
+  included.
 """
 
 import contextlib
@@ -508,9 +509,13 @@ _WAITS = [
     (["bench", "e2e", "--serve-courier-chaos", "0.1"] + _TWO, "served"),
     (["bench", "e2e", "--serve-courier-codec", "zlib"] + _TWO, "served"),
     (["bench", "e2e", "--serve-courier-zlib-level", "1"] + _TWO, "served"),
-    (["bench", "e2e", "--serve-returning", "2"], "item 9, step 9d"),
+    (["bench", "e2e", "--serve-returning", "2",
+      "--serve-returning-history", "48", "--slots", "2"] + _TWO, "served"),
     (["bench", "e2e", "--serve-long-prompts", "1"] + _TWO, "served"),
-    (["bench", "e2e", "--serve-scenario", "diurnal"], "item 9, step 9d"),
+    (["bench", "e2e", "--serve-scenario", "diurnal",
+      "--serve-scenario-duration", "0.5", "--serve-scenario-base-rps", "4",
+      "--serve-scenario-peak-rps", "8", "--serve-ttft-target-ms", "500"]
+     + _TWO, "served"),
     (["bench", "e2e", "--serve-stream"] + _TWO, "served"),
     (["bench", "e2e", "--serve-max-retries", "2"] + _TWO, "served"),
 ]
@@ -521,9 +526,10 @@ _WAITS = [
     ids=[f"argv{i}-item {7 if i < 4 else 9}" for i in range(len(_WAITS))])
 def test_what_waits_for_an_item_exits_2(argv, item, capsys):
     """What waits for a ROADMAP item exits 2 naming it; the fleet options
-    of ``bench e2e`` that need no store are served: the sweep runs a
-    two-replica fleet (and, with ``--serve-long-prompts``, the pipelined
-    prefill A/B)."""
+    of ``bench e2e`` are served: the sweep runs a two-replica fleet (and,
+    with ``--serve-long-prompts``, the pipelined prefill A/B; with
+    ``--serve-returning``, the store-on/off A/B; with ``--serve-scenario``,
+    the autoscale-on/off cell), the arms' tokens equal."""
     if item != "served":
         assert tmain.main(["--device", "cpu"] + argv) == 2
         err = capsys.readouterr().err
@@ -538,6 +544,17 @@ def test_what_waits_for_an_item_exits_2(argv, item, capsys):
     if "--serve-long-prompts" in argv:
         assert load["pipeline"]["token_identical"]
         assert load["pipeline"]["chaos_token_identical"]
+    if "--serve-returning" in argv:
+        ab = load["returning"]
+        assert ab["token_identical"]
+        on, off = (ab[a]["returning"] for a in ("store_on", "store_off"))
+        assert on["conversations"] == off["conversations"] == 2
+        assert on["return_prefill_tokens"] < off["return_prefill_tokens"]
+        assert ab["store_on"]["kv_store"]["hits"] > 0
+    if "--serve-scenario" in argv:
+        cell = load["scenario_matrix"]["diurnal"]
+        assert cell["token_identical"] and cell["common_completed"] > 0
+        assert cell["autoscale_on"]["scenario"]["scaling"]["enabled"]
 
 
 def _spec(tmp_path, items) -> Path:

@@ -9,8 +9,10 @@ the JAX package's ``llmctl`` (CPU, gpt-test).
   --json`` prints the snapshot with JAX's keys, ``fleet status`` a table,
   and ``drain``, ``undrain``, ``role`` and ``migrate`` reach the front.
 - ``fleet store``, ``fleet ship-weights``, the worker's store options and
-  ``serve start``'s KV store and autoscaler options exit 2 naming ROADMAP
-  queue 1 item 9, step 9d.
+  ``serve start``'s KV store and autoscaler options run: a spawned store
+  answers ``/health`` and stops at SIGTERM, a checkpoint ships to an
+  in-process store and a worker's parts boot it back, and ``serve start``
+  builds a fleet with its store client or its autoscaler.
 """
 
 import contextlib
@@ -123,21 +125,116 @@ def test_serve_start_replicas_and_the_fleet_verbs(params):
         srv.stop()
 
 
-@pytest.mark.parametrize("argv", [
-    ["fleet", "store"],
-    ["fleet", "ship-weights", "--store-endpoint", "http://127.0.0.1:9"],
-    ["fleet", "worker", "--model", "gpt-test", "--store-endpoint",
-     "http://127.0.0.1:9"],
-    ["fleet", "worker", "--model", "gpt-test", "--store-endpoints",
-     "http://127.0.0.1:9"],
-    ["fleet", "worker", "--model", "gpt-test", "--weights-from-store"],
-    ["serve", "start", "--model", "gpt-test", "--replicas", "2",
-     "--fleet-autoscale"],
-    ["serve", "start", "--model", "gpt-test", "--replicas", "2",
-     "--fleet-kv-store-endpoint", "http://127.0.0.1:9"],
-], ids=["store", "ship-weights", "worker-store", "worker-stores",
-        "worker-weights", "serve-autoscale", "serve-store-endpoint"])
-def test_the_store_tier_exits_2_naming_9d(argv, capsys):
-    assert tmain.main(["--device", "cpu"] + argv) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP queue 1 item 9, step 9d" in err
+STORE_CASES = {
+    "store": ["fleet", "store", "--port", "0", "--dram-mb", "8"],
+    "ship-weights": ["fleet", "ship-weights", "--model", "gpt-test",
+                     "--param-seed", "0", "--name", "gpt-test"],
+    "worker-store": ["fleet", "worker", "--model", "gpt-test",
+                     "--store-endpoint"],
+    "worker-stores": ["fleet", "worker", "--model", "gpt-test",
+                      "--store-endpoints"],
+    "worker-weights": ["fleet", "worker", "--model", "gpt-test",
+                       "--weights-from-store", "--weights-name", "gpt-test",
+                       "--store-endpoint"],
+    "serve-autoscale": ["serve", "start", "--model", "gpt-test",
+                        "--replicas", "2", "--fleet-autoscale",
+                        "--fleet-autoscale-max-replicas", "2",
+                        "--port", "0", "--kv-hbm-gb", "0.01"],
+    "serve-store-endpoint": ["serve", "start", "--model", "gpt-test",
+                             "--replicas", "2", "--port", "0",
+                             "--kv-hbm-gb", "0.01",
+                             "--fleet-kv-store-endpoint"],
+}
+
+
+@pytest.fixture()
+def store_endpoint():
+    """The port's StoreService on a stdlib HTTP thread."""
+    from distributed_llm_training_and_inference_system_tpu_torch.config.schema import (  # noqa: E501
+        FleetConfig)
+    from distributed_llm_training_and_inference_system_tpu_torch.serve.fleet.store_service import (  # noqa: E501
+        StoreService)
+    svc = StoreService(FleetConfig(kv_store=True, courier_chunk_bytes=4096))
+    port = svc.serve_http("127.0.0.1", 0)
+    yield svc, f"http://127.0.0.1:{port}"
+    svc.stop()
+
+
+def _spawned_store_answers_health() -> None:
+    """``python -m ...cli --device cpu fleet store`` prints its ready line,
+    answers ``/health`` and exits 0 at SIGTERM."""
+    import sys
+    import tempfile
+    import time
+
+    from torch_fleet_harness import PORT_CLI, Proc
+    with tempfile.TemporaryDirectory() as tmp:
+        p = Proc([sys.executable, "-m", PORT_CLI, "--device", "cpu"]
+                 + STORE_CASES["store"], f"{tmp}/store.log",
+                 "LLMCTL_STORE_READY")
+        try:
+            p.wait_ready(time.monotonic() + 60)
+            with urllib.request.urlopen(f"{p.endpoint}/health",
+                                        timeout=10) as r:
+                assert r.status == 200
+                assert json.loads(r.read())["status"] == "healthy"
+        finally:
+            assert p.stop() == 0
+
+
+@pytest.mark.parametrize("case", list(STORE_CASES))
+def test_the_store_tier_exits_2_naming_9d(case, store_endpoint, capsys):
+    """Each surface of the store tier (once refused, exiting 2) runs."""
+    from distributed_llm_training_and_inference_system_tpu_torch.cli.commands import (  # noqa: E501
+        fleet as tfleet)
+    from distributed_llm_training_and_inference_system_tpu_torch.serve.fleet import (  # noqa: E501
+        FleetAutoscaler, StoreClient)
+    from distributed_llm_training_and_inference_system_tpu_torch.serve.fleet.worker import (  # noqa: E501
+        params_checksum)
+    svc, ep = store_endpoint
+    argv = ["--device", "cpu"] + STORE_CASES[case]
+    if case == "store":
+        _spawned_store_answers_health()
+        return
+    if case == "ship-weights":
+        assert tmain.main(argv[:4] + ["--store-endpoint", ep]
+                          + argv[4:]) == 0
+        assert "weights 'gpt-test' registered on 1 member(s)" \
+            in capsys.readouterr().out
+        assert svc.weights.status("gpt-test")["complete"]
+        return
+    if case.startswith("worker"):
+        if case == "worker-weights":
+            assert tmain.main(["--device", "cpu", "fleet", "ship-weights",
+                               "--store-endpoint", ep, "--model",
+                               "gpt-test", "--param-seed", "0"]) == 0
+        args = tmain.parse(argv + [ep])
+        _m, _s, fleet_cfg, params = tfleet.worker_parts(
+            args, torch_device("cpu"))
+        assert fleet_cfg.kv_store_endpoint_list() == [ep]
+        assert fleet_cfg.prefix_fetch
+        if case == "worker-weights":
+            want = tfleet.seeded_params(_m, 0, torch_device("cpu"),
+                                        "float32")
+            assert params_checksum(params) == params_checksum(want)
+        else:
+            assert params is None
+        return
+    if case == "serve-store-endpoint":
+        argv = argv + [ep]
+    srv = tserve.build_server(tmain.parse(argv))
+    try:
+        if case == "serve-autoscale":
+            assert isinstance(srv.fleet.autoscaler, FleetAutoscaler)
+            assert srv.fleet.autoscaler.ceiling() == 2
+        else:
+            assert isinstance(srv.fleet.kv_store, StoreClient)
+            assert srv.fleet.kv_store.endpoints == [ep]
+            assert srv.fleet.status()["kv_store"]["reachable"]
+    finally:
+        srv.fleet.shutdown()
+
+
+def torch_device(name: str):
+    import torch
+    return torch.device(name)

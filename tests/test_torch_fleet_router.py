@@ -15,8 +15,9 @@ reports, against the JAX package's.
   a subprocess: prometheus_client's registry is process-wide).
 - Loadgen's fleet ``run_poisson`` and ``run_closed_loop`` offer JAX's
   requests and report JAX's keys, per-replica breakdown and counts.
-- The options of step 9c build their fleet; every option of step 9d
-  raises, naming the step.
+- The options of steps 9c and 9d build their fleet: remote replicas, the
+  HTTP courier and the fronts' file store; the autoscaler, the in-process
+  KV store and the store service's client.
 - The kernels' launch counters lose no increment under threads.
 """
 
@@ -111,7 +112,7 @@ def test_fleet_config_equals_jax_field_for_field():
         == jschema.parse_fleet_endpoints("0=http://x:1,store=http://y:2")
 
 
-# -- the options of step 9c are served; those of 9d raise -------------------
+# -- the options of steps 9c and 9d are served -------------------------------
 
 _EP = {0: "http://127.0.0.1:1", 1: "http://127.0.0.1:2"}
 
@@ -130,26 +131,40 @@ _EP = {0: "http://127.0.0.1:1", 1: "http://127.0.0.1:2"}
         "autoscale", "kv-store", "store-service"])
 def test_options_of_later_steps_raise_naming_the_step(over, step, tmp_path):
     """The options of step 9c build their fleet (remote replicas behind
-    RemoteReplica, the HTTP courier, the fronts' file store); those of
-    9d raise naming it."""
+    RemoteReplica, the HTTP courier, the fronts' file store), and so do
+    those of 9d (the autoscaler with its warm spare, the in-process KV
+    store wired into the router, courier and replicas, the store service's
+    client with the weight courier)."""
     from distributed_llm_training_and_inference_system_tpu_torch.config import (  # noqa: E501
         ServeConfig, get_model_config)
     from distributed_llm_training_and_inference_system_tpu_torch.serve.fleet import (  # noqa: E501
-        RemoteReplica, SharedFileStateStore)
+        FleetAutoscaler, FleetKVStore, RemoteReplica, SharedFileStateStore,
+        StoreClient, WeightCourier)
     if over.get("state_store_dir"):
         over = dict(over, state_store_dir=str(tmp_path))
     fc = tschema.FleetConfig(replicas=2, **over)
-
-    def build():
-        return ServeFleet(get_model_config("gpt-test"), ServeConfig(**SERVE),
-                          fc, device="cpu", supervise=False)
-    if step == "9d":
-        with pytest.raises(NotImplementedError,
-                           match=f"queue 1 item 9, step {step}"):
-            build()
-        return
-    fleet = build()
+    fleet = ServeFleet(get_model_config("gpt-test"), ServeConfig(**SERVE),
+                       fc, device="cpu", supervise=False)
     try:
+        store = fleet.kv_store
+        assert fleet.router.kv_store is store is fleet.courier.kv_store
+        local = [r for r in fleet.replicas if not getattr(r, "remote", False)]
+        assert all(r.kv_store is store for r in local)
+        if over.get("kv_store"):
+            assert isinstance(store, FleetKVStore)
+        if over.get("kv_store_endpoint"):
+            assert isinstance(store, StoreClient)
+            assert store.endpoints == [_EP[0]]
+            assert isinstance(fleet.weight_courier, WeightCourier)
+        else:
+            assert fleet.weight_courier is None
+        if over.get("autoscale"):
+            assert isinstance(fleet.autoscaler, FleetAutoscaler)
+            assert fleet.supervisor.autoscaler is fleet.autoscaler
+            assert fleet.wait_warm_spares(60.0)
+            assert [s.replica_id for s in fleet._spares] == [2]
+        else:
+            assert fleet.autoscaler is None
         remote = fc.remote_replica_ids()
         for r in fleet.replicas:
             assert isinstance(r, RemoteReplica) == (r.replica_id in remote)

@@ -9,8 +9,10 @@
 - ``summary()`` has JAX's keys (with ``device_times`` too); completed,
   failed and token counts agree with the requests.
 - A fleet target runs through its router with the per-replica breakdown;
-  the HA fronts' stream client runs; the scenarios that need the store
-  tier raise ``NotImplementedError`` naming its ROADMAP step (9d).
+  the HA fronts' stream client runs; the store tier's returning
+  conversations (``run_returning``) and a cell of the autoscaler's
+  scenario matrix (``run_scenario``) run on both packages' fleets with
+  equal tokens and readouts.
 """
 
 import jax
@@ -25,7 +27,7 @@ from distributed_llm_training_and_inference_system_tpu.models import (
 from distributed_llm_training_and_inference_system_tpu.serve import (
     InferenceEngine as JaxEngine, loadgen as jload)
 from distributed_llm_training_and_inference_system_tpu_torch.config import (
-    ServeConfig, get_model_config as torch_cfg)
+    ServeConfig, get_model_config as torch_cfg, schema as torch_schema)
 from distributed_llm_training_and_inference_system_tpu_torch.serve import (
     InferenceEngine, SamplingParams, loadgen as tload)
 from distributed_llm_training_and_inference_system_tpu_torch.weights import (
@@ -138,8 +140,12 @@ def test_fleet_targets_and_scenarios_name_the_fleet_item(params):
     """A fleet target runs through its router (both replicas appear in
     the per-replica breakdown, every request completes as on one engine);
     the HA fronts' stream client is served (an unreachable front list
-    reports a failed stream); the scenarios that need the store tier or
-    the autoscaler still raise, naming step 9d of the fleet's item."""
+    reports a failed stream); the scenarios of the store tier and the
+    autoscaler run on a KV-store fleet of each package: the returning
+    turns' tokens, the prefill and fetched tokens they spent, and a
+    flash-crowd cell's plan-order tokens equal JAX's."""
+    from distributed_llm_training_and_inference_system_tpu.serve.fleet import (  # noqa: E501
+        ServeFleet as JaxFleet)
     from distributed_llm_training_and_inference_system_tpu_torch.config.schema import (  # noqa: E501
         FleetConfig)
     from distributed_llm_training_and_inference_system_tpu_torch.serve.fleet import (  # noqa: E501
@@ -161,10 +167,38 @@ def test_fleet_targets_and_scenarios_name_the_fleet_item(params):
     assert sum(v["requests"] for v in res.per_replica.values()) == 3
     assert set(res.summary()["per_replica"][0]) == {
         "requests", "p50_ttft_ms", "p99_ttft_ms", "requeues"}
-    for fn in (tload.run_returning, tload.run_scenario):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 9, step 9d"):
-            fn()
+    out = {}
+    for pkg, mod, make, schema, p in (
+            ("jax", jload, JaxFleet, jax_schema, params),
+            ("torch", tload, ServeFleet, torch_schema, te.params)):
+        kw = {"device": "cpu"} if pkg == "torch" else {}
+        f = make((jax_cfg if pkg == "jax" else torch_cfg)("gpt-test"),
+                 schema.ServeConfig(**SERVE),
+                 schema.FleetConfig(replicas=2, affinity_prefix_tokens=0,
+                                    kv_store=True, kv_store_dram_mb=16.0),
+                 params=p, supervise=False, seed=0, **kw)
+        f.start()
+        try:
+            ret = mod.run_returning(f, conversations=2, history_len=24,
+                                    tail_len=4, max_tokens=4,
+                                    filler_requests=2, filler_len=12,
+                                    seed=3)
+            cell = mod.run_scenario(f, scenario="flash-crowd",
+                                    duration_s=0.4, base_rps=10.0,
+                                    peak_rps=20.0, prompt_len=8,
+                                    max_tokens=3, seed=4)
+        finally:
+            f.shutdown()
+        r = ret.returning
+        out[pkg] = (sorted(ret.summary()), r["token_lists"],
+                    r["return_prefill_tokens"], r["return_fetched_tokens"],
+                    sorted(cell.summary()["scenario"]),
+                    cell.scenario["token_lists"],
+                    cell.scenario["offered"]["planned_requests"],
+                    sorted(cell.scenario["classes"]))
+    assert out["torch"] == out["jax"]
+    assert len(out["torch"][1]) == 2 and out["torch"][6] > 0
+    assert all(t is not None for t in out["torch"][5])
     dead = tload.run_stream_fronts(
         ["http://127.0.0.1:9"], num_requests=1, prompt_len=3, max_tokens=2,
         client=tload.FrontStreamClient(["http://127.0.0.1:9"],

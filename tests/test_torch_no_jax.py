@@ -188,3 +188,79 @@ def test_a_front_of_remote_replicas_never_initialises_cuda(tmp_path):
                          timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "no cuda"
+
+
+STORE_MODULES = ("serve/fleet/kv_store.py", "serve/fleet/store_tier.py",
+                 "serve/fleet/store_service.py", "serve/fleet/weights.py",
+                 "serve/fleet/autoscaler.py")
+
+
+@pytest.mark.parametrize("module", STORE_MODULES)
+def test_walk_covers_the_store_tier_modules(module):
+    """The walk above reaches the store tier and the autoscaler, and none
+    of them imports aiohttp or the JAX package, relative imports
+    included."""
+    names = {str(p.relative_to(ROOT / PORT)) for p in SOURCES[:-1]}
+    assert module in names
+    tree = ast.parse((ROOT / PORT / module).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            assert "distributed_llm_training_and_inference_system_tpu" \
+                not in (node.module or "")
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            mods = ([a.name for a in node.names]
+                    if isinstance(node, ast.Import) else [node.module or ""])
+            assert not any(m.split(".")[0] == "aiohttp" for m in mods)
+
+
+STORE_SCRIPT = """
+import sys, torch
+import numpy as np
+for m in ("jax", "jaxlib", "aiohttp", "click", "rich", "ml_dtypes",
+          "distributed_llm_training_and_inference_system_tpu"):
+    sys.modules[m] = None
+def _touched(*a, **k):
+    raise AssertionError("the store touched CUDA")
+torch.cuda._lazy_init = _touched
+torch.cuda.init = _touched
+from distributed_llm_training_and_inference_system_tpu_torch.config.schema \\
+    import FleetConfig
+from distributed_llm_training_and_inference_system_tpu_torch.serve.fleet \\
+    import store_service as svc_mod, weights as wmod
+from distributed_llm_training_and_inference_system_tpu_torch.serve.fleet \\
+    .transport import CourierReceiver
+from distributed_llm_training_and_inference_system_tpu_torch.serve \\
+    .kv_cache import BF16_HOST
+cfg = FleetConfig(kv_store=True, courier_chunk_bytes=1024)
+svc = svc_mod.StoreService(cfg, member_id="m0", membership_dir=sys.argv[1])
+ep = "http://127.0.0.1:%d" % svc.serve_http("127.0.0.1", 0)
+client = svc_mod.StoreClient(FleetConfig(kv_store_endpoint=ep))
+bits = np.arange(2 * 1 * 2 * 8 * 16, dtype=np.uint16).reshape(2, 1, 2, 8, 16)
+page = {"k": bits.view(BF16_HOST), "v": bits.view(BF16_HOST),
+        "num_pages": 1}
+assert client.demote([b"h" * 16], page) == 1
+out = client.fetch([b"h" * 16], CourierReceiver())
+assert out["pages"]["k"].dtype == BF16_HOST
+assert (out["pages"]["k"].view(np.uint16) == bits).all()
+tree = {"embed": {"embedding": bits.view(BF16_HOST).reshape(-1, 16)}}
+wc = wmod.WeightCourier(cfg, endpoint=ep)
+assert wc.ship("w", tree)["members"] == 1
+back = wc.fetch("w")["embed"]["embedding"]
+assert back.dtype == BF16_HOST and (back.view(np.uint16) == bits.reshape(
+    -1, 16)).all()
+svc.stop()
+assert not torch.cuda.is_initialized()
+print("no cuda")
+"""
+
+
+def test_the_store_service_never_initialises_cuda(tmp_path):
+    """The store service holds no tensor: with JAX, aiohttp and ml_dtypes
+    blocked and CUDA's initialisers made to fail, a member serves a bf16
+    page and a bf16 checkpoint to the port's client and weight courier,
+    and CUDA stays uninitialised."""
+    res = subprocess.run([sys.executable, "-c", STORE_SCRIPT, str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "no cuda"

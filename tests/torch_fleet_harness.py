@@ -144,10 +144,12 @@ def prefill_tokens(fleet) -> int:
     return sum(r.engine.total_prefill_tokens for r in fleet.replicas)
 
 
-def on_the_port(name: str, leave_out=()) -> dict:
+def on_the_port(name: str, leave_out=(), swap: bool = True) -> dict:
     """The namespace of the JAX package's test file ``name`` run with the
     package's name swapped for the port's, without the test functions
-    named in ``leave_out`` (their source lines are cut before the swap)."""
+    named in ``leave_out`` (their source lines are cut before the swap).
+    ``swap=False`` keeps the JAX package's names: the namespace of the file
+    as it is, for a test that then hands its JAX clients a port service."""
     import ast
     import re
     from pathlib import Path
@@ -165,9 +167,11 @@ def on_the_port(name: str, leave_out=()) -> dict:
     assert not missing, f"{name} has no {sorted(missing)}"
     jax_pkg = "distributed_llm_training_and_inference_system_tpu"
     src = "".join(line for i, line in enumerate(lines) if i not in cut)
-    src = src.replace(f"{jax_pkg}.", f"{jax_pkg}_torch.")
-    assert not re.search(r"^\s*(import|from) jax", src, re.M)
-    ns: dict = {"__name__": f"{path.stem}_on_the_port"}
+    if swap:
+        src = src.replace(f"{jax_pkg}.", f"{jax_pkg}_torch.")
+        assert not re.search(r"^\s*(import|from) jax", src, re.M)
+    ns: dict = {"__name__": f"{path.stem}_on_the_port" if swap
+                else f"{path.stem}_as_it_is"}
     exec(compile(src, str(path), "exec"), ns)
     return ns
 
