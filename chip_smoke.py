@@ -10,7 +10,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              all started together; the training kernels' build
              (flash_attention.cu, adamw.cu) is joined only before phase
              7, so phases run in the order 1-6, 11-13, 15, 20, 22,
-             17b-c, 7-10, 14, 16, 17a, 17d, 18, 19, 21, 23;
+             17b-c, 7-10, 14, 16, 17a, 17d, 18, 19, 21, 23, 24;
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              at llama-8b-gqa geometry (32 q heads over 8 kv heads, D=128,
              pages of 64, 8 slots with ragged lengths up to 2048), windows
@@ -194,21 +194,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              gradients and state, then a second step;
 18. cli    — the port's command line and observability, through the
              entry points a user calls: (a) `serve start` (llama-8b-gqa,
-             `build_server` on ephemeral ports, in process): 8 greedy
-             requests of 256 + 32 tokens, 4 at a time, the paged kernel's
+             `build_server` on ephemeral ports, in process): 4 greedy
+             requests of 256 + 32 tokens, all at once, the paged kernel's
              launches counted, every token within the near-tie bound of
              the dense forward, the server's and the exporter's /metrics
-             both counting 8 requests and TTFTs, llmctl_hbm_used_gb after
+             both counting 4 requests and TTFTs, llmctl_hbm_used_gb after
              one export_system, TTFT and TPOT p50; (b) `python -m ...cli
              serve start --model gpt-1b` in a child: /health within 300 s,
              4 requests counted by /metrics, SIGTERM and exit 0 within
              10 s; (c) `train launch --in-process` on gpt-1b at full
              width and depth, 4 steps of 4 x 2048: the flash and AdamW
              kernels launched, llmctl_train_step and llmctl_train_loss
-             against the manifest, `train status`, then 2 steps of gpt-1b
-             cut to 4 layers through LocalLauncher in a child (exit 0);
+             against the manifest, `train status` (LocalLauncher's
+             children: phase 24 (c));
              (d) `eval run --suite
-             all` on (c)'s checkpoint with 16 multiple-choice and 8
+             all` on (c)'s checkpoint with 8 multiple-choice and 4
              greedy-match examples: log-likelihoods within 1e-4 relative
              of fp32 on the CPU, picks held where the CPU's top-2 gap
              exceeds that; (e) `export convert` to gguf (f16, tensors
@@ -274,12 +274,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              default ServeConfig, seeded chunk chaos at each sender (drop
              0.2, corrupt 0.15, duplicate 0.1), behind the port's
              FleetServer in this process (no tensor on the card), phase
-             20's 8 requests held to phase 20's one engine: (a) worker 0
-             drained mid-decode through /fleet/drain, its streams moving
+             20's 8 requests held to phase 20's one engine: (a) the first
+             4 requests, worker 0 drained mid-decode through /fleet/drain,
+             its streams moving
              worker to worker over the HTTP courier with 0 re-prefill
              tokens; (b) the pair re-roled prefill/decode through
-             /fleet/role: 8 handoffs, 0 prefill tokens on the decode
-             worker; (c) two `fleet front` processes (--device cpu) over a
+             /fleet/role, the first 2 requests: 2 handoffs, 0 prefill
+             tokens on the decode worker; (c) two `fleet front` processes (--device cpu) over a
              file state store, SSE clients pinned to front 0, front 0
              SIGKILLed once every stream is live: 0 gaps, 0 duplicates,
              the survivor's ledger balanced, the dead front fenced, one
@@ -341,6 +342,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              fenced member's upload answered with a FATAL ack and /health
              503. Printed: walls, TTFT and TPOT p50, pages and bytes, ship
              and fetch GB/s (host clock), ready times.
+24. multi-rank — run last: two rank processes share the one card and
+             move their collectives over gloo through host memory (NCCL
+             refuses two ranks on one device; the backend is printed; no
+             collective bandwidth is recorded): (a) ring attention over
+             sp = 2 at llama-8b-gqa geometry (32 q over 8 kv heads, D
+             128, bf16, S 8192, B 1), forward and backward through the
+             flash kernels with the global lse, against flash_attention
+             over the whole sequence on one rank at phase 7's bf16 limits,
+             each rank's launches 2 forward, 2 dq, 2 dk/dv; (b) Ulysses
+             over sp = 2 at that shape, one launch of each a rank; (c)
+             `llmctl-torch train launch` of gpt-1b at full width cut to 4
+             layers, S 2048, micro-batch 2, 3 steps, lr 1e-3, with tp =
+             2, with sp = 2 and ring attention, and with fsdp = 2 and
+             ZeRO-1, all launched at once beside (a) and (b)
+             (LocalLauncher: a process a rank): each step's loss and grad
+             norm within 1e-3 relative of one rank of the same config run
+             here meanwhile on the rows the data ranks read, the weights
+             of each launch's checkpoint within 0.2 of one rank's update
+             from one rank's weights after the same steps, each rank's
+             flash and AdamW launches and AdamW leaves as the code
+             implies (the leaves by the global-leaf rule), rank 0's
+             single-device checkpoint written; (d) `admin lint` exits 0
+             (beside (c) too). The phase prints the
+             seconds the cuts (phase 18 (a) at 4 requests, (c)'s launcher
+             child, (d) at 8 + 4 examples; 21 (a) at 4 and (b) at 2 of the
+             8 requests) freed against the phases' earlier times, beside
+             its own.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} record. Without a CUDA card, or without the rest of the
@@ -3615,14 +3643,12 @@ def train_remnants(torch, mods, fac, kernels: dict, card: str) -> dict:
 
 CLI_PROMPT_LEN = 256           # 18a: prompt tokens a request
 CLI_NEW_TOKENS = 32            # 18a: new tokens a request
-CLI_REQUESTS = 8               # 18a: requests, CLI_CONCURRENCY at a time
+CLI_REQUESTS = 4               # 18a: requests, CLI_CONCURRENCY at a time
 CLI_CONCURRENCY = 4
 CLI_CHILD_REQUESTS = 4         # 18b and 18e
 CLI_HEALTH_TIMEOUT_S = 300.0   # 18b: the child answers /health within this
 CLI_STOP_TIMEOUT_S = 10.0      # 18b: and exits 0 this long after SIGTERM
-CLI_TRAIN_STEPS = 4            # 18c, in process
-CLI_LAUNCH_STEPS = 2           # 18c, through LocalLauncher
-CLI_LAUNCH_LAYERS = 4          # 18c's launched child: gpt-1b cut to these
+CLI_TRAIN_STEPS = 4            # 18c, in process (LocalLauncher: 24c)
 CLI_TRAIN_SETS = ("parallel.global_batch_size=4", "data.max_length=2048",
                   "parallel.activation_checkpoint=selective",
                   "training.log_interval=1")
@@ -3635,7 +3661,7 @@ CLI_TRAIN_SETS = ("parallel.global_batch_size=4", "data.max_length=2048",
 # the card's teacher-forced logits from the CPU's (phase 15's near-tie
 # argument), so it is the CPU's pick wherever the top-2 gap exceeds 2 delta
 CLI_EVAL_RTOL = 1e-2
-CLI_EVAL_MC, CLI_EVAL_CHOICES, CLI_EVAL_GREEDY = 16, 4, 8
+CLI_EVAL_MC, CLI_EVAL_CHOICES, CLI_EVAL_GREEDY = 8, 4, 4
 
 
 def free_port() -> int:
@@ -3700,8 +3726,8 @@ def post_all(port: int, bodies: list, concurrency: int) -> list:
 
 def cli_serve_in_process(torch, mods, cm, kernel, card: str) -> dict:
     """18a: `serve start` through the port's CLI, in process: llama-8b-gqa
-    from build_server on ephemeral ports, 8 greedy requests of 256 + 32
-    tokens, 4 at a time; the paged kernel counted; every token held to the
+    from build_server on ephemeral ports, CLI_REQUESTS greedy requests of
+    256 + 32 tokens, CLI_CONCURRENCY at a time; the paged kernel counted; every token held to the
     dense forward; both /metrics count the requests; one export_system
     fills llmctl_hbm_used_gb. One request on the engine alone warms it up
     first (set-up: not through the server, so not counted)."""
@@ -3839,8 +3865,8 @@ def cli_train(torch, mods, cm, kernels: dict, tmp: Path, card: str) -> dict:
     """18c: `train launch --in-process` on gpt-1b at full width and depth,
     4 steps of 4 x 2048; the flash and AdamW kernels counted; the
     exporter's llmctl_train_step and llmctl_train_loss against the
-    manifest; `train status`; then 2 steps through LocalLauncher in a
-    child process."""
+    manifest; `train status`. LocalLauncher's children are phase 24 (c)'s
+    ranks."""
     ckdir = tmp / "gpt-1b"
     sets = [a for s in CLI_TRAIN_SETS for a in ("--set", s)]
     obs = cm["obs"].setup_observability(prometheus_port=0)
@@ -3876,40 +3902,20 @@ def cli_train(torch, mods, cm, kernels: dict, tmp: Path, card: str) -> dict:
                                   str(status_toml)])
     check(rc == 0 and f"latest {CLI_TRAIN_STEPS} of max" in out,
           f"train status: {out}")
-    # the same entry point through the local launcher, in a child, on
-    # gpt-1b's width cut to CLI_LAUNCH_LAYERS layers
-    launch_dir = tmp / "launched"
-    lcfg = cm["launcher"].LaunchConfig(extra_args=[
-        "--set", "model.name=gpt-1b",
-        "--set", f"model.num_layers={CLI_LAUNCH_LAYERS}",
-        "--max-steps", str(CLI_LAUNCH_STEPS),
-        "--set", f"checkpoint.path={launch_dir}",
-        "--set", "data.max_length=512"] + sets[:2] + sets[4:])
-    t1 = time.time()
-    orch = cm["launcher"].ProcessOrchestrator(lcfg)
-    lrc = orch.run_with_restarts(max_restarts=0, stream_output=False)
-    launch_s = time.time() - t1
-    check(lrc == 0, f"LocalLauncher's child exited {lrc}")
-    check((launch_dir / f"step_{CLI_LAUNCH_STEPS}" / "COMMIT").exists(),
-          "the launched run wrote no checkpoint")
-    import shutil
-    shutil.rmtree(launch_dir)
     mfu = final.get("mfu")
     print(f"18c train launch gpt-1b, {CLI_TRAIN_STEPS} steps of 4 x 2048 in "
           f"{wall:.1f}s (save included): loss {final['loss']:.4f} (= "
           f"llmctl_train_loss), llmctl_train_step {CLI_TRAIN_STEPS}; last "
           f"step {final['tokens_per_sec']:.0f} tok/s, MFU "
           f"{(mfu or 0):.1%}; launches {launches}; train status read step "
-          f"{CLI_TRAIN_STEPS}; LocalLauncher child ({CLI_LAUNCH_LAYERS} "
-          f"layers), {CLI_LAUNCH_STEPS} steps of 4 x 512, exit {lrc} in "
-          f"{launch_s:.1f}s [{card}]", flush=True)
+          f"{CLI_TRAIN_STEPS} [{card}]", flush=True)
     return {"launches": launches, "wall_s": wall, "final": final,
-            "launcher_s": launch_s, "ckpt": str(ckdir)}
+            "ckpt": str(ckdir)}
 
 
 def cli_task_file(path: Path, vocab: int) -> None:
-    """16 multiple-choice examples of 4 choices and 8 greedy-match
-    examples, as token ids."""
+    """CLI_EVAL_MC multiple-choice examples of CLI_EVAL_CHOICES choices and
+    CLI_EVAL_GREEDY greedy-match examples, as token ids."""
     rng = random.Random(18)
     rows = []
     for _ in range(CLI_EVAL_MC):
@@ -4969,6 +4975,8 @@ WIRE_READY_S = 300.0          # a spawned worker or front prints its line
 WIRE_WORKER_GB = 16.06 + 2.156   # llama-8b-gqa's bf16 weights + its pool
 WIRE_SLACK_GB = 3.0           # a worker's CUDA context and activations
 WIRE_DRAIN_AT = 16            # (a), (d): a stream there has these tokens
+WIRE_DRAIN_PROMPTS = 4        # (a): the first prompts, on both workers
+WIRE_DISAGG_PROMPTS = 2       # (b): the first prompts through the pair
 
 
 class Spawned:
@@ -5167,12 +5175,13 @@ def wire_fleet_phase(torch, mods, cfg, prompts: list, refs: list,
     def report(name: str, res: dict, extra: str = "") -> None:
         same = sum(a == b for a, b in zip(res["tokens"], refs))
         res["identical"] = same
-        got[name] = res.pop("tokens")
+        got[name] = got_tokens = res.pop("tokens")
         res.pop("reqs", None)
         out["arms"][name] = res
         print(f"21 {name}: wall {res['wall_s']:.2f} s, TTFT p50 "
               f"{res['ttft_p50_ms']:.1f} ms, TPOT p50 "
-              f"{res['tpot_p50_ms']:.2f} ms; {same} of {len(refs)} streams "
+              f"{res['tpot_p50_ms']:.2f} ms; {same} of {len(got_tokens)} "
+              f"streams "
               f"token-identical to one engine (phase 20){extra} [{card}]",
               flush=True)
 
@@ -5207,7 +5216,7 @@ def wire_fleet_phase(torch, mods, cfg, prompts: list, refs: list,
             pre["prefill"] = sum(s["total_prefill_tokens"]
                                  for s in wire_statuses(workers))
             wire_post(f"{base}/fleet/drain", {"replica": 0})
-        res = wire_run(srv.fleet, prompts, sp, "a",
+        res = wire_run(srv.fleet, prompts[:WIRE_DRAIN_PROMPTS], sp, "a",
                        wire_trigger(srv.fleet, 0, drain0))
         st = wire_statuses(workers)
         post = sum(s["total_prefill_tokens"] for s in st)
@@ -5220,7 +5229,7 @@ def wire_fleet_phase(torch, mods, cfg, prompts: list, refs: list,
         check(c["retries"] > 0, "a: the chunk chaos never fired")
         rt = srv.fleet.router.stats()
         check(rt["failed"] == 0 and rt["in_flight"] == 0
-              and rt["completed"] == len(prompts), f"a: ledger {rt}")
+              and rt["completed"] == WIRE_DRAIN_PROMPTS, f"a: ledger {rt}")
         res.update(reprefill_tokens=post - pre["prefill"],
                    migrations=st[0]["migrations"],
                    pauses_ms=wire_pauses(workers[0], "migrated"),
@@ -5242,12 +5251,12 @@ def wire_fleet_phase(torch, mods, cfg, prompts: list, refs: list,
         for i, role in enumerate(("prefill", "decode")):
             wire_post(f"{base}/fleet/role", {"replica": i, "role": role})
         b0 = wire_statuses(workers)
-        res = wire_run(srv.fleet, prompts, sp, "b")
+        res = wire_run(srv.fleet, prompts[:WIRE_DISAGG_PROMPTS], sp, "b")
         b1 = wire_statuses(workers)
         handoffs = b1[0]["handoffs"] - b0[0]["handoffs"]
         decode_prefill = (b1[1]["total_prefill_tokens"]
                           - b0[1]["total_prefill_tokens"])
-        check(handoffs == len(prompts), f"b: {handoffs} handoffs")
+        check(handoffs == WIRE_DISAGG_PROMPTS, f"b: {handoffs} handoffs")
         check(decode_prefill == 0 and b1[1]["total_unexpected_prefills"]
               == b0[1]["total_unexpected_prefills"],
               f"b: the decode worker prefilled {decode_prefill} tokens")
@@ -6311,6 +6320,449 @@ def weights_arm(torch, mods, members: list, shipped: dict, tmp: Path,
     return out
 
 
+# -- phase 24: multi-rank on one card ---------------------------------------
+
+# NCCL refuses two ranks on one device: the ranks of this phase share the
+# one card and move their collectives over gloo through host memory. The
+# phase checks what the card computes inside each rank and the trajectory
+# of a sharded step; it records no collective bandwidth.
+MR_RANKS = 2
+MR_READY_S = 300.0            # a rank's process is up and joined
+MR_SEQ = 8192                 # (a), (b): llama-8b-gqa geometry, B = 1
+MR_GEOM = (1, MR_SEQ, 32, 8, 128)      # B, S, Nq, Nkv, D
+MR_LAYERS = 4                 # (c): gpt-1b at full width, cut to 4 layers
+MR_TRAIN_SEQ = 2048
+MR_MICRO = 2
+MR_STEPS = 3
+# (c): each step's loss and grad norm against one rank's. Sound runs at
+# lr 1e-4 read 1.5e-4 and 2.0e-4; ranks that started from other weights
+# (another seed) read 8.7e-3, and passed the 1e-2 this bound was before.
+MR_TRAJ_RTOL = 1e-3
+# (c): the updates themselves. The loss of the next step barely reads an
+# update on this stream (each batch's own tokens; at lr 1e-3 the last
+# loss moved 2.9e-5 relative against the initial weights), so the
+# checkpoint each launch wrote is held to one rank's weights after the
+# same steps: |w_launch - w_one| / |w_one - w_initial|, over every leaf.
+# Sound runs read 2.2e-2 to 4.6e-2 (bf16 gradients in another order;
+# Adam normalises the tiny ones); a copy whose rank 1 updated at lr 0
+# read 0.717 (its losses stayed within 9e-4; its last grad norm did not).
+MR_UPDATE_RTOL = 0.2
+# (c): constant from the second step (the schedule's one warmup step
+# gives the first update lr 0, which still fills the moments)
+MR_LR = 1e-3
+MR_RUNS = {"tp2": ["parallel.tensor_parallel=2"],
+           "sp2-ring": ["parallel.sequence_parallel=2",
+                        "training.attn_impl=ring"],
+           "fsdp2-zero1": ["parallel.fsdp=2", "parallel.zero_stage=1"]}
+# the budget this phase is paid for by cuts of phases 18, 21, 22 and 23,
+# against their times in the run this phase was added after
+MR_BUDGET_S = 90.0
+MR_BEFORE_S = {"18": 180.3, "21": 103.5, "22": 72.3, "23": 79.7}
+
+
+def mr_attention_rank(rank: int, out_dir: str, port: int) -> None:
+    """One rank of (a) and (b), in a process of its own on the card:
+    ring and Ulysses attention over sp = 2 through the flash kernels, its
+    launches counted; rank 0 gathers every chunk and holds them to
+    flash_attention over the whole sequence on one rank."""
+    import torch
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(MR_RANKS),
+                       "LOCAL_RANK": str(rank),
+                       "LOCAL_WORLD_SIZE": str(MR_RANKS),
+                       "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+    result: dict = {}
+    try:
+        sys.path.insert(0, str(ROOT))
+        from distributed_llm_training_and_inference_system_tpu_torch.comms \
+            import collectives as c
+        from distributed_llm_training_and_inference_system_tpu_torch.ops \
+            import attention as fa, attention_cuda as fac, \
+            ring_attention as ra, ulysses as ul
+        from distributed_llm_training_and_inference_system_tpu_torch.\
+            parallel.mesh import AXES, build_mesh, init_distributed
+        from distributed_llm_training_and_inference_system_tpu_torch.config \
+            import ParallelConfig
+        torch.cuda.set_device(0)
+        backend = init_distributed(torch.device("cuda", 0))
+        mesh = build_mesh(ParallelConfig(sequence_parallel=MR_RANKS),
+                          torch.device("cuda", 0))
+        result["backend"] = backend
+        B, S, Nq, Nkv, D = MR_GEOM
+        q, k, v, dout = flash_inputs(torch, B, S, Nq, Nkv, D,
+                                     torch.bfloat16, 24)
+        pos = torch.arange(S, dtype=torch.int32,
+                           device="cuda")[None].expand(B, S).contiguous()
+        seg = torch.ones(B, S, dtype=torch.int32, device="cuda")
+        n, i = S // MR_RANKS, mesh.axis_index("sp")
+
+        def part(t):
+            return t[:, i * n:(i + 1) * n].contiguous()
+        kernels = (fac.flash_fwd, fac.flash_bwd_dq, fac.flash_bwd_dkv)
+        got = {}
+        for scheme, fn in (("ring", ra.ring_attention),
+                           ("ulysses", ul.ulysses_attention)):
+            qs, ks, vs = (part(t).requires_grad_(True) for t in (q, k, v))
+            for kern in kernels:
+                kern.launches = 0                # the main path starts
+            t0 = time.time()
+            out = fn(qs, ks, vs, positions=part(pos), segment_ids=part(seg),
+                     mesh=mesh)
+            out.backward(part(dout))
+            torch.cuda.synchronize()
+            result[scheme] = {
+                "launches": {kn: kern.launches for kn, kern in zip(
+                    ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                    kernels)},
+                "seconds": time.time() - t0}
+            # every chunk, in sequence order
+            got[scheme] = [c.all_gather(t.detach(), "sp", gather_dim=1,
+                                        mesh=mesh)
+                           for t in (out, qs.grad, ks.grad, vs.grad)]
+        if rank == 0:
+            qf, kf, vf = (t.clone().requires_grad_(True) for t in (q, k, v))
+            ref = fa.flash_attention(qf, kf, vf, segment_ids=seg,
+                                     positions=pos, causal=True)
+            ref.backward(dout)
+            refs = (ref, qf.grad, kf.grad, vf.grad)
+            for scheme, outs in got.items():
+                errs = FlashErrors()
+                lines = [errs(kern, what, g, r, "bfloat16",
+                              f"24 {scheme}", name)
+                         for kern, what, name, g, r in zip(
+                             FLASH_OUTPUTS, ("out", "grad", "grad", "grad"),
+                             ("out", "dq", "dk", "dv"), outs, refs)]
+                result[scheme].update(lines=lines, max_abs_err=errs.worst)
+        c.barrier(AXES, mesh)
+        result["ok"] = True
+    except BaseException as e:                  # reported to the phase
+        import traceback
+        result["error"] = f"{type(e).__name__}: {e}\n" + \
+            traceback.format_exc()[-3000:]
+    Path(out_dir, f"{rank}.json").write_text(json.dumps(result))
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def mr_attention(torch, card: str) -> dict:
+    """24 (a) and (b): two rank processes on the card."""
+    import torch.multiprocessing as mp
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="llmctl-smoke-mr-") as d:
+        ctx = mp.start_processes(mr_attention_rank,
+                                 args=(d, free_port()), nprocs=MR_RANKS,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + MR_READY_S
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline,
+                  f"24: the attention ranks did not end in {MR_READY_S} s")
+        ranks = [json.loads(Path(d, f"{r}.json").read_text())
+                 for r in range(MR_RANKS)]
+    for r, res in enumerate(ranks):
+        check(res.get("ok"), f"24 rank {r}: {res.get('error')}")
+    backend = ranks[0]["backend"]
+    check(backend == "gloo", f"24: backend {backend} (two ranks on one "
+          f"card take gloo)")
+    want = {"ring": {"flash_fwd": MR_RANKS, "flash_bwd_dq": MR_RANKS,
+                     "flash_bwd_dkv": MR_RANKS},
+            "ulysses": {"flash_fwd": 1, "flash_bwd_dq": 1,
+                        "flash_bwd_dkv": 1}}
+    out = {"backend": backend, "seconds": time.time() - t0}
+    for scheme, label in (("ring", "a ring attention"),
+                          ("ulysses", "b Ulysses")):
+        for r, res in enumerate(ranks):
+            check(res[scheme]["launches"] == want[scheme],
+                  f"24 {scheme}: rank {r} launches "
+                  f"{res[scheme]['launches']} != {want[scheme]}")
+        out[scheme] = {"launches": {k: sum(res[scheme]["launches"][k]
+                                           for res in ranks)
+                                    for k in want[scheme]},
+                       "max_abs_err": ranks[0][scheme]["max_abs_err"],
+                       "rank_seconds": [res[scheme]["seconds"]
+                                        for res in ranks]}
+        B, S, Nq, Nkv, D = MR_GEOM
+        print(f"24 {label} sp={MR_RANKS} over {backend}, B {B} S {S} "
+              f"{Nq}/{Nkv} heads D {D} bf16, forward and backward: "
+              f"{'; '.join(ranks[0][scheme]['lines'])} against "
+              f"flash_attention over the whole sequence on one rank; each "
+              f"rank's launches {want[scheme]}; "
+              f"{max(out[scheme]['rank_seconds']):.2f} s a rank "
+              f"(host-staged hops) [{card}]", flush=True)
+    return out
+
+
+def mr_expected_launches(sp: int, steps: int, layers: int,
+                         eligible: int) -> dict:
+    """A rank's training kernels over ``steps`` steps: the forward runs
+    again in the backward under the selective remat policy, sp times a
+    layer in a ring; AdamW one launch a step (one fp32 dtype pair) over
+    the leaves whose global leaf the kernel takes."""
+    per_layer = sp
+    return {"flash_fwd": steps * layers * per_layer * 2,
+            "flash_bwd_dq": steps * layers * per_layer,
+            "flash_bwd_dkv": steps * layers * per_layer,
+            "adamw": steps, "adamw_leaves": steps * eligible}
+
+
+def mr_parallel(mods, extra: list):
+    """The ParallelConfig of a launch's ``--set parallel.*`` items."""
+    return mods["schema"].ParallelConfig(
+        **{s.split("=")[0].split(".")[1]: int(s.split("=")[1])
+           for s in extra if s.startswith("parallel.")})
+
+
+def mr_data_ranks(mods, extra: list) -> int:
+    """A launch's data ranks (dp x fsdp): the stripes of the stream."""
+    par = mr_parallel(mods, extra)
+    return par.data_parallel * par.fsdp
+
+
+def mr_update_error(torch, state_pt: Path, want: dict, initial: dict):
+    """(|w - want| / |want - initial|, |want - initial| / |initial|) over
+    every leaf: ``w`` the params of a checkpoint (read mapped, a leaf at a
+    time), ``want`` one rank's params after the same steps."""
+    got = torch.load(state_pt, map_location="cpu", weights_only=True,
+                     mmap=True)["params"]
+    check(set(got) == set(want), f"24 c: {state_pt} holds leaves "
+          f"{sorted(set(got) ^ set(want))[:8]} that one rank's do not")
+    err = upd = norm = 0.0
+    for k, w in want.items():
+        w = w.detach().float()
+        g = got[k].to(w.device, torch.float32)
+        w0 = initial[k].float()
+        err += float((g - w).square().sum())
+        upd += float((w - w0).square().sum())
+        norm += float(w0.square().sum())
+    return (err / upd) ** 0.5, (upd / norm) ** 0.5
+
+
+def mr_train(torch, mods, kernels: dict, tmp: Path, card: str,
+             meanwhile=None) -> dict:
+    """24 (c): `llmctl-torch train launch` of gpt-1b at full width (4
+    layers, S 2048, micro-batch 2, 3 steps): tp = 2, sp = 2 with ring
+    attention, and fsdp = 2 with ZeRO-1, all launched at once
+    (LocalLauncher: two rank processes each, gloo on the one card), held
+    to one rank of the same config run here meanwhile; each rank's kernel
+    launches and AdamW leaves as the code implies; the sharded checkpoint
+    (rank 0, single-device format). ``meanwhile()`` runs once the
+    launches are started."""
+    # a constant lr (MR_LR), so that the second update moves the last
+    # loss by what the gradients say (the default warmup would not)
+    config = tmp / "run.toml"
+    config.write_text(
+        f'[model]\nname = "gpt-1b"\nnum_layers = {MR_LAYERS}\n'
+        f'[optimizer]\nlr = {MR_LR}\n'
+        f'[optimizer.scheduler]\ntype = "constant"\nwarmup_steps = 0\n'
+        f'[data]\nmax_length = {MR_TRAIN_SEQ}\n'
+        f'[parallel]\nmicro_batch_size = {MR_MICRO}\n'
+        f'global_batch_size = {MR_MICRO}\n'
+        f'activation_checkpoint = "selective"\n'
+        f'[training]\nseed = 0\nlog_interval = 1\n'
+        f'eval_interval = 100000\n'
+        f'[checkpoint]\nasync_save = false\n')
+    procs = {}
+    t0 = time.time()
+    for name, extra in MR_RUNS.items():
+        argv = [sys.executable, "-m", f"{PORT}.cli", "train", "launch",
+                "--config", str(config), "--max-steps", str(MR_STEPS)]
+        # --set outranks the launcher's LLMCTL_TRAINING__SEED (config
+        # precedence: file < environment < --set)
+        for s_ in extra + ["training.seed=0",
+                           f"checkpoint.path={tmp / name}"]:
+            argv += ["--set", s_]
+        # a session of its own: a failure kills the launch and its ranks
+        procs[name] = (subprocess.Popen(
+            argv, cwd=ROOT, stdout=open(tmp / f"{name}.out", "w"),
+            stderr=open(tmp / f"{name}.err", "w"), text=True,
+            start_new_session=True))
+    try:
+        return mr_train_rest(torch, mods, kernels, tmp, card, meanwhile,
+                             procs, config, t0)
+    finally:
+        import signal
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+
+def mr_train_rest(torch, mods, kernels, tmp, card, meanwhile, procs, config,
+                  t0) -> dict:
+    """24 (c) once its launches are started (see ``mr_train``)."""
+    from distributed_llm_training_and_inference_system_tpu_torch.parallel \
+        import api as papi
+    from distributed_llm_training_and_inference_system_tpu_torch.runtime.\
+        train_entry import parse_overrides
+    from distributed_llm_training_and_inference_system_tpu_torch.io.data \
+        import make_dataset
+    if meanwhile is not None:
+        meanwhile()
+    # one rank of the same config, here, meanwhile: fed the rows that the
+    # launched ranks read (each data rank reads its stripe of the stream)
+    cfg = mods["load_run_config"](config, cli_overrides=parse_overrides(
+        [f"checkpoint.path={tmp / 'one'}"]), environ={})
+    eng = mods["TrainingEngine"](cfg, device="cuda")
+    ones, weights, initial = {}, {}, None
+    try:
+        for n in sorted({mr_data_ranks(mods, extra)
+                         for extra in MR_RUNS.values()}):
+            stripes = [make_dataset(
+                cfg.data.train, MR_MICRO // n, cfg.data.max_length,
+                cfg.model.vocab_size, seed=cfg.data.seed, host_id=h,
+                num_hosts=n, pack=cfg.data.pack_sequences)
+                for h in range(n)]
+            batches = []
+            for _ in range(MR_STEPS):
+                parts = [next(s_) for s_ in stripes]
+                batches.append(eng._device_batch(
+                    {k: np.concatenate([p_[k] for p_ in parts])
+                     for k in parts[0]}))
+            eng.init_state(seed=cfg.training.seed)
+            if initial is None:     # one seed: the same for every n
+                initial = {k: v.detach().clone() for k, v in
+                           eng.trainer.full_state_dict()["params"].items()}
+            ref, ref_gn = [], []
+            for batch in batches:
+                m = eng.trainer.step(batch)
+                ref.append(float(m["loss"]))
+                ref_gn.append(float(m["grad_norm"]))
+            weights[n] = eng.trainer.full_state_dict()["params"]
+            ones[n] = {"losses": ref, "grad_norms": ref_gn}
+    finally:
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    one_s = time.time() - t0
+    rcs = {}
+    for name, p in procs.items():
+        try:
+            rcs[name] = p.wait(timeout=MR_READY_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            raise SmokeFailure(f"24 c {name}: train launch did not end in "
+                               f"{MR_READY_S} s")
+    wall = time.time() - t0
+    out = {"one_rank": ones, "one_rank_s": one_s, "wall_s": wall,
+           "runs": {}, "launches": dict.fromkeys(kernels, 0)}
+    for name, extra in MR_RUNS.items():
+        text = (tmp / f"{name}.out").read_text()
+        err = (tmp / f"{name}.err").read_text()
+        check(rcs[name] == 0, f"24 c {name}: train launch exited "
+              f"{rcs[name]}: {(text + err)[-3000:]}")
+        steps = [line for line in text.splitlines() if "| loss " in line]
+        losses = [float(ln.split("| loss ")[1].split()[0]) for ln in steps]
+        norms = [float(ln.split("| grad ")[1].split()[0]) for ln in steps]
+        check(len(losses) == MR_STEPS, f"24 c {name}: {len(losses)} logged "
+              f"steps")
+        one = ones[mr_data_ranks(mods, extra)]
+        ref, ref_gn = one["losses"], one["grad_norms"]
+        manifest = json.loads((tmp / name / "run_manifest.json").read_text())
+        final = manifest["final_metrics"]["loss"]
+        rel = max([abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+                  + [abs(a - b) / abs(b) for a, b in zip(norms, ref_gn)]
+                  + [abs(final - ref[-1]) / abs(ref[-1])])
+        check(rel <= MR_TRAJ_RTOL, f"24 c {name}: losses {losses} and grad "
+              f"norms {norms} (final {final}) against one rank's {ref}, "
+              f"{ref_gn}: {rel:.2e} relative (> {MR_TRAJ_RTOL})")
+        # where the launch's wall goes, from rank 0's log clock
+        stamps = {}
+        for ln in text.splitlines():
+            key = ("mesh" if "backend " in ln else "step1" if "step 1 |" in ln
+                   else "last" if f"step {MR_STEPS} |" in ln
+                   else "done" if "finished:" in ln else None)
+            if key and key not in stamps:
+                stamps[key] = time.mktime(time.strptime(
+                    ln[:19], "%Y-%m-%d %H:%M:%S")) + int(ln[20:23]) / 1e3
+        check(set(stamps) == {"mesh", "step1", "last", "done"},
+              f"24 c {name}: log lines {sorted(stamps)}")
+        spans = {"start": stamps["mesh"] - t0,
+                 "first_step": stamps["step1"] - stamps["mesh"],
+                 "later_steps": stamps["last"] - stamps["step1"],
+                 "save": stamps["done"] - stamps["last"]}
+        mesh_line = [ln for ln in text.splitlines() if "backend " in ln]
+        check(mesh_line and "backend gloo" in mesh_line[0],
+              f"24 c {name}: no gloo backend line: {mesh_line}")
+        reports = [json.loads(ln.split("LLMCTL_TRAIN_LAUNCHES ", 1)[1])
+                   for ln in (text + err).splitlines()
+                   if "LLMCTL_TRAIN_LAUNCHES " in ln]
+        check(sorted(r["rank"] for r in reports) == list(range(MR_RANKS)),
+              f"24 c {name}: launch reports {reports}")
+        par = mr_parallel(mods, extra)
+        from distributed_llm_training_and_inference_system_tpu_torch.\
+            parallel.mesh import mesh_shape_from_config
+        layout = papi.state_layout(cfg.model, mesh_shape_from_config(par),
+                                   par.zero_stage)
+        eligible = sum(layout.kernel.values())
+        want = mr_expected_launches(par.sequence_parallel, MR_STEPS,
+                                    MR_LAYERS, eligible)
+        for r in reports:
+            got = {k: r[k] for k in want}
+            check(got == want, f"24 c {name}: rank {r['rank']} launches "
+                  f"{got} != {want}")
+            for k in out["launches"]:
+                out["launches"][k] += r[k]
+        ck = tmp / name / f"step_{MR_STEPS}"
+        check((ck / "COMMIT").exists(), f"24 c {name}: no checkpoint")
+        upd, moved = mr_update_error(
+            torch, ck / "state.pt", weights[mr_data_ranks(mods, extra)],
+            initial)
+        check(upd <= MR_UPDATE_RTOL, f"24 c {name}: the checkpoint's "
+              f"weights are {upd:.2e} of one rank's update away from one "
+              f"rank's weights (> {MR_UPDATE_RTOL})")
+        out["runs"][name] = {"losses": losses, "grad_norms": norms,
+                             "final_loss": final, "rel": rel,
+                             "update_rel": upd, "moved": moved,
+                             "launches": reports, "spans_s": spans}
+        print(f"24 c train launch gpt-1b ({MR_LAYERS} layers), "
+              f"{' '.join(extra)}: {MR_RANKS} ranks over gloo, losses "
+              f"{['%.4f' % x for x in losses]}, grad norms {norms}, within "
+              f"{rel:.1e} of one rank's {['%.4f' % x for x in ref]}, "
+              f"{['%.3f' % x for x in ref_gn]} (bound {MR_TRAJ_RTOL}); "
+              f"its weights after {MR_STEPS} steps {upd:.2e} of one rank's "
+              f"update from one rank's (bound {MR_UPDATE_RTOL}; the "
+              f"update moved the weights {moved:.2e} of their norm); "
+              f"each rank's launches {want} ({eligible} AdamW leaves by the "
+              f"global-leaf rule); rank 0 wrote the single-device "
+              f"checkpoint; wall (rank 0's log clock): "
+              f"{', '.join(f'{k} {v:.1f} s' for k, v in spans.items())} "
+              f"[{card}]", flush=True)
+    print(f"24 c: the {len(MR_RUNS)} launches at once in {wall:.1f} s; (a), "
+          f"(b), (d) and one rank's runs here meanwhile in {one_s:.1f} s "
+          f"[{card}]", flush=True)
+    return out
+
+
+def multi_rank_phase(torch, mods, cm, kernels: dict, card: str) -> dict:
+    """Phase 24: multi-rank on one card (see MR_RANKS)."""
+    t24 = time.time()
+    print(f"24: {MR_RANKS} ranks share the one card; NCCL refuses two ranks "
+          f"on one device, so their collectives go over gloo through host "
+          f"memory; no collective bandwidth is recorded [{card}]",
+          flush=True)
+    out: dict = {}
+
+    def meanwhile():
+        out["attention"] = mr_attention(torch, card)
+        t_lint = time.time()
+        rc, text = cli_run(cm["cli"], ["admin", "lint"])
+        check(rc == 0 and " 0 unsuppressed across 5 pass(es)" in text,
+              f"24 d admin lint exited {rc}: {text[-2000:]}")
+        print(f"24 d admin lint: exit 0, {text.strip().splitlines()[-1]} "
+              f"in {time.time() - t_lint:.1f} s [{card}]", flush=True)
+    with tempfile.TemporaryDirectory(prefix="llmctl-smoke-mr-") as d:
+        # (a), (b) and (d) run while (c)'s ranks start and train
+        out["train"] = mr_train(torch, mods, kernels, Path(d), card,
+                                meanwhile=meanwhile)
+    launches = dict(out["train"]["launches"])
+    for scheme in ("ring", "ulysses"):
+        for k, n in out["attention"][scheme]["launches"].items():
+            launches[k] += n
+    out["launches"] = launches
+    out["seconds"] = time.time() - t24
+    print(f"phase 24 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements here (JSON)")
@@ -6676,6 +7128,19 @@ def main() -> int:
         finally:
             if "stores" in box:
                 box["stores"].stop()
+
+        phase("24 multi-rank on one card: ring and Ulysses attention over "
+              "two ranks, train launch with tp=2 and sp=2, admin lint", t0)
+        multi = multi_rank_phase(torch, mods, cli_mods, train_kernels, smi)
+        freed = {"18": MR_BEFORE_S["18"] - cli["seconds"],
+                 "21": MR_BEFORE_S["21"] - wire["seconds"],
+                 "22": MR_BEFORE_S["22"] - fleet_store["seconds"],
+                 "23": MR_BEFORE_S["23"] - net_store["seconds"]}
+        multi["freed_s"] = freed
+        print(f"24: the cuts freed {sum(freed.values()):.1f} s against the "
+              f"phases' earlier times ({', '.join(f'{k}: {v:+.1f}' for k, v in freed.items())}); "
+              f"phase 24 took {multi['seconds']:.1f} s (budget "
+              f"{MR_BUDGET_S:.0f} s) [{smi}]", flush=True)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -6702,7 +7167,8 @@ def main() -> int:
                          + remnants["train"]["launches"][name]
                          + cli["train"]["launches"][name]
                          + sum(tools[part]["launches"][name] for part in
-                               ("kernels", "train", "trace", "tune"))),
+                               ("kernels", "train", "trace", "tune"))
+                         + multi["launches"][name]),
             "max_abs_err": errors[name],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
@@ -6777,7 +7243,7 @@ def main() -> int:
                       serve_features=features, moe=moe,
                       remnants=remnants, cli=cli, tools=tools, fleet=fleet,
                       wire=wire, fleet_store=fleet_store,
-                      net_store=net_store)
+                      net_store=net_store, multi_rank=multi)
         record.update(kernels=kernels, timing=timing, serve=served,
                       paged_vs_dense=dense, flash_vs_plain=flash,
                       adamw_max_abs_err=adamw_err, train_timing=train_timing,

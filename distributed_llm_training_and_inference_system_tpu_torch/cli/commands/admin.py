@@ -1,14 +1,15 @@
-"""`llmctl-torch admin` — checkpoint GC, tensor inspection and dataset
-indexing (the JAX package's ``admin gc`` / ``inspect`` / ``index``).
+"""`llmctl-torch admin` — checkpoint GC, tensor inspection, dataset
+indexing and static checks (the JAX package's ``admin gc`` / ``inspect``
+/ ``index`` / ``lint``).
 
 ``inspect`` reads the port's checkpoints (``state.pt``) and the JAX
 package's (``host_*.npz`` through ``io/checkpoint.read_jax_checkpoint``),
 and lists a JAX checkpoint's leaves by the JAX command's flattened paths,
 shapes, dtypes and bytes. ``index`` writes the JAX command's JSON.
-``admin lint`` runs the JAX package's AST checks of the serving fleet's
-thread, lock and counter contracts; those passes (``analysis/``) are not
-pointed at the port's tree yet, so it exits 2 naming ROADMAP queue 1 item
-9, step 9e.
+``lint`` runs graftlint (``analysis/``) over the port's own tree: the AST
+checks of the thread-context, lock-discipline, counter-wiring,
+config-wiring and np-jnp-parity contracts, with the JAX command's flags,
+text lines and JSON report; it exits 1 on an unsuppressed finding.
 """
 
 from __future__ import annotations
@@ -21,22 +22,31 @@ import torch
 
 from ..main import CommandError
 
-LINT_ITEM = "ROADMAP queue 1 item 9, step 9e"
-
-
 def build_parser(prog: str) -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog=prog,
                                  description="Maintenance utilities.")
     sub = ap.add_subparsers(dest="sub", metavar="{gc,inspect,index,lint}")
-    li = sub.add_parser("lint", help="Static checks of the serving fleet's "
-                                     f"contracts (not ported: {LINT_ITEM}).")
+    li = sub.add_parser("lint", help="Run graftlint: the AST invariant "
+                                     "checker for the serve fleet's "
+                                     "concurrency, wiring, and parity "
+                                     "contracts.")
     li.add_argument("--format", dest="fmt", default="text",
-                    choices=["text", "json"])
-    li.add_argument("--rules", default="")
-    li.add_argument("--baseline", dest="baseline_path", default=None)
-    li.add_argument("--write-baseline", action="store_true", default=False)
+                    choices=["text", "json"],
+                    help="Diagnostic output format.")
+    li.add_argument("--rules", default="",
+                    help="Comma-separated pass ids to run (default: all of "
+                         "thread-context, lock-discipline, counter-wiring, "
+                         "config-wiring, np-jnp-parity).")
+    li.add_argument("--baseline", dest="baseline_path", default=None,
+                    help="Baseline file of grandfathered findings "
+                         "[default: analysis/baseline.json].")
+    li.add_argument("--write-baseline", action="store_true", default=False,
+                    help="Grandfather every currently-unsuppressed finding "
+                         "into the baseline file and exit 0.")
     li.add_argument("--all", dest="show_all", action="store_true",
-                    default=False)
+                    default=False,
+                    help="List suppressed/baselined findings too (text "
+                         "format; json always carries everything).")
     gc = sub.add_parser("gc", help="Garbage-collect old checkpoints, "
                                    "keeping the newest N.")
     gc.add_argument("--ckpt", dest="ckpt_dir", required=True)
@@ -60,15 +70,44 @@ def run(args) -> int:
         build_parser("llmctl-torch admin").print_help()
         return 0
     if args.sub == "lint":
-        raise NotImplementedError(
-            "admin lint checks the serving fleet's thread, lock and counter "
-            "contracts, and its analysis passes are not ported to the "
-            f"PyTorch package yet ({LINT_ITEM})")
+        return lint(args.fmt, args.rules, args.baseline_path,
+                    args.write_baseline, args.show_all)
     if args.sub == "gc":
         return gc(args.ckpt_dir, args.keep_latest, args.dry_run)
     if args.sub == "inspect":
         return inspect(args.ckpt_dir, args.step, args.limit)
     return index(args.data_dir, args.out_path)
+
+
+def lint(fmt: str, rules: str, baseline_path, write_baseline: bool,
+         show_all: bool) -> int:
+    """graftlint over the port's tree; 1 on unsuppressed findings. Suppress
+    one with ``# graftlint: ignore[rule-id]`` on the offending line, or
+    grandfather a deliberate one in the baseline with a note."""
+    from ...analysis import run_lint, write_baseline as _wb
+
+    rule_list = [r.strip() for r in rules.split(",") if r.strip()] or None
+    try:
+        result = run_lint(rules=rule_list, baseline_path=baseline_path)
+    except ValueError as e:
+        raise CommandError(str(e))
+    if write_baseline:
+        path = _wb(result.findings, path=baseline_path)
+        print(f"baseline updated: {path} "
+              f"({len(result.unsuppressed)} finding(s) grandfathered)")
+        return 0
+    if fmt == "json":
+        print(json.dumps(result.to_dict(), indent=2))
+    else:
+        shown = result.findings if show_all else result.unsuppressed
+        for f in sorted(shown, key=lambda x: (x.rule, x.file, x.line)):
+            tag = ("suppressed" if f.suppressed
+                   else "baselined" if f.baselined else "FAIL")
+            print(f"[{f.rule}] {f.file}:{f.line} {tag}: {f.message}")
+        print(f"graftlint: {len(result.findings)} finding(s), "
+              f"{len(result.unsuppressed)} unsuppressed across "
+              f"{len(result.rules_run)} pass(es)")
+    return 0 if result.ok else 1
 
 
 def _ckpt_dir(path: str) -> Path:

@@ -35,7 +35,7 @@ command's options and JSON keys, on the global ``--device``.
   resume and dry run, holding an ``flock`` on ``--chip-lock``; before each
   item it probes for a CUDA card in a child process.
 - ``comms`` needs a mesh of cards: it exits 2 naming ROADMAP queue 1
-  item 7.
+  item 7b.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ from ...device import resolve_device
 from ...utils.timing import time_fn
 from ..main import CommandError
 
-MULTI_GPU = "ROADMAP queue 1 item 7"
+MULTI_GPU = "ROADMAP queue 1 item 7b"
 
 
 def _bool(sub, name: str, default: bool, **kw) -> None:

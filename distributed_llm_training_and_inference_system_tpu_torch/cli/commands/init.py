@@ -5,7 +5,7 @@ Writes the JAX command's files for the same ``--model``, with the command
 name ``llmctl-torch``; the run config's ``[hardware]`` section is the
 port's ``HardwareConfig`` (one H100 SXM) under ``--hardware h100``. A TPU
 preset name raises: TPU and multi-card hardware wait for ROADMAP queue 1
-item 7.
+item 7b.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def hardware_section(name: str) -> dict:
         raise NotImplementedError(
             f"hardware preset {name!r} is a TPU; the PyTorch package "
             "scaffolds for one H100 (TPU and multi-card presets: ROADMAP "
-            "queue 1 item 7)")
+            "queue 1 item 7b)")
     if name not in HARDWARE:
         raise CommandError(f"unknown hardware preset {name!r}; available: "
                            f"{sorted(HARDWARE)}")

@@ -17,7 +17,7 @@ processes:
 - the ``--fleet-*`` options build the ``FleetConfig`` as the JAX command
   does, the fleet KV store's (``--fleet-kv-store*``) and the
   autoscaler's (``--fleet-autoscale*``) included; ``--tensor-parallel >
-  1`` raises in the engine (ROADMAP queue 1 item 7).
+  1`` raises in the engine (ROADMAP queue 1 item 7b).
 
 ``start`` binds ``--host:--port`` (0 = a free port), prints one line with
 the bound ports, and serves until SIGTERM or SIGINT, then stops the

@@ -6,8 +6,11 @@ or a local one-host run without ``--dry-run``/``--restart-on-failure``, as
 the JAX command does), else through ``runtime/launcher.py``'s local
 launcher in a child process; ``--restart-on-failure N`` supervises the
 child and relaunches it up to N times, each resuming from the latest
-committed checkpoint. The global ``--device`` goes to the trainer.
-Multi-host launchers and ``--nodes > 1`` raise (ROADMAP queue 1 item 7).
+committed checkpoint. The global ``--device`` goes to the trainer. A
+parallel config (``--set parallel.tensor_parallel=2`` and the like) always
+goes through the launcher, which spawns one rank per device of the mesh
+(gloo on the CPU with ``--device cpu``). Multi-host launchers and
+``--nodes > 1`` raise (ROADMAP queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -75,6 +78,16 @@ def entry_args(args, device: str) -> list[str]:
     return out
 
 
+def _ranks(args) -> int:
+    """The ranks the run's parallel config spans (config < env < --set)."""
+    from ...config.loader import load_run_config
+    from ...runtime.train_entry import parse_overrides
+    cfg = load_run_config(args.config_file,
+                          cli_overrides=parse_overrides(args.overrides))
+    cfg.parallel.require_supported()
+    return cfg.parallel.total_devices
+
+
 def launch(args) -> int:
     """Launch a training run (local process); returns its exit code."""
     root = args.root
@@ -83,7 +96,7 @@ def launch(args) -> int:
     if nodes > 1 or launcher != "local":
         raise NotImplementedError(
             f"--launcher {launcher} --nodes {nodes}: multi-host training is "
-            "not ported to the PyTorch package yet (ROADMAP queue 1 item 7)")
+            "not ported to the PyTorch package yet (ROADMAP queue 1 item 7b)")
     if args.restart_on_failure and args.in_process:
         raise CommandError("--restart-on-failure needs the subprocess "
                            "launcher (drop --in-process)")
@@ -92,7 +105,13 @@ def launch(args) -> int:
             "--restart-on-failure recovers by RESUMING from the latest "
             "checkpoint; combining it with --no-resume would retrain from "
             "step 0 on every restart")
-    if args.in_process or not (args.dry_run or args.restart_on_failure):
+    procs = _ranks(args)
+    if procs > 1 and args.in_process:
+        raise CommandError(
+            f"the parallel config trains on {procs} ranks, each a process of "
+            "its own: drop --in-process")
+    if procs == 1 and (args.in_process
+                       or not (args.dry_run or args.restart_on_failure)):
         from ...runtime.train_entry import main as train_main
         config = ["--config", args.config_file] if args.config_file else []
         return train_main(config + entry_args(args, root.device))
@@ -101,7 +120,8 @@ def launch(args) -> int:
         num_hosts=nodes, launcher=launcher, config_file=args.config_file,
         deterministic=root.deterministic,
         mixed_precision=root.mixed_precision, seed=root.seed,
-        dry_run=args.dry_run, extra_args=entry_args(args, root.device))
+        dry_run=args.dry_run, extra_args=entry_args(args, root.device),
+        procs=procs)
     orch = ProcessOrchestrator(cfg)
     if args.dry_run:
         print(orch.launcher.describe())

@@ -4,7 +4,7 @@
 ``plugins/autotuning.py`` on the global ``--device`` and writes
 ``<output-dir>/tuning_cache.json`` in the JAX command's JSON. ``comms``,
 ``sp`` and ``full`` tune collectives and sequence-parallel schemes over a
-mesh of cards with the planner: they exit 2 naming ROADMAP queue 1 item 7.
+mesh of cards with the planner: they exit 2 naming ROADMAP queue 1 item 7b.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-MULTI_GPU = "ROADMAP queue 1 item 7"
+MULTI_GPU = "ROADMAP queue 1 item 7b"
 
 
 def build_parser(prog: str) -> argparse.ArgumentParser:

@@ -11,7 +11,7 @@ place of its ``--platform``/``--fake-devices`` there is ``--device
 cuda|cpu`` (default ``cuda``: every command that touches a device raises
 without a card unless given ``--device cpu``). A multi-host or multi-GPU
 value (``--nodes > 1``, ``--chips-per-node > 1``, a cluster launcher)
-raises naming ROADMAP queue 1 item 7.
+raises naming ROADMAP queue 1 item 7b.
 
 Each command's module is imported only when it runs, so ``--help`` stays
 fast. The command ``plan`` (it needs the planner of ROADMAP queue 1 item
@@ -52,10 +52,10 @@ COMMANDS = {
 
 # command -> the ROADMAP item it waits for
 NOT_PORTED = {
-    "plan": "ROADMAP queue 1 item 7 (it needs the planner)",
+    "plan": "ROADMAP queue 1 item 7b (it needs the planner)",
 }
 
-MULTI_HOST = "ROADMAP queue 1 item 7"
+MULTI_HOST = "ROADMAP queue 1 item 7b"
 
 
 class CommandError(Exception):

@@ -68,7 +68,7 @@ class MoEConfig:
     """Mixture-of-experts settings (``models.layers.moe_block``): E experts,
     K of them a token, ``capacity_factor`` * K * N / E slots an expert for a
     call over N tokens, and the weight of the load-balancing aux loss.
-    Expert parallelism is not ported (ROADMAP queue 1 item 7)."""
+    Expert parallelism is not ported (ROADMAP queue 1 item 7b)."""
     num_experts: int = 0            # 0 = dense model
     experts_per_token: int = 2
     router_aux_loss_weight: float = 0.01
@@ -377,9 +377,10 @@ class OptimizerConfig:
 
 @dataclass
 class ParallelConfig:
-    """Parallelism plan. The port trains on one card: every degree above 1
-    is refused by ``require_single_device`` (the training engine calls
-    it), naming the ROADMAP item that will bring it."""
+    """Parallelism plan. Data, FSDP, tensor and sequence parallelism and
+    ZeRO run on a mesh of ranks (``parallel/``); pipeline and expert
+    parallelism are refused by ``require_supported`` (the training engine
+    calls it), naming the ROADMAP item that will bring them."""
     strategy: str = "auto"          # auto | manual
     data_parallel: int = 1
     fsdp: int = 1
@@ -421,15 +422,18 @@ class ParallelConfig:
                 "zero_stage=3 means fully-sharded parameters, which this "
                 "framework expresses as the fsdp mesh axis: set fsdp>1")
 
-    def require_single_device(self) -> None:
-        """Raise for any plan that needs more than one card."""
-        over = [f"{f_}={getattr(self, f_)}" for f_ in self._DEGREES
+    def require_supported(self) -> None:
+        """Raise for a plan the port cannot train yet: pipeline and expert
+        parallelism (ROADMAP queue 1 item 7b). Data, FSDP, tensor and
+        sequence parallelism and ZeRO stages 1-3 run on a mesh of ranks
+        (``parallel/api.py``)."""
+        over = [f"{f_}={getattr(self, f_)}" for f_ in
+                ("pipeline_parallel", "expert_parallel")
                 if getattr(self, f_) > 1]
-        if over or self.zero_stage > 0:
+        if over:
             raise NotImplementedError(
-                f"parallel training ({', '.join(over) or 'zero_stage'}) is "
-                f"not ported yet: the port trains on one card (ROADMAP "
-                f"queue 1 item 7)")
+                f"parallel training with {', '.join(over)} is not ported "
+                f"yet (ROADMAP queue 1 item 7b)")
 
     @property
     def total_devices(self) -> int:

@@ -14,7 +14,10 @@ implementations of the same per-leaf function:
 ``fused_adamw_apply`` sends each leaf with ndim >= 2 and >= 65536 elements
 that lies on a card to the kernel, all of them in one multi-leaf call (one
 launch per (mu, nu) dtype pair), and the rest (norm scales, biases, and
-every leaf on the CPU) to ``_leaf_math``. The scalars (lr, 1 - b1^t,
+every leaf on the CPU) to ``_leaf_math``. A sharded step passes
+``kernel_mask``: the rule taken on each GLOBAL leaf (the JAX package's
+choice), so the set that goes to the kernel does not change with the mesh
+while each rank updates its shard. The scalars (lr, 1 - b1^t,
 1 - b2^t, clip scale) stay on the device: nothing waits for the host.
 Unlike the JAX function, which returns new trees, this one updates
 ``params``, ``mu`` and ``nu`` in place (no second copy of the state).
@@ -22,13 +25,19 @@ Unlike the JAX function, which returns new trees, this one updates
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..ops.adamw_cuda import adamw_multi_kernel
 
 KERNEL_MIN_ELEMENTS = 1 << 16
+
+
+def kernel_eligible(shape) -> bool:
+    """The kernel's leaves: ndim >= 2 and >= 65536 elements."""
+    return len(shape) >= 2 and int(np.prod(shape)) >= KERNEL_MIN_ELEMENTS
 
 
 def _leaf_math(p, g, mu, nu, lr, om1, om2, clip_scale, *, b1, b2, eps, wd,
@@ -72,22 +81,26 @@ def fused_adamw_apply(params: Sequence[torch.Tensor],
                       count: torch.Tensor, *, lr: torch.Tensor, b1: float,
                       b2: float, eps: float, weight_decay: float,
                       decay_mask: Sequence[bool], clip_scale: torch.Tensor,
-                      use_kernel: bool = True) -> None:
+                      use_kernel: bool = True,
+                      kernel_mask: Optional[Sequence[bool]] = None) -> None:
     """Apply one AdamW step to every leaf, in place.
 
     ``count`` is the step count BEFORE this update (bias correction uses
     count + 1, as optax.scale_by_adam). ``clip_scale`` is the global-norm
     clip factor (1.0 = no clip); ``decay_mask`` a bool per leaf (True =
     weight decay applies). ``use_kernel=False`` takes ``_leaf_math`` for
-    every leaf (the unfused update)."""
+    every leaf (the unfused update). ``kernel_mask`` (a bool per leaf)
+    replaces the size rule: which leaves on a card go to the kernel."""
     scalars = adam_scalars(count, lr, b1, b2, clip_scale)
     s_lr, om1, om2, s_clip = scalars.unbind()
+    if kernel_mask is None:
+        kernel_mask = [kernel_eligible(p.shape) for p in params]
     kernel_leaves = []
-    for p, g, m, v, decayed in zip(params, grads, mu, nu, decay_mask,
-                                   strict=True):
+    for p, g, m, v, decayed, eligible in zip(params, grads, mu, nu,
+                                             decay_mask, kernel_mask,
+                                             strict=True):
         wd = weight_decay if decayed else 0.0
-        if (use_kernel and p.is_cuda and p.dim() >= 2
-                and p.numel() >= KERNEL_MIN_ELEMENTS):
+        if use_kernel and p.is_cuda and eligible:
             kernel_leaves.append((p, g, m, v, wd))
             continue
         new_p, new_m, new_v = _leaf_math(

@@ -536,3 +536,24 @@ COUNTER_FLOW: tuple[CounterFlow, ...] = (
     CounterFlow("ReplicaSupervisor", "total_role_demotions", "demotions",
                 None),
 )
+
+
+# Counters of the port's engine features that the JAX engine lacks (swap
+# preemption, chunked prefill, the decode dispatch and extend-prefill
+# tallies): /v1/stats only. Kept apart so COUNTER_FLOW stays JAX's, entry
+# for entry; the counter-wiring pass reads both.
+PORT_COUNTER_FLOW: tuple[CounterFlow, ...] = (
+    CounterFlow("InferenceEngine", "total_swap_outs", "swap_outs", None),
+    CounterFlow("InferenceEngine", "total_swap_out_bytes", "swap_out_bytes",
+                None),
+    CounterFlow("InferenceEngine", "total_swap_fallbacks", "swap_fallbacks",
+                None),
+    CounterFlow("InferenceEngine", "total_chunked_prefills",
+                "chunked_prefills", None),
+    CounterFlow("InferenceEngine", "total_prefill_chunks", "prefill_chunks",
+                None),
+    CounterFlow("InferenceEngine", "total_dispatched_steps",
+                "dispatched_steps", None),
+    CounterFlow("InferenceEngine", "total_extend_prefills",
+                "extend_prefills", None),
+)

@@ -27,6 +27,7 @@ exist at once.
 
 from __future__ import annotations
 
+import copy
 import functools
 import math
 from types import SimpleNamespace
@@ -423,6 +424,110 @@ def forward(
         result.append(aux_total if aux_total is not None else torch.zeros(
             (), dtype=torch.float32, device=dev))
     return tuple(result) if len(result) > 1 else result[0]
+
+
+# ---------------------------------------------------------------------------
+# Sharded forward (one rank of a mesh)
+# ---------------------------------------------------------------------------
+
+def gather_leaf(t: torch.Tensor, spec: tuple, mesh,
+                keep: tuple = ()) -> torch.Tensor:
+    """A rank's shard ``t`` of a leaf cut by ``spec``, all-gathered over
+    every axis of it but ``keep`` (differentiable). A gather over a data
+    axis (the FSDP parameter gather) reduce-scatters its gradient: the
+    members fed different rows. A gather over ``tp`` slices it: every tp
+    rank computes the whole gradient of what it gathered alike."""
+    from ..comms.collectives import gather
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        for a in reversed(axes):        # the minor axis first
+            if a in keep:
+                continue
+            t = gather(t, a, d, "slice" if a == "tp" else "reduce_scatter",
+                       mesh)
+    return t
+
+
+def tp_local_config(cfg, tp: int):
+    """``cfg`` as one tensor-parallel rank sees its blocks: 1/tp of the
+    query and kv heads and of the FFN width (head-aligned column and row
+    splits)."""
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp or cfg.ffn_size % tp:
+        raise ValueError(
+            f"tensor_parallel={tp} must divide num_heads={cfg.num_heads}, "
+            f"num_kv_heads={cfg.num_kv_heads} and ffn_size={cfg.ffn_size}")
+    local = copy.copy(cfg)
+    local.num_heads = cfg.num_heads // tp
+    local.num_kv_heads = cfg.num_kv_heads // tp
+    local.ffn_size = cfg.ffn_size // tp
+    return local
+
+
+def _sharded_block_fn(stacked: dict, layer_idx: int, x, cfg_local, mesh,
+                      positions, segment_ids, inv_freq, attn_impl: str):
+    """One pre-norm block on one rank. The layer's leaves are taken from
+    the stacked shards, all-gathered over fsdp and cast to the compute
+    dtype; q/k/v and gate/up are column-parallel (this rank's heads and
+    FFN columns) behind ``copy_to``, o and down row-parallel with their
+    partial sums all-reduced over tp by ``reduce_from``."""
+    from ..comms.collectives import copy_to, reduce_from
+    layer = SimpleNamespace(**{
+        name: cast(gather_leaf(t[layer_idx], spec, mesh, keep=("tp",)),
+                   x.dtype)
+        for name, (t, spec) in stacked.items()})
+    h = rms_norm(x, layer.attn_norm, cfg_local.norm_eps)
+    attn, _ = attention_block(copy_to(h, "tp", mesh), layer, cfg_local,
+                              positions, segment_ids, inv_freq,
+                              attn_impl=attn_impl, mesh=mesh)
+    x = x + reduce_from(attn, "tp", mesh)
+    h = rms_norm(x, layer.mlp_norm, cfg_local.norm_eps)
+    return x + reduce_from(mlp_block(copy_to(h, "tp", mesh), layer,
+                                     cfg_local), "tp", mesh)
+
+
+def forward_sharded(stacked: dict, top: dict, tokens: torch.Tensor, cfg,
+                    mesh, *, positions: torch.Tensor,
+                    segment_ids: Optional[torch.Tensor] = None,
+                    attn_impl: str = "xla", remat: str = "none"):
+    """The forward of one rank of a mesh, to the final-normed hidden
+    states, and the LM head whole: (hidden [B_local, S_local, H] in the
+    compute dtype, head weight [V, H] when tied else [H, V], fp32).
+
+    ``stacked``: {block leaf name: (this rank's shard of the [L, ...]
+    stacked leaf, its spec without the layer axis)}; ``top``: the same
+    for "embed", "final_norm" and (untied) "lm_head". ``tokens`` [B_local,
+    S_local] are this rank's rows (its data index) and sequence chunk (its
+    sp index), ``positions`` their global positions.
+
+    Where the JAX forward anchors GSPMD with ``constrain(x,
+    "activations")`` (batch over dp+fsdp, sequence over sp), the
+    activations here are this rank's rows and chunk by construction: that
+    constraint implies no collective. What GSPMD derives from the
+    parameter specs is placed by hand: the embedding and LM head gathered
+    whole (FSDP and tp), each block's leaves gathered over fsdp, the tp
+    all-reduces of ``_sharded_block_fn``, and the sequence's attention
+    across sp ranks (``attn_impl`` ring or ulysses)."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "sharded training of an MoE model waits for expert parallelism "
+            "(ROADMAP queue 1 item 7b)")
+    dt = compute_dtype(cfg)
+    cfg_local = tp_local_config(cfg, mesh.axis_size("tp"))
+    embed = gather_leaf(*top["embed"], mesh)
+    x = cast(embed[tokens], dt)
+    inv_freq = rope_frequencies(cfg.head_dim, cfg.rope.base,
+                                cfg.rope.scaling, cfg.rope.scaling_factor,
+                                device=tokens.device)
+    block = _remat_wrap(_sharded_block_fn, remat)
+    for i in range(cfg.num_layers):
+        x = block(stacked, i, x, cfg_local, mesh, positions, segment_ids,
+                  inv_freq, attn_impl)
+    h = rms_norm(x, cast(gather_leaf(*top["final_norm"], mesh), x.dtype),
+                 cfg.norm_eps)
+    head = embed if cfg.tie_word_embeddings else gather_leaf(
+        *top["lm_head"], mesh)
+    return h, head
 
 
 def entry(device=None, norm_impl: str = "xla"):

@@ -139,13 +139,16 @@ def attention_block(
     kv_cache: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     cache_offset: Optional[torch.Tensor] = None,
     attn_impl: str = "xla",
+    mesh=None,
 ) -> tuple[torch.Tensor, Optional[tuple[torch.Tensor, torch.Tensor]]]:
     """Self-attention sublayer (pre-norm residual outside).
 
     ``attn_impl``: "xla" is the plain masked attention below; "flash" is
     ``ops.attention.flash_attention`` (the kernels on a card, their plain
     version on the CPU), called without positions exactly as the JAX
-    package calls it (packed rows are kept apart by the segment ids).
+    package calls it (packed rows are kept apart by the segment ids);
+    "ring" and "ulysses" attend across the sequence chunks of ``mesh``'s
+    sp ranks (None: the whole sequence is here).
 
     With ``kv_cache=(k_cache, v_cache)`` of shape [B, S_max, Nkv, D] and
     ``cache_offset`` [B], the new K/V are written at each row's offset —
@@ -185,10 +188,17 @@ def attention_block(
     elif attn_impl == "flash":
         from ..ops.attention import flash_attention
         out = flash_attention(q, k, v, segment_ids=segment_ids, causal=True)
+    elif attn_impl == "ring":
+        from ..ops.ring_attention import ring_attention
+        out = ring_attention(q, k, v, positions=positions,
+                             segment_ids=segment_ids, mesh=mesh)
+    elif attn_impl == "ulysses":
+        from ..ops.ulysses import ulysses_attention
+        out = ulysses_attention(q, k, v, positions=positions,
+                                segment_ids=segment_ids, mesh=mesh)
     elif attn_impl != "xla":
-        raise NotImplementedError(
-            f"attn_impl {attn_impl!r} is not ported (xla|flash; ring and "
-            f"ulysses wait for ROADMAP queue 1 item 7)")
+        raise ValueError(f"unknown attn_impl {attn_impl!r} "
+                         "(xla|flash|ring|ulysses)")
     else:
         mask = attention_mask(positions, positions, segment_ids, segment_ids)
         out = dot_product_attention(q, k, v, mask)

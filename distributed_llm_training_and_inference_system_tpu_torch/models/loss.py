@@ -72,6 +72,40 @@ def _chunk_nll(h, t, w, unembed_w, tied, z_loss_weight):
     return (nll * w).sum(), w.sum()
 
 
+def chunked_target_loss(
+    hidden: torch.Tensor,            # [B, T, H] final-normed hidden
+    unembed_w: torch.Tensor,         # [V, H] (tied embedding) or [H, V]
+    targets: torch.Tensor,           # [B, T] the token each position predicts
+    weights: torch.Tensor,           # [B, T] 0/1 (fp32)
+    z_loss_weight: float = 0.0,
+    chunk: int = 512,
+    tied: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the weighted token cross-entropies, sum of the weights),
+    chunk by chunk: each chunk's head product (fp32 accumulator) and
+    cross-entropy run under ``torch.utils.checkpoint``, so the forward keeps
+    no [B, chunk, V] logits and the backward recomputes each chunk's when
+    it needs them, accumulating the head's gradient across chunks."""
+    n = hidden.shape[1]
+    chunk = max(min(chunk, n), 1)
+    pad = (-n) % chunk
+    targets = targets.long()
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        weights = F.pad(weights, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, n + pad, chunk):
+        s, c = checkpoint(_chunk_nll, hidden[:, c0:c0 + chunk],
+                          targets[:, c0:c0 + chunk],
+                          weights[:, c0:c0 + chunk], unembed_w, tied,
+                          z_loss_weight, use_reentrant=False)
+        total = total + s
+        count = count + c
+    return total, count
+
+
 def chunked_next_token_loss(
     hidden: torch.Tensor,            # [B, S, H] final-normed hidden
     unembed_w: torch.Tensor,         # [V, H] (tied embedding) or [H, V]
@@ -81,39 +115,34 @@ def chunked_next_token_loss(
     chunk: int = 512,
     tied: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Shifted LM loss without materialising [B, S, V] logits.
-
-    The sequence is cut into chunks; each chunk's head product (fp32
-    accumulator) and cross-entropy run under ``torch.utils.checkpoint``,
-    so the forward keeps no [B, chunk, V] logits and the backward
-    recomputes each chunk's when it needs them, accumulating the head's
-    gradient across chunks. Same masking as ``next_token_loss``; the sums
-    are taken chunk by chunk (another order)."""
+    """Shifted LM loss without materialising [B, S, V] logits
+    (``chunked_target_loss`` over positions 0..S-2 predicting tokens
+    1..S-1). Same masking as ``next_token_loss``; the sums are taken
+    chunk by chunk (another order)."""
     B, S, H = hidden.shape
-    shift_h = hidden[:, :-1]
-    shift_t = tokens[:, 1:].long()
     weights = _shift_weights(segment_ids)
     if weights is None:
         weights = torch.ones((B, S - 1), dtype=torch.float32,
                              device=hidden.device)
-    n = S - 1
-    chunk = max(min(chunk, n), 1)
-    pad = (-n) % chunk
-    if pad:
-        shift_h = F.pad(shift_h, (0, 0, 0, pad))
-        shift_t = F.pad(shift_t, (0, pad))
-        weights = F.pad(weights, (0, pad))
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c0 in range(0, n + pad, chunk):
-        s, c = checkpoint(_chunk_nll, shift_h[:, c0:c0 + chunk],
-                          shift_t[:, c0:c0 + chunk],
-                          weights[:, c0:c0 + chunk], unembed_w, tied,
-                          z_loss_weight, use_reentrant=False)
-        total = total + s
-        count = count + c
+    total, count = chunked_target_loss(
+        hidden[:, :-1], unembed_w, tokens[:, 1:], weights, z_loss_weight,
+        chunk, tied)
     count = torch.clamp(count, min=1.0)
     return total / count, count
+
+
+def shifted_targets(tokens: torch.Tensor,
+                    segment_ids: Optional[torch.Tensor] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(targets, weights) [B, S] of whole rows: position t predicts token
+    t + 1 under ``_shift_weights``'s mask; the last position predicts
+    nothing (weight 0). A sequence-parallel rank slices its chunk."""
+    B, S = tokens.shape
+    weights = _shift_weights(segment_ids)
+    if weights is None:
+        weights = torch.ones((B, S - 1), dtype=torch.float32,
+                             device=tokens.device)
+    return (F.pad(tokens[:, 1:].long(), (0, 1)), F.pad(weights, (0, 1)))
 
 
 def perplexity(loss: torch.Tensor) -> torch.Tensor:

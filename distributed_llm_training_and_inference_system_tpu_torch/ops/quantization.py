@@ -25,6 +25,19 @@ import numpy as np
 import torch
 
 
+# The np-jnp-parity lint pass (analysis/passes_parity.py) reads these two
+# markers off the AST by name, as on the JAX package's twins. This module
+# imports nothing of the package, so it keeps its own no-op copies.
+def np_twin_of(torch_name: str):
+    """This ``*_np`` function is the numpy twin of ``torch_name``."""
+    return lambda fn: fn
+
+
+def np_host_only(reason: str):
+    """This ``*_np`` function has no torch counterpart by design."""
+    return lambda fn: fn
+
+
 def quantize_int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric absmax int8 over the LAST axis, scale without keepdims:
     (values int8 [..., D], scale fp32 [...])."""
@@ -166,6 +179,9 @@ def dequantize_int4_rows(packed: torch.Tensor, scale: torch.Tensor,
 # low nibble, 2i+1 = high nibble, packed along the page-slot axis. All four
 # delta transforms are size-preserving bijections in modular arithmetic.
 
+@np_host_only("token-axis delta filter exists only in the courier wire "
+              "codec (host-side); the device never sees delta-coded "
+              "planes")
 def delta_encode_planes_np(a: np.ndarray, axis: int = -2) -> np.ndarray:
     """Mod-256 first difference along ``axis``: row i becomes row_i -
     row_{i-1}, row 0 is kept."""
@@ -180,6 +196,7 @@ def delta_encode_planes_np(a: np.ndarray, axis: int = -2) -> np.ndarray:
     return out.view(a.dtype)
 
 
+@np_host_only("inverse of the host-side courier delta filter")
 def delta_decode_planes_np(a: np.ndarray, axis: int = -2) -> np.ndarray:
     """Inverse of delta_encode_planes_np: mod-256 prefix sum."""
     u = np.ascontiguousarray(a).view(np.uint8)
@@ -187,6 +204,7 @@ def delta_decode_planes_np(a: np.ndarray, axis: int = -2) -> np.ndarray:
     return out.view(a.dtype)
 
 
+@np_twin_of("unpack_int4_rows")
 def unpack_nibbles_np(packed: np.ndarray, axis: int = -2) -> np.ndarray:
     """uint8 bytes -> RAW nibbles (0..15, no sign extension) interleaved
     along ``axis``, in the layout of ``unpack_int4_rows``."""
@@ -199,6 +217,7 @@ def unpack_nibbles_np(packed: np.ndarray, axis: int = -2) -> np.ndarray:
     return q.reshape(shape)
 
 
+@np_twin_of("pack_int4_rows")
 def pack_nibbles_np(q: np.ndarray, axis: int = -2) -> np.ndarray:
     """Inverse of unpack_nibbles_np (the ``pack_int4_rows`` layout)."""
     axis = axis % q.ndim
@@ -211,6 +230,8 @@ def pack_nibbles_np(q: np.ndarray, axis: int = -2) -> np.ndarray:
     return (lo | (hi << 4)).astype(np.uint8)
 
 
+@np_host_only("mod-16 nibble delta filter exists only in the courier "
+              "wire codec (host-side)")
 def nibble_delta_encode_np(packed: np.ndarray, axis: int = -2) -> np.ndarray:
     """Mod-16 first difference over the unpacked nibble stream of a
     packed-int4 plane, repacked."""
@@ -225,6 +246,7 @@ def nibble_delta_encode_np(packed: np.ndarray, axis: int = -2) -> np.ndarray:
     return pack_nibbles_np(out, axis)
 
 
+@np_host_only("inverse of the host-side mod-16 nibble delta filter")
 def nibble_delta_decode_np(packed: np.ndarray, axis: int = -2) -> np.ndarray:
     """Inverse of nibble_delta_encode_np: mod-16 prefix sum, repacked."""
     axis = axis % packed.ndim

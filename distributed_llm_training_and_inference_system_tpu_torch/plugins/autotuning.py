@@ -30,7 +30,7 @@ knobs:
   ``load_results`` in the JAX module's JSON, so each reads the other's
   cache.
 - ``CollectiveTuner`` and ``tune_collective`` need a mesh of cards and
-  raise, naming ROADMAP queue 1 item 7.
+  raise, naming ROADMAP queue 1 item 7b.
 
 Every time comes from ``utils/timing.time_fn`` (CUDA events on a card).
 """
@@ -53,7 +53,7 @@ from ..device import resolve_device
 
 logger = logging.getLogger("llmctl.autotuning")
 
-MULTI_GPU = "ROADMAP queue 1 item 7"
+MULTI_GPU = "ROADMAP queue 1 item 7b"
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 

@@ -2,7 +2,12 @@
 host.
 
 ``LocalLauncher`` runs the port's ``runtime/train_entry.py`` in a child
-process and adds no ``XLA_FLAGS``. ``ProcessOrchestrator`` streams its
+process and adds no ``XLA_FLAGS``. A parallel config (``procs > 1``: the
+product of its degrees) gets one child per rank on this host, each told
+its place by the environment ``torch.distributed`` reads (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``: a TCP rendezvous on a free local port); rank 0's output
+is the job's, and a rank that fails stops the others. ``ProcessOrchestrator`` streams its
 output, stops it, and with ``run_with_restarts`` relaunches a child that
 failed (counted in ``restarts``); each relaunch resumes from the latest
 committed checkpoint.
@@ -19,7 +24,7 @@ order already. ``PYTHONPATH`` leads with the directory holding this
 package, so the child runs the same copy of the port as the parent.
 
 Multi-host jobs (``num_hosts > 1``) and the SLURM, MPI and k8s/GKE
-launchers wait for ROADMAP queue 1 item 7: they raise.
+launchers wait for ROADMAP queue 1 item 7b: they raise.
 """
 
 from __future__ import annotations
@@ -27,8 +32,10 @@ from __future__ import annotations
 import os
 import shlex
 import signal
+import socket
 import subprocess
 import sys
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -37,15 +44,17 @@ from typing import Optional
 ENTRY = "distributed_llm_training_and_inference_system_tpu_torch.runtime.train_entry"
 # the directory holding this package: the child imports the same copy
 PACKAGE_ROOT = Path(__file__).resolve().parents[2]
-_MULTI_HOST = "ROADMAP queue 1 item 7"
+_MULTI_HOST = "ROADMAP queue 1 item 7b"
 
 
 @dataclass
 class LaunchConfig:
     """What to launch where: the JAX package's fields but those only its
-    cluster launchers read (item 7). ``extra_args`` go to train_entry
-    (``--device cpu`` among them for a CPU run)."""
+    cluster launchers read (item 7b). ``extra_args`` go to train_entry
+    (``--device cpu`` among them for a CPU run); ``procs`` is the number of
+    ranks on this host."""
     num_hosts: int = 1
+    procs: int = 1
     launcher: str = "local"            # local | slurm | mpi | k8s | gke
     config_file: Optional[str] = None
     extra_args: list[str] = field(default_factory=list)
@@ -89,8 +98,14 @@ def _train_cmd(cfg: LaunchConfig, python: Optional[str] = None) -> list[str]:
     return cmd
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 class LocalLauncher:
-    """One training process on this host (its card)."""
+    """The training processes of this host: one, or one per rank."""
 
     def __init__(self, cfg: LaunchConfig):
         _require_one_host(cfg)
@@ -98,21 +113,46 @@ class LocalLauncher:
         self.children: list[subprocess.Popen] = []
 
     def launch(self, capture_output: bool = True) -> Optional[subprocess.Popen]:
-        """Start the child (None for a dry run). With nothing draining a
-        pipe a chatty child would block on a full OS pipe buffer, so its
-        output is inherited unless captured."""
+        """Start the children (None for a dry run) and return rank 0's.
+        With nothing draining a pipe a chatty child would block on a full
+        OS pipe buffer, so output is inherited unless captured (rank 0's
+        only: the other ranks log at debug level)."""
         if self.cfg.dry_run:
             self.children = []
             return None
-        self.children = [subprocess.Popen(
-            _train_cmd(self.cfg), env=_train_env(self.cfg),
-            stdout=subprocess.PIPE if capture_output else None,
-            stderr=subprocess.STDOUT if capture_output else None,
-            text=True)]
+        env = _train_env(self.cfg)
+        procs = max(self.cfg.procs, 1)
+        if procs > 1:
+            env.update({"WORLD_SIZE": str(procs),
+                        "LOCAL_WORLD_SIZE": str(procs),
+                        "MASTER_ADDR": "127.0.0.1",
+                        "MASTER_PORT": str(_free_port())})
+        self.children = []
+        for rank in range(procs):
+            if procs > 1:
+                env = {**env, "RANK": str(rank), "LOCAL_RANK": str(rank)}
+            pipe = capture_output and rank == 0
+            self.children.append(subprocess.Popen(
+                _train_cmd(self.cfg), env=env,
+                stdout=subprocess.PIPE if pipe else None,
+                stderr=subprocess.STDOUT if pipe else None, text=True))
         return self.children[0]
 
+    def wait(self, poll_s: float = 0.1) -> int:
+        """Wait for every child; the first failure stops the rest. Returns
+        0, or the exit code of the first rank that failed."""
+        while True:
+            rcs = [p.poll() for p in self.children]
+            failed = [rc for rc in rcs if rc not in (None, 0)]
+            if failed:
+                self.stop_children()
+                return failed[0]
+            if all(rc == 0 for rc in rcs):
+                return 0
+            time.sleep(poll_s)
+
     def stop_children(self, grace_seconds: float = 5.0) -> None:
-        """SIGTERM (then SIGKILL) the child if it still runs."""
+        """SIGTERM (then SIGKILL) the children that still run."""
         for p in self.children:
             if p.poll() is None:
                 p.send_signal(signal.SIGTERM)
@@ -125,7 +165,8 @@ class LocalLauncher:
                 p.wait()
 
     def describe(self) -> str:
-        return shlex.join(_train_cmd(self.cfg))
+        cmd = shlex.join(_train_cmd(self.cfg))
+        return cmd if self.cfg.procs <= 1 else f"{self.cfg.procs} x {cmd}"
 
 
 def create_launcher(cfg: LaunchConfig) -> LocalLauncher:
@@ -154,10 +195,17 @@ class ProcessOrchestrator:
         self.process = self.launcher.launch(capture_output=stream_output)
         if self.process is None:     # dry run
             return 0
+        pump = None
         if stream_output and self.process.stdout is not None:
-            for line in self.process.stdout:
-                print(line, end="", flush=True)
-        return self.process.wait()
+            def copy(out=self.process.stdout):
+                for line in out:
+                    print(line, end="", flush=True)
+            pump = threading.Thread(target=copy, daemon=True)
+            pump.start()
+        rc = self.launcher.wait()
+        if pump is not None:
+            pump.join(timeout=10)
+        return rc
 
     def run_with_restarts(self, max_restarts: int = 0,
                           backoff_seconds: float = 5.0,

@@ -6,13 +6,17 @@ runtime.train_entry --model gpt-1b --max-steps 8
 Config precedence is file < env (LLMCTL_*) < CLI flags. Trains on the card
 (``--device cpu`` runs the plain path on the CPU), with train steps and
 evals fed to ``metrics.observability.engine_observer()`` (a scrape endpoint
-when ``LLMCTL_METRICS_PORT`` is set). Multi-host training waits for ROADMAP
-queue 1 item 7.
+when ``LLMCTL_METRICS_PORT`` is set). Launched as one rank of a mesh
+(``runtime/launcher.py`` sets ``RANK``/``WORLD_SIZE``...), it trains that
+rank's shards. On a card each process ends by printing its training
+kernels' launches to stderr (``LLMCTL_TRAIN_LAUNCHES {json}``). Multi-host
+training waits for ROADMAP queue 1 item 7b.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -59,10 +63,26 @@ def main(argv: list[str] | None = None) -> int:
                             observer=engine_observer())
     try:
         final = engine.train(resume=not args.no_resume)
+        if engine.device.type == "cuda":
+            print("LLMCTL_TRAIN_LAUNCHES " + json.dumps(
+                dict(kernel_launches(), rank=engine.rank)),
+                file=sys.stderr, flush=True)
     finally:
         engine.close()
-    logging.getLogger("llmctl.train").info("finished: %s", final)
+    if engine.rank == 0:
+        logging.getLogger("llmctl.train").info("finished: %s", final)
     return 0
+
+
+def kernel_launches() -> dict:
+    """This process's launches of the training kernels (the flash forward
+    and backward pair, AdamW and the leaves it updated)."""
+    from ..ops import adamw_cuda, attention_cuda
+    return {"flash_fwd": attention_cuda.flash_fwd.launches,
+            "flash_bwd_dq": attention_cuda.flash_bwd_dq.launches,
+            "flash_bwd_dkv": attention_cuda.flash_bwd_dkv.launches,
+            "adamw": adamw_cuda.adamw_kernel.launches,
+            "adamw_leaves": adamw_cuda.adamw_kernel.leaves}
 
 
 if __name__ == "__main__":

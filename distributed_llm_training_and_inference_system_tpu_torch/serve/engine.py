@@ -73,6 +73,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..analysis.annotations import engine_thread_only
 from ..config.schema import _parse_bool
 from ..device import resolve_device, to_device
 from ..io.checkpoint import (CheckpointManager, apply_ckpt_model_overrides,
@@ -98,7 +99,7 @@ logger = logging.getLogger("llmctl.serve.engine")
 # feature -> (is it requested?, ROADMAP item that ports it)
 _NOT_PORTED = (
     (lambda c: c.tensor_parallel > 1, "tensor_parallel > 1",
-     "queue 1 item 7 (multi-GPU)"),
+     "queue 1 item 7b (multi-GPU)"),
 )
 
 QUANT_MIN_SIZE = 4096    # elements of the stacked [L, in, out] kernel
@@ -613,6 +614,7 @@ class InferenceEngine:
         if req.prefill_dispatch_time is None:
             req.prefill_dispatch_time = time.monotonic()
 
+    @engine_thread_only
     def _maybe_fetch_prefix(self, req: Request) -> None:
         """Fleet prefix fetch, on the engine thread before a prefill, no
         lock held across the hook: when the local cache leaves full pages
@@ -681,6 +683,7 @@ class InferenceEngine:
                     "tokens) from replica %s", rid, len(inserted),
                     tokens, getattr(req, "prefix_owner", None))
 
+    @engine_thread_only
     def _maybe_fetch_salvage_tail(self, req: Request) -> None:
         """A crash-salvaged partial payload whose router hint names an
         owner: fetch the chain pages past the payload's coverage and
@@ -734,6 +737,7 @@ class InferenceEngine:
                 "pure-decode engine starting %s for %s (restore fallback "
                 "or fleet mis-routing)", what, req.request_id)
 
+    @engine_thread_only
     def _prefill(self, req: Request):
         """Dispatch one prompt's prefill; returns (req, device token). The
         first-token fetch is deferred to ``_finish_prefill`` so a burst of
@@ -827,6 +831,7 @@ class InferenceEngine:
 
     # -- chunked prefill -----------------------------------------------------
 
+    @engine_thread_only
     def _start_chunked_prefill(self, req: Request) -> None:
         """Allocate the slot's pages and enqueue the context for chunk-at-
         a-time prefill (one chunk an engine step, interleaved with
@@ -851,6 +856,7 @@ class InferenceEngine:
             "req": req, "ctx": ctx, "done": cached, "pins": len(pins),
             "table_row": table_row}
 
+    @engine_thread_only
     def _advance_chunked_prefills(self) -> list:
         """Advance the chunked prefills in flight by at most
         ``prefill_budget_tokens`` of prompt this step in all (at least one
@@ -914,6 +920,7 @@ class InferenceEngine:
                 del self._partial_prefills[rid]
         return completed
 
+    @engine_thread_only
     def _publish_stage_pages(self, st: dict) -> None:
         """Register a pipeline-stage request's newly full pages in the
         prefix cache chunk by chunk, not at the end: the pipeline
@@ -932,6 +939,7 @@ class InferenceEngine:
                                     for i in range(pub, full)])
         st["published"] = full
 
+    @engine_thread_only
     def _arm_slot(self, req: Request, last_token: int, n_written: int,
                   ctx: list) -> None:
         """Make a slot live for decode: the one place the per-slot decode
@@ -964,6 +972,7 @@ class InferenceEngine:
             else:
                 self._spec_state[slot] = SpecState(window=T)
 
+    @engine_thread_only
     def _finish_prefill(self, req: Request, token) -> None:
         """Resolve a dispatched prefill: fetch its first token and make the
         slot live for decode."""
@@ -992,6 +1001,7 @@ class InferenceEngine:
             len(head.context_tokens) + self._admission_tail(head))
         return need <= self.kv.free_pages - self._reserved_pages
 
+    @engine_thread_only
     def _decode_device(self, use_short: bool = False) -> np.ndarray:
         """Dispatch one decode group and fetch its tokens."""
         if use_short:
@@ -1009,6 +1019,7 @@ class InferenceEngine:
                 "temperature": self.temperature.copy(),
                 "top_k": self.top_k.copy(), "top_p": self.top_p.copy()}
 
+    @engine_thread_only
     def _submit_decode(self, chain_from=None, shared=None) -> dict:
         """Enqueue ONE decode unit without fetching its results. With
         ``chain_from`` (a previous unit or group), its device-resident
@@ -1038,6 +1049,7 @@ class InferenceEngine:
             "active": self.active.copy(),
         }
 
+    @engine_thread_only
     def _submit_group(self, n_units: int, chain_from=None) -> dict:
         """Chain ``n_units`` unit dispatches; return a group record with
         the same keys as a unit (last unit's carry, first unit's slot
@@ -1056,6 +1068,7 @@ class InferenceEngine:
             "active": units[0]["active"],
         }
 
+    @engine_thread_only
     def _fetch_group(self, group: dict) -> np.ndarray:
         """One device->host fetch of a group's sampled tokens [K, B]."""
         out = torch.cat([u["sampled"] for u in group["units"]]).cpu().numpy()
@@ -1064,6 +1077,7 @@ class InferenceEngine:
             self.serve_cfg.max_batch_size - group["active"].sum())
         return out
 
+    @engine_thread_only
     def _drain_pending(self) -> None:
         """Fetch and apply the in-flight pipelined group, if any."""
         prev, self._pending = self._pending, None
@@ -1074,6 +1088,7 @@ class InferenceEngine:
             self._apply_decode(sampled, snapshot=prev)
             self.scheduler.step_finished(self.eos_token_id)
 
+    @engine_thread_only
     def _apply_decode(self, sampled_seq: np.ndarray,
                       snapshot: Optional[dict] = None) -> None:
         """Host bookkeeping for K decode steps (under self.lock). Slots that
@@ -1108,6 +1123,7 @@ class InferenceEngine:
 
     # -- speculative decode --------------------------------------------------
 
+    @engine_thread_only
     def spec_state_of(self, slot: int) -> Optional[dict]:
         """The slot's SpecState as a plain-scalar dict; None when
         speculation is off or the slot carries none."""
@@ -1122,6 +1138,7 @@ class InferenceEngine:
         st = self._spec_state[slot]
         return T, (min(st.window, T) if st is not None else T)
 
+    @engine_thread_only
     def _spec_device(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """One fused speculative dispatch: drafts proposed on the host from
         each greedy slot's context, then the verify window and K - 1
@@ -1172,6 +1189,7 @@ class InferenceEngine:
         self.total_padded_slot_steps += (1 + R) * int(B - self.active.sum())
         return emitted, n_emit, decode_seq
 
+    @engine_thread_only
     def _apply_speculative(self, emitted: np.ndarray, n_emit: np.ndarray,
                            decode_seq: np.ndarray) -> None:
         """Host bookkeeping for one fused dispatch (under self.lock): the
@@ -1223,6 +1241,7 @@ class InferenceEngine:
                    for r in self.scheduler.waiting
                    if r.swapped_kv is not None)
 
+    @engine_thread_only
     def _restore_swapped(self, req: Request) -> bool:
         """Swap-in: allocate pages, write the saved K/V back and make the
         slot live for decode, with no prefill. False when the pool cannot
@@ -1254,6 +1273,7 @@ class InferenceEngine:
         self.total_swap_ins += 1
         return True
 
+    @engine_thread_only
     def _preempt(self, slot: int) -> None:
         """Evict ``slot``'s request (newest-first victim policy) so an older
         stream can grow. The request re-enters the queue head. With
@@ -1303,6 +1323,7 @@ class InferenceEngine:
         logger.info("preempted %s (slot %d, %d tokens generated) to free "
                     "KV pages", rid, slot, len(req.generated_tokens))
 
+    @engine_thread_only
     def _ensure_decode_capacity(self) -> None:
         """Grow every active slot's chain to cover the next dispatch's
         writes (on-demand admission), oldest first; when the pool is dry
@@ -1367,6 +1388,7 @@ class InferenceEngine:
             (self.temperature[self.active] <= 0).any())
 
     @torch.inference_mode()
+    @engine_thread_only
     def step(self) -> int:
         """One engine iteration: admit + prefill (a swap-in restores, a
         long context starts chunks, chunks in flight advance), then one

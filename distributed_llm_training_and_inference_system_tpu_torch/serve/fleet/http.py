@@ -182,6 +182,7 @@ class FleetServer:
 
     # -- SSE streaming -------------------------------------------------------
 
+    @aiohttp_handler
     def _stream_completion(self, handler, prompt_tokens, sampling,
                            priority: str = "standard"):
         try:
@@ -228,6 +229,7 @@ class FleetServer:
         return (f"id: {seq_last}\n"
                 f"data: {json.dumps(payload)}\n\n").encode()
 
+    @aiohttp_handler
     def _serve_stream(self, handler, rid: str, from_seq: int,
                       resume: bool):
         """Serve one SSE connection off the stream hub: the atomic
@@ -345,6 +347,7 @@ class FleetServer:
         handler signature)."""
         return self.health()
 
+    @aiohttp_handler
     def _drain_action(self, body: dict, drain: bool):
         try:
             replica = int(body["replica"])
@@ -414,26 +417,68 @@ class FleetServer:
         handler.end_headers()
         handler.wfile.write(data)
 
+    # the routes: each runs on a ThreadingHTTPServer request thread (the
+    # JAX front's aiohttp handlers, under the same marker)
+
+    @aiohttp_handler
+    def handle_models(self, _handler, _query):
+        return self.models()
+
+    @aiohttp_handler
+    def handle_health_get(self, _handler, _query):
+        return self.health()
+
+    @aiohttp_handler
+    def handle_stats(self, _handler, _query):
+        return self.fleet.status()
+
+    @aiohttp_handler
+    def handle_fleet_status(self, _handler, _query):
+        return self.fleet.status()
+
+    @aiohttp_handler
+    def handle_fleet_drain(self, _handler, body: dict):
+        return self._drain_action(body, drain=True)
+
+    @aiohttp_handler
+    def handle_fleet_undrain(self, _handler, body: dict):
+        return self._drain_action(body, drain=False)
+
+    @aiohttp_handler
+    def handle_fleet_migrate(self, _handler, body: dict):
+        return self.fleet_migrate(body)
+
+    @aiohttp_handler
+    def handle_fleet_role(self, _handler, body: dict):
+        return self.fleet_role(body)
+
+    @aiohttp_handler
+    def handle_courier_chunk(self, _handler, body: dict):
+        return self.courier_chunk(body)
+
+    @aiohttp_handler
+    def handle_courier_fetch(self, _handler, body: dict):
+        return self.fleet.serve_prefix_fetch(body)
+
+    @aiohttp_handler
+    def handle_metrics(self, handler, _query) -> None:
+        self.metrics_body(handler)
+
     def routes(self) -> dict:
         """(method, path) -> route: the JAX front's ``_build_app``."""
-        status = lambda _h, _q: self.fleet.status()     # noqa: E731
         return {
             ("POST", "/v1/completions"): self.completions,
-            ("GET", "/v1/models"): lambda _h, _q: self.models(),
-            ("GET", "/v1/stats"): status,
-            ("GET", "/health"): lambda _h, _q: self.health(),
-            ("GET", "/metrics"): lambda h, _q: self.metrics_body(h),
-            ("GET", "/fleet/status"): status,
-            ("POST", "/fleet/drain"):
-            lambda _h, b: self._drain_action(b, drain=True),
-            ("POST", "/fleet/undrain"):
-            lambda _h, b: self._drain_action(b, drain=False),
-            ("POST", "/fleet/migrate"): lambda _h, b: self.fleet_migrate(b),
-            ("POST", "/fleet/role"): lambda _h, b: self.fleet_role(b),
-            ("POST", "/fleet/courier/chunk"):
-            lambda _h, b: self.courier_chunk(b),
-            ("POST", "/fleet/courier/fetch"):
-            lambda _h, b: self.fleet.serve_prefix_fetch(b),
+            ("GET", "/v1/models"): self.handle_models,
+            ("GET", "/v1/stats"): self.handle_stats,
+            ("GET", "/health"): self.handle_health_get,
+            ("GET", "/metrics"): self.handle_metrics,
+            ("GET", "/fleet/status"): self.handle_fleet_status,
+            ("POST", "/fleet/drain"): self.handle_fleet_drain,
+            ("POST", "/fleet/undrain"): self.handle_fleet_undrain,
+            ("POST", "/fleet/migrate"): self.handle_fleet_migrate,
+            ("POST", "/fleet/role"): self.handle_fleet_role,
+            ("POST", "/fleet/courier/chunk"): self.handle_courier_chunk,
+            ("POST", "/fleet/courier/fetch"): self.handle_courier_fetch,
         }
 
     # -- lifecycle -----------------------------------------------------------

@@ -55,6 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..analysis.annotations import engine_thread_only
 from ..ops.paged_attention import Int4Pages, QuantPages
 
 logger = logging.getLogger("llmctl.serve.kv_cache")
@@ -379,12 +380,14 @@ class PagedKVCache:
 
     # -- swap (preemption to host memory) ------------------------------------
 
+    @engine_thread_only
     def extract_slot(self, slot: int) -> dict:
         """Copy ``slot``'s pages to host memory (the swap-out half of
         preemption=swap): one device gather and one device-to-host copy a
         tensor."""
         return self.extract_slot_pages(slot, 0, self._chain_len.get(slot, 0))
 
+    @engine_thread_only
     def extract_slot_pages(self, slot: int, lo: int, hi: int) -> dict:
         """Copy chain entries [lo, hi) of ``slot`` to host memory. Bounds
         are checked first: an out-of-range request would otherwise gather
@@ -396,6 +399,7 @@ class PagedKVCache:
                 f"{slot}'s chain of {chain} page(s)")
         return self._extract_pages_idx(self.block_tables[slot, lo:hi].copy())
 
+    @engine_thread_only
     def extract_pages(self, pages: list[int]) -> dict:
         """Copy arbitrary page ids to host memory (same payload schema).
         Scratch page 0 and ids outside the pool are refused."""
@@ -426,6 +430,7 @@ class PagedKVCache:
         return {"k": part(self.k_pages), "v": part(self.v_pages),
                 "num_pages": int(len(pages))}
 
+    @engine_thread_only
     def restore_slot(self, slot: int, content: dict) -> bool:
         """Swap-in: allocate fresh pages for the slot and write the saved
         K/V back. Returns False, allocating nothing, when the pool cannot
@@ -522,6 +527,7 @@ class PagedKVCache:
                         f"restore payload '{name}' shape {got} != "
                         f"expected {expect}")
 
+    @engine_thread_only
     def write_slot_pages(self, slot: int, content: dict,
                          lo: int = 0) -> None:
         """Write a host payload's pages into chain entries [lo,
@@ -594,6 +600,7 @@ class PagedKVCache:
                 self._hash_to_page[h] = page
                 self._page_to_hash[page] = h
 
+    @engine_thread_only
     def insert_prefix_pages(self, hashes: list[bytes],
                             content: dict) -> list[int]:
         """Import fetched prefix pages: write ``content``'s page columns

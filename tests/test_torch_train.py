@@ -85,8 +85,14 @@ def test_hardware_is_an_h100_and_run_config_loads():
 
 
 def test_parallel_degrees_above_one_are_refused():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        torch_schema.ParallelConfig(tensor_parallel=2).require_single_device()
+    # dp, fsdp, tp, sp and ZeRO train on a mesh of ranks; pipeline and
+    # expert parallelism still wait for their item
+    torch_schema.ParallelConfig(data_parallel=2, fsdp=2, tensor_parallel=2,
+                                sequence_parallel=2,
+                                zero_stage=1).require_supported()
+    for degree in ("pipeline_parallel", "expert_parallel"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
+            torch_schema.ParallelConfig(**{degree: 2}).require_supported()
     # every optimizer of the JAX package is ported (lion among them)
     init, _ = topt.make_optimizer(torch_schema.OptimizerConfig(type="lion"))
     model = tgpt.GPT(torch_cfg("gpt-test"), device="cpu")
