@@ -10,10 +10,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              all started together; the training kernels' build
              (flash_attention.cu, adamw.cu) is joined only before phase
              7, so phases run in the order 1-6, 11-13, 15, 20, 22,
-             17b-c, 7-10, 14, 16, 17a, 17d, 18, 19, 21, 23, 24;
+             17b-c, 7-10, 14, 16, 17a, 17d, 18, 19, 21, 23, 24, 25;
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              at llama-8b-gqa geometry (32 q heads over 8 kv heads, D=128,
-             pages of 64, 8 slots with ragged lengths up to 2048), windows
+             pages of 64, 8 slots with ragged lengths up to 2048) and at a
+             tensor_parallel=2 rank's share of it (16 over 4), windows
              T in {1, 4, 8, 128, 512} (decode, verify windows, suffix and
              chunk prefill), fp32 (tolerance 1e-5) and bf16 (2e-2: the
              output is rounded to bf16);
@@ -74,10 +75,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              one step through the kernels agrees with one through the plain
              versions within 1e-2;
 11. quantized kernels — paged attention over int8 and int4 pages at phase
-             3's geometry and windows (fp32 1e-5; bf16 2e-2 and phase 7's
+             3's geometries and windows (fp32 1e-5; bf16 2e-2 and phase 7's
              row-scaled limits); the W8A16 whole-reduction and k-split
              kernels and the W4A16 kernel (group 128, channel scales not
-             all ones) at every llama-8b-gqa projection shape, rows 1, 8
+             all ones) at every llama-8b-gqa projection shape and every
+             shape a tensor_parallel=2 rank gives them (4096 -> 2048, 512,
+             7168; 2048 -> 4096; 7168 -> 4096, 56 groups), rows 1, 8
              and 64, against their
              plain versions (each bf16 element within one bf16 rounding of
              itself plus 1e-2 of its row's rms; fp32 out 1e-4 of the row's
@@ -163,11 +166,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              sampler's (the single sort) equal the single sort's under
              the same noise; the tier's and the sort's device times and
              the host wall of reading the tier's flag; (b)
-             serve/loadgen.py on llama-8b-gqa with phase 5's weights and
-             the default ServeConfig: run_closed_loop (8 in flight) and
-             run_poisson (2 rps), 8 requests of 512 + 64 tokens each;
+             serve/loadgen.py on llama-8b-gqa with phase 5's weights at
+             full width, cut to phase 20's 8 layers, and the default
+             ServeConfig: run_closed_loop (8 in flight) and
+             run_poisson (2 rps), 4 requests of 512 + 64 tokens each;
              TTFT/TPOT p50/p99, goodput, preemptions; the paged kernel's
-             launches = 32 x the dispatched steps; the closed loop's
+             launches = 8 x the dispatched steps; the closed loop's
              on-device TTFT and decode step (attach_device_times); (c)
              int4-awq: the engine calibrates (JAX's
              calibration tokens) and quantizes phase 5's weights on the
@@ -176,17 +180,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              4096 -> 14336; export_params to $TMPDIR; an engine on the
              artifact with int4 pages (device peak while loading under
              half the bf16 weights' bytes) through run_closed_loop (8 in
-             flight, 8 requests), W4 launches = 32 x 7 x decode steps,
+             flight, 4 requests), W4 launches = 32 x 7 x decode steps,
              int4-page launches counted, every forward replayed through
              the plain paged attention over int4 pages with the engine's
              tokens held (within the near-tie bound) and over bf16 pages
              (the witness of what 4-bit K/V moves, printed); the same
              weights with bf16 pages
-             (4 requests), every greedy token within the near-tie bound
+             (2 requests), every greedy token within the near-tie bound
              of the dense forward over the dequantized weights; (d)
-             gpt-1b at full width, its depth cut to 4 layers,
+             gpt-1b at full width, its depth cut to 2 layers,
              micro-batch 4 x 2048: 3 steps under selective_attn and 3
-             under selective from one state, bit for bit, 2 x 4 flash
+             under selective from one state, bit for bit, 2 x 2 flash
              forwards a step;
              lion, adafactor and sgd: the first update on the card
              within 1e-5 of its largest element (plus one fp32 rounding
@@ -199,10 +203,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              launches counted, every token within the near-tie bound of
              the dense forward, the server's and the exporter's /metrics
              both counting 4 requests and TTFTs, llmctl_hbm_used_gb after
-             one export_system, TTFT and TPOT p50; (b) `python -m ...cli
-             serve start --model gpt-1b` in a child: /health within 300 s,
-             4 requests counted by /metrics, SIGTERM and exit 0 within
-             10 s; (c) `train launch --in-process` on gpt-1b at full
+             one export_system, TTFT and TPOT p50; (b), a `serve start`
+             child, is folded into 25 (a); (c) `train launch
+             --in-process` on gpt-1b at full
              width and depth, 4 steps of 4 x 2048: the flash and AdamW
              kernels launched, llmctl_train_step and llmctl_train_loss
              against the manifest, `train status` (LocalLauncher's
@@ -293,8 +296,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              rebuilt from seed 0). Printed: each worker's ready time,
              each arm's wall, TTFT and TPOT p50, pauses and handoff
              stalls, courier transfers, resends and GB/s (host clock).
-22. store  — run after 20, on phase 5's weights at full width and depth,
-             bf16 pages: (a) two replicas with the in-process KV store
+22. store  — run after 20, on phase 5's weights at full width, the depth
+             cut to phase 20's first 8 layers (phase 23 serves the full
+             depth; its references are made here at full depth), bf16
+             pages: (a) two replicas with the in-process KV store
              (DRAM ring 1024 MB; a page is 8.4 MB): two conversations of
              a 256-token history warm on replica 0, which is drained
              (its prefix pages flushed to the store); a returning
@@ -306,10 +311,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              a burst of 8 scales 2 -> 3 by adopting the warm spare, the
              fade retires it with its pages flushed and a returning
              conversation prefills only its tail, and the TTFT guard (25
-             ms) migrates a best-effort resident for a queued interactive
-             request, which finishes first; event kinds checked. Every
+             ms) migrates one of 4 best-effort residents (256 tokens) for
+             a queued interactive request, which finishes first; event
+             kinds checked. Every
              stream held to one engine as phase 20 holds them, the
-             ledgers balanced, paged launches = 32 x passes of every
+             ledgers balanced, paged launches = 8 x passes of every
              engine (the spare's warm-up included). Printed: walls, TTFT
              and TPOT p50, pages demoted, held, hit and missed, deflated
              bytes, flush and restore s (host clock).
@@ -364,11 +370,34 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              flash and AdamW launches and AdamW leaves as the code
              implies (the leaves by the global-leaf rule), rank 0's
              single-device checkpoint written; (d) `admin lint` exits 0
-             (beside (c) too). The phase prints the
-             seconds the cuts (phase 18 (a) at 4 requests, (c)'s launcher
-             child, (d) at 8 + 4 examples; 21 (a) at 4 and (b) at 2 of the
-             8 requests) freed against the phases' earlier times, beside
-             its own.
+             (beside (c) too).
+25. tensor parallel — run last: two ranks share the one card over gloo
+             (host-staged collectives): (a) `python -m ...cli serve start
+             --model llama-8b-gqa --tensor-parallel 2` (rank 1 its child
+             through LocalLauncher; each rank draws phase 5's weights
+             from seed 0 whole and keeps its shard), /health within
+             300 s, 4 greedy requests of 96-640 + 16 tokens at once, both
+             /metrics counting them, SIGTERM and exit 0 within 10 s (18
+             (b)'s checks); each rank's paged launches = 32 x its forward
+             passes, the ranks' sampled-token digests equal; TTFT and
+             TPOT p50; then phase 5's weights made again here from seed 0
+             (checksum phase 5's), the 4 requests on one engine over them,
+             and every token of each stream and of the one engine's held
+             within 2 x NEAR_TIE_DELTA of the best under the dense bf16
+             forward over its own stream, and where the two part, their
+             tokens' scores within that of each other (PR 11's rule, as
+             phase 20 holds its streams); (b), run while (a)'s ranks
+             start (its requests wait for it), two rank processes
+             (spawned as 24's) serve llama-8b-gqa at full width cut to 4
+             layers with int8 weights through the W8 kernels and int8
+             pages, then int4 weights and int4 pages, held by the same
+             rule to one engine of the same quantization, under the
+             plain paged path over the same page kind, each rank's W8 or
+             W4 launches = 7 x 4 x passes and paged launches = 4 x
+             passes; (c) `plan compute --hardware h100-8`, `plan serve
+             --hardware h100-1 --calibrate` on gpt-1b, `bench comms
+             --devices 2` (every pattern, 16 MB, host-staged) and a short
+             `tune sp`.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 {"kernels": [...]} record. Without a CUDA card, or without the rest of the
@@ -475,8 +504,11 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5, flush=None) -> float:
 # and a chunk of chunked prefill (512)
 PAGED_WINDOWS = (1, 4, 8, 128, 512)
 
-# (query heads, KV heads, head_dim, page size) of llama-8b-gqa's decode
+# (query heads, KV heads, head_dim, page size) of llama-8b-gqa's decode,
+# and of one rank's share of its heads at tensor_parallel 2 (phase 25)
 LLAMA_PAGED = (32, 8, 128, 64)
+LLAMA_TP_PAGED = (16, 4, 128, 64)
+PAGED_GEOMS = (LLAMA_PAGED, LLAMA_TP_PAGED)
 
 
 def paged_case(torch, T: int, dtype, seed: int = 0, geom=LLAMA_PAGED):
@@ -1506,6 +1538,10 @@ def train_main_path(torch, mods, kernels: dict, card: str) -> dict:
 # [in, out] of llama-8b-gqa's projections: q/o, k/v, gate/up, down
 LLAMA_PROJECTIONS = ((4096, 4096), (4096, 1024), (4096, 14336),
                      (14336, 4096))
+# one rank's shards of them at tensor_parallel 2 (phase 25): q, k/v, o,
+# gate/up, down (W4's down then has 56 groups of 128)
+LLAMA_TP_PROJECTIONS = ((4096, 2048), (4096, 512), (2048, 4096),
+                        (4096, 7168), (7168, 4096))
 MATMUL_ROWS = (1, 8, 64)
 # a matmul kernel and its plain version sum the same products in another
 # order: a bf16 output may differ by one rounding of itself (BF16_ULP) plus
@@ -1633,14 +1669,16 @@ def quant_kernels_against_plain(torch, qm) -> dict:
     worst = dict.fromkeys(("paged_attention_int8", "paged_attention_int4",
                            "int8_matmul", "int8_matmul_ksplit",
                            "int4_matmul", "rmsnorm"), 0.0)
-    # 1b: phase 3's geometry over quantized pages
+    # 1b: phase 3's geometries over quantized pages
     for kind in ("int8", "int4"):
         name = f"paged_attention_{kind}"
         for dtype in (torch.float32, torch.bfloat16):
             dt = str(dtype).removeprefix("torch.")
-            for T in PAGED_WINDOWS:
+            for geom, T in ((g, t) for g in PAGED_GEOMS
+                            for t in PAGED_WINDOWS):
+                heads = f"heads {geom[0]}/{geom[1]}"
                 q, kp, vp, tables, starts, _ = paged_case(
-                    torch, T, torch.float32, seed=T)
+                    torch, T, torch.float32, seed=T, geom=geom)
                 q = q.to(dtype)
                 kq = quantize_pages(qm, kind, kp)
                 vq = quantize_pages(qm, kind, vp)
@@ -1652,12 +1690,12 @@ def quant_kernels_against_plain(torch, qm) -> dict:
                 ref = pa.paged_attention_multi(q, kq, vq, tables, starts,
                                                impl="gather")
                 check(bool(torch.isfinite(out.float()).all()),
-                      f"{name}: non-finite output ({dt}, T={T})")
+                      f"{name}: non-finite output ({dt}, T={T}, {heads})")
                 err = (out.float() - ref.float()).abs().max().item()
-                line = (f"{name} vs plain  {dt:8s} T={T:<4d} "
+                line = (f"{name} vs plain  {dt:8s} T={T:<4d} {heads} "
                         f"max_abs_err={err:.3e}  tol={TOL[dt]:.0e}")
                 check(err <= TOL[dt], f"{name} disagrees with plain ({dt}, "
-                      f"T={T}): {err} > {TOL[dt]}")
+                      f"T={T}, {heads}): {err} > {TOL[dt]}")
                 if dtype == torch.bfloat16:
                     # the gather version rounds the dequantized pages and
                     # the probabilities to bf16, the kernel keeps both in
@@ -1675,13 +1713,13 @@ def quant_kernels_against_plain(torch, qm) -> dict:
                     line += (f"  row {row:.1e} (tol {FLASH_ROW_TOL:.1e})  "
                              f"rms {rms:.1e} (tol {FLASH_RMS_TOL:.0e})")
                     check(row <= FLASH_ROW_TOL and rms <= FLASH_RMS_TOL,
-                          f"{name} ({dt}, T={T}): row error {row:.3e}, rms "
-                          f"error {rms:.3e}")
+                          f"{name} ({dt}, T={T}, {heads}): row error "
+                          f"{row:.3e}, rms error {rms:.3e}")
                 print(line, flush=True)
                 worst[name] = max(worst[name], err)
     # rows 7-9 at every projection shape
-    for n, e in matmul_kernels_against_plain(torch, qm,
-                                             LLAMA_PROJECTIONS).items():
+    for n, e in matmul_kernels_against_plain(
+            torch, qm, LLAMA_PROJECTIONS + LLAMA_TP_PROJECTIONS).items():
         worst[n] = e
     # row 5
     layers, rn = qm["layers"], qm["rn"]
@@ -3143,15 +3181,15 @@ TIER_VOCAB = 128256
 TIER_ROWS = 8
 TIER_K = (1, 40, 256, 300)
 TIER_P = (1.0, 0.9)
-# 17b and 17c: requests cut to these counts (from 32, 16 and 8) to make
-# room for phases 21-23
-LOAD_RUNS = (("closed", dict(concurrency=8, num_requests=8, prompt_len=512,
+# 17b and 17c: requests cut to these counts (from 32, 16 and 8 to make
+# room for phases 21-23, then from 8, 8 and 4 for phase 25)
+LOAD_RUNS = (("closed", dict(concurrency=8, num_requests=4, prompt_len=512,
                              max_tokens=64, seed=0)),
-             ("poisson", dict(offered_rps=2.0, num_requests=8,
+             ("poisson", dict(offered_rps=2.0, num_requests=4,
                               prompt_len=512, max_tokens=64, seed=0)))
-AWQ_RUN = dict(concurrency=8, num_requests=8, prompt_len=512,
+AWQ_RUN = dict(concurrency=8, num_requests=4, prompt_len=512,
                max_tokens=32, seed=1)
-AWQ_HELD_RUN = dict(concurrency=8, num_requests=4, prompt_len=512,
+AWQ_HELD_RUN = dict(concurrency=8, num_requests=2, prompt_len=512,
                     max_tokens=32, seed=2)
 # chan of one layer, calibrated in bf16 on the card against fp32 on the CPU
 # (the statistic is an RMS over 512 tokens of activations rounded to bf16,
@@ -3159,9 +3197,10 @@ AWQ_HELD_RUN = dict(concurrency=8, num_requests=4, prompt_len=512,
 AWQ_CHAN_TOL = 1e-2
 AWQ_LAYER_LEAVES = ("q", "k", "v", "gate", "up", "down")
 REMAT_STEPS = 3
-# 17d keeps gpt-1b's width and cuts its depth to this many layers: the
-# CPU side of the optimizer checks scales with the parameters
-REMNANT_LAYERS = 4
+# 17d keeps gpt-1b's width and cuts its depth to this many layers (from
+# 4, for phase 25): the CPU side of the optimizer checks scales with the
+# parameters
+REMNANT_LAYERS = 2
 OPT_KINDS = ("lion", "adafactor", "sgd")
 # one optimizer update on the card against the CPU's from the same fp32
 # gradients and state: elementwise arithmetic, and for adafactor two means
@@ -3645,9 +3684,7 @@ CLI_PROMPT_LEN = 256           # 18a: prompt tokens a request
 CLI_NEW_TOKENS = 32            # 18a: new tokens a request
 CLI_REQUESTS = 4               # 18a: requests, CLI_CONCURRENCY at a time
 CLI_CONCURRENCY = 4
-CLI_CHILD_REQUESTS = 4         # 18b and 18e
-CLI_HEALTH_TIMEOUT_S = 300.0   # 18b: the child answers /health within this
-CLI_STOP_TIMEOUT_S = 10.0      # 18b: and exits 0 this long after SIGTERM
+CLI_CHILD_REQUESTS = 4         # 18e
 CLI_TRAIN_STEPS = 4            # 18c, in process (LocalLauncher: 24c)
 CLI_TRAIN_SETS = ("parallel.global_batch_size=4", "data.max_length=2048",
                   "parallel.activation_checkpoint=selective",
@@ -3803,62 +3840,6 @@ def cli_serve_in_process(torch, mods, cm, kernel, card: str) -> dict:
     return {"launches": launches, "decode_steps": steps,
             "extend_prefills": extends, "init_s": init_s, "wall_s": wall,
             **rates, "hbm_used_gb": hbm, "max_deficit": deficit}
-
-
-def cli_serve_subprocess(tmp: Path, card: str) -> dict:
-    """18b: `python -m ...cli serve start --model gpt-1b` in a child
-    process; /health within CLI_HEALTH_TIMEOUT_S; 4 requests; /metrics
-    counts them; SIGTERM, and the child exits 0 within
-    CLI_STOP_TIMEOUT_S."""
-    import signal
-    port, mport = free_port(), free_port()
-    log = tmp / "serve-child.log"
-    cmd = [sys.executable, "-m", f"{PORT}.cli", "serve", "start",
-           "--model", "gpt-1b", "--host", "127.0.0.1", "--port", str(port),
-           "--prometheus-port", str(mport)]
-    t0 = time.time()
-    with open(log, "w") as out:
-        child = subprocess.Popen(cmd, cwd=ROOT, stdout=out,
-                                 stderr=subprocess.STDOUT)
-    try:
-        while True:
-            check(child.poll() is None, f"the server exited "
-                  f"{child.returncode}: {log.read_text()[-2000:]}")
-            try:
-                if get_url(f"http://127.0.0.1:{port}/health", 5)[0] == 200:
-                    break
-            except OSError:
-                pass
-            check(time.time() - t0 < CLI_HEALTH_TIMEOUT_S,
-                  f"no /health within {CLI_HEALTH_TIMEOUT_S}s")
-            time.sleep(1.0)
-        ready_s = time.time() - t0
-        results = post_all(port, cli_bodies(19, CLI_CHILD_REQUESTS, 50304,
-                                            64, 16), CLI_CHILD_REQUESTS)
-        page = scrape(f"http://127.0.0.1:{port}/metrics")
-        exported = scrape(f"http://127.0.0.1:{mport}/metrics")
-        child.send_signal(signal.SIGTERM)
-        t1 = time.time()
-        rc = child.wait(timeout=CLI_STOP_TIMEOUT_S)
-        stop_s = time.time() - t1
-    finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
-    text = log.read_text()
-    check(rc == 0, f"the server exited {rc} after SIGTERM: {text[-2000:]}")
-    for p in (page, exported):
-        check(p.get("llmctl_inference_requests_total")
-              == float(CLI_CHILD_REQUESTS), f"child /metrics {p.get(
-                  'llmctl_inference_requests_total')}")
-    check(all(len(r["choices"][0]["token_ids"]) == 16 for r in results),
-          "a child request came back short")
-    print(f"18b child `{' '.join(cmd[1:3])} serve start --model gpt-1b`: "
-          f"/health after {ready_s:.1f}s, {CLI_CHILD_REQUESTS} requests "
-          f"counted on both /metrics, exit {rc} {stop_s:.2f}s after SIGTERM "
-          f"(want 0 within {CLI_STOP_TIMEOUT_S}s) [{card}]", flush=True)
-    return {"ready_s": ready_s, "stop_s": stop_s, "exit_code": rc,
-            **request_rates(results)}
 
 
 def cli_train(torch, mods, cm, kernels: dict, tmp: Path, card: str) -> dict:
@@ -4145,7 +4126,6 @@ def cli_phase(torch, mods, mm, cm, kernels: dict, card: str) -> dict:
         tmp = Path(d)
         out["serve"] = cli_serve_in_process(torch, mods, cm,
                                             kernels["paged_attention"], card)
-        out["child"] = cli_serve_subprocess(tmp, card)
         out["train"] = cli_train(torch, mods, cm, {
             n: kernels[n] for n in ("flash_fwd", "flash_bwd_dq",
                                     "flash_bwd_dkv", "adamw")}, tmp, card)
@@ -5421,7 +5401,9 @@ STORE_HISTORY = 256           # a conversation's history: 4 pages of 64
 STORE_WARM_TAIL = 8           # its first turn's tail
 STORE_TAIL = 16               # a returning turn's tail
 STORE_TOKENS = 32
-STORE_DRAM_MB = 1024.0        # a page of llama-8b-gqa is 8.4 MB
+# (a) and (b) serve phase 5's weights at full width, cut to phase 20's
+# depth (FLEET_LAYERS); phase 23's references, made here, at full depth
+STORE_DRAM_MB = 1024.0        # a page is 2.1 MB at 8 layers (8.4 at 32)
 # the in-process stores deflate at zlib level 1, as phase 20 (d) does:
 # pages of random weights barely compress, and the default level takes
 # ~0.8 s a page on the host
@@ -5430,8 +5412,11 @@ STORE_ZLIB_LEVEL = 1
 AUTO_HOT = 192                # the hot prefix: 3 pages of 64
 AUTO_BURST = 8                # 8 requests into 2 replicas of 2 slots
 AUTO_TOKENS = 16
-AUTO_BE_TOKENS = 64           # the best-effort residents' length (4x the
-                              # interactive run's, so its victim finishes later)
+# the best-effort residents' length: the victim, requeued when the guard
+# preempts it, must still have more to go than the interactive run's
+# TTFT and AUTO_TOKENS take (32 failed and 64 passed at 32 layers; at 8
+# layers the burst's TTFT p50 is still ~17 TPOTs, as at 32)
+AUTO_BE_TOKENS = 96
 AUTO_TTFT_MS = 25.0
 
 
@@ -5790,10 +5775,13 @@ def autoscale_arm(torch, mods, fm, model, cfg, kernel, card: str) -> dict:
 
 def store_phase(torch, mods, fm, model, cfg, kernel, card: str) -> dict:
     """Phase 22 on phase 5's weights: (a) the store restore and (b) the
-    autoscaler at full width and depth."""
+    autoscaler at full width, cut to FLEET_LAYERS."""
     t22 = time.time()
-    out = {"a": store_restore_arm(torch, mods, fm, model, cfg, kernel, card),
-           "b": autoscale_arm(torch, mods, fm, model, cfg, kernel, card)}
+    cut, cut_cfg = cut_depth(model, cfg, FLEET_LAYERS)
+    out = {"a": store_restore_arm(torch, mods, fm, cut, cut_cfg, kernel,
+                                  card),
+           "b": autoscale_arm(torch, mods, fm, cut, cut_cfg, kernel, card)}
+    del cut
     out["launches"] = {"paged_attention": out["a"]["launches"]
                        + out["b"]["launches"]}
     # phase 23's returning conversations, on one engine while the weights
@@ -6354,10 +6342,7 @@ MR_RUNS = {"tp2": ["parallel.tensor_parallel=2"],
            "sp2-ring": ["parallel.sequence_parallel=2",
                         "training.attn_impl=ring"],
            "fsdp2-zero1": ["parallel.fsdp=2", "parallel.zero_stage=1"]}
-# the budget this phase is paid for by cuts of phases 18, 21, 22 and 23,
-# against their times in the run this phase was added after
 MR_BUDGET_S = 90.0
-MR_BEFORE_S = {"18": 180.3, "21": 103.5, "22": 72.3, "23": 79.7}
 
 
 def mr_attention_rank(rank: int, out_dir: str, port: int) -> None:
@@ -6759,7 +6744,428 @@ def multi_rank_phase(torch, mods, cm, kernels: dict, card: str) -> dict:
             launches[k] += n
     out["launches"] = launches
     out["seconds"] = time.time() - t24
-    print(f"phase 24 took {out['seconds']:.1f} s", flush=True)
+    print(f"phase 24 took {out['seconds']:.1f} s (budget "
+          f"{MR_BUDGET_S:.0f} s) [{card}]", flush=True)
+    return out
+
+
+# -- phase 25: tensor-parallel serving, the planner, collectives -------------
+
+TP_RANKS = 2
+TP_LENGTHS = (384, 96, 640, 200)   # (a), (b): 4 greedy requests
+TP_TOKENS = 16
+TP_QUANT_LAYERS = 4                # (b): llama-8b-gqa's width at 4 layers
+TP_QUANT_ARMS = {
+    "int8": dict(quantization="int8", kv_quantization="int8",
+                 int8_pallas_matmul=True),
+    "int4": dict(quantization="int4", kv_quantization="int4")}
+TP_MATMULS = 7                     # q, k, v, o, gate, up, down a layer
+TP_READY_S = 300.0                 # (a): /health; (b): the ranks end
+TP_STOP_S = 10.0                   # (a): exit 0 this long after SIGTERM
+TP_LABEL = f"{TP_RANKS} ranks, 1 card, gloo, host-staged"
+TP_BUDGET_S = 90.0
+
+
+def tp_prompts(vocab: int) -> list:
+    rng = random.Random(25)
+    return [[rng.randrange(1, vocab) for _ in range(n)] for n in TP_LENGTHS]
+
+
+def tp_held(torch, mods, model, cfg, kind: str, prompts, got,
+            what: str) -> dict:
+    """PR 11's rule on every token of the tp streams ``got``: ``prompts``
+    on one engine over ``model`` (the same weights, quantization and page
+    kind ``kind``), then ``held_to_single``: under the reference forward
+    (dense bf16, or the plain paged path over pages of ``kind``), each
+    token of both within 2 delta of the best score, and where a stream
+    parts from the one engine, the two tokens' scores within 2 delta."""
+    want = one_engine(mods, model, cfg, prompts, mods["SamplingParams"](
+        temperature=0.0, max_tokens=TP_TOKENS), alone=False,
+        **({} if kind == "none" else TP_QUANT_ARMS[kind]))
+    try:
+        return held_to_single(torch, mods, model, cfg, kind, prompts, got,
+                              want)
+    except SmokeFailure as e:
+        raise SmokeFailure(f"{what}: {e}") from None
+
+
+def rank_reports(text: str) -> list:
+    """The ``LLMCTL_SERVE_LAUNCHES {json}`` lines of a log, by rank."""
+    out = [json.loads(line.split(" ", 1)[1]) for line in text.splitlines()
+           if line.startswith("LLMCTL_SERVE_LAUNCHES ")]
+    return sorted(out, key=lambda r: r["rank"])
+
+
+def tp_check_ranks(reports: list, layers: int, what: str,
+                   kinds: dict) -> None:
+    """Each rank ran the same forwards and sampled the same tokens, and
+    launched each kernel of ``kinds`` ({kernel: launches a layer a pass})
+    exactly that often a forward pass."""
+    check(len(reports) == TP_RANKS, f"{what}: {len(reports)} rank reports")
+    check(len({r["token_digest"] for r in reports}) == 1,
+          f"{what}: the ranks sampled different tokens "
+          f"({[r['token_digest'] for r in reports]})")
+    check(len({r["paged_passes"] for r in reports}) == 1
+          and reports[0]["paged_passes"] > 0,
+          f"{what}: paged passes {[r['paged_passes'] for r in reports]}")
+    for r in reports:
+        for name, per in kinds.items():
+            n = sum(r[k] for k in name.split("+"))
+            want = per * layers * r["paged_passes"]
+            check(n == want, f"{what}: rank {r['rank']} {name} {n} != "
+                  f"{per} x {layers} layers x {r['paged_passes']} passes")
+
+
+def tp_serve_child(torch, mods, checksum: float, card: str,
+                   meanwhile=None) -> dict:
+    """25 (a), and 18 (b)'s checks of a `serve start` child: `python -m
+    ...cli serve start --model llama-8b-gqa --tensor-parallel 2` (its rank
+    1 a child of it through LocalLauncher), /health within TP_READY_S, the
+    4 requests at once, both /metrics counting them, SIGTERM and exit 0
+    within TP_STOP_S, each rank's report; then phase 5's weights made
+    again from seed 0 (``checksum`` phase 5's) and every token held to
+    them and to one engine over them (``tp_held``). ``meanwhile()`` runs
+    while the ranks start (a thread notes when /health first answers);
+    the requests wait for it."""
+    cfg = mods["get_model_config"]("llama-8b-gqa")
+    prompts = tp_prompts(cfg.vocab_size)
+    import signal
+    port, mport = free_port(), free_port()
+    cmd = [sys.executable, "-m", f"{PORT}.cli", "serve", "start",
+           "--model", "llama-8b-gqa", "--tensor-parallel", str(TP_RANKS),
+           "--host", "127.0.0.1", "--port", str(port), "--prometheus-port",
+           str(mport)]
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="llmctl-smoke-tp-") as d:
+        log = Path(d) / "serve.log"
+        with open(log, "w") as out:
+            child = subprocess.Popen(cmd, cwd=ROOT, stdout=out,
+                                     stderr=subprocess.STDOUT)
+        ready: dict = {}
+
+        def poll():
+            while child.poll() is None and time.time() - t0 < TP_READY_S:
+                try:
+                    if get_url(f"http://127.0.0.1:{port}/health",
+                               5)[0] == 200:
+                        ready["s"] = time.time() - t0
+                        return
+                except OSError:
+                    pass
+                time.sleep(0.5)
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        try:
+            if meanwhile is not None:
+                meanwhile()
+            poller.join(timeout=max(TP_READY_S - (time.time() - t0), 1.0))
+            check("s" in ready, f"25 a: no /health within {TP_READY_S} s "
+                  f"(exit {child.poll()}): {log.read_text()[-3000:]}")
+            ready_s = ready["s"]
+            bodies = [{"prompt": p, "max_tokens": TP_TOKENS,
+                       "temperature": 0.0} for p in prompts]
+            t1 = time.time()
+            results = post_all(port, bodies, len(bodies))
+            wall = time.time() - t1
+            page = scrape(f"http://127.0.0.1:{port}/metrics")
+            exported = scrape(f"http://127.0.0.1:{mport}/metrics")
+            child.send_signal(signal.SIGTERM)
+            t2 = time.time()
+            rc = child.wait(timeout=TP_STOP_S + 20)
+            stop_s = time.time() - t2
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        text = log.read_text()
+    check(rc == 0 and stop_s <= TP_STOP_S, f"25 a: the server exited {rc} "
+          f"{stop_s:.1f} s after SIGTERM: {text[-3000:]}")
+    check("backend gloo (host-staged collectives)" in text,
+          "25 a: the ranks did not take gloo on one card")
+    for pg in (page, exported):
+        check(pg.get("llmctl_inference_requests_total") == float(len(bodies)),
+              f"25 a: /metrics counted "
+              f"{pg.get('llmctl_inference_requests_total')}")
+    got = []
+    for r in results:
+        toks = r["choices"][0]["token_ids"]
+        check(len(toks) == TP_TOKENS
+              or r["choices"][0]["finish_reason"] == "stop",
+              f"25 a: a request ended after {len(toks)} tokens")
+        got.append(toks)
+    reports = rank_reports(text)
+    tp_check_ranks(reports, cfg.num_layers, "25 a", {"paged_attention": 1})
+    t3 = time.time()
+    model = mods["gpt"].init(cfg, torch.Generator(device="cuda").manual_seed(
+        0), device="cuda", dtype=torch.bfloat16)
+    again = mods["params_checksum"](model)
+    check(again == checksum, f"25 a: seed 0's weights sum to {again!r}, "
+          f"phase 5's to {checksum!r}")
+    held = tp_held(torch, mods, model, cfg, "none", prompts, got, "25 a")
+    del model
+    torch.cuda.empty_cache()
+    held_s = time.time() - t3
+    rates = request_rates(results)
+    print(f"25 a `serve start --model llama-8b-gqa --tensor-parallel "
+          f"{TP_RANKS}` (32 layers, bf16, phase 5's seed): /health after "
+          f"{ready_s:.1f} s, {len(bodies)} greedy requests of "
+          f"{TP_TOKENS} tokens in {wall:.2f} s, {held['identical']}/"
+          f"{held['streams']} token for token one engine's; every token of "
+          f"both within {2 * NEAR_TIE_DELTA} of the dense bf16 forward's "
+          f"best (largest deficit {held['max_deficit']:.4f}; weights from "
+          f"seed 0 again, checksum phase 5's; {held_s:.1f} s); each rank "
+          f"{reports[0]['paged_passes']} forward passes, paged launches "
+          f"{[r['paged_attention'] for r in reports]} = 32 x passes, sampled "
+          f"tokens equal; both /metrics counted {len(bodies)}; exit {rc} "
+          f"{stop_s:.2f} s after SIGTERM; TTFT p50 {rates['ttft_p50_ms']:.1f} "
+          f"ms, TPOT p50 {rates['tpot_p50_ms']:.1f} ms ({TP_LABEL}) "
+          f"[{card}]", flush=True)
+    return {"ready_s": ready_s, "stop_s": stop_s, "exit_code": rc,
+            "held": held, "held_s": held_s, "reports": reports, **rates,
+            "launches": {"paged_attention": sum(r["paged_attention"]
+                                               for r in reports)}}
+
+
+def tp_quant_model(torch, mods):
+    """(b)'s weights: llama-8b-gqa at full width, TP_QUANT_LAYERS deep,
+    bf16 from seed 0 on the card."""
+    cfg = dataclasses.replace(mods["get_model_config"]("llama-8b-gqa"),
+                              num_layers=TP_QUANT_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return mods["gpt"].init(cfg, gen, device="cuda",
+                            dtype=torch.bfloat16), cfg
+
+
+def tp_quant_rank(rank: int, out_dir: str, port: int, prompts: list) -> None:
+    """One rank of 25 (b), in a process of its own on the card: each arm
+    of TP_QUANT_ARMS served at tensor_parallel 2 (the weights quantized
+    whole, then cut), rank 0 generating, rank 1 following; the launches
+    of each arm a rank."""
+    import torch
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(TP_RANKS),
+                       "LOCAL_RANK": str(rank),
+                       "LOCAL_WORLD_SIZE": str(TP_RANKS),
+                       "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+    result: dict = {}
+    try:
+        sys.path.insert(0, str(ROOT))
+        from distributed_llm_training_and_inference_system_tpu_torch.config \
+            import ServeConfig, get_model_config
+        from distributed_llm_training_and_inference_system_tpu_torch.models \
+            import gpt
+        from distributed_llm_training_and_inference_system_tpu_torch.ops \
+            import int4_matmul, int8_matmul, paged_attention_cuda as pac
+        from distributed_llm_training_and_inference_system_tpu_torch.\
+            parallel.mesh import init_distributed
+        from distributed_llm_training_and_inference_system_tpu_torch.serve \
+            import InferenceEngine, SamplingParams
+        torch.cuda.set_device(0)
+        result["backend"] = init_distributed(torch.device("cuda", 0))
+        counters = (pac.paged_attention_int8_kernel,
+                    pac.paged_attention_int4_kernel,
+                    int8_matmul.int8_matmul_kernel,
+                    int8_matmul.int8_matmul_ksplit_kernel,
+                    int4_matmul.int4_matmul_kernel)
+        for arm, over in TP_QUANT_ARMS.items():
+            model, cfg = tp_quant_model(torch, {
+                "get_model_config": get_model_config, "gpt": gpt})
+            for k in counters:
+                k.launches = 0                   # the main path starts
+            t0 = time.time()
+            eng = InferenceEngine(cfg, ServeConfig(model=cfg.name,
+                                                   tensor_parallel=TP_RANKS,
+                                                   **over),
+                                  params=model, seed=0)
+            del model
+            res = {}
+            if eng.is_follower:
+                eng.follow()
+            else:
+                reqs = eng.generate(prompts, SamplingParams(
+                    temperature=0.0, max_tokens=TP_TOKENS))
+                res["tokens"] = [list(r.generated_tokens) for r in reqs]
+                st = eng.stats()
+                res["stats"] = {k: st[k] for k in (
+                    "extend_prefills", "prefill_chunks", "quantization",
+                    "nonfinite_logits", "weight_bytes")}
+                eng.stop_followers()
+            res["report"] = eng.launch_report()
+            res["seconds"] = time.time() - t0
+            eng.release()
+            del eng
+            torch.cuda.empty_cache()
+            result[arm] = res
+        result["ok"] = True
+    except BaseException as e:                  # reported to the phase
+        import traceback
+        result["error"] = f"{type(e).__name__}: {e}\n" + \
+            traceback.format_exc()[-3000:]
+    Path(out_dir, f"{rank}.json").write_text(json.dumps(result))
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def tp_quant(torch, mods, engine_mods, prompts, card: str) -> dict:
+    """25 (b): two rank processes (spawned as 24 (a)/(b)'s) serve each
+    quantized arm at tp 2; every token held to one engine of the same
+    model and quantization and to the plain paged path over the same page
+    kind (``tp_held``); each rank's W8/W4 and paged launches = 7 x layers
+    x passes and layers x passes."""
+    import torch.multiprocessing as mp
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="llmctl-smoke-tp-") as d:
+        ctx = mp.start_processes(tp_quant_rank,
+                                 args=(d, free_port(), prompts),
+                                 nprocs=TP_RANKS, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + TP_READY_S
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline,
+                  f"25 b: the ranks did not end in {TP_READY_S} s")
+        ranks = [json.loads(Path(d, f"{r}.json").read_text())
+                 for r in range(TP_RANKS)]
+    for r, res in enumerate(ranks):
+        check(res.get("ok"), f"25 b rank {r}: {res.get('error')}")
+    check(ranks[0]["backend"] == "gloo", f"25 b: backend "
+          f"{ranks[0]['backend']} (two ranks on one card take gloo)")
+    out = {"seconds": time.time() - t0, "launches": {}}
+    kinds = {"int8": {"paged_attention_int8": 1,
+                      "int8_matmul+int8_matmul_ksplit": TP_MATMULS},
+             "int4": {"paged_attention_int4": 1, "int4_matmul": TP_MATMULS}}
+    for arm in TP_QUANT_ARMS:
+        lead = ranks[0][arm]
+        st = lead["stats"]
+        check(st["extend_prefills"] == 0 and st["prefill_chunks"] == 0
+              and st["nonfinite_logits"] == 0,
+              f"25 b {arm}: every pass a decode pass, finite ({st})")
+        model, cfg = tp_quant_model(torch, mods)
+        model = engine_mods["engine"].quantize_blocks(model, arm,
+                                                      free_source=True)
+        held = tp_held(torch, {**mods, **engine_mods}, model, cfg, arm,
+                       prompts, lead["tokens"], f"25 b {arm}")
+        del model
+        torch.cuda.empty_cache()
+        reports = [res[arm]["report"] for res in ranks]
+        tp_check_ranks(reports, TP_QUANT_LAYERS, f"25 b {arm}", kinds[arm])
+        for r in reports:
+            for k in ("paged_attention_int8", "paged_attention_int4",
+                      "int8_matmul", "int8_matmul_ksplit", "int4_matmul"):
+                out["launches"][k] = out["launches"].get(k, 0) + r[k]
+        out[arm] = {"held": held, "reports": reports,
+                    "seconds": [res[arm]["seconds"] for res in ranks]}
+        print(f"25 b {arm} weights + {arm} pages, llama-8b-gqa at "
+              f"{TP_QUANT_LAYERS} layers, tp {TP_RANKS}: "
+              f"{held['identical']}/{held['streams']} token for token one "
+              f"engine's, every token of both within {2 * NEAR_TIE_DELTA} of "
+              f"the plain paged path's best (largest deficit "
+              f"{held['max_deficit']:.4f}); a rank's "
+              f"launches {({k: reports[0][k] for k in reports[0] if 'matmul' in k or 'paged_attention' in k})} over "
+              f"{reports[0]['paged_passes']} passes (W {TP_MATMULS} and paged "
+              f"1 a layer a pass); sampled tokens equal; "
+              f"{max(out[arm]['seconds']):.1f} s ({TP_LABEL}) [{card}]",
+              flush=True)
+    return out
+
+
+def tp_tools(torch, cm, card: str, kernels: dict) -> dict:
+    """25 (c): `plan compute --hardware h100-8`, `plan serve --hardware
+    h100-1 --calibrate` on a gpt-1b engine, `bench comms --devices 2`, one
+    short `tune sp`; calibrations written to a temporary directory."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="llmctl-smoke-plan-") as d:
+        old = {k: os.environ.get(k) for k in ("LLMCTL_SERVE_CALIBRATION",
+                                              "LLMCTL_SP_CALIBRATION")}
+        os.environ["LLMCTL_SERVE_CALIBRATION"] = str(Path(d, "serve.json"))
+        os.environ["LLMCTL_SP_CALIBRATION"] = str(Path(d, "sp.json"))
+        try:
+            t0 = time.time()
+            rc, text = cli_run(cm["cli"], [
+                "plan", "compute", "--model", "llama-8b-gqa", "--hardware",
+                "h100-8", "--seq-len", "4096", "--global-batch", "64",
+                "--out", str(Path(d, "plan.toml"))])
+            check(rc == 0 and "Parallelism plans: llama-8b-gqa on h100x8"
+                  in text and Path(d, "plan.toml").is_file(),
+                  f"25 c plan compute exited {rc}")
+            best = cm["load_config_file"](Path(d, "plan.toml"))
+            out["plan"] = {k: best["parallelism"][k] for k in (
+                "data_parallel", "fsdp", "tensor_parallel", "zero_stage",
+                "micro_batch_size")}
+            out["plan"]["mfu"] = best["estimate"]["mfu"]
+            reset(kernels)
+            rc, text = cli_run(cm["cli"], [
+                "plan", "serve", "--model", "gpt-1b", "--hardware", "h100-1",
+                "--calibrate"])
+            check(rc == 0, f"25 c plan serve --calibrate exited {rc}")
+            cal = json_of(text)
+            out["serve_calibration"] = {k: cal[k] for k in (
+                "prefill_ms", "decode_ms_per_token", "mfu_prefill",
+                "decode_efficiency")}
+            check(0 < cal["mfu_prefill"] <= 1 and
+                  0 < cal["decode_efficiency"] <= 1,
+                  f"25 c serve calibration {out['serve_calibration']}")
+            check(kernels["paged_attention"].launches > 0,
+                  "25 c: the calibration's decode probe launched no paged "
+                  "kernel")
+            rc, text = cli_run(cm["cli"], [
+                "bench", "comms", "--devices", str(TP_RANKS), "--size-mb",
+                "16"])
+            check(rc == 0, f"25 c bench comms exited {rc}")
+            rows = json.loads(text[text.index("[\n"):])
+            check([r["pattern"] for r in rows] == [
+                "allreduce", "all_gather", "reduce_scatter", "ppermute",
+                "all_to_all"] and all(r["backend"] == "gloo"
+                                      and r["host_staged"] for r in rows),
+                  f"25 c bench comms rows {rows}")
+            out["comms"] = {r["pattern"]: {k: r[k] for k in (
+                "time_ms", "bus_bandwidth_gbps")} for r in rows}
+            reset(kernels)
+            rc, text = cli_run(cm["cli"], [
+                "tune", "sp", "--seq-lens", "8192", "--sp", "2", "--heads",
+                "16", "--head-dim", "128", "--repeats", "4"])
+            check(rc == 0 and kernels["flash_fwd"].launches > 0,
+                  f"25 c tune sp exited {rc}")
+            sp_cal = json.loads(Path(d, "sp.json").read_text())
+            out["sp_calibration"] = {k: sp_cal[k] for k in (
+                "ring_efficiency", "ulysses_efficiency")}
+            check(all(0 < v <= 1.02 for v in out["sp_calibration"].values()),
+                  f"25 c sp calibration {out['sp_calibration']}")
+            out["seconds"] = time.time() - t0
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    print(f"25 c plan compute llama-8b-gqa on h100-8 (S 4096, batch 64): "
+          f"best {out['plan']}; plan serve --calibrate gpt-1b on the card: "
+          f"{out['serve_calibration']}; bench comms over {TP_RANKS} ranks "
+          f"(16 MB, {TP_LABEL}): " + ", ".join(
+              f"{p} {v['time_ms']:.2f} ms {v['bus_bandwidth_gbps']:.2f} GB/s"
+              for p, v in out["comms"].items())
+          + f"; tune sp (S 8192, sp 2, 16 heads): {out['sp_calibration']} "
+          f"[{card}]", flush=True)
+    return out
+
+
+def tp_phase(torch, mods, engine_mods, cm, checksum: float, kernels: dict,
+             card: str) -> dict:
+    """Phase 25: tensor-parallel serving on two ranks of the one card,
+    the planner, the collective benchmarks (see TP_RANKS). ``checksum``:
+    phase 5's weights'."""
+    t25 = time.time()
+    out: dict = {}
+
+    def quant():
+        # (b) beside (a)'s ranks starting; (a)'s requests wait for it
+        out["quant"] = tp_quant(torch, mods, engine_mods, tp_prompts(
+            mods["get_model_config"]("llama-8b-gqa").vocab_size), card)
+    out["serve"] = tp_serve_child(torch, mods, checksum, card,
+                                  meanwhile=quant)
+    out["tools"] = tp_tools(torch, cm, card, kernels)
+    out["seconds"] = time.time() - t25
+    print(f"phase 25 took {out['seconds']:.1f} s (budget "
+          f"{TP_BUDGET_S:.0f} s) [{card}]", flush=True)
     return out
 
 
@@ -6936,7 +7342,8 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32
 
         phase("3 kernel against plain", t0)
-        max_err = kernel_against_plain(torch, pa, paged_attention_kernel)
+        max_err = max(kernel_against_plain(torch, pa, paged_attention_kernel,
+                                           geom=geom) for geom in PAGED_GEOMS)
 
         phase("4 kernel timing", t0)
         timing = decode_timing(torch, F, pa, paged_attention_kernel,
@@ -7006,9 +7413,10 @@ def main() -> int:
 
         # numbered 17, its parts (b) and (c) on phase 5's weights
         t17 = time.time()
-        phase("17b loadgen on llama-8b-gqa", t0)
+        phase(f"17b loadgen on llama-8b-gqa ({FLEET_LAYERS} layers)", t0)
         remnants = {"loadgen": loadgen_on_card(
-            torch, mods, paged_attention_kernel, bf16_model, llama_cfg, smi)}
+            torch, mods, paged_attention_kernel,
+            *cut_depth(bf16_model, llama_cfg, FLEET_LAYERS), smi)}
         phase("17c int4-awq calibrated, exported and served from the "
               "artifact", t0)
         awq_path = Path(tempfile.gettempdir()) / (
@@ -7079,7 +7487,8 @@ def main() -> int:
         t17 = time.time()
         phase("17a the 256-candidate sampling tier", t0)
         remnants["tier"] = sampling_tier_on_card(torch, sampling, smi)
-        phase("17d gpt-1b (4 layers) under selective_attn; lion, adafactor, "
+        phase(f"17d gpt-1b ({REMNANT_LAYERS} layers) under selective_attn; "
+              "lion, adafactor, "
               "sgd", t0)
         remnants["train"] = train_remnants(torch, mods, fac, train_kernels,
                                            smi)
@@ -7132,15 +7541,14 @@ def main() -> int:
         phase("24 multi-rank on one card: ring and Ulysses attention over "
               "two ranks, train launch with tp=2 and sp=2, admin lint", t0)
         multi = multi_rank_phase(torch, mods, cli_mods, train_kernels, smi)
-        freed = {"18": MR_BEFORE_S["18"] - cli["seconds"],
-                 "21": MR_BEFORE_S["21"] - wire["seconds"],
-                 "22": MR_BEFORE_S["22"] - fleet_store["seconds"],
-                 "23": MR_BEFORE_S["23"] - net_store["seconds"]}
-        multi["freed_s"] = freed
-        print(f"24: the cuts freed {sum(freed.values()):.1f} s against the "
-              f"phases' earlier times ({', '.join(f'{k}: {v:+.1f}' for k, v in freed.items())}); "
-              f"phase 24 took {multi['seconds']:.1f} s (budget "
-              f"{MR_BUDGET_S:.0f} s) [{smi}]", flush=True)
+
+        phase("25 tensor-parallel serving on two ranks of the card "
+              "(serve start --tensor-parallel 2, int8 and int4 arms), plan "
+              "compute|serve, bench comms, tune sp", t0)
+        tp = tp_phase(torch, {**mods, "decode": sdecode}, engine_mods,
+                      cli_mods, served["checksum"], {
+                          "paged_attention": paged_attention_kernel,
+                          "flash_fwd": fac.flash_fwd}, smi)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -7193,7 +7601,8 @@ def main() -> int:
                      + fleet["launches"]["paged_attention"]
                      + wire["launches"]["paged_attention"]
                      + fleet_store["launches"]["paged_attention"]
-                     + net_store["launches"]["paged_attention"]),
+                     + net_store["launches"]["paged_attention"]
+                     + tp["serve"]["launches"]["paged_attention"]),
         "max_abs_err": max(max_err, moe["kernels"]["paged_attention"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -7217,7 +7626,7 @@ def main() -> int:
                          + fleet["launches"][n] for n in (
                           "paged_attention_int8", "paged_attention_int4")}}
     for res in [*quant_served.values(), moe["serve"]["runs"]["int8"],
-                remnants["awq"]["serve"]]:
+                remnants["awq"]["serve"], tp["quant"]]:
         for name, n in res["launches"].items():
             if name in quant_replaces and n:
                 quant_launches[name] = quant_launches.get(name, 0) + n
@@ -7243,7 +7652,8 @@ def main() -> int:
                       serve_features=features, moe=moe,
                       remnants=remnants, cli=cli, tools=tools, fleet=fleet,
                       wire=wire, fleet_store=fleet_store,
-                      net_store=net_store, multi_rank=multi)
+                      net_store=net_store, multi_rank=multi,
+                      tensor_parallel=tp)
         record.update(kernels=kernels, timing=timing, serve=served,
                       paged_vs_dense=dense, flash_vs_plain=flash,
                       adamw_max_abs_err=adamw_err, train_timing=train_timing,

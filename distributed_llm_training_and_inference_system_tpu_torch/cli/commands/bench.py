@@ -34,8 +34,12 @@ command's options and JSON keys, on the global ``--device``.
 - ``battery``: a TOML/JSON list of commands run with per-item timeouts,
   resume and dry run, holding an ``flock`` on ``--chip-lock``; before each
   item it probes for a CUDA card in a child process.
-- ``comms`` needs a mesh of cards: it exits 2 naming ROADMAP queue 1
-  item 7b.
+- ``comms``: every collective pattern of ``comms/bench.py`` over
+  ``--devices`` ranks (children of this command line through
+  ``runtime.launcher.launch_ranks``; each rank takes its own card where
+  there are enough, else they share card 0 and move their collectives over
+  gloo through host memory). Rank 0 prints the rows; each names its
+  ``backend`` and marks gloo figures ``host_staged``.
 """
 
 from __future__ import annotations
@@ -54,8 +58,6 @@ import torch
 from ...device import resolve_device
 from ...utils.timing import time_fn
 from ..main import CommandError
-
-MULTI_GPU = "ROADMAP queue 1 item 7b"
 
 
 def _bool(sub, name: str, default: bool, **kw) -> None:
@@ -161,13 +163,14 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
                     choices=["paged", "scatter"],
                     help="KV append path: window write vs per-row scatter.")
 
-    co = sub.add_parser("comms", help="Collectives over the mesh (not "
-                                      f"ported: {MULTI_GPU}).")
+    co = sub.add_parser("comms", help="Measure real collectives over a "
+                                      "mesh of ranks.")
     co.add_argument("--pattern", default="all",
                     choices=["allreduce", "all_gather", "reduce_scatter",
                              "ppermute", "all_to_all", "all"])
     co.add_argument("--size-mb", default=16.0, type=float)
-    co.add_argument("--devices", dest="n_devices", default=None, type=int)
+    co.add_argument("--devices", dest="n_devices", default=None, type=int,
+                    help="Mesh size (default: all cards).")
 
     dl = sub.add_parser("dataloader", help="Dataset streaming throughput "
                                            "and stall.")
@@ -211,10 +214,7 @@ def run(args) -> int:
         build_parser("llmctl-torch bench").print_help()
         return 0
     if args.sub == "comms":
-        raise NotImplementedError(
-            "bench comms measures collectives over a mesh of cards; "
-            f"multi-GPU is not ported to the PyTorch package yet "
-            f"({MULTI_GPU})")
+        return comms(args)
     if args.sub == "battery":
         return battery(args)
     if args.sub == "dataloader":
@@ -227,6 +227,50 @@ def run(args) -> int:
     else:
         results = kv_decode(args, device)
     print(json.dumps(results, indent=2))
+    return 0
+
+
+# -- comms -------------------------------------------------------------------
+
+def rank_mesh(args, n: int):
+    """On a rank of ``launch_ranks``: join the group of ``n`` ranks and
+    return the one-axis mesh ("dp") over them."""
+    from ...config.schema import ParallelConfig
+    from ...parallel.mesh import build_mesh, init_distributed, rank_device
+    device = rank_device(resolve_device(args.root.device), n)
+    init_distributed(device)
+    return build_mesh(ParallelConfig(data_parallel=n), device)
+
+
+def comm_ranks(args) -> int:
+    """The ranks a collective command runs on: ``--devices``, else every
+    card (one on the CPU)."""
+    n = args.n_devices
+    if n is None:
+        n = (torch.cuda.device_count()
+             if resolve_device(args.root.device).type == "cuda" else 1)
+    if n < 2:
+        raise CommandError(
+            "need >=2 ranks for collectives: pass --devices N (ranks share "
+            "a card, or the CPU, over gloo where there are fewer cards)")
+    return n
+
+
+def comms(args) -> int:
+    """Measure the collectives over a mesh of ranks."""
+    from ...comms.bench import bench_all, bench_collective
+    from ...runtime.launcher import launch_ranks, this_rank
+
+    n = comm_ranks(args)
+    if this_rank() is None:
+        return launch_ranks(args.argv, n)
+    mesh = rank_mesh(args, n)
+    if args.pattern == "all":
+        rows = bench_all(mesh, "dp", args.size_mb)
+    else:
+        rows = [bench_collective(mesh, "dp", args.pattern, args.size_mb)]
+    if mesh.rank == 0:
+        print(json.dumps(rows, indent=2))
     return 0
 
 

@@ -16,12 +16,22 @@ processes:
   ``/metrics``; the global ``--otlp-endpoint`` adds OTLP spans;
 - the ``--fleet-*`` options build the ``FleetConfig`` as the JAX command
   does, the fleet KV store's (``--fleet-kv-store*``) and the
-  autoscaler's (``--fleet-autoscale*``) included; ``--tensor-parallel >
-  1`` raises in the engine (ROADMAP queue 1 item 7b).
+  autoscaler's (``--fleet-autoscale*``) included;
+- ``--tensor-parallel N > 1`` serves one engine from N ranks
+  (``serve/tp.py``): this process is rank 0, the server; it starts ranks
+  1..N-1 as children of the same command line through
+  ``runtime.launcher.LocalLauncher`` (``RANK``/``WORLD_SIZE`` set), which
+  follow its descriptors. Each rank takes ``cuda:{rank}`` where there are
+  N cards and shares ``cuda:0`` where there are fewer; the backend is
+  NCCL where each rank has its own card, gloo otherwise. Each rank prints
+  ``LLMCTL_SERVE_LAUNCHES {json}`` (its kernel launches and paged passes,
+  ``InferenceEngine.launch_report``) on stderr at exit. A fleet of such
+  replicas waits for ROADMAP queue 1 item 7b.
 
 ``start`` binds ``--host:--port`` (0 = a free port), prints one line with
 the bound ports, and serves until SIGTERM or SIGINT, then stops the
-server, the engine threads and the scrape endpoint and exits 0. With
+server, the engine threads, the follower ranks and the scrape endpoint
+and exits 0. With
 ``--fleet-fronts N > 1`` it runs the HA front tier instead: N `fleet
 front` processes over the shared ``--fleet-state-store-dir``, babysat
 (fenced, counted, respawned) until SIGTERM.
@@ -30,8 +40,12 @@ front` processes over the shared ``--fleet-state-store-dir``, babysat
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import signal
+import sys
 import threading
+import time
 
 # the fleet options of `serve start`: (flag, FleetConfig field, default,
 # type or choices); a bool default makes a --fleet-x/--fleet-no-x toggle
@@ -177,8 +191,8 @@ def build_parser(prog: str) -> argparse.ArgumentParser:
         action=argparse.BooleanOptionalAction,
         help="Share full prompt-prefix KV pages between requests.")
     add("--tensor-parallel", default=1, type=int,
-        help="Shard the model over this many cards (ROADMAP queue 1 item "
-             "7; only 1 is ported).")
+        help="Shard the model over this many local devices (Megatron TP; "
+             "needs num_kv_heads % tp == 0).")
     add("--quantization", default="none",
         choices=["none", "int8", "int4", "int4-awq"],
         help="Weight-only quantization: int8 (W8A16) or group-wise int4 / "
@@ -274,18 +288,51 @@ def front_tier(args, fleet_cfg):
         fronts=fleet_cfg.fronts)
 
 
-def build_server(args):
-    """The ``InferenceServer`` of a parsed ``serve start`` line, or with
-    ``--replicas > 1`` its ``FleetServer`` (not started)."""
+MULTI_GPU = "ROADMAP queue 1 item 7b"
+
+
+def _rank() -> int:
+    return int(os.environ.get("RANK", "0"))
+
+
+def rank_device(args):
+    """This rank's device (``parallel.mesh.rank_device``)."""
+    from ...device import resolve_device
+    from ...parallel.mesh import rank_device as device_of
+    return device_of(resolve_device(args.root.device), args.tensor_parallel)
+
+
+def start_ranks(args, device):
+    """Rank 0 of ``--tensor-parallel N``: start ranks 1..N-1 (this command
+    line, ``RANK`` set) and join the process group with them. Returns the
+    launcher holding the children."""
+    from ...parallel.mesh import init_distributed
+    from ...runtime.launcher import lead_ranks
+
+    tp = args.tensor_parallel
+    launcher = lead_ranks(args.argv, tp)
+    try:
+        backend = init_distributed(device)
+    except BaseException:
+        launcher.stop_children()
+        raise
+    print(f"tensor-parallel serving over {tp} ranks, backend {backend}"
+          + (" (host-staged collectives)" if backend == "gloo" else ""),
+          flush=True)
+    return launcher
+
+
+def report_launches(engine) -> None:
+    """``LLMCTL_SERVE_LAUNCHES {json}`` on stderr: this rank's launches."""
+    print("LLMCTL_SERVE_LAUNCHES " + json.dumps(engine.launch_report()),
+          file=sys.stderr, flush=True)
+
+
+def serve_config(args, device):
+    """The ``ServeConfig`` of a parsed ``serve start`` line."""
     from ...config.presets import get_model_config
     from ...config.schema import ServeConfig
-    from ...device import resolve_device
-    from ...metrics.observability import (reset_observability,
-                                          setup_observability)
-    from ...serve.server import create_server
 
-    fleet_cfg = fleet_config(args)
-    device = resolve_device(args.root.device)
     dtype = args.dtype or ("bfloat16" if device.type == "cuda"
                            else "float32")
     model_cfg = get_model_config(args.model_name)
@@ -311,6 +358,46 @@ def build_server(args):
         cors_origins=args.cors_origins,
         stream_abort_on_disconnect=args.stream_abort_on_disconnect)
     serve_cfg.validate()
+    return model_cfg, serve_cfg
+
+
+def follow(args) -> int:
+    """A follower rank of ``--tensor-parallel N``: build this rank's
+    engine, run the leader's descriptors until it stops, report the
+    launches."""
+    from ...parallel.mesh import init_distributed
+    from ...serve.engine import InferenceEngine
+
+    device = rank_device(args)
+    init_distributed(device)
+    model_cfg, serve_cfg = serve_config(args, device)
+    # SIGTERM from the leader's launcher ends the process; the report is
+    # printed when the leader stops the followers first
+    engine = InferenceEngine(model_cfg, serve_cfg, device=device)
+    engine.follow()
+    report_launches(engine)
+    return 0
+
+
+def build_server(args):
+    """The ``InferenceServer`` of a parsed ``serve start`` line, or with
+    ``--replicas > 1`` its ``FleetServer`` (not started). With
+    ``--tensor-parallel N > 1`` it first starts the follower ranks and
+    joins their process group (``server.tp_ranks`` holds the launcher)."""
+    from ...metrics.observability import (reset_observability,
+                                          setup_observability)
+    from ...serve.server import create_server
+
+    fleet_cfg = fleet_config(args)
+    if args.tensor_parallel > 1 and fleet_cfg is not None:
+        raise NotImplementedError(
+            "fleet replicas with --tensor-parallel > 1 are not ported to "
+            f"the PyTorch package yet ({MULTI_GPU})")
+    device = rank_device(args)
+    model_cfg, serve_cfg = serve_config(args, device)
+    ranks = None
+    if args.tensor_parallel > 1:
+        ranks = start_ranks(args, device)
     observer = exporter = None
     if args.prometheus_port is not None or args.root.otlp_endpoint:
         obs = setup_observability(prometheus_port=args.prometheus_port,
@@ -324,12 +411,31 @@ def build_server(args):
             elif event == "inference_request":
                 obs.record_inference(payload)
     try:
-        return create_server(model_cfg, serve_cfg, fleet_cfg=fleet_cfg,
-                             device=device, observer=observer,
-                             metrics=exporter)
+        server = create_server(model_cfg, serve_cfg, fleet_cfg=fleet_cfg,
+                               device=device, observer=observer,
+                               metrics=exporter)
     except BaseException:
         reset_observability()        # no scrape endpoint outlives a refusal
+        if ranks is not None:
+            ranks.stop_children()
         raise
+    server.tp_ranks = ranks
+    return server
+
+
+def stop_ranks(server, grace_s: float = 30.0) -> None:
+    """Rank 0's exit: release the followers (they print their launches),
+    print rank 0's, and wait for the children (then stop them)."""
+    ranks = getattr(server, "tp_ranks", None)
+    if ranks is None:
+        return
+    server.engine.stop_followers()
+    report_launches(server.engine)
+    deadline = time.monotonic() + grace_s
+    while any(p.poll() is None for p in ranks.children) \
+            and time.monotonic() < deadline:
+        time.sleep(0.1)
+    ranks.stop_children()
 
 
 def start(args) -> int:
@@ -337,6 +443,8 @@ def start(args) -> int:
     or SIGINT."""
     from ...metrics.observability import reset_observability
 
+    if args.tensor_parallel > 1 and _rank() > 0:
+        return follow(args)
     fleet_cfg = fleet_config(args)
     tier = server = None
     if fleet_cfg is not None and fleet_cfg.fronts > 1:
@@ -370,6 +478,7 @@ def start(args) -> int:
             tier.stop()
         if server is not None:
             server.stop()
+            stop_ranks(server)
         reset_observability()
         for sig, handler in previous.items():
             signal.signal(sig, handler)

@@ -48,12 +48,11 @@ COMMANDS = {
     "tune": ("tune", "Autotuning."),
     "admin": ("admin", "Maintenance utilities."),
     "fleet": ("fleet", "Serve-fleet operations, workers and fronts."),
+    "plan": ("plan", "Parallelism planning."),
 }
 
 # command -> the ROADMAP item it waits for
-NOT_PORTED = {
-    "plan": "ROADMAP queue 1 item 7b (it needs the planner)",
-}
+NOT_PORTED: dict[str, str] = {}
 
 MULTI_HOST = "ROADMAP queue 1 item 7b"
 
@@ -66,8 +65,9 @@ def _epilog() -> str:
     lines = ["commands:"]
     lines += [f"  {name:<8} {summary}"
               for name, (_, summary) in COMMANDS.items()]
-    lines.append("not ported yet:")
-    lines += [f"  {name:<8} {item}" for name, item in NOT_PORTED.items()]
+    if NOT_PORTED:
+        lines.append("not ported yet:")
+        lines += [f"  {name:<8} {item}" for name, item in NOT_PORTED.items()]
     return "\n".join(lines)
 
 
@@ -147,6 +147,7 @@ def parse(argv: list[str]) -> argparse.Namespace:
             refuse(unknown)      # raises for what waits on a ROADMAP item
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
     args.root = root
+    args.argv = list(argv)
     args.command = root.command
     args.module = mod
     return args

@@ -16,7 +16,9 @@ from .schema import (  # noqa: F401
     TrainingConfig,
 )
 from .presets import (  # noqa: F401
+    HARDWARE_PRESETS,
     MODEL_TEMPLATES,
     TEST_TEMPLATES,
+    get_hardware_preset,
     get_model_config,
 )

@@ -1,11 +1,13 @@
 """Built-in model templates (the JAX package's ``config/presets.py`` table,
-entry for entry; held equal by tests/test_torch_config.py)."""
+entry for entry; held equal by tests/test_torch_config.py) and hardware
+presets: JAX's TPU presets field for field (the planner's tests price
+them), and the card's counterparts ``h100-1`` and ``h100-8``."""
 
 from __future__ import annotations
 
 import copy
 
-from .schema import ModelConfig, MoEConfig, RopeConfig
+from .schema import HardwareConfig, ModelConfig, MoEConfig, RopeConfig
 
 MODEL_TEMPLATES: dict[str, ModelConfig] = {
     "gpt-125m": ModelConfig(
@@ -113,3 +115,52 @@ def get_model_config(name: str) -> ModelConfig:
     raise KeyError(
         f"unknown model template {name!r}; available: "
         f"{sorted(MODEL_TEMPLATES)} (+test: {sorted(TEST_TEMPLATES)})")
+
+
+# ---------------------------------------------------------------------------
+# Hardware presets: the JAX package's TPU presets (public v4/v5e/v5p data
+# sheet figures, its defaults for the fields they leave out: platform tpu,
+# DCN 25 GB/s), and one H100 SXM host of 1 or 8 cards (HardwareConfig's
+# defaults: NVIDIA's data sheet; the 8 cards NVLink all to all)
+# ---------------------------------------------------------------------------
+
+def _tpu(**kw) -> HardwareConfig:
+    return HardwareConfig(**{"platform": "tpu", "dcn_bw_gbps": 25.0, **kw})
+
+
+HARDWARE_PRESETS: dict[str, HardwareConfig] = {
+    "v5e-1": _tpu(chip_type="v5e", num_chips=1, num_hosts=1,
+                  hbm_gb_per_chip=16, peak_bf16_tflops=197,
+                  hbm_bw_gbps=819, ici_bw_gbps=186, topology="1x1"),
+    "v5e-4": _tpu(chip_type="v5e", num_chips=4, num_hosts=1,
+                  hbm_gb_per_chip=16, peak_bf16_tflops=197,
+                  hbm_bw_gbps=819, ici_bw_gbps=186, topology="2x2"),
+    "v5e-8": _tpu(chip_type="v5e", num_chips=8, num_hosts=1,
+                  hbm_gb_per_chip=16, peak_bf16_tflops=197,
+                  hbm_bw_gbps=819, ici_bw_gbps=186, topology="2x4"),
+    "v5e-64": _tpu(chip_type="v5e", num_chips=64, num_hosts=8,
+                   hbm_gb_per_chip=16, peak_bf16_tflops=197,
+                   hbm_bw_gbps=819, ici_bw_gbps=186, topology="8x8"),
+    "v5e-256": _tpu(chip_type="v5e", num_chips=256, num_hosts=32,
+                    hbm_gb_per_chip=16, peak_bf16_tflops=197,
+                    hbm_bw_gbps=819, ici_bw_gbps=186, topology="16x16"),
+    "v4-8": _tpu(chip_type="v4", num_chips=4, num_hosts=1,
+                 hbm_gb_per_chip=32, peak_bf16_tflops=275,
+                 hbm_bw_gbps=1228, ici_bw_gbps=448, topology="2x2x1"),
+    "v5p-8": _tpu(chip_type="v5p", num_chips=4, num_hosts=1,
+                  hbm_gb_per_chip=95, peak_bf16_tflops=459,
+                  hbm_bw_gbps=2765, ici_bw_gbps=600, topology="2x2x1"),
+    "cpu-8": HardwareConfig(platform="cpu", chip_type="cpu-fake",
+                            num_chips=8, num_hosts=1, hbm_gb_per_chip=4,
+                            peak_bf16_tflops=0.2, hbm_bw_gbps=50,
+                            ici_bw_gbps=10, dcn_bw_gbps=25.0, topology="8"),
+    "h100-1": HardwareConfig(num_chips=1, topology="1"),
+    "h100-8": HardwareConfig(num_chips=8, topology="8"),
+}
+
+
+def get_hardware_preset(name: str) -> HardwareConfig:
+    if name not in HARDWARE_PRESETS:
+        raise KeyError(f"unknown hardware preset {name!r}; available: "
+                       f"{sorted(HARDWARE_PRESETS)}")
+    return HARDWARE_PRESETS[name]

@@ -270,11 +270,14 @@ class CheckpointManager:
         """Load a committed checkpoint: (state, extra metadata). The state
         is the port's state dict of host tensors, or for a checkpoint the
         JAX package wrote, its flat {dotted path: host tensor} dict
-        (``weights.state_dict_from_flat`` converts it)."""
+        (``weights.state_dict_from_flat`` converts it). The port's file is
+        memory-mapped (copy on write), so a reader that takes the params
+        alone (serving, export, eval) never reads the optimizer's
+        moments."""
         d = self._step_dir(step)
         index = json.loads((d / "index.json").read_text())
         if self.is_jax(step):
             return read_jax_checkpoint(d), index.get("extra", {})
         state = torch.load(d / "state.pt", map_location="cpu",
-                           weights_only=True)
+                           weights_only=True, mmap=True)
         return state, index.get("extra", {})

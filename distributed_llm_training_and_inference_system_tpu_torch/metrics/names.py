@@ -556,4 +556,6 @@ PORT_COUNTER_FLOW: tuple[CounterFlow, ...] = (
                 "dispatched_steps", None),
     CounterFlow("InferenceEngine", "total_extend_prefills",
                 "extend_prefills", None),
+    CounterFlow("InferenceEngine", "total_paged_passes", "paged_passes",
+                None),
 )

@@ -106,15 +106,18 @@ class Block(nn.Module):
 
 def _block_fn(layer, x, cfg, positions, segment_ids, inv_freq,
               kv_cache=None, cache_offset=None, attn_impl="xla",
-              norm_impl="xla"):
+              norm_impl="xla", reduce=None):
     """One pre-norm block over ``layer`` (a ``Block`` or its precast
     leaves). Returns (x, updated kv_cache or None, the MoE aux loss or
-    None for a dense block)."""
+    None for a dense block). ``reduce`` (a tensor-parallel serving rank's
+    ``TPSums``) completes the row-parallel partial sums of o and down."""
     h = rms_norm(x, cast(layer.attn_norm, x.dtype), cfg.norm_eps,
                  impl=norm_impl)
     attn_out, new_cache = attention_block(
         h, layer, cfg, positions, segment_ids, inv_freq,
         kv_cache=kv_cache, cache_offset=cache_offset, attn_impl=attn_impl)
+    if reduce is not None:
+        attn_out = reduce.attn(attn_out)
     x = x + attn_out
     h = rms_norm(x, cast(layer.mlp_norm, x.dtype), cfg.norm_eps,
                  impl=norm_impl)
@@ -122,6 +125,8 @@ def _block_fn(layer, x, cfg, positions, segment_ids, inv_freq,
         ffn, aux = moe_block(h, layer, cfg)
     else:
         ffn, aux = mlp_block(h, layer, cfg), None
+        if reduce is not None:
+            ffn = reduce.ffn(ffn)
     return x + ffn, new_cache, aux
 
 
@@ -159,7 +164,11 @@ class GPT(nn.Module):
 
     def weight_bytes(self) -> int:
         """Device bytes of the weights (a quantized leaf counts its stored
-        values and scales)."""
+        values and scales). A tensor-parallel serving rank's model reports
+        the whole model's, as the JAX engine's global arrays do."""
+        whole = getattr(self, "whole_weight_bytes", None)
+        if whole is not None:
+            return whole
         tensors = list(self.parameters())
         for blk in self.blocks:
             for leaf in blk.leaves().values():
@@ -275,10 +284,78 @@ def head_weight(model: GPT, dtype: torch.dtype) -> torch.Tensor:
 def unembed(model: GPT, x: torch.Tensor, cfg,
             norm_impl: str = "xla") -> torch.Tensor:
     """Final RMSNorm + LM head (tied or untied); fp32 logits from the fp32
-    accumulator of the head product, as the JAX ``unembed``."""
+    accumulator of the head product, as the JAX ``unembed``. On a
+    tensor-parallel serving rank every rank ends with the whole logits:
+    an untied head's vocab columns are all-gathered, a tied head's partial
+    products over this rank's hidden slice are all-reduced."""
     x = rms_norm(x, cast(model.final_norm, x.dtype), cfg.norm_eps,
                  impl=norm_impl)
-    return matmul_f32(x, head_weight(model, x.dtype))
+    mesh = tp_mesh_of(model)
+    if mesh is None:
+        return matmul_f32(x, head_weight(model, x.dtype))
+    from ..comms.collectives import all_gather, allreduce_sum
+    if not cfg.tie_word_embeddings:
+        out = matmul_f32(x, cast(model.lm_head, x.dtype))
+        if out.shape[-1] == cfg.vocab_size:       # vocab not cut
+            return out
+        return all_gather(out, "tp", gather_dim=-1, mesh=mesh)
+    n = model.embed.shape[1]
+    if n == cfg.hidden_size:                      # hidden not cut
+        return matmul_f32(x, cast(model.embed, x.dtype).t())
+    i = mesh.axis_index("tp")
+    part = matmul_f32(x[..., i * n:(i + 1) * n].contiguous(),
+                      cast(model.embed, x.dtype).t())
+    return allreduce_sum(part, "tp", mesh)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving (one rank of a tp mesh, no autograd)
+# ---------------------------------------------------------------------------
+
+def tp_mesh_of(model) -> Optional[object]:
+    """The tp mesh of a tensor-parallel serving rank's model
+    (``weights.rank_model``), else None."""
+    return getattr(model, "tp_mesh", None)
+
+
+def embed_tokens(model: GPT, tokens: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The embedding lookup in ``dtype``; a tensor-parallel rank holds the
+    table's hidden slice (JAX's ``PARAM_RULES``: hidden on tp) and
+    all-gathers the rows over hidden."""
+    x = cast(model.embed[tokens], dtype)
+    mesh = tp_mesh_of(model)
+    if mesh is None or x.shape[-1] == model.cfg.hidden_size:
+        return x
+    from ..comms.collectives import all_gather
+    return all_gather(x, "tp", gather_dim=-1, mesh=mesh)
+
+
+class TPSums:
+    """The all-reduces of a tensor-parallel serving rank's block: after
+    the row-parallel o, and after down where the FFN is cut (a width tp
+    does not divide is replicated, as JAX's ``_shrink_to_fit`` leaves
+    it, and needs none)."""
+
+    def __init__(self, mesh, ffn_cut: bool):
+        self.mesh, self.ffn_cut = mesh, ffn_cut
+
+    def attn(self, y: torch.Tensor) -> torch.Tensor:
+        from ..comms.collectives import allreduce_sum
+        return allreduce_sum(y, "tp", self.mesh)
+
+    def ffn(self, y: torch.Tensor) -> torch.Tensor:
+        return self.attn(y) if self.ffn_cut else y
+
+
+def tp_blocks(model: GPT, cfg) -> tuple:
+    """``(local config, TPSums)`` of a tensor-parallel serving rank's
+    model; ``(cfg, None)`` for a whole model."""
+    mesh = tp_mesh_of(model)
+    if mesh is None:
+        return cfg, None
+    local = tp_local_config(cfg, mesh.axis_size("tp"), ffn_must_divide=False)
+    return local, TPSums(mesh, local.ffn_size != cfg.ffn_size)
 
 
 def _dequantized(layer: SimpleNamespace, dtype) -> SimpleNamespace:
@@ -382,11 +459,15 @@ def forward(
         if cache_offset is not None:
             positions = positions + cache_offset[:, None]
 
-    x = cast(model.embed[tokens], dt)
+    x = embed_tokens(model, tokens, dt)
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope.base,
                                 cfg.rope.scaling, cfg.rope.scaling_factor,
                                 device=dev)
     layers = precast_params(model, dt)
+    block_cfg, sums = tp_blocks(model, cfg)
+    if sums is not None and kv_cache is None:
+        raise ValueError("a tensor-parallel serving rank runs the cached "
+                         "(serving) forward only")
     new_cache = None
     aux_total = None                     # summed over MoE layers only
     if kv_cache is None:
@@ -401,9 +482,10 @@ def forward(
         k_cache, v_cache = kv_cache
         for i, layer in enumerate(layers):
             layer = _dequantized(layer, dt)      # this layer only
-            x, _, aux = _block_fn(layer, x, cfg, positions, segment_ids,
-                                  inv_freq, (k_cache[i], v_cache[i]),
-                                  cache_offset, norm_impl=norm_impl)
+            x, _, aux = _block_fn(layer, x, block_cfg, positions,
+                                  segment_ids, inv_freq,
+                                  (k_cache[i], v_cache[i]), cache_offset,
+                                  norm_impl=norm_impl, reduce=sums)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
         new_cache = (k_cache, v_cache)
@@ -449,18 +531,22 @@ def gather_leaf(t: torch.Tensor, spec: tuple, mesh,
     return t
 
 
-def tp_local_config(cfg, tp: int):
+def tp_local_config(cfg, tp: int, ffn_must_divide: bool = True):
     """``cfg`` as one tensor-parallel rank sees its blocks: 1/tp of the
     query and kv heads and of the FFN width (head-aligned column and row
-    splits)."""
-    if cfg.num_heads % tp or cfg.num_kv_heads % tp or cfg.ffn_size % tp:
+    splits). Serving (``ffn_must_divide=False``) follows JAX's serving
+    check, which asks nothing of the FFN: a width tp does not divide stays
+    whole on every rank."""
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp or (
+            ffn_must_divide and cfg.ffn_size % tp):
         raise ValueError(
             f"tensor_parallel={tp} must divide num_heads={cfg.num_heads}, "
             f"num_kv_heads={cfg.num_kv_heads} and ffn_size={cfg.ffn_size}")
     local = copy.copy(cfg)
     local.num_heads = cfg.num_heads // tp
     local.num_kv_heads = cfg.num_kv_heads // tp
-    local.ffn_size = cfg.ffn_size // tp
+    if cfg.ffn_size % tp == 0:
+        local.ffn_size = cfg.ffn_size // tp
     return local
 
 

@@ -85,6 +85,19 @@ def choose_backend(device: torch.device,
     return "gloo"
 
 
+def rank_device(device: torch.device, world: int,
+                rank: Optional[int] = None) -> torch.device:
+    """The device of ``rank`` (default ``RANK``) of a ``world`` of ranks
+    on this host: ``cuda:{rank}`` where every rank has a card of its own,
+    else ``cuda:0``, which the ranks share (and move their collectives
+    over gloo); the CPU stays the CPU."""
+    if device.type != "cuda" or world <= 1:
+        return device
+    rank = int(os.environ.get("RANK", "0")) if rank is None else rank
+    return torch.device("cuda", rank if torch.cuda.device_count() >= world
+                        else 0)
+
+
 def init_distributed(device: torch.device,
                      timeout_s: float = DEFAULT_TIMEOUT_S) -> str:
     """Join the process group the launcher described in the environment

@@ -152,3 +152,71 @@ def unshard(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     for d, axes in sharded_dims(spec).items():
         out = all_gather(out, axes, gather_dim=d, mesh=mesh)
     return out
+
+
+# -- the serving leaves: one tensor-parallel rank's shard --------------------
+
+def leaf_specs(leaf, path: str, layers: int, mesh_shape: dict) -> tuple:
+    """The per-layer specs of a serving leaf of the stacked JAX ``path``
+    (``blocks.q.kernel``; ``layers`` is the stack's depth), as JAX's
+    ``param_specs`` gives them, the layer axis dropped: one spec for a
+    tensor; for an int8 ``QuantTensor`` (values, scale): the values take
+    the kernel's spec and the per-(L, in) scale its leading axes; for a
+    ``Quant4Tensor`` (packed, scale, chan): the packed nibbles [in/2, out]
+    and the group scale [in/group, out] take the kernel's (layer, in, out)
+    spec and ``chan`` its (layer, in). A dim the axes do not divide is
+    replicated (``_shrink_to_fit``)."""
+    from ..ops.quantization import QuantTensor, Quant4Tensor
+    stacked = path.startswith("blocks.")
+    spec = spec_for_path(path, stacked=stacked)
+
+    def fit(s, shape):
+        shape = ((layers,) if stacked else ()) + tuple(shape)
+        out = _shrink_to_fit(s, shape, mesh_shape)
+        return out[1:] if stacked else out
+
+    if isinstance(leaf, Quant4Tensor):
+        lay, in_ax, out_ax = (tuple(spec) + (None, None, None))[:3]
+        return (fit((lay, in_ax, out_ax), leaf.packed.shape),
+                fit((lay, in_ax, out_ax), leaf.scale.shape),
+                fit((lay, in_ax), leaf.chan.shape))
+    if isinstance(leaf, QuantTensor):
+        full = _shrink_to_fit(spec, ((layers,) if stacked else ())
+                              + tuple(leaf.values.shape), mesh_shape)
+        return (full[1:] if stacked else full,
+                fit((*full[:-1], None), leaf.scale.shape))
+    return fit(spec, leaf.shape)
+
+
+def shard_leaf(leaf, path: str, layers: int, mesh):
+    """This rank's shard of a whole serving leaf (a tensor, ``QuantTensor``
+    or ``Quant4Tensor``) under ``leaf_specs``: each part holds the bytes
+    of JAX's shard of it. A quantized leaf is quantized whole first (as
+    the JAX engine quantizes before it shards), so a column shard keeps
+    the scales of whole input rows.
+
+    Where a W4 leaf's input rows are cut but its group scale, whose
+    in/group rows tp does not divide, is replicated, the rows of a rank
+    lie in one group only when in/group is 1: that shard computes with a
+    group of its in/tp rows. Any other such split raises."""
+    from ..ops.quantization import QuantTensor, Quant4Tensor
+    specs = leaf_specs(leaf, path, layers, mesh.shape)
+    if isinstance(leaf, Quant4Tensor):
+        packed, scale, chan = (shard_of(t, s, mesh)
+                               for t, s in zip(leaf.tensors(), specs))
+        n_in, group = 2 * packed.shape[0], leaf.group
+        if scale.shape[0] * group != n_in:
+            if scale.shape[0] != 1:
+                raise ValueError(
+                    f"{path}: the int4 group scales {tuple(leaf.scale.shape)}"
+                    f" (group {group}) do not split with the rows over "
+                    f"tp={mesh.axis_size('tp')}")
+            group = n_in
+        if chan.shape[0] != n_in:
+            raise ValueError(f"{path}: chan {tuple(chan.shape)} against "
+                             f"{n_in} input rows")
+        return Quant4Tensor(packed, scale, chan, group=group)
+    if isinstance(leaf, QuantTensor):
+        return QuantTensor(*(shard_of(t, s, mesh)
+                             for t, s in zip(leaf.tensors(), specs)))
+    return shard_of(leaf, specs, mesh)

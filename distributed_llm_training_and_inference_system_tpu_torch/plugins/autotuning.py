@@ -29,8 +29,11 @@ knobs:
   backend "gpu" on a card and "cpu" on the CPU) and ``save_results`` /
   ``load_results`` in the JAX module's JSON, so each reads the other's
   cache.
-- ``CollectiveTuner`` and ``tune_collective`` need a mesh of cards and
-  raise, naming ROADMAP queue 1 item 7b.
+- ``CollectiveTuner``: pattern x chunking x dtype over a live mesh axis,
+  each trial ``comms/bench.bench_collective`` over the axis (every member
+  of it runs the same search together). Its trials and its timeout are
+  agreed over the axis (the slowest member's latency, any member's
+  timeout), so every member takes the same path through the grid.
 
 Every time comes from ``utils/timing.time_fn`` (CUDA events on a card).
 """
@@ -53,7 +56,6 @@ from ..device import resolve_device
 
 logger = logging.getLogger("llmctl.autotuning")
 
-MULTI_GPU = "ROADMAP queue 1 item 7b"
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -102,6 +104,11 @@ class Tunable(ABC):
 
     def validate(self, params: dict[str, Any]) -> bool:
         return True
+
+    def agree(self, flag: bool) -> bool:
+        """A search decision taken on one process (a timeout): what the
+        processes that search together decide (this one's alone here)."""
+        return flag
 
     @abstractmethod
     def build(self, params: dict[str, Any]):
@@ -239,20 +246,43 @@ class AttentionTuner(Tunable):
 
 
 class CollectiveTuner(Tunable):
-    """Collective dispatch over a mesh of cards: waits for multi-GPU."""
+    """Tune collective dispatch over a live mesh axis, by measurement.
+
+    Space: pattern x payload chunking x dtype. Chunking (one collective
+    split into n_chunks sequential ones) is the knob of bucket size, and
+    matters for comm/compute overlap."""
 
     name = "collective"
 
-    def __init__(self, mesh=None, axis: str = "x", size_mb: float = 8.0):
-        raise NotImplementedError(
-            "collective tuning needs a mesh of cards; multi-GPU is not "
-            f"ported to the PyTorch package yet ({MULTI_GPU})")
+    def __init__(self, mesh, axis: str, size_mb: float = 8.0):
+        self.mesh, self.axis, self.size_mb = mesh, axis, size_mb
+        self.device = mesh.device
 
-    def parameter_space(self) -> dict[str, list]:   # pragma: no cover
-        return {}
+    def parameter_space(self) -> dict[str, list]:
+        return {
+            "pattern": ["allreduce", "all_gather", "reduce_scatter",
+                        "ppermute", "all_to_all"],
+            "n_chunks": [1, 2, 4],
+            "dtype": ["float32", "bfloat16"],
+        }
 
-    def build(self, params: dict[str, Any]):         # pragma: no cover
-        raise NotImplementedError(MULTI_GPU)
+    def agree(self, flag: bool) -> bool:
+        from ..comms.bench import slowest
+        return slowest(float(flag), self.mesh, self.axis) > 0
+
+    def build(self, params: dict[str, Any]):
+        raise NotImplementedError   # benchmark() times itself
+
+    def benchmark(self, params: dict[str, Any], warmup: int,
+                  trials: int) -> float:
+        """The slowest member's ms for the payload in ``n_chunks``
+        sequential collectives."""
+        from ..comms.bench import bench_collective
+        chunk_mb = self.size_mb / params["n_chunks"]
+        return sum(bench_collective(self.mesh, self.axis, params["pattern"],
+                                    size_mb=chunk_mb, dtype=params["dtype"],
+                                    iters=trials)["time_ms"]
+                   for _ in range(params["n_chunks"]))
 
 
 class AutoTuner:
@@ -283,7 +313,8 @@ class AutoTuner:
             params = dict(zip(names, combo))
             if not tunable.validate(params):
                 continue
-            if time.perf_counter() - t_start > cfg.timeout_seconds:
+            if tunable.agree(time.perf_counter() - t_start
+                             > cfg.timeout_seconds):
                 logger.warning("%s tuning timed out after %d configs",
                                tunable.name, len(all_results))
                 break
@@ -331,9 +362,12 @@ class AutoTuner:
             cache_key=f"attention_{seq_len}_{head_dim}_{num_heads}"
                       f"_{batch_size}_{backend}")
 
-    def tune_collective(self, mesh=None, axis: str = "x",
+    def tune_collective(self, mesh, axis: str,
                         size_mb: float = 8.0) -> TuningResult:
-        return self.grid_search(CollectiveTuner(mesh, axis, size_mb))
+        """Every member of ``axis`` calls it together."""
+        return self.grid_search(
+            CollectiveTuner(mesh, axis, size_mb),
+            cache_key=f"collective_{axis}{mesh.axis_size(axis)}_{size_mb}mb")
 
     def save_results(self, path: str | Path) -> None:
         p = Path(path)

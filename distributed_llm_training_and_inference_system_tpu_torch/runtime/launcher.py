@@ -1,8 +1,10 @@
 """Training launchers (the JAX package's ``runtime/launcher.py``) for one
 host.
 
-``LocalLauncher`` runs the port's ``runtime/train_entry.py`` in a child
-process and adds no ``XLA_FLAGS``. A parallel config (``procs > 1``: the
+``LocalLauncher`` runs the port's ``runtime/train_entry.py`` (or another
+``module``: ``serve start --tensor-parallel N`` starts its follower ranks
+1..N-1 as ``cli`` children, rank 0 being the serving process itself) in a
+child process and adds no ``XLA_FLAGS``. A parallel config (``procs > 1``: the
 product of its degrees) gets one child per rank on this host, each told
 its place by the environment ``torch.distributed`` reads (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
@@ -62,6 +64,7 @@ class LaunchConfig:
     mixed_precision: str = "bf16"
     seed: int = 42
     dry_run: bool = False
+    module: str = ENTRY                # what each child runs (python -m)
 
 
 def _require_one_host(cfg: LaunchConfig) -> None:
@@ -91,7 +94,7 @@ def _train_env(cfg: LaunchConfig) -> dict[str, str]:
 def _train_cmd(cfg: LaunchConfig, python: Optional[str] = None) -> list[str]:
     """The child's command line: the port's train_entry under *python*
     (default this interpreter)."""
-    cmd = [python or sys.executable, "-m", ENTRY]
+    cmd = [python or sys.executable, "-m", cfg.module]
     if cfg.config_file:
         cmd += ["--config", str(cfg.config_file)]
     cmd += cfg.extra_args
@@ -112,23 +115,28 @@ class LocalLauncher:
         self.cfg = cfg
         self.children: list[subprocess.Popen] = []
 
-    def launch(self, capture_output: bool = True) -> Optional[subprocess.Popen]:
-        """Start the children (None for a dry run) and return rank 0's.
+    def launch(self, capture_output: bool = True,
+               ranks=None) -> Optional[subprocess.Popen]:
+        """Start the children (None for a dry run) and return the first's.
         With nothing draining a pipe a chatty child would block on a full
         OS pipe buffer, so output is inherited unless captured (rank 0's
-        only: the other ranks log at debug level)."""
+        only: the other ranks log at debug level). ``ranks`` (default
+        all) are the ranks to start as children; ``self.rendezvous`` is
+        the environment every rank of the job shares."""
         if self.cfg.dry_run:
             self.children = []
             return None
         env = _train_env(self.cfg)
         procs = max(self.cfg.procs, 1)
+        self.rendezvous = {}
         if procs > 1:
-            env.update({"WORLD_SIZE": str(procs),
-                        "LOCAL_WORLD_SIZE": str(procs),
-                        "MASTER_ADDR": "127.0.0.1",
-                        "MASTER_PORT": str(_free_port())})
+            self.rendezvous = {"WORLD_SIZE": str(procs),
+                               "LOCAL_WORLD_SIZE": str(procs),
+                               "MASTER_ADDR": "127.0.0.1",
+                               "MASTER_PORT": str(_free_port())}
+            env.update(self.rendezvous)
         self.children = []
-        for rank in range(procs):
+        for rank in (range(procs) if ranks is None else ranks):
             if procs > 1:
                 env = {**env, "RANK": str(rank), "LOCAL_RANK": str(rank)}
             pipe = capture_output and rank == 0
@@ -136,7 +144,7 @@ class LocalLauncher:
                 _train_cmd(self.cfg), env=env,
                 stdout=subprocess.PIPE if pipe else None,
                 stderr=subprocess.STDOUT if pipe else None, text=True))
-        return self.children[0]
+        return self.children[0] if self.children else None
 
     def wait(self, poll_s: float = 0.1) -> int:
         """Wait for every child; the first failure stops the rest. Returns
@@ -167,6 +175,46 @@ class LocalLauncher:
     def describe(self) -> str:
         cmd = shlex.join(_train_cmd(self.cfg))
         return cmd if self.cfg.procs <= 1 else f"{self.cfg.procs} x {cmd}"
+
+
+CLI_MODULE = "distributed_llm_training_and_inference_system_tpu_torch.cli"
+
+
+def this_rank() -> Optional[int]:
+    """This process's rank when a launcher started it as one of a job's
+    ranks (``RANK`` and ``WORLD_SIZE`` set), else None."""
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return int(os.environ["RANK"])
+    return None
+
+
+def launch_ranks(argv: list[str], procs: int) -> int:
+    """Run ``procs`` ranks of the ``llmctl-torch`` command line ``argv``,
+    a child each (``LocalLauncher``; each sees ``this_rank()``), relaying
+    rank 0's output. Returns 0, or the first failed rank's exit code (the
+    others are stopped)."""
+    launcher = LocalLauncher(LaunchConfig(procs=procs, module=CLI_MODULE,
+                                          extra_args=list(argv)))
+    first = launcher.launch(capture_output=True)
+    try:
+        for line in first.stdout:
+            print(line, end="", flush=True)
+        return launcher.wait()
+    finally:
+        launcher.stop_children()
+
+
+def lead_ranks(argv: list[str], procs: int) -> LocalLauncher:
+    """This process as rank 0 of ``procs`` ranks of the ``llmctl-torch``
+    command line ``argv``: ranks 1..procs-1 start as its children, and its
+    environment takes the job's rendezvous and ``RANK`` 0. Returns the
+    launcher holding the children."""
+    launcher = LocalLauncher(LaunchConfig(procs=procs, module=CLI_MODULE,
+                                          extra_args=list(argv)))
+    launcher.launch(capture_output=False, ranks=range(1, procs))
+    os.environ.update({**launcher.rendezvous, "RANK": "0",
+                       "LOCAL_RANK": "0"})
+    return launcher
 
 
 def create_launcher(cfg: LaunchConfig) -> LocalLauncher:

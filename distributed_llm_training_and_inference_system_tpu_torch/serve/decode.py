@@ -29,7 +29,7 @@ from types import SimpleNamespace
 
 import torch
 
-from ..models.gpt import compute_dtype, unembed
+from ..models.gpt import compute_dtype, embed_tokens, tp_blocks, unembed
 from ..models.layers import apply_rope, cast, mlp_block, moe_block, \
     rms_norm, rope_frequencies
 from ..ops.int4_matmul import matmul_w4
@@ -110,10 +110,18 @@ def extend_step_forward(
 
     A window of more than ``KERNEL_MAX_ROWS`` rows (B * T: a suffix or
     chunk prefill, a wide verify window) sends quantized weights to the
-    dequant route, as the JAX package's decode does."""
+    dequant route, as the JAX package's decode does.
+
+    On a tensor-parallel serving rank (``weights.rank_model``) the pages
+    hold this rank's kv heads: the paged kernel attends over its Nq/tp
+    query heads, the W8/W4 kernels multiply by its column and row shards,
+    and the partial sums after o and down are all-reduced
+    (``models.gpt.TPSums``)."""
     dt = compute_dtype(cfg)
     B, T = tokens.shape
-    D, Nq, Nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    block_cfg, sums = tp_blocks(model, cfg)
+    D, Nq, Nkv = (block_cfg.head_dim, block_cfg.num_heads,
+                  block_cfg.num_kv_heads)
     dev = tokens.device
 
     start = start_positions.long()
@@ -130,7 +138,7 @@ def extend_step_forward(
         flat_tables = tables.repeat_interleave(T, dim=0)
         flat_ok = None if write_ok is None else write_ok.reshape(B * T)
 
-    x = cast(model.embed[tokens], dt)                             # [B, T, H]
+    x = embed_tokens(model, tokens, dt)                           # [B, T, H]
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope.base,
                                 cfg.rope.scaling, cfg.rope.scaling_factor,
                                 device=dev)
@@ -157,13 +165,15 @@ def extend_step_forward(
                                  flat_pos, flat_ok)
         attn = paged_attention_multi(q, kp, vp, tables, starts,
                                      impl=attn_impl)
-        attn = attn.reshape(B, T, Nq * D)
-        x = x + proj(attn, blk.o).to(x.dtype)
+        attn = proj(attn.reshape(B, T, Nq * D), blk.o)
+        x = x + (attn if sums is None else sums.attn(attn)).to(x.dtype)
         h = rms_norm(x, cast(blk.mlp_norm, dt), cfg.norm_eps)
         if cfg.is_moe:
             ffn, _ = moe_block(h, _moe_leaves(blk, dt), cfg)
         else:
-            ffn = mlp_block(h, blk, cfg, matmul=proj)
+            ffn = mlp_block(h, blk, block_cfg, matmul=proj)
+            if sums is not None:
+                ffn = sums.ffn(ffn)
         x = x + ffn.to(x.dtype)
 
     if not logits:

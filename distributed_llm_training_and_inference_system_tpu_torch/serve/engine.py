@@ -56,8 +56,17 @@ serving path:
   re-prefilled) and ``expect_pure_decode`` (a decode-role replica counts
   the prefills it still runs).
 
-Features that the port does not carry yet raise ``NotImplementedError``
-at construction, naming their ROADMAP item.
+- **Tensor parallelism** (``tensor_parallel`` tp > 1): the engine is
+  built on every rank of an initialised process group of tp ranks
+  (``parallel.mesh.init_distributed``). Each rank holds its shard of
+  every weight (quantized whole first, as the JAX engine does, then cut:
+  ``weights.rank_model``) and its Nkv/tp heads of every page. Rank 0 leads
+  (``serve/tp.py``): before each device operation it broadcasts a host
+  descriptor, and the other ranks run the same operation from
+  ``follow()``. Every rank calls its own paged, W8 and W4 kernels on its
+  heads and shards, where the JAX engine, under GSPMD, gives them up
+  (gather attention, dequantized weights). MoE under tp > 1 waits for
+  expert parallelism, and raises naming ROADMAP queue 1 item 7b.
 """
 
 from __future__ import annotations
@@ -85,7 +94,8 @@ from ..ops.paged_attention import (Int4Pages, QuantPages, quantize_kv_token,
 from ..ops.quantization import (QuantTensor, Quant4Tensor, int4_group_for,
                                 pack_int4_rows, quantize_int4_groupwise,
                                 quantize_int8, to_runtime_quant)
-from ..weights import jax_path, model_from_named, params_from_jax
+from ..weights import (jax_path, model_from_named, params_from_jax,
+                       rank_model)
 from .decode import decode_scan, extend_step_forward
 from .kv_cache import (PagedKVCache, concat_page_payloads, payload_bytes,
                        prefix_page_hashes, slice_page_payload)
@@ -93,14 +103,11 @@ from .sampling import gumbel_noise, prng_key, randint, sample_tokens
 from .speculative import SpecState, propose_ngram_draft, verify_and_decode
 from .scheduler import (ContinuousBatchingScheduler, Request, RequestState,
                         SamplingParams)
+from .tp import STOP, RankLink, on_every_rank
 
 logger = logging.getLogger("llmctl.serve.engine")
 
-# feature -> (is it requested?, ROADMAP item that ports it)
-_NOT_PORTED = (
-    (lambda c: c.tensor_parallel > 1, "tensor_parallel > 1",
-     "queue 1 item 7b (multi-GPU)"),
-)
+MULTI_GPU = "ROADMAP queue 1 item 7b"
 
 QUANT_MIN_SIZE = 4096    # elements of the stacked [L, in, out] kernel
 
@@ -162,12 +169,11 @@ class InferenceEngine:
         device=None,
     ):
         serve_cfg.validate()
-        for requested, name, item in _NOT_PORTED:
-            if requested(serve_cfg):
-                raise NotImplementedError(
-                    f"{name} is not ported to the PyTorch engine yet "
-                    f"(ROADMAP {item})")
         self.device = resolve_device(device)
+        tp = serve_cfg.tensor_parallel
+        self.tp_mesh = self._link = None
+        if tp > 1:
+            self.tp_mesh = self._tp_mesh(model_cfg, tp)
         self.serve_cfg = serve_cfg
         self.eos_token_id = eos_token_id
         # the effective quantization: what the weights are, which a
@@ -211,14 +217,26 @@ class InferenceEngine:
                                                     calib)
             # the caller's model is left as it is; a model this engine made
             # gives up each full-precision kernel as it is quantized
+            if gpt.tp_mesh_of(params) is not None:
+                raise ValueError(
+                    "a tensor-parallel rank's weights are quantized whole "
+                    "before they are cut (weights.rank_params_from_jax)")
             params = quantize_blocks(
                 params, serve_cfg.quantization.split("-")[0],
                 free_source=own_params, act=act)
             logger.info("serving with %s block weights",
                         serve_cfg.quantization)
+        if tp > 1 and gpt.tp_mesh_of(params) is None:
+            # the whole (quantized) model, cut to this rank's shard
+            params = rank_model(params, self.tp_mesh, free_source=own_params)
+            if own_params and self.device.type == "cuda":
+                # the whole model's memory goes back to the card, which
+                # the other ranks may share
+                torch.cuda.empty_cache()
         self.params = params
-        # the int8 kernels are opt-in, as in the JAX engine (the int4
-        # kernel is always on: nothing here shards a weight)
+        # the int8 kernels are opt-in, as in the JAX engine; the int4 kernel
+        # is always on, under tp too (each rank calls it on its shard, where
+        # the JAX engine under GSPMD turns it off)
         self._w8_kernel_ok = bool(serve_cfg.int8_pallas_matmul)
 
         S = serve_cfg.max_batch_size
@@ -227,7 +245,7 @@ class InferenceEngine:
             page_size=serve_cfg.kv_block_size,
             num_pages=serve_cfg.kv_num_blocks,
             hbm_budget_gb=serve_cfg.kv_hbm_budget_gb, dtype=dtype,
-            device=self.device, quantized=serve_cfg.kv_quantization)
+            device=self.device, quantized=serve_cfg.kv_quantization, tp=tp)
 
         self._req_slot: dict[str, int] = {}
         # pages promised to admitted-but-not-yet-prefilled requests, per
@@ -340,6 +358,120 @@ class InferenceEngine:
         # device count of logits tensors with a NaN/inf (read in stats())
         self._nonfinite = torch.zeros((), dtype=torch.int64,
                                       device=self.device)
+        # paged forward passes this rank ran (decode steps, suffix and
+        # chunk prefills, verify windows): each launches the paged kernel
+        # once a layer, on every rank alike
+        self.total_paged_passes = 0
+        # the carry of the last decode unit enqueued (groups chain on it)
+        self._carry = None
+        # a tp rank's device digest of every token its decode and verify
+        # dispatches sampled: equal on every rank
+        self.token_digest = torch.zeros((), dtype=torch.int64,
+                                        device=self.device)
+        # tensor parallelism: the followers' swap payloads by request id,
+        # and the ids whose payloads the next descriptor tells them to drop
+        self._swap_store: dict[str, dict] = {}
+        self._drops: list[str] = []
+        if tp > 1:
+            self._link = RankLink(self.tp_mesh)
+
+    # -- tensor parallelism --------------------------------------------------
+
+    def _tp_mesh(self, model_cfg, tp: int):
+        """The tp mesh of this rank (every rank of an initialised process
+        group of tp ranks builds its engine)."""
+        import torch.distributed as dist
+
+        from ..config.schema import ParallelConfig
+        from ..parallel.mesh import build_mesh
+        if model_cfg.is_moe:
+            raise NotImplementedError(
+                "MoE serving under tensor_parallel > 1 waits for expert "
+                f"parallelism ({MULTI_GPU})")
+        if model_cfg.num_kv_heads % tp or model_cfg.num_heads % tp:
+            raise ValueError(
+                f"tensor_parallel={tp} must divide num_heads="
+                f"{model_cfg.num_heads} and num_kv_heads="
+                f"{model_cfg.num_kv_heads}")
+        if not dist.is_initialized() or dist.get_world_size() != tp:
+            raise RuntimeError(
+                f"tensor_parallel={tp} serves from {tp} ranks: build the "
+                f"engine on every rank of an initialised process group of "
+                f"{tp} (parallel.mesh.init_distributed; `serve start "
+                f"--tensor-parallel {tp}` launches them)")
+        return build_mesh(ParallelConfig(tensor_parallel=tp), self.device)
+
+    @property
+    def is_follower(self) -> bool:
+        return self._link is not None and not self._link.leader
+
+    def _host_state(self) -> dict:
+        """The host arrays a decode-side operation reads, for the
+        followers to mirror."""
+        return {"last_tokens": self.last_tokens, "positions": self.positions,
+                "stop_positions": self.stop_positions,
+                "slot_seeds": self._slot_seeds, "active": self.active,
+                "temperature": self.temperature, "top_k": self.top_k,
+                "top_p": self.top_p, "block_tables": self.kv.block_tables}
+
+    def _take_drops(self) -> list:
+        drops, self._drops = self._drops, []
+        return drops
+
+    def follow(self) -> None:
+        """A follower rank's loop: run the leader's descriptors on this
+        rank's shards, in order, until the leader stops (``stop_followers``)
+        or fails. Returns at the stop; raises if the leader's channel
+        breaks."""
+        if not self.is_follower:
+            raise RuntimeError("follow() runs on a tensor-parallel follower")
+        with torch.inference_mode():
+            while True:
+                op, args, kwargs, state, drops = self._link.recv()
+                for key in drops:
+                    self._swap_store.pop(key, None)
+                if op == STOP:
+                    return
+                if state is not None:
+                    for name in ("last_tokens", "positions",
+                                 "stop_positions", "active", "temperature",
+                                 "top_k", "top_p"):
+                        setattr(self, name, state[name])
+                    self._slot_seeds = state["slot_seeds"]
+                    self.kv.block_tables = state["block_tables"]
+                getattr(self, op).__wrapped__(self, *args, **kwargs)
+
+    def stop_followers(self) -> None:
+        """Release the followers from ``follow`` (the leader, at shutdown;
+        a broken channel is ignored: the followers then fail by
+        themselves)."""
+        if self._link is not None and self._link.leader:
+            try:
+                self._link.stop()
+            except RuntimeError:
+                logger.warning("tensor-parallel followers unreachable at "
+                               "stop")
+
+    def launch_report(self) -> dict:
+        """This rank's kernel launches and the forward passes that drove
+        them (read at exit by ``serve start``'s ranks)."""
+        from ..ops import int4_matmul, int8_matmul
+        from ..ops.paged_attention_cuda import (paged_attention_int4_kernel,
+                                                paged_attention_int8_kernel,
+                                                paged_attention_kernel)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        rank = self.tp_mesh.rank if self.tp_mesh is not None else 0
+        return {"rank": rank, "paged_passes": self.total_paged_passes,
+                "layers": self.cfg.num_layers,
+                "token_digest": int(self.token_digest),
+                "paged_attention": paged_attention_kernel.launches,
+                "paged_attention_int8": paged_attention_int8_kernel.launches,
+                "paged_attention_int4": paged_attention_int4_kernel.launches,
+                "int8_matmul": int8_matmul.int8_matmul_kernel.launches,
+                "int8_matmul_ksplit":
+                    int8_matmul.int8_matmul_ksplit_kernel.launches,
+                "int4_matmul": int4_matmul.int4_matmul_kernel.launches}
 
     def _load_params(self, model_cfg, serve_cfg, seed: int, dtype):
         """(params, effective model config, effective quantization) from
@@ -531,6 +663,7 @@ class InferenceEngine:
                 to_device(np.array([position]), dev),
                 self.cfg.vocab_size))[0]
 
+    @on_every_rank()
     @torch.inference_mode()
     def _prefill_dense(self, tokens: np.ndarray, n: int,
                        entries: np.ndarray) -> torch.Tensor:
@@ -542,8 +675,10 @@ class InferenceEngine:
         PS = self.kv.page_size
         n_pages = bucket // PS
         dev = self.device
-        zeros = gpt.init_kv_cache(cfg, 1, bucket, dtype=self.kv.dtype,
-                                  device=dev)
+        Nkv = self.kv.kv_heads          # this rank's heads under tp
+        zeros = tuple(torch.zeros(
+            (cfg.num_layers, 1, bucket, Nkv, cfg.head_dim),
+            dtype=self.kv.dtype, device=dev) for _ in range(2))
         logits, (kd, vd) = gpt.forward(
             self.params, to_device(tokens, dev, torch.int64), cfg,
             kv_cache=zeros,
@@ -564,8 +699,8 @@ class InferenceEngine:
             # (token, kv head) for quantized pages (int4: then packed along
             # the page-slot axis), written at the bucket's table entries
             dense = dense[:, 0].reshape(
-                cfg.num_layers, n_pages, PS, cfg.num_kv_heads,
-                cfg.head_dim).transpose(2, 3)
+                cfg.num_layers, n_pages, PS, Nkv, cfg.head_dim
+            ).transpose(2, 3)
             if keep is not None:
                 dense = dense[:, keep]
             if isinstance(pages, Int4Pages):
@@ -583,6 +718,7 @@ class InferenceEngine:
         scatter(self.kv.v_pages, vd)
         return logits[:, 0]
 
+    @on_every_rank()
     @torch.inference_mode()
     def _prefill_extend(self, tokens: np.ndarray, cached: int, m: int,
                         table_row: np.ndarray, head: bool = True
@@ -594,6 +730,7 @@ class InferenceEngine:
         or None without ``head`` (an intermediate chunk)."""
         dev = self.device
         bucket = tokens.shape[1]
+        self.total_paged_passes += 1
         write_ok = torch.arange(bucket, device=dev)[None] < m
         logits, _, _ = extend_step_forward(
             self.params, to_device(tokens, dev, torch.int64),
@@ -1040,7 +1177,9 @@ class InferenceEngine:
             shared["top_p"], self.cfg, self._decode_unit_len,
             w8_kernel_ok=self._w8_kernel_ok)
         self._nonfinite = self._nonfinite + nonfinite
+        self._digest(sampled)
         self.total_dispatched_steps += self._decode_unit_len
+        self.total_paged_passes += self._decode_unit_len
         return {
             "sampled": sampled, "next_tokens": next_toks,
             "next_positions": next_pos,
@@ -1049,17 +1188,38 @@ class InferenceEngine:
             "active": self.active.copy(),
         }
 
-    @engine_thread_only
-    def _submit_group(self, n_units: int, chain_from=None) -> dict:
-        """Chain ``n_units`` unit dispatches; return a group record with
-        the same keys as a unit (last unit's carry, first unit's slot
-        snapshot), so groups chain onto groups."""
+    def _digest(self, sampled: torch.Tensor) -> None:
+        """Fold a dispatch's sampled tokens into ``token_digest`` (on the
+        device, no sync), on a tensor-parallel rank."""
+        if self._link is None:
+            return
+        w = torch.arange(1, sampled.numel() + 1, device=sampled.device)
+        self.token_digest = self.token_digest + (
+            sampled.reshape(-1).long() * w).sum()
+
+    @on_every_rank(state=True)
+    def _enqueue_decode(self, n_units: int, chain: bool) -> list:
+        """Enqueue ``n_units`` chained decode units, the first chained on
+        the last unit enqueued before (``chain``) or on the host's tokens
+        and positions."""
         units = []
-        pend = chain_from
+        pend = self._carry if chain else None
         shared = self._shared_decode_args()
         for _ in range(n_units):
             pend = self._submit_decode(chain_from=pend, shared=shared)
             units.append(pend)
+        self._carry = pend
+        return units
+
+    @engine_thread_only
+    def _submit_group(self, n_units: int, chain_from=None) -> dict:
+        """Chain ``n_units`` unit dispatches; return a group record with
+        the same keys as a unit (last unit's carry, first unit's slot
+        snapshot), so groups chain onto groups. A group chains only on the
+        one enqueued last."""
+        assert chain_from is None or self._carry is not None and \
+            chain_from["next_tokens"] is self._carry["next_tokens"]
+        units = self._enqueue_decode(n_units, chain_from is not None)
         return {
             "units": units,
             "next_tokens": units[-1]["next_tokens"],
@@ -1167,21 +1327,9 @@ class InferenceEngine:
             draft = propose(ctx, w - 1, self.serve_cfg.speculative_ngram)
             if draft is not None:
                 tokens[slot, 1:w] = draft
-        shared = self._shared_decode_args()
-        emitted, n_emit, decode_seq, nonfinite = verify_and_decode(
-            self.params, to_device(tokens, self.device),
-            to_device(self.positions, self.device), self.kv.k_pages,
-            self.kv.v_pages, shared["tables"], shared["stops"],
-            shared["seeds"], shared["temperature"], shared["top_k"],
-            shared["top_p"], self.cfg,
-            num_decode_steps=max(
-                self.serve_cfg.decode_steps_per_dispatch - 1, 0),
-            w8_kernel_ok=self._w8_kernel_ok)
-        self._nonfinite = self._nonfinite + nonfinite
-        R = decode_seq.shape[0]
+        out = self._spec_dispatch(tokens).cpu().numpy()   # one fetch
+        R = out.shape[1] - T - 1
         self.total_dispatched_steps += R
-        out = torch.cat([emitted, n_emit[:, None], decode_seq.T],
-                        dim=1).cpu().numpy()          # one fetch
         emitted, n_emit, decode_seq = out[:, :T], out[:, T], out[:, T + 1:].T
         self.total_spec_dispatches += 1
         self.total_spec_drafts += n_drafted
@@ -1223,6 +1371,43 @@ class InferenceEngine:
             if accepted and self.on_token is not None:
                 self.on_token(req, accepted)
 
+    @on_every_rank(state=True)
+    def _spec_dispatch(self, tokens: np.ndarray) -> torch.Tensor:
+        """The device half of a speculative dispatch: the verify window of
+        ``tokens`` [B, T] and K - 1 decode steps. Returns [B, T + 1 + R]:
+        the emitted tokens, n_emit and the decode rows."""
+        shared = self._shared_decode_args()
+        emitted, n_emit, decode_seq, nonfinite = verify_and_decode(
+            self.params, to_device(tokens, self.device),
+            to_device(self.positions, self.device), self.kv.k_pages,
+            self.kv.v_pages, shared["tables"], shared["stops"],
+            shared["seeds"], shared["temperature"], shared["top_k"],
+            shared["top_p"], self.cfg,
+            num_decode_steps=max(
+                self.serve_cfg.decode_steps_per_dispatch - 1, 0),
+            w8_kernel_ok=self._w8_kernel_ok)
+        self._nonfinite = self._nonfinite + nonfinite
+        out = torch.cat([emitted, n_emit[:, None], decode_seq.T], dim=1)
+        self._digest(out)
+        self.total_paged_passes += 1 + decode_seq.shape[0]
+        return out
+
+    @on_every_rank()
+    def _swap_out(self, key: str, pages: np.ndarray) -> None:
+        """A follower copies the pages ``pages`` of a preempted request to
+        host memory and keeps the payload (its kv heads) under ``key``
+        (the leader's ``extract_slot`` payload goes with the request)."""
+        if self.is_follower:
+            self._swap_store[key] = self.kv._extract_pages_idx(pages)
+
+    @on_every_rank()
+    def _swap_in(self, key: str, pages: np.ndarray) -> None:
+        """A follower writes its payload of ``key`` back into ``pages``
+        (the leader's ``restore_slot`` has written its own)."""
+        content = self._swap_store.pop(key, None)
+        if content is not None:
+            self.kv._write_pages_idx(pages, content["k"], content["v"])
+
     # -- lifecycle -----------------------------------------------------------
 
     def release(self) -> None:
@@ -1236,10 +1421,11 @@ class InferenceEngine:
 
     def _swap_bytes_in_queue(self) -> int:
         """Host bytes held by swapped-out waiting requests (computed when
-        asked: the queue is bounded and preemption is rare)."""
-        return sum(payload_bytes(r.swapped_kv["pages"])
-                   for r in self.scheduler.waiting
-                   if r.swapped_kv is not None)
+        asked: the queue is bounded and preemption is rare); under tp the
+        ranks' payloads together, as the JAX engine's global payload."""
+        return self.kv.tp * sum(payload_bytes(r.swapped_kv["pages"])
+                                for r in self.scheduler.waiting
+                                if r.swapped_kv is not None)
 
     @engine_thread_only
     def _restore_swapped(self, req: Request) -> bool:
@@ -1261,9 +1447,13 @@ class InferenceEngine:
                 ok = False
             if not ok:
                 self.total_swap_fallbacks += 1
+                self._drops.append(rid)
                 return False
             self._reserved_pages -= self._reserved_by.pop(rid, 0)
             self._req_slot[rid] = slot
+            if self._link is not None:
+                n = int(saved["pages"]["num_pages"])
+                self._swap_in(rid, self.kv.block_tables[slot, :n].copy())
         self._assign_seed(req, slot)
         if isinstance(saved.get("spec"), dict):
             req.spec_state = saved["spec"]
@@ -1293,12 +1483,16 @@ class InferenceEngine:
                 self._swap_bytes_in_queue() < \
                 self.serve_cfg.swap_space_gb * 1e9:
             pages = self.kv.extract_slot(slot)
+            if self._link is not None:
+                self._swap_out(rid, self.kv.block_tables[
+                    slot, :self.kv.slot_capacity_tokens(slot)
+                    // self.kv.page_size].copy())
             req.swapped_kv = {"pages": pages, "positions": written,
                               "last_token": int(self.last_tokens[slot])}
             if spec is not None:
                 req.swapped_kv["spec"] = spec
             self.total_swap_outs += 1
-            self.total_swap_out_bytes += payload_bytes(pages)
+            self.total_swap_out_bytes += payload_bytes(pages) * self.kv.tp
         if self.serve_cfg.prefix_caching:
             ctx = req.context_tokens
             full = written // self.kv.page_size
@@ -1352,6 +1546,10 @@ class InferenceEngine:
                 self._preempt(max(victims, key=lambda j: self._slot_seq[j]))
 
     def _on_release(self, req: Request) -> None:
+        if req.swapped_kv is not None and self._link is not None:
+            # a swapped request that leaves unrestored: the followers drop
+            # its payloads with the next descriptor
+            self._drops.append(req.request_id)
         # admitted-but-never-prefilled: return the admission reservation
         self._reserved_pages -= self._reserved_by.pop(req.request_id, 0)
         pins = self._prefix_pins.pop(req.request_id, None)
@@ -1498,7 +1696,13 @@ class InferenceEngine:
     def recover(self) -> bool:
         """Probe the device after a failed step. Pages are updated in place
         (nothing is donated), so no buffer needs reallocating; a flushed
-        prefix cache guards against pages a failed step half wrote."""
+        prefix cache guards against pages a failed step half wrote. A
+        tensor-parallel engine does not recover: its ranks may have parted
+        mid-protocol."""
+        if self._link is not None:
+            logger.error("tensor-parallel engine failed a step: the ranks "
+                         "cannot be resynchronised")
+            return False
         try:
             self.kv.flush_prefix_cache()
             probe = torch.ones(8, device=self.device).sum()
@@ -1533,22 +1737,29 @@ class InferenceEngine:
             entries = np.zeros(bucket // PS, np.int64)
             out["prefill_ms"][bucket] = timed(
                 lambda: self._prefill_dense(tokens, bucket, entries))
-        S, K = self.serve_cfg.max_batch_size, self._decode_unit_len
+        K = self._decode_unit_len
+        with torch.inference_mode():
+            out["decode_ms_per_token"] = timed(
+                lambda: self._probe_decode(K)) / K
+        return out
+
+    @on_every_rank()
+    def _probe_decode(self, K: int) -> torch.Tensor:
+        """``measure_device_times``' decode probe: K steps over every slot
+        from position 0, every write to scratch page 0."""
+        S = self.serve_cfg.max_batch_size
         zeros = torch.zeros(S, dtype=torch.int64, device=self.device)
         tables = torch.zeros_like(to_device(self.kv.block_tables,
                                             self.device))
-
-        def decode():
-            _, sampled, _ = decode_scan(
-                self.params, zeros, zeros, self.kv.k_pages, self.kv.v_pages,
-                tables, zeros + self.serve_cfg.max_seq_len, zeros,
-                np.ones(S, np.float32), np.zeros(S, np.int64),
-                np.ones(S, np.float32), self.cfg, K,
-                w8_kernel_ok=self._w8_kernel_ok)
-            return sampled
-        with torch.inference_mode():
-            out["decode_ms_per_token"] = timed(decode) / K
-        return out
+        _, sampled, _ = decode_scan(
+            self.params, zeros, zeros, self.kv.k_pages, self.kv.v_pages,
+            tables, zeros + self.serve_cfg.max_seq_len, zeros,
+            np.ones(S, np.float32), np.zeros(S, np.int64),
+            np.ones(S, np.float32), self.cfg, K,
+            w8_kernel_ok=self._w8_kernel_ok)
+        self._digest(sampled)
+        self.total_paged_passes += K
+        return sampled
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -1604,6 +1815,7 @@ class InferenceEngine:
             "padded_slot_steps": self.total_padded_slot_steps,
             "dispatched_steps": self.total_dispatched_steps,
             "extend_prefills": self.total_extend_prefills,
+            "paged_passes": self.total_paged_passes,
             "chunked_prefills": self.total_chunked_prefills,
             "prefill_chunks": self.total_prefill_chunks,
             "nonfinite_logits": int(self._nonfinite),

@@ -146,6 +146,10 @@ class ServeFleet:
                  front_id: Optional[str] = None, device=None):
         self.fleet_cfg = fleet_cfg or FleetConfig()
         self.fleet_cfg.validate()    # incl. endpoint-map/remote mismatch
+        if getattr(serve_cfg, "tensor_parallel", 1) > 1:
+            raise NotImplementedError(
+                "fleet replicas with tensor_parallel > 1 are not ported to "
+                "the PyTorch package yet (ROADMAP queue 1 item 7b)")
         self.serve_cfg = serve_cfg
         self.injector = FaultInjector(fault_plan) if fault_plan else None
         roles = self.fleet_cfg.role_list()

@@ -174,7 +174,13 @@ class PagedKVCache:
         dtype=torch.bfloat16,
         device=None,
         quantized=False,        # False|"none" | True|"int8" | "int4"
+        tp: int = 1,
     ):
+        """``tp`` > 1: one tensor-parallel rank's pool. Its pages hold the
+        rank's ``num_kv_heads / tp`` kv heads (the int8/int4 scales
+        [NP, Nkv/tp, PS]); the pool is sized, and ``hbm_bytes`` and
+        ``stats`` report, as the JAX engine's global pool sharded over kv
+        heads. Host bookkeeping (tables, prefix cache) is the leader's."""
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_seq_len = max_seq_len
@@ -215,8 +221,10 @@ class PagedKVCache:
         self.num_pages = num_pages
         self.dtype = dtype
         self.device = device
+        self.tp = tp
+        self.kv_heads = cfg.num_kv_heads // tp      # this rank's
 
-        shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size,
+        shape = (cfg.num_layers, num_pages, self.kv_heads, page_size,
                  cfg.head_dim)
         self.k_pages = self._new_pages(shape)
         self.v_pages = self._new_pages(shape)
@@ -278,7 +286,7 @@ class PagedKVCache:
         def one(buf):
             parts = buf.tensors() if self.quantized else (buf,)
             return sum(t.numel() * t.element_size() for t in parts)
-        return one(self.k_pages) + one(self.v_pages)
+        return (one(self.k_pages) + one(self.v_pages)) * self.tp
 
     # -- alloc / grow / free -------------------------------------------------
 
@@ -484,7 +492,7 @@ class PagedKVCache:
 
     def _validate_pages_shapes(self, content: dict, n: int) -> None:
         cfg = self.cfg
-        expect = (cfg.num_layers, n, cfg.num_kv_heads, self.page_size,
+        expect = (cfg.num_layers, n, self.kv_heads, self.page_size,
                   cfg.head_dim)
         for name, buf in (("k", self.k_pages), ("v", self.v_pages)):
             data = content[name]

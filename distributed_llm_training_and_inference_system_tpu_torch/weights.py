@@ -220,6 +220,59 @@ def params_from_jax(tree, cfg, device=None, dtype=torch.float32) -> GPT:
     return model_from_named(named_from_tree(tree), cfg, device, dtype)
 
 
+@torch.no_grad()
+def rank_model(model: GPT, mesh, free_source: bool = False) -> GPT:
+    """This rank's serving model of a whole ``model`` (plain or quantized
+    block kernels) on a tp ``mesh``: every leaf cut to its shard of JAX's
+    spec (``parallel.sharding.shard_leaf``), on the model's device. The
+    forwards read its ``tp_mesh``; ``weight_bytes`` reports the whole
+    model's, as the JAX engine's global arrays do. With ``free_source``
+    each whole block leaf is dropped from ``model`` once it is cut."""
+    from .parallel.sharding import shard_leaf
+    whole_bytes = 0
+
+    def cut(name: str, leaf):
+        nonlocal whole_bytes
+        quant = isinstance(leaf, (QuantTensor, Quant4Tensor))
+        whole_bytes += sum(t.numel() * t.element_size()
+                           for t in (leaf.tensors() if quant else (leaf,)))
+        part = shard_leaf(leaf if quant else leaf.detach(), jax_path(name),
+                          model.cfg.num_layers, mesh)
+        return part if quant else nn.Parameter(part, requires_grad=False)
+    blocks = []
+    for i, blk in enumerate(model.blocks):
+        leaves = {}
+        for name, leaf in blk.leaves().items():
+            leaves[name] = cut(f"blocks.{i}.{name}", leaf)
+            if free_source:
+                delattr(blk, name)
+        blocks.append(leaves)
+    out = GPT.__new__(GPT)
+    nn.Module.__init__(out)
+    out.cfg = model.cfg
+    out.embed = cut("embed", model.embed)
+    out.blocks = nn.ModuleList(Block.from_leaves(b) for b in blocks)
+    out.final_norm = cut("final_norm", model.final_norm)
+    out.lm_head = (None if model.lm_head is None
+                   else cut("lm_head", model.lm_head))
+    out.tp_mesh = mesh
+    out.whole_weight_bytes = whole_bytes
+    return out
+
+
+def rank_params_from_jax(tree, cfg, mesh, quantization: str = "none",
+                         device=None, dtype=torch.float32) -> GPT:
+    """One tensor-parallel rank's serving model from a JAX params tree:
+    the whole model bridged (``params_from_jax``), its block kernels
+    quantized whole as the JAX engine quantizes them (``quantization``
+    none | int8 | int4), then cut to this rank's shard (``rank_model``)."""
+    model = params_from_jax(tree, cfg, device=device, dtype=dtype)
+    if quantization not in ("", "none"):
+        from .serve.engine import quantize_blocks
+        model = quantize_blocks(model, quantization, free_source=True)
+    return rank_model(model, mesh, free_source=True)
+
+
 def calibration_scales(tree, cfg, calib_tokens) -> dict:
     """``models.gpt.activation_channel_scales`` over a JAX-layout tree (a
     model built on the tree's device, in its embedding's dtype):

@@ -476,11 +476,13 @@ def test_build_server_answers_every_route():
     (["--replicas", "2"], "served"),
     (["--replicas", "2", "--fleet-kv-store"], "served"),
     (["--replicas", "2", "--fleet-max-pending", "64"], "served"),
-    (["--tensor-parallel", "2"], "item 7"),
+    (["--replicas", "2", "--tensor-parallel", "2"], "item 7"),
 ], ids=["extra0-item 9", "extra1-item 9", "extra2-item 9", "extra3-item 7"])
 def test_serve_refuses_what_waits_for_a_roadmap_item(extra, item):
     """``--replicas > 1`` and the fleet options build the fleet front, the
-    fleet KV store's included; tensor parallelism waits for item 7."""
+    fleet KV store's included; replicas with tensor parallelism wait for
+    item 7 (one tensor-parallel engine serves:
+    tests/test_torch_tp_serve.py)."""
     if item != "served":
         with pytest.raises(NotImplementedError, match=item):
             tserve.build_server(tmain.parse(SERVE_ARGS + extra))
@@ -552,10 +554,14 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(argv):
 
 
 # the unported commands, and the unported subcommand of a ported one;
-# `fleet store`, refused until the store tier was ported, now serves
+# `fleet store`, refused until the store tier was ported, now serves, and
+# `plan`, `bench comms` and `tune comms`, refused until multi-GPU serving
+# and the planner were ported, now run
 UNPORTED = {**{cmd: [cmd, "anything"] for cmd in tmain.NOT_PORTED},
             "admin": ["admin", "lint"], "bench": ["bench", "comms"],
-            "tune": ["tune", "comms"], "fleet": ["fleet", "store"]}
+            "tune": ["tune", "comms"], "fleet": ["fleet", "store"],
+            "plan": ["plan", "compute", "--model", "gpt-test",
+                     "--hardware", "cpu-8"]}
 
 
 @pytest.mark.parametrize("cmd", sorted(UNPORTED))
@@ -581,6 +587,17 @@ def test_unported_commands_exit_naming_their_item(cmd, capsys, tmp_path):
         # `admin lint` is ported: it exits 0 on the port's clean tree
         assert tmain.main(UNPORTED[cmd]) == 0
         assert "0 unsuppressed" in capsys.readouterr().out
+        return
+    if cmd == "plan":
+        assert tmain.main(["--device", "cpu"] + UNPORTED[cmd]) == 0
+        assert "Parallelism plans: gpt-test on cpu-fakex8" in \
+            capsys.readouterr().out
+        return
+    if cmd in ("bench", "tune"):
+        # ported: on one CPU rank they ask for the ranks a collective
+        # needs (tests/test_torch_comms_bench.py runs them on two)
+        assert tmain.main(["--device", "cpu"] + UNPORTED[cmd]) == 1
+        assert "need >=2 ranks" in capsys.readouterr().err
         return
     assert tmain.main(UNPORTED[cmd]) == 2
     err = capsys.readouterr().err

@@ -374,8 +374,16 @@ def test_attention_tuner_space_and_collective_refusal():
              if t.validate(dict(zip(space, c)))]
     assert valid == [{"impl": "xla", "block_q": 128, "block_k": 128,
                       "dtype": d} for d in ("bfloat16", "float32")]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tat.AutoTuner(device="cpu").tune_collective(None, "x")
+    # the collective tuner, once item 7's, runs over a mesh: one rank here
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import ParallelConfig
+    from distributed_llm_training_and_inference_system_tpu_torch.parallel \
+        .mesh import build_mesh
+    mesh = build_mesh(ParallelConfig(), torch.device("cpu"))
+    res = tat.AutoTuner(tat.TuningConfig(max_iterations=6, num_trials=1),
+                        device="cpu").tune_collective(mesh, "dp", 0.01)
+    assert res.num_evaluated == 6 and set(res.best_params) == {
+        "pattern", "n_chunks", "dtype"}
     fn, args = t.build(valid[1])
     from distributed_llm_training_and_inference_system_tpu_torch.ops import (
         attention as fa)
@@ -499,10 +507,11 @@ _FLEET_E2E = ["bench", "e2e", "--model", "gpt-test", "--mode", "serve-load",
               "--serve-long-prompt-len", "40"]
 _TWO = ["--serve-replicas", "2"]
 _WAITS = [
-    (["bench", "comms"], "item 7"),
-    (["tune", "comms"], "item 7"),
-    (["tune", "sp"], "item 7"),
-    (["tune", "full"], "item 7"),
+    (["bench", "comms"], "need >=2 ranks"),
+    (["tune", "comms"], "need >=2 ranks"),
+    (["tune", "sp"], "refusing to calibrate SP schemes on the CPU"),
+    (["tune", "full", "--max-iterations", "2", "--trials", "1"],
+     "collective: skipped (single device)"),
     (["admin", "lint"], "lint"),
     (["bench", "e2e", "--serve-replicas", "2"], "served"),
     (["bench", "e2e", "--serve-disagg"] + _TWO, "served"),
@@ -524,12 +533,26 @@ _WAITS = [
 @pytest.mark.parametrize(
     "argv,item", _WAITS,
     ids=[f"argv{i}-item {7 if i < 4 else 9}" for i in range(len(_WAITS))])
-def test_what_waits_for_an_item_exits_2(argv, item, capsys):
+def test_what_waits_for_an_item_exits_2(argv, item, capsys, tmp_path):
     """What waits for a ROADMAP item exits 2 naming it; the fleet options
     of ``bench e2e`` are served: the sweep runs a two-replica fleet (and,
     with ``--serve-long-prompts``, the pipelined prefill A/B; with
     ``--serve-returning``, the store-on/off A/B; with ``--serve-scenario``,
-    the autoscale-on/off cell), the arms' tokens equal."""
+    the autoscale-on/off cell), the arms' tokens equal. ``bench comms`` and
+    ``tune comms|sp|full``, once item 7's, are ported: on one CPU rank the
+    collective commands ask for two ranks (tests/test_torch_comms_bench.py
+    runs them on two), ``tune sp`` refuses the CPU, ``tune full`` tunes
+    the matmul and attention and skips the collective."""
+    if argv[0] in ("bench", "tune") and argv[1] != "e2e":
+        if argv[1] == "full":
+            argv = argv + ["--output-dir", str(tmp_path)]
+            assert tmain.main(["--device", "cpu"] + argv) == 0
+            assert item in capsys.readouterr().out
+            assert (tmp_path / "full_tuning_results.json").is_file()
+            return
+        assert tmain.main(["--device", "cpu"] + argv) == 1
+        assert item in capsys.readouterr().err
+        return
     if item == "lint":
         # graftlint is ported: the port's own tree is clean
         assert tmain.main(["--device", "cpu"] + argv) == 0

@@ -194,10 +194,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     {"artifact": "/nonexistent/artifact"},
 ])
 def test_unported_features_refuse_at_construction(over, torch_params):
-    """Tensor parallelism still refuses, naming its ROADMAP item; int4-awq
-    and artifacts are ported and construct."""
+    """Tensor parallelism constructs only on the ranks of a process group
+    of that size (tests/test_torch_tp_serve.py serves it): outside one it
+    refuses, saying so; int4-awq and artifacts are ported and construct."""
     if "tensor_parallel" in over:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(RuntimeError, match="process group of 2"):
             _torch_engine(torch_params, **over)
         return
     eng = _torch_engine(torch_params, **over)

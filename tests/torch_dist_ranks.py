@@ -254,3 +254,196 @@ def train_rank(model: str, par: dict, params: dict, batches: list,
             CheckpointManager(ckpt_dir, async_save=False).save(
                 full["step"], full, extra={"step": full["step"]})
     return out
+
+
+# -- tensor-parallel serving ---------------------------------------------------------
+
+SERVE = dict(model="gpt-test", max_batch_size=4, max_seq_len=128,
+             prefill_chunk=32, kv_block_size=8, dtype="float32")
+
+
+def _leaf_parts(leaf) -> tuple:
+    return tuple(_np(t) for t in (leaf.tensors() if hasattr(leaf, "tensors")
+                                  else (leaf,)))
+
+
+def serve_rank(tree: dict, cases: dict, shard_kinds=()):
+    """Every tp rank builds, for each case ``{name: (ServeConfig
+    overrides, [(prompts, sampling, "each" | "together"), ...])}``, a
+    gpt-test engine at tensor_parallel = world from ``tree`` (a JAX params
+    tree, numpy: quantized whole, then cut, by
+    ``weights.rank_params_from_jax``); rank 0 generates, the others
+    follow. Returns, on rank 0, {case: {"tokens": [[...], ...] a run,
+    "stats", "report"}}, on the others {case: {"report"}}; with
+    ``shard_kinds`` (quantization kinds) also every leaf's parts under
+    "shards": {kind: {port name: (parts...)}}, and each case's page shape
+    under "pages"."""
+    import torch
+
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import ParallelConfig, ServeConfig, get_model_config
+    from distributed_llm_training_and_inference_system_tpu_torch.parallel\
+        .mesh import build_mesh
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        import InferenceEngine, SamplingParams
+    from distributed_llm_training_and_inference_system_tpu_torch.weights \
+        import rank_params_from_jax
+    import torch.distributed as dist
+    cfg = get_model_config("gpt-test")
+    tp = dist.get_world_size()
+    mesh = build_mesh(ParallelConfig(tensor_parallel=tp), torch.device("cpu"))
+    out = {"shards": {}}
+    for kind in shard_kinds:
+        model = rank_params_from_jax(tree, cfg, mesh, kind, device="cpu")
+        named = {"embed": model.embed, "final_norm": model.final_norm}
+        if model.lm_head is not None:
+            named["lm_head"] = model.lm_head
+        for i, blk in enumerate(model.blocks):
+            named.update({f"blocks.{i}.{n}": leaf
+                          for n, leaf in blk.leaves().items()})
+        out["shards"][kind] = {n: _leaf_parts(v) for n, v in named.items()}
+    for name, (over, runs) in cases.items():
+        kw = dict(SERVE, tensor_parallel=tp, **over)
+        quant = kw.get("quantization", "none")
+        params = rank_params_from_jax(tree, cfg, mesh, quant, device="cpu")
+        eng = InferenceEngine(cfg, ServeConfig(**kw), params=params, seed=0,
+                              device="cpu")
+        res = {"pages": tuple(eng.kv.k_pages.shape if torch.is_tensor(
+            eng.kv.k_pages) else eng.kv.k_pages.values.shape)}
+        if eng.is_follower:
+            eng.follow()
+        else:
+            res["tokens"] = []
+            for prompts, sampling, how in runs:
+                sp = SamplingParams(**sampling)
+                groups = ([[p] for p in prompts] if how == "each"
+                          else [prompts])
+                res["tokens"].append([r.generated_tokens for g in groups
+                                      for r in eng.generate(g, sp)])
+            res["stats"] = eng.stats()
+            eng.stop_followers()
+        res["report"] = eng.launch_report()
+        out[name] = res
+    return out
+
+
+class _Gone(Exception):
+    pass
+
+
+def dead_follower_rank(tree: dict):
+    """tp=world on gpt-test: a request is served; then the follower leaves
+    on receiving the next request's prefill and closes its sockets, as a
+    process that dies does: the leader's generate must raise. Returns, on
+    rank 0, (the first request's tokens, the exception's type name, the
+    seconds to the raise, what ``recover()`` says)."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import ParallelConfig, ServeConfig, get_model_config
+    from distributed_llm_training_and_inference_system_tpu_torch.parallel\
+        .mesh import build_mesh
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        import InferenceEngine, SamplingParams
+    from distributed_llm_training_and_inference_system_tpu_torch.weights \
+        import rank_params_from_jax
+    cfg = get_model_config("gpt-test")
+    tp = dist.get_world_size()
+    mesh = build_mesh(ParallelConfig(tensor_parallel=tp), torch.device("cpu"))
+    eng = InferenceEngine(
+        cfg, ServeConfig(**SERVE, tensor_parallel=tp),
+        params=rank_params_from_jax(tree, cfg, mesh, device="cpu"), seed=0,
+        device="cpu")
+    sp = SamplingParams(temperature=0.0, max_tokens=4)
+    if eng.is_follower:
+        prefills = [0]
+        recv = eng._link.recv
+
+        def counted():
+            d = recv()
+            if d[0] == "_prefill_dense":
+                prefills[0] += 1
+                if prefills[0] == 2:
+                    raise _Gone
+            return d
+        eng._link.recv = counted
+        try:
+            eng.follow()
+        except _Gone:
+            pass
+        dist.destroy_process_group()
+        return None
+    [first] = eng.generate([[5, 17, 99, 3]], sp)
+    t0 = time.monotonic()
+    try:
+        eng.generate([[1, 2, 3, 4, 5]], sp)
+    except Exception as e:              # noqa: BLE001  (reported)
+        return (first.generated_tokens, type(e).__name__,
+                time.monotonic() - t0, eng.recover())
+    return first.generated_tokens, "no error", time.monotonic() - t0, None
+
+
+# -- collective benchmarks and tuning -------------------------------------------------
+
+def comms_bench_rank(size_mb: float):
+    """``bench_all`` over the one axis of a world-rank mesh, then one
+    ``CollectiveTuner`` search (its grid cut to 4 configurations). Returns
+    (rows, the tuning result's dict, the tuner's cache key)."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_llm_training_and_inference_system_tpu_torch.comms \
+        .bench import bench_all
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import ParallelConfig
+    from distributed_llm_training_and_inference_system_tpu_torch.parallel\
+        .mesh import build_mesh
+    from distributed_llm_training_and_inference_system_tpu_torch.plugins\
+        .autotuning import AutoTuner, TuningConfig
+    mesh = build_mesh(ParallelConfig(data_parallel=dist.get_world_size()),
+                      torch.device("cpu"))
+    rows = bench_all(mesh, "dp", size_mb)
+    tuner = AutoTuner(TuningConfig(max_iterations=4, num_trials=2,
+                                   num_warmup=1), device="cpu")
+    res = tuner.tune_collective(mesh, "dp", size_mb)
+    return rows, res.to_dict(), sorted(tuner.cache)
+
+
+def odd_shapes_rank():
+    """gpt-test with a tied head (the embedding's hidden slice a rank, the
+    head's partial logits all-reduced) and an FFN width that tp does not
+    divide (replicated on every rank, as JAX's ``_shrink_to_fit`` leaves
+    it): rank 0 returns the tp engine's greedy tokens and the one-rank
+    engine's on the same weights, with the shapes it holds."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import ServeConfig, get_model_config
+    from distributed_llm_training_and_inference_system_tpu_torch.models \
+        import gpt
+    from distributed_llm_training_and_inference_system_tpu_torch.serve \
+        import InferenceEngine, SamplingParams
+    tp = dist.get_world_size()
+    cfg = dataclasses.replace(get_model_config("gpt-test"),
+                              tie_word_embeddings=True, ffn_size=99)
+    model = gpt.init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    eng = InferenceEngine(cfg, ServeConfig(**SERVE, tensor_parallel=tp),
+                          params=model, seed=0, device="cpu")
+    if eng.is_follower:
+        eng.follow()
+        return None
+    sp = SamplingParams(temperature=0.0, max_tokens=8)
+    prompts = [[5, 17, 99, 3, 42, 7, 23], [1, 2, 3, 4, 5, 6, 7, 8, 9]]
+    got = [r.generated_tokens for r in eng.generate(prompts, sp)]
+    eng.stop_followers()
+    one = InferenceEngine(cfg, ServeConfig(**SERVE), params=model, seed=0,
+                          device="cpu")
+    want = [r.generated_tokens for r in one.generate(prompts, sp)]
+    return got, want, (tuple(eng.params.embed.shape),
+                       tuple(eng.params.blocks[0].gate.shape))
