@@ -114,13 +114,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              CUDA kernels of its norms (one a norm) and its device time
              with norm_impl "xla" and "cuda" (torch.profiler; printed);
 15. serve features — run after 13, on phase 5's weights: llama-8b-gqa at
-             full width and depth, max_seq_len 4096, served with swap
+             full width cut to 8 layers, max_seq_len 4096, served with swap
              preemption, chunked prefill (512) and n-gram speculation (T =
              8) on a pool of 141 pages, and again with the three off; 8
              prompts of 64-3000 tokens with spans that recur, 64 new
              tokens each, 5 greedy and 3 seeded-sampled: at least one
              swap-in, one speculative dispatch and two chunked prefills,
-             no NaN/inf, the paged kernel launched 32 x (decode steps +
+             no NaN/inf, the paged kernel launched 8 x (decode steps +
              suffix prefills + chunks + verify windows), /v1/stats; every
              token of both runs within the near-tie bound 2 x 0.5 of the
              dense forward's best (sampled: over the temperature, Gumbel
@@ -361,16 +361,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
              `llmctl-torch train launch` of gpt-1b at full width cut to 4
              layers, S 2048, micro-batch 2, 3 steps, lr 1e-3, with tp =
              2, with sp = 2 and ring attention, and with fsdp = 2 and
-             ZeRO-1, all launched at once beside (a) and (b)
-             (LocalLauncher: a process a rank): each step's loss and grad
-             norm within 1e-3 relative of one rank of the same config run
-             here meanwhile on the rows the data ranks read, the weights
-             of each launch's checkpoint within 0.2 of one rank's update
-             from one rank's weights after the same steps, each rank's
-             flash and AdamW launches and AdamW leaves as the code
-             implies (the leaves by the global-leaf rule), rank 0's
-             single-device checkpoint written; (d) `admin lint` exits 0
-             (beside (c) too).
+             ZeRO-1, launched at once beside (a) and (b) (LocalLauncher:
+             a process a rank); as each ends, one of gpt-1b with pp = 2
+             under 1F1B and under GPipe (4 microbatches of one row, a
+             global batch of 4) and gpt-moe-1b at full width cut to 4
+             layers with ep = 2 (batch 2) starts: each step's loss and
+             grad norm within 1e-3 relative of one rank of the same model
+             and batch run here meanwhile on the rows the data ranks
+             read, 1F1B's within 1e-3 of GPipe's, the weights of each
+             launch's checkpoint within 0.2 of one rank's update from one
+             rank's weights after the same steps, each rank's flash and AdamW launches
+             and AdamW leaves as the code implies (a stage's layers x its
+             microbatches; the leaves by the global-leaf rule) and its
+             peak max_memory_allocated printed, rank 0's single-device
+             checkpoint written; (d) `admin lint` exits 0 (beside (c)
+             too).
 25. tensor parallel — run last: two ranks share the one card over gloo
              (host-staged collectives): (a) `python -m ...cli serve start
              --model llama-8b-gqa --tensor-parallel 2` (rank 1 its child
@@ -896,10 +901,13 @@ def paged_against_dense(torch, mods, served: dict, steps: int = 16) -> dict:
 
 TRAIN_MICRO_BATCH = 4          # sequences of 2048 per step (accumulation 1)
 
-# (name, B, S, Nq, Nkv, D): gpt-1b at the training path's micro-batch, and
-# llama-8b-gqa for the GQA fold
+# (name, B, S, Nq, Nkv, D): gpt-1b at the training path's micro-batch,
+# llama-8b-gqa for the GQA fold, and phase 24 (c)'s new launch shapes: a
+# pipeline stage's microbatch of one gpt-1b row, an ep rank's gpt-moe-1b
 FLASH_GEOMS = (("gpt-1b", TRAIN_MICRO_BATCH, 2048, 16, 16, 128),
-               ("llama-8b-gqa", 2, 1024, 32, 8, 128))
+               ("llama-8b-gqa", 2, 1024, 32, 8, 128),
+               ("gpt-1b pp microbatch", 1, 2048, 16, 16, 128),
+               ("gpt-moe-1b", 2, 2048, 8, 8, 128))
 # fp32: out/lse absolute, gradients relative to their max; bf16: every
 # output relative to its max (the kernels round p and ds to bf16 where the
 # plain version does, so the rest is summation order), lse of live rows
@@ -1093,8 +1101,10 @@ def flash_against_plain(torch, fa, fac) -> dict:
 
 # -- phase 8: the AdamW kernel against plain ---------------------------------
 
+# gpt-1b's leaves, and two shards of phase 24 (c): a pipeline stage's
+# stacked [L/pp, H, F] and an ep rank's experts [E/ep, H, F] of gpt-moe-1b
 GPT1B_LEAVES = ((2048, 2048), (2048, 5632), (5632, 2048), (50304, 2048),
-                (2048, 50304))
+                (2048, 50304), (2, 2048, 5632), (4, 1024, 2816))
 
 
 def adamw_against_plain(torch, fu, kernel) -> float:
@@ -2326,8 +2336,9 @@ def swap_round_trip(torch, mods, cfg, kind: str, pool=None) -> dict:
 
 def serve_features(torch, mods, kernel, model, cfg, card: str,
                    dense_max_abs_diff: float) -> dict:
-    """Phase 15: llama-8b-gqa at full width and depth from phase 5's
-    weights, served twice through /v1/completions: with swap preemption,
+    """Phase 15: llama-8b-gqa at full width from phase 5's weights, cut
+    to ``FLEET_LAYERS`` layers, served twice through /v1/completions:
+    with swap preemption,
     chunked prefill and n-gram speculation on (a pool that forces
     preemption), and with the three off; every stream held to the dense
     forward within the near-tie bound; swap round trips bit for bit."""
@@ -2643,8 +2654,8 @@ class CallRecorder:
                                "argmax": logits.argmax(-1)})
             return logits
 
-        def route(probs, cfg):
-            d = orig_route(probs, cfg)
+        def route(probs, cfg, share=None):
+            d = orig_route(probs, cfg, share)
             rec.routes.append(d.top_e.clone())
             rec.dropped.append((probs.shape[0], (d.slot < 0).sum()))
             return d
@@ -2748,7 +2759,7 @@ def replay_forwards(torch, mm, model, cfg, kv: dict,
                           torch.zeros_like(weakest))
         return gap.max(), mismatch.sum()
 
-    def forced(probs, cfg_):
+    def forced(probs, cfg_, share=None):
         i = next(calls, None)
         check(i is not None, "the replay made more routing calls than the "
               "engine")
@@ -6338,10 +6349,24 @@ MR_UPDATE_RTOL = 0.2
 # (c): constant from the second step (the schedule's one warmup step
 # gives the first update lr 0, which still fills the moments)
 MR_LR = 1e-3
+# (c)'s pipelines: gpt-1b, 2 stages of 2 layers, 4 microbatches of one
+# row (a global batch of 4, so 1F1B has a steady state)
+MR_PP = ["parallel.pipeline_parallel=2", "parallel.num_microbatches=4",
+         "parallel.global_batch_size=4", "parallel.micro_batch_size=1"]
 MR_RUNS = {"tp2": ["parallel.tensor_parallel=2"],
            "sp2-ring": ["parallel.sequence_parallel=2",
                         "training.attn_impl=ring"],
-           "fsdp2-zero1": ["parallel.fsdp=2", "parallel.zero_stage=1"]}
+           "fsdp2-zero1": ["parallel.fsdp=2", "parallel.zero_stage=1"],
+           "pp2-1f1b": MR_PP + ["parallel.pipeline_schedule=1f1b"],
+           "pp2-gpipe": MR_PP + ["parallel.pipeline_schedule=gpipe"],
+           # gpt-moe-1b at full width (H 1024, 8 experts, top-2), 4 layers,
+           # its experts cut over 2 ranks
+           "ep2": ["model.name=gpt-moe-1b", "parallel.expert_parallel=2"]}
+# twelve ranks and one rank here do not fit the card at once (79 GB were
+# in use when the first tried): a launch of the second wave starts as each
+# of the first exits, and the first's results are checked meanwhile
+MR_WAVES = (("tp2", "sp2-ring", "fsdp2-zero1"),
+            ("pp2-1f1b", "pp2-gpipe", "ep2"))
 MR_BUDGET_S = 90.0
 
 
@@ -6477,29 +6502,48 @@ def mr_attention(torch, card: str) -> dict:
 
 
 def mr_expected_launches(sp: int, steps: int, layers: int,
-                         eligible: int) -> dict:
+                         eligible: int, microbatches: int = 1) -> dict:
     """A rank's training kernels over ``steps`` steps: the forward runs
     again in the backward under the selective remat policy, sp times a
-    layer in a ring; AdamW one launch a step (one fp32 dtype pair) over
-    the leaves whose global leaf the kernel takes."""
-    per_layer = sp
+    layer in a ring, once a layer a microbatch on a pipeline stage
+    (``layers`` is the stage's); AdamW one launch a step (one fp32 dtype
+    pair) over the leaves whose global leaf the kernel takes."""
+    per_layer = sp * microbatches
     return {"flash_fwd": steps * layers * per_layer * 2,
             "flash_bwd_dq": steps * layers * per_layer,
             "flash_bwd_dkv": steps * layers * per_layer,
             "adamw": steps, "adamw_leaves": steps * eligible}
 
 
+def mr_sets(extra: list, section: str) -> dict:
+    """A launch's ``--set section.field=value`` items (ints where they
+    parse)."""
+    out = {}
+    for s_ in extra:
+        key, _, val = s_.partition("=")
+        sec, _, field_ = key.partition(".")
+        if sec == section:
+            out[field_] = int(val) if val.isdigit() else val
+    return out
+
+
 def mr_parallel(mods, extra: list):
     """The ParallelConfig of a launch's ``--set parallel.*`` items."""
-    return mods["schema"].ParallelConfig(
-        **{s.split("=")[0].split(".")[1]: int(s.split("=")[1])
-           for s in extra if s.startswith("parallel.")})
+    return mods["schema"].ParallelConfig(**mr_sets(extra, "parallel"))
 
 
 def mr_data_ranks(mods, extra: list) -> int:
     """A launch's data ranks (dp x fsdp): the stripes of the stream."""
     par = mr_parallel(mods, extra)
     return par.data_parallel * par.fsdp
+
+
+def mr_run_key(mods, extra: list) -> tuple:
+    """(model, global batch, data ranks): the one-rank run a launch is held
+    to (a pipeline's microbatches add up to its whole batch)."""
+    return (mr_sets(extra, "model").get("name", "gpt-1b"),
+            mr_sets(extra, "parallel").get("global_batch_size", MR_MICRO),
+            mr_data_ranks(mods, extra))
 
 
 def mr_update_error(torch, state_pt: Path, want: dict, initial: dict):
@@ -6511,10 +6555,10 @@ def mr_update_error(torch, state_pt: Path, want: dict, initial: dict):
     check(set(got) == set(want), f"24 c: {state_pt} holds leaves "
           f"{sorted(set(got) ^ set(want))[:8]} that one rank's do not")
     err = upd = norm = 0.0
-    for k, w in want.items():
-        w = w.detach().float()
-        g = got[k].to(w.device, torch.float32)
-        w0 = initial[k].float()
+    for k, w in want.items():          # a leaf at a time on the card
+        w = w.detach().to("cuda", torch.float32)
+        g = got[k].to("cuda", torch.float32)
+        w0 = initial[k].to("cuda", torch.float32)
         err += float((g - w).square().sum())
         upd += float((w - w0).square().sum())
         norm += float(w0.square().sum())
@@ -6525,10 +6569,12 @@ def mr_train(torch, mods, kernels: dict, tmp: Path, card: str,
              meanwhile=None) -> dict:
     """24 (c): `llmctl-torch train launch` of gpt-1b at full width (4
     layers, S 2048, micro-batch 2, 3 steps): tp = 2, sp = 2 with ring
-    attention, and fsdp = 2 with ZeRO-1, all launched at once
-    (LocalLauncher: two rank processes each, gloo on the one card), held
-    to one rank of the same config run here meanwhile; each rank's kernel
-    launches and AdamW leaves as the code implies; the sharded checkpoint
+    attention, fsdp = 2 with ZeRO-1, and pp = 2 under 1F1B and GPipe (4
+    microbatches of one row); gpt-moe-1b at full width, 4 layers, ep = 2;
+    all launched at once (LocalLauncher: two rank processes each, gloo on
+    the one card), each held to one rank of the same model and batch run
+    here meanwhile; each rank's kernel launches and AdamW leaves as the
+    code implies, and its peak memory printed; the sharded checkpoint
     (rank 0, single-device format). ``meanwhile()`` runs once the
     launches are started."""
     # a constant lr (MR_LR), so that the second update moves the last
@@ -6547,22 +6593,25 @@ def mr_train(torch, mods, kernels: dict, tmp: Path, card: str,
         f'[checkpoint]\nasync_save = false\n')
     procs = {}
     t0 = time.time()
-    for name, extra in MR_RUNS.items():
-        argv = [sys.executable, "-m", f"{PORT}.cli", "train", "launch",
-                "--config", str(config), "--max-steps", str(MR_STEPS)]
-        # --set outranks the launcher's LLMCTL_TRAINING__SEED (config
-        # precedence: file < environment < --set)
-        for s_ in extra + ["training.seed=0",
-                           f"checkpoint.path={tmp / name}"]:
-            argv += ["--set", s_]
-        # a session of its own: a failure kills the launch and its ranks
-        procs[name] = (subprocess.Popen(
-            argv, cwd=ROOT, stdout=open(tmp / f"{name}.out", "w"),
-            stderr=open(tmp / f"{name}.err", "w"), text=True,
-            start_new_session=True))
+
+    def start(names):
+        for name in names:
+            argv = [sys.executable, "-m", f"{PORT}.cli", "train", "launch",
+                    "--config", str(config), "--max-steps", str(MR_STEPS)]
+            # --set outranks the launcher's LLMCTL_TRAINING__SEED (config
+            # precedence: file < environment < --set)
+            for s_ in MR_RUNS[name] + ["training.seed=0",
+                                       f"checkpoint.path={tmp / name}"]:
+                argv += ["--set", s_]
+            # a session of its own: a failure kills the launch and its
+            # ranks
+            procs[name] = (subprocess.Popen(
+                argv, cwd=ROOT, stdout=open(tmp / f"{name}.out", "w"),
+                stderr=open(tmp / f"{name}.err", "w"), text=True,
+                start_new_session=True))
     try:
         return mr_train_rest(torch, mods, kernels, tmp, card, meanwhile,
-                             procs, config, t0)
+                             procs, start, config, t0)
     finally:
         import signal
         for p in procs.values():
@@ -6571,150 +6620,213 @@ def mr_train(torch, mods, kernels: dict, tmp: Path, card: str,
                 p.wait()
 
 
-def mr_train_rest(torch, mods, kernels, tmp, card, meanwhile, procs, config,
-                  t0) -> dict:
-    """24 (c) once its launches are started (see ``mr_train``)."""
+def mr_train_rest(torch, mods, kernels, tmp, card, meanwhile, procs, start,
+                  config, t0) -> dict:
+    """24 (c): the waves of ``MR_WAVES`` (``start(names)`` launches them;
+    see ``mr_train``)."""
     from distributed_llm_training_and_inference_system_tpu_torch.parallel \
         import api as papi
     from distributed_llm_training_and_inference_system_tpu_torch.runtime.\
         train_entry import parse_overrides
     from distributed_llm_training_and_inference_system_tpu_torch.io.data \
         import make_dataset
+    start(MR_WAVES[0])
     if meanwhile is not None:
         meanwhile()
-    # one rank of the same config, here, meanwhile: fed the rows that the
-    # launched ranks read (each data rank reads its stripe of the stream)
-    cfg = mods["load_run_config"](config, cli_overrides=parse_overrides(
-        [f"checkpoint.path={tmp / 'one'}"]), environ={})
-    eng = mods["TrainingEngine"](cfg, device="cuda")
-    ones, weights, initial = {}, {}, None
-    try:
-        for n in sorted({mr_data_ranks(mods, extra)
-                         for extra in MR_RUNS.values()}):
-            stripes = [make_dataset(
-                cfg.data.train, MR_MICRO // n, cfg.data.max_length,
-                cfg.model.vocab_size, seed=cfg.data.seed, host_id=h,
-                num_hosts=n, pack=cfg.data.pack_sequences)
-                for h in range(n)]
-            batches = []
-            for _ in range(MR_STEPS):
-                parts = [next(s_) for s_ in stripes]
-                batches.append(eng._device_batch(
-                    {k: np.concatenate([p_[k] for p_ in parts])
-                     for k in parts[0]}))
-            eng.init_state(seed=cfg.training.seed)
-            if initial is None:     # one seed: the same for every n
-                initial = {k: v.detach().clone() for k, v in
-                           eng.trainer.full_state_dict()["params"].items()}
-            ref, ref_gn = [], []
-            for batch in batches:
-                m = eng.trainer.step(batch)
-                ref.append(float(m["loss"]))
-                ref_gn.append(float(m["grad_norm"]))
-            weights[n] = eng.trainer.full_state_dict()["params"]
-            ones[n] = {"losses": ref, "grad_norms": ref_gn}
-    finally:
-        eng.close()
-        del eng
-        torch.cuda.empty_cache()
-    one_s = time.time() - t0
-    rcs = {}
-    for name, p in procs.items():
+    # one rank of the same model and batch, here, meanwhile: fed the rows
+    # that the launched ranks read (each data rank reads its stripe of the
+    # stream); weights kept on the host
+    keys = sorted({mr_run_key(mods, extra) for extra in MR_RUNS.values()})
+    ones, weights, initial = {}, {}, {}
+    for model, rows in sorted({k[:2] for k in keys}):
+        cfg = mods["load_run_config"](config, cli_overrides=parse_overrides(
+            [f"checkpoint.path={tmp / 'one'}", f"model.name={model}",
+             f"parallel.global_batch_size={rows}",
+             f"parallel.micro_batch_size={rows}"]), environ={})
+        eng = mods["TrainingEngine"](cfg, device="cuda")
         try:
-            rcs[name] = p.wait(timeout=MR_READY_S)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            raise SmokeFailure(f"24 c {name}: train launch did not end in "
-                               f"{MR_READY_S} s")
-    wall = time.time() - t0
-    out = {"one_rank": ones, "one_rank_s": one_s, "wall_s": wall,
-           "runs": {}, "launches": dict.fromkeys(kernels, 0)}
-    for name, extra in MR_RUNS.items():
-        text = (tmp / f"{name}.out").read_text()
-        err = (tmp / f"{name}.err").read_text()
-        check(rcs[name] == 0, f"24 c {name}: train launch exited "
-              f"{rcs[name]}: {(text + err)[-3000:]}")
-        steps = [line for line in text.splitlines() if "| loss " in line]
-        losses = [float(ln.split("| loss ")[1].split()[0]) for ln in steps]
-        norms = [float(ln.split("| grad ")[1].split()[0]) for ln in steps]
-        check(len(losses) == MR_STEPS, f"24 c {name}: {len(losses)} logged "
-              f"steps")
-        one = ones[mr_data_ranks(mods, extra)]
-        ref, ref_gn = one["losses"], one["grad_norms"]
-        manifest = json.loads((tmp / name / "run_manifest.json").read_text())
-        final = manifest["final_metrics"]["loss"]
-        rel = max([abs(a - b) / abs(b) for a, b in zip(losses, ref)]
-                  + [abs(a - b) / abs(b) for a, b in zip(norms, ref_gn)]
-                  + [abs(final - ref[-1]) / abs(ref[-1])])
-        check(rel <= MR_TRAJ_RTOL, f"24 c {name}: losses {losses} and grad "
-              f"norms {norms} (final {final}) against one rank's {ref}, "
-              f"{ref_gn}: {rel:.2e} relative (> {MR_TRAJ_RTOL})")
-        # where the launch's wall goes, from rank 0's log clock
-        stamps = {}
-        for ln in text.splitlines():
-            key = ("mesh" if "backend " in ln else "step1" if "step 1 |" in ln
-                   else "last" if f"step {MR_STEPS} |" in ln
-                   else "done" if "finished:" in ln else None)
-            if key and key not in stamps:
-                stamps[key] = time.mktime(time.strptime(
-                    ln[:19], "%Y-%m-%d %H:%M:%S")) + int(ln[20:23]) / 1e3
-        check(set(stamps) == {"mesh", "step1", "last", "done"},
-              f"24 c {name}: log lines {sorted(stamps)}")
-        spans = {"start": stamps["mesh"] - t0,
-                 "first_step": stamps["step1"] - stamps["mesh"],
-                 "later_steps": stamps["last"] - stamps["step1"],
-                 "save": stamps["done"] - stamps["last"]}
-        mesh_line = [ln for ln in text.splitlines() if "backend " in ln]
-        check(mesh_line and "backend gloo" in mesh_line[0],
-              f"24 c {name}: no gloo backend line: {mesh_line}")
-        reports = [json.loads(ln.split("LLMCTL_TRAIN_LAUNCHES ", 1)[1])
-                   for ln in (text + err).splitlines()
-                   if "LLMCTL_TRAIN_LAUNCHES " in ln]
-        check(sorted(r["rank"] for r in reports) == list(range(MR_RANKS)),
-              f"24 c {name}: launch reports {reports}")
-        par = mr_parallel(mods, extra)
-        from distributed_llm_training_and_inference_system_tpu_torch.\
-            parallel.mesh import mesh_shape_from_config
-        layout = papi.state_layout(cfg.model, mesh_shape_from_config(par),
-                                   par.zero_stage)
-        eligible = sum(layout.kernel.values())
-        want = mr_expected_launches(par.sequence_parallel, MR_STEPS,
-                                    MR_LAYERS, eligible)
-        for r in reports:
-            got = {k: r[k] for k in want}
-            check(got == want, f"24 c {name}: rank {r['rank']} launches "
-                  f"{got} != {want}")
-            for k in out["launches"]:
-                out["launches"][k] += r[k]
-        ck = tmp / name / f"step_{MR_STEPS}"
-        check((ck / "COMMIT").exists(), f"24 c {name}: no checkpoint")
-        upd, moved = mr_update_error(
-            torch, ck / "state.pt", weights[mr_data_ranks(mods, extra)],
-            initial)
-        check(upd <= MR_UPDATE_RTOL, f"24 c {name}: the checkpoint's "
-              f"weights are {upd:.2e} of one rank's update away from one "
-              f"rank's weights (> {MR_UPDATE_RTOL})")
-        out["runs"][name] = {"losses": losses, "grad_norms": norms,
-                             "final_loss": final, "rel": rel,
-                             "update_rel": upd, "moved": moved,
-                             "launches": reports, "spans_s": spans}
-        print(f"24 c train launch gpt-1b ({MR_LAYERS} layers), "
-              f"{' '.join(extra)}: {MR_RANKS} ranks over gloo, losses "
-              f"{['%.4f' % x for x in losses]}, grad norms {norms}, within "
-              f"{rel:.1e} of one rank's {['%.4f' % x for x in ref]}, "
-              f"{['%.3f' % x for x in ref_gn]} (bound {MR_TRAJ_RTOL}); "
-              f"its weights after {MR_STEPS} steps {upd:.2e} of one rank's "
-              f"update from one rank's (bound {MR_UPDATE_RTOL}; the "
-              f"update moved the weights {moved:.2e} of their norm); "
-              f"each rank's launches {want} ({eligible} AdamW leaves by the "
-              f"global-leaf rule); rank 0 wrote the single-device "
-              f"checkpoint; wall (rank 0's log clock): "
-              f"{', '.join(f'{k} {v:.1f} s' for k, v in spans.items())} "
-              f"[{card}]", flush=True)
-    print(f"24 c: the {len(MR_RUNS)} launches at once in {wall:.1f} s; (a), "
-          f"(b), (d) and one rank's runs here meanwhile in {one_s:.1f} s "
-          f"[{card}]", flush=True)
+            for n in sorted(k[2] for k in keys if k[:2] == (model, rows)):
+                stripes = [make_dataset(
+                    cfg.data.train, rows // n, cfg.data.max_length,
+                    cfg.model.vocab_size, seed=cfg.data.seed, host_id=h,
+                    num_hosts=n, pack=cfg.data.pack_sequences)
+                    for h in range(n)]
+                batches = []
+                for _ in range(MR_STEPS):
+                    parts = [next(s_) for s_ in stripes]
+                    batches.append(eng._device_batch(
+                        {k: np.concatenate([p_[k] for p_ in parts])
+                         for k in parts[0]}))
+                eng.init_state(seed=cfg.training.seed)
+                if model not in initial:     # one seed: the same for every n
+                    initial[model] = {
+                        k: v.detach().cpu().clone() for k, v in
+                        eng.trainer.full_state_dict()["params"].items()}
+                ref, ref_gn = [], []
+                for batch in batches:
+                    m = eng.trainer.step(batch)
+                    ref.append(float(m["loss"]))
+                    ref_gn.append(float(m["grad_norm"]))
+                key = (model, rows, n)
+                weights[key] = {k: v.detach().cpu() for k, v in
+                                eng.trainer.full_state_dict()[
+                                    "params"].items()}
+                ones[key] = {"losses": ref, "grad_norms": ref_gn}
+        finally:
+            eng.close()
+            del eng
+            torch.cuda.empty_cache()
+    one_s = time.time() - t0
+    out = {"one_rank": {"/".join(map(str, k)): v for k, v in ones.items()},
+           "one_rank_s": one_s, "runs": {},
+           "launches": dict.fromkeys(kernels, 0)}
+    # each exit of the first wave starts the next of the second; each
+    # launch is checked as it exits, while the others run
+    first, queue = list(MR_WAVES[0]), list(MR_WAVES[1])
+    due = dict.fromkeys(first, time.time() + MR_READY_S)
+    while due:
+        ended = [n for n in due if procs[n].poll() is not None]
+        for name in ended:
+            del due[name]
+            if name in first:
+                first.remove(name)
+                if not first:
+                    out["first_wave_s"] = time.time() - t0
+                if queue:
+                    start([queue[0]])
+                    due[queue.pop(0)] = time.time() + MR_READY_S
+            mr_check_run(torch, mods, kernels, tmp, card, name,
+                         procs[name].returncode, ones, weights, initial,
+                         out, t0)
+        late = [n for n, t in due.items() if time.time() > t]
+        check(not late, f"24 c {late}: train launch did not end in "
+              f"{MR_READY_S} s")
+        if not ended:
+            time.sleep(0.2)
+    wall = out["wall_s"] = time.time() - t0
+    # the two schedules: one gradient in two orders
+    a, b = (out["runs"][n] for n in ("pp2-1f1b", "pp2-gpipe"))
+    rel = max(abs(x - y) / abs(y) for x, y in zip(
+        a["losses"] + a["grad_norms"], b["losses"] + b["grad_norms"]))
+    check(rel <= MR_TRAJ_RTOL, f"24 c: 1F1B's losses and grad norms "
+          f"{a['losses']}, {a['grad_norms']} are {rel:.2e} from GPipe's "
+          f"{b['losses']}, {b['grad_norms']} (> {MR_TRAJ_RTOL})")
+    out["pp_schedules"] = {"rel": rel, "peak_gib": {
+        n: out["runs"][n]["max_memory_allocated_gib"]
+        for n in ("pp2-1f1b", "pp2-gpipe")}}
+    print(f"24 c pipeline: 1F1B within {rel:.1e} of GPipe (bound "
+          f"{MR_TRAJ_RTOL}); peak max_memory_allocated a stage 1F1B "
+          f"{['%.2f GiB' % g for g in a['max_memory_allocated_gib']]}, GPipe "
+          f"{['%.2f GiB' % g for g in b['max_memory_allocated_gib']]} "
+          f"(predicted 1F1B <= GPipe; printed, not gated) [{card}]",
+          flush=True)
+    print(f"24 c: the {len(MR_RUNS)} launches in {len(MR_WAVES)} waves in "
+          f"{wall:.1f} s (the first's ended at {out['first_wave_s']:.1f} s); "
+          f"(a), (b), (d) and the one-rank runs here meanwhile in "
+          f"{one_s:.1f} s [{card}]", flush=True)
     return out
+
+
+def mr_check_run(torch, mods, kernels, tmp, card, name, rc, ones, weights,
+                 initial, out, t0) -> None:
+    """One launch of 24 (c) against its one-rank run: trajectory, log
+    clock, launches a rank, peak memory, checkpoint weights."""
+    from distributed_llm_training_and_inference_system_tpu_torch.parallel \
+        import api as papi
+    extra = MR_RUNS[name]
+    text = (tmp / f"{name}.out").read_text()
+    err = (tmp / f"{name}.err").read_text()
+    check(rc == 0, f"24 c {name}: train launch exited "
+          f"{rc}: {(text + err)[-3000:]}")
+    steps = [line for line in text.splitlines() if "| loss " in line]
+    losses = [float(ln.split("| loss ")[1].split()[0]) for ln in steps]
+    norms = [float(ln.split("| grad ")[1].split()[0]) for ln in steps]
+    check(len(losses) == MR_STEPS, f"24 c {name}: {len(losses)} logged "
+          f"steps")
+    key = mr_run_key(mods, extra)
+    one = ones[key]
+    ref, ref_gn = one["losses"], one["grad_norms"]
+    manifest = json.loads((tmp / name / "run_manifest.json").read_text())
+    final = manifest["final_metrics"]["loss"]
+    rel = max([abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+              + [abs(a - b) / abs(b) for a, b in zip(norms, ref_gn)]
+              + [abs(final - ref[-1]) / abs(ref[-1])])
+    check(rel <= MR_TRAJ_RTOL, f"24 c {name}: losses {losses} and grad "
+          f"norms {norms} (final {final}) against one rank's {ref}, "
+          f"{ref_gn}: {rel:.2e} relative (> {MR_TRAJ_RTOL})")
+    # where the launch's wall goes, from rank 0's log clock
+    stamps = {}
+    for ln in text.splitlines():
+        stamp = ("mesh" if "backend " in ln else "state"
+                 if "state initialised in" in ln else "step1"
+                 if "step 1 |" in ln else "last"
+                 if f"step {MR_STEPS} |" in ln
+                 else "done" if "finished:" in ln else None)
+        if stamp and stamp not in stamps:
+            stamps[stamp] = time.mktime(time.strptime(
+                ln[:19], "%Y-%m-%d %H:%M:%S")) + int(ln[20:23]) / 1e3
+    check(set(stamps) == {"mesh", "state", "step1", "last", "done"},
+          f"24 c {name}: log lines {sorted(stamps)}")
+    spans = {"start": stamps["mesh"] - t0,
+             "init": stamps["state"] - stamps["mesh"],
+             "first_step": stamps["step1"] - stamps["state"],
+             "later_steps": stamps["last"] - stamps["step1"],
+             "save": stamps["done"] - stamps["last"]}
+    mesh_line = [ln for ln in text.splitlines() if "backend " in ln]
+    check(mesh_line and "backend gloo" in mesh_line[0],
+          f"24 c {name}: no gloo backend line: {mesh_line}")
+    reports = [json.loads(ln.split("LLMCTL_TRAIN_LAUNCHES ", 1)[1])
+               for ln in (text + err).splitlines()
+               if "LLMCTL_TRAIN_LAUNCHES " in ln]
+    check(sorted(r["rank"] for r in reports) == list(range(MR_RANKS)),
+          f"24 c {name}: launch reports {reports}")
+    par = mr_parallel(mods, extra)
+    from distributed_llm_training_and_inference_system_tpu_torch.\
+        parallel.mesh import mesh_shape_from_config
+    model_cfg = dataclasses.replace(mods["get_model_config"](key[0]),
+                                    num_layers=MR_LAYERS)
+    layout = papi.state_layout(model_cfg, mesh_shape_from_config(par),
+                               par.zero_stage)
+    eligible = sum(layout.kernel.values())
+    pp = par.pipeline_parallel
+    want = mr_expected_launches(par.sequence_parallel, MR_STEPS,
+                                MR_LAYERS // pp, eligible,
+                                par.num_microbatches if pp > 1 else 1)
+    for r in reports:
+        got = {k: r[k] for k in want}
+        check(got == want, f"24 c {name}: rank {r['rank']} launches "
+              f"{got} != {want}")
+        for k in out["launches"]:
+            out["launches"][k] += r[k]
+    peaks = [r["max_memory_allocated"] / 2 ** 30 for r in
+             sorted(reports, key=lambda r: r["rank"])]
+    ck = tmp / name / f"step_{MR_STEPS}"
+    check((ck / "COMMIT").exists(), f"24 c {name}: no checkpoint")
+    upd, moved = mr_update_error(
+        torch, ck / "state.pt", weights[key], initial[key[0]])
+    check(upd <= MR_UPDATE_RTOL, f"24 c {name}: the checkpoint's "
+          f"weights are {upd:.2e} of one rank's update away from one "
+          f"rank's weights (> {MR_UPDATE_RTOL})")
+    out["runs"][name] = {"losses": losses, "grad_norms": norms,
+                         "final_loss": final, "rel": rel,
+                         "update_rel": upd, "moved": moved,
+                         "launches": reports, "spans_s": spans,
+                         "max_memory_allocated_gib": peaks}
+    print(f"24 c train launch {key[0]} ({MR_LAYERS} layers, batch "
+          f"{key[1]}), {' '.join(extra)}: {MR_RANKS} ranks over gloo "
+          f"(host-staged), peak max_memory_allocated a rank "
+          f"{['%.2f GiB' % g for g in peaks]}, losses "
+          f"{['%.4f' % x for x in losses]}, grad norms {norms}, within "
+          f"{rel:.1e} of one rank's {['%.4f' % x for x in ref]}, "
+          f"{['%.3f' % x for x in ref_gn]} (bound {MR_TRAJ_RTOL}); "
+          f"its weights after {MR_STEPS} steps {upd:.2e} of one rank's "
+          f"update from one rank's (bound {MR_UPDATE_RTOL}; the "
+          f"update moved the weights {moved:.2e} of their norm); "
+          f"each rank's launches {want} ({eligible} AdamW leaves by the "
+          f"global-leaf rule); rank 0 wrote the single-device "
+          f"checkpoint; wall (rank 0's log clock): "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in spans.items())} "
+          f"[{card}]", flush=True)
 
 
 def multi_rank_phase(torch, mods, cm, kernels: dict, card: str) -> dict:
@@ -7381,7 +7493,8 @@ def main() -> int:
               "and n-gram speculation", t0)
         t15 = time.time()
         features = serve_features(torch, mods, paged_attention_kernel,
-                                  bf16_model, llama_cfg, smi,
+                                  *cut_depth(bf16_model, llama_cfg,
+                                             FLEET_LAYERS), smi,
                                   dense["max_abs_diff"])
         features["seconds"] = time.time() - t15
         print(f"phase 15 took {features['seconds']:.1f} s", flush=True)
@@ -7539,7 +7652,8 @@ def main() -> int:
                 box["stores"].stop()
 
         phase("24 multi-rank on one card: ring and Ulysses attention over "
-              "two ranks, train launch with tp=2 and sp=2, admin lint", t0)
+              "two ranks, train launch with tp=2, sp=2, fsdp=2, pp=2 "
+              "(1F1B, GPipe) and ep=2, admin lint", t0)
         multi = multi_rank_phase(torch, mods, cli_mods, train_kernels, smi)
 
         phase("25 tensor-parallel serving on two ranks of the card "

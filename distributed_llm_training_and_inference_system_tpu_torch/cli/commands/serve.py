@@ -323,9 +323,12 @@ def start_ranks(args, device):
 
 
 def report_launches(engine) -> None:
-    """``LLMCTL_SERVE_LAUNCHES {json}`` on stderr: this rank's launches."""
-    print("LLMCTL_SERVE_LAUNCHES " + json.dumps(engine.launch_report()),
-          file=sys.stderr, flush=True)
+    """``LLMCTL_SERVE_LAUNCHES {json}`` on stderr: this rank's launches.
+    One write of the whole line: the ranks share the stream, and print's
+    separate write of the newline let another rank's line in between."""
+    sys.stderr.write("LLMCTL_SERVE_LAUNCHES "
+                     + json.dumps(engine.launch_report()) + "\n")
+    sys.stderr.flush()
 
 
 def serve_config(args, device):

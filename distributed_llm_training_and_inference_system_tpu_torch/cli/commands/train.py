@@ -84,7 +84,7 @@ def _ranks(args) -> int:
     from ...runtime.train_entry import parse_overrides
     cfg = load_run_config(args.config_file,
                           cli_overrides=parse_overrides(args.overrides))
-    cfg.parallel.require_supported()
+    cfg.parallel.require_supported(cfg.model)
     return cfg.parallel.total_devices
 
 

@@ -14,12 +14,9 @@ value (``--nodes > 1``, ``--chips-per-node > 1``, a cluster launcher)
 raises naming ROADMAP queue 1 item 7b.
 
 Each command's module is imported only when it runs, so ``--help`` stays
-fast. The command ``plan`` (it needs the planner of ROADMAP queue 1 item
-7) is not ported yet: it exits 2 with a message naming its ROADMAP item,
-as do the parts of ported commands that wait for one (``admin lint``,
-``bench comms``, ``tune comms|sp|full``, ``fleet store|ship-weights`` and
-the fleet KV store and autoscaler options of ``serve start`` and ``bench
-e2e``).
+fast. Every command of the JAX CLI is ported; what still waits for a
+ROADMAP item (the multi-host options above, cluster launchers) exits 2
+with a message naming it.
 """
 
 from __future__ import annotations
@@ -51,9 +48,6 @@ COMMANDS = {
     "plan": ("plan", "Parallelism planning."),
 }
 
-# command -> the ROADMAP item it waits for
-NOT_PORTED: dict[str, str] = {}
-
 MULTI_HOST = "ROADMAP queue 1 item 7b"
 
 
@@ -65,9 +59,6 @@ def _epilog() -> str:
     lines = ["commands:"]
     lines += [f"  {name:<8} {summary}"
               for name, (_, summary) in COMMANDS.items()]
-    if NOT_PORTED:
-        lines.append("not ported yet:")
-        lines += [f"  {name:<8} {item}" for name, item in NOT_PORTED.items()]
     return "\n".join(lines)
 
 
@@ -126,15 +117,11 @@ def parse(argv: list[str]) -> argparse.Namespace:
     """The namespace of one command line: the command's own options, with
     the global options under ``.root`` and the command under
     ``.command``. Raises NotImplementedError (naming the ROADMAP item) for
-    what is not ported: a command, a multi-host global option, a fleet
-    option of ``serve start``."""
+    what is not ported: a multi-host global option, an option a command's
+    ``refuse_unknown`` names."""
     root = root_parser().parse_args(argv)
     if root.command is None:
         raise CommandError("no command given (see --help)")
-    if root.command in NOT_PORTED:
-        raise NotImplementedError(
-            f"command {root.command!r} is not ported to the PyTorch package "
-            f"yet ({NOT_PORTED[root.command]})")
     if root.command not in COMMANDS:
         raise CommandError(f"no such command {root.command!r} (see --help)")
     _check_single_host(root)

@@ -12,6 +12,7 @@ the pattern they run:
     all_gather          <- all_gather           (FSDP parameter gather)
     reduce_scatter      <- reduce_scatter       (FSDP gradient shard)
     ring_shift          <- batched isend/irecv  (ring attention hop)
+    send_recv           <- batched isend/irecv  (pipeline stage hop)
     all_to_all          <- all_to_all_single    (Ulysses head scatter)
 
 ``axes`` may name several mesh axes; a tiled result is ordered by the
@@ -36,6 +37,8 @@ gather of a tensor every rank then uses alike), and ``all_to_all``
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -158,6 +161,54 @@ def ring_shift(x: torch.Tensor, axis, *, shift: int = 1,
     return _recv_form(recv, x, mesh)
 
 
+def _member(axis, index: int, mesh) -> int:
+    """The global rank of the member of ``index`` over ``axis``."""
+    for m in mesh.members(axis):
+        if mesh.index_of(m, axis) == index:
+            return m
+    raise ValueError(f"no member of index {index} over {axis}")
+
+
+def send_recv(x, axis, *, to=None, frm=None, shape=None, dtype=None,
+              mesh, device=None):
+    """Send ``x`` (or nothing, None) to the member of index ``to`` over
+    ``axis`` and receive a tensor of ``shape`` and ``dtype`` (or nothing,
+    ``shape`` None) from the member of index ``frm``, on ``device``; the
+    two are posted together as one ``batch_isend_irecv`` and both are done
+    when it returns. Returns the received tensor or None.
+
+    Paired so: under NCCL a rank's p2p calls run in order on one stream
+    and a large send ends only once its receiver has posted the receive,
+    so a send posted alone before a receive can wait on a peer that waits
+    on that receive (a pipeline's activations one way, its cotangents the
+    other). Two ranks whose hops are posted as pairs, and whose k-th
+    message between them is the same on both sides, never block each
+    other (``parallel.pipeline``'s orders, held by a test)."""
+    group = mesh.group(axis)
+    ops, wire = [], None
+    if x is not None:
+        ops.append(dist.P2POp(dist.isend, _send_form(x.detach(), mesh),
+                              _member(axis, to, mesh), group=group))
+    if shape is not None:
+        if not _staged(mesh):
+            wire = torch.empty(shape, dtype=dtype, device=device)
+        elif dtype in _WIRE_BITS:
+            wire = torch.empty(math.prod(shape) * dtype.itemsize,
+                               dtype=torch.uint8)
+        else:
+            wire = torch.empty(shape, dtype=dtype)
+        ops.append(dist.P2POp(dist.irecv, wire, _member(axis, frm, mesh),
+                              group=group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if wire is not None and _staged(mesh):
+        if dtype in _WIRE_BITS:
+            wire = wire.view(dtype).reshape(shape)
+        wire = wire.to(device)
+    return wire
+
+
 def _all_to_all(x: torch.Tensor, axis, split_dim: int, concat_dim: int,
                 mesh) -> torch.Tensor:
     n = mesh.axis_size(axis)
@@ -245,6 +296,17 @@ class _Gather(torch.autograd.Function):
             n, i = mesh.axis_size(axis), mesh.axis_index(axis)
             out = g.chunk(n, dim)[i].contiguous()
         return out, None, None, None, None
+
+
+def gather_tokens(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every data and sequence rank's tokens ``x`` [B_local, S_local, ...]
+    as the call's global [B, S, ...]: rows over (dp, fsdp), the sequence
+    over sp, in JAX's batch and sequence order. Differentiable: each rank
+    gets its own tokens' gradient, summed over the ranks that used them
+    (the router's probabilities of the MoE dispatch over the global
+    tokens)."""
+    x = gather(x, "sp", 1, "reduce_scatter", mesh)
+    return gather(x, ("dp", "fsdp"), 0, "reduce_scatter", mesh)
 
 
 def copy_to(x: torch.Tensor, axis, mesh) -> torch.Tensor:

@@ -68,7 +68,7 @@ class MoEConfig:
     """Mixture-of-experts settings (``models.layers.moe_block``): E experts,
     K of them a token, ``capacity_factor`` * K * N / E slots an expert for a
     call over N tokens, and the weight of the load-balancing aux loss.
-    Expert parallelism is not ported (ROADMAP queue 1 item 7b)."""
+    On a mesh the experts' leading E axis is cut over ``ep``."""
     num_experts: int = 0            # 0 = dense model
     experts_per_token: int = 2
     router_aux_loss_weight: float = 0.01
@@ -377,10 +377,10 @@ class OptimizerConfig:
 
 @dataclass
 class ParallelConfig:
-    """Parallelism plan. Data, FSDP, tensor and sequence parallelism and
-    ZeRO run on a mesh of ranks (``parallel/``); pipeline and expert
-    parallelism are refused by ``require_supported`` (the training engine
-    calls it), naming the ROADMAP item that will bring them."""
+    """Parallelism plan. Data, FSDP, tensor, sequence, pipeline and expert
+    parallelism and ZeRO run on a mesh of ranks (``parallel/``);
+    ``require_supported`` (the training engine calls it) refuses the
+    plans the port cannot train yet, naming their ROADMAP item."""
     strategy: str = "auto"          # auto | manual
     data_parallel: int = 1
     fsdp: int = 1
@@ -422,18 +422,22 @@ class ParallelConfig:
                 "zero_stage=3 means fully-sharded parameters, which this "
                 "framework expresses as the fsdp mesh axis: set fsdp>1")
 
-    def require_supported(self) -> None:
-        """Raise for a plan the port cannot train yet: pipeline and expert
-        parallelism (ROADMAP queue 1 item 7b). Data, FSDP, tensor and
-        sequence parallelism and ZeRO stages 1-3 run on a mesh of ranks
-        (``parallel/api.py``)."""
-        over = [f"{f_}={getattr(self, f_)}" for f_ in
-                ("pipeline_parallel", "expert_parallel")
-                if getattr(self, f_) > 1]
-        if over:
+    def require_supported(self, model=None) -> None:
+        """Raise for a plan the port cannot train: a pipeline over a model
+        whose layers it does not divide (JAX's ``L % pp`` assertion; with
+        ``model``), and a pipeline with sequence parallelism (ROADMAP queue
+        1 item 7b, step 9). Data, FSDP, tensor, sequence, pipeline (GPipe
+        and 1F1B, one rank a stage) and expert parallelism and ZeRO stages
+        1-3 run on a mesh of ranks (``parallel/api.py``)."""
+        pp = self.pipeline_parallel
+        if pp > 1 and model is not None and model.num_layers % pp:
+            raise ConfigError(f"layers {model.num_layers} not divisible by "
+                              f"pipeline_parallel {pp}")
+        if pp > 1 and self.sequence_parallel > 1:
             raise NotImplementedError(
-                f"parallel training with {', '.join(over)} is not ported "
-                f"yet (ROADMAP queue 1 item 7b)")
+                f"pipeline_parallel={pp} with sequence_parallel="
+                f"{self.sequence_parallel} is not ported yet (ROADMAP queue "
+                f"1 item 7b, step 9)")
 
     @property
     def total_devices(self) -> int:

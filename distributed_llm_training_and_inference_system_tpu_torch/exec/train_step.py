@@ -14,10 +14,12 @@ the step waits for the host; the metrics are device tensors.
 The sharded step is the same step on one rank's shards
 (``parallel/api.py`` ``ShardedTrainer`` builds it): the forward of
 ``models/gpt.forward_sharded``, the loss as the global token-weighted mean
-(each rank's sum over the global count), every gradient summed over the
-data and sequence axes its leaf is not cut over, the clip norm summing
-each distinct shard's squares once, and the AdamW update (the fused kernel
-on this rank's shard) on the ZeRO slice each rank owns, gathered back.
+(each rank's sum over the global count; for MoE plus the aux), every
+gradient summed over the data, sequence and pipeline axes its leaf is not
+cut over, the clip norm summing each distinct shard's squares once, and
+the AdamW update (the fused kernel on this rank's shard) on the ZeRO
+slice each rank owns, gathered back. A pipeline (``parallel/pipeline.py``)
+gives the step its own gradient function.
 """
 
 from __future__ import annotations
@@ -219,11 +221,8 @@ def _local_inputs(batch: dict, mesh):
             part(weights))
 
 
-def _forward_loss(state, layout, batch, model_cfg, mesh, attn_impl, remat):
-    """(this rank's sum of token losses, its token count): the LM head and
-    cross-entropy chunked over the sequence, as the single-card step."""
-    from ..models.gpt import forward_sharded
-    tokens, positions, segs, targets, weights = _local_inputs(batch, mesh)
+def stage_params(state, layout) -> tuple[dict, dict]:
+    """(stacked, top) of ``forward_sharded`` from this rank's shards."""
     stacked, top = {}, {}
     for path, t in state.params.items():
         spec = layout.p_specs[path]
@@ -231,26 +230,45 @@ def _forward_loss(state, layout, batch, model_cfg, mesh, attn_impl, remat):
             stacked[layout.names[path]] = (t, spec[1:])
         else:
             top[layout.names[path]] = (t, spec)
-    hidden, head = forward_sharded(
+    return stacked, top
+
+
+def _forward_loss(state, layout, batch, model_cfg, mesh, attn_impl, remat):
+    """(this rank's sum of token losses, its token count, the MoE aux
+    loss summed over the layers or None): the LM head and cross-entropy
+    chunked over the sequence, as the single-card step."""
+    from ..models.gpt import forward_sharded
+    tokens, positions, segs, targets, weights = _local_inputs(batch, mesh)
+    stacked, top = stage_params(state, layout)
+    hidden, head, aux = forward_sharded(
         stacked, top, tokens, model_cfg, mesh, positions=positions,
         segment_ids=segs, attn_impl=attn_impl, remat=remat)
-    return chunked_target_loss(hidden, head, targets, weights,
-                               tied=model_cfg.tie_word_embeddings)
+    total, count = chunked_target_loss(hidden, head, targets, weights,
+                                       tied=model_cfg.tie_word_embeddings)
+    return total, count, aux
 
 
-def _sum_grads_over_data(grads: dict, layout, mesh) -> None:
-    """Sum each gradient over the data/sequence axes its leaf is not cut
-    over, one all-reduce of a flat buffer per axis set."""
-    from ..comms.collectives import allreduce_sum
+def grad_sum_axes(layout, mesh) -> dict:
+    """{axes: paths}: each leaf's gradient is summed over the data and
+    sequence axes and the pipeline axis that it is not cut over (a
+    replicated top leaf's over pp: the embedding's from the first stage
+    and, tied, the last; the final norm's and head's from the last)."""
     from ..parallel.sharding import spec_axes
     buckets: dict = {}
     for path in layout.paths:
-        axes = tuple(a for a in DATA_AXES
+        axes = tuple(a for a in ("pp",) + DATA_AXES
                      if a not in spec_axes(layout.p_specs[path])
                      and mesh.shape[a] > 1)
         if axes:
             buckets.setdefault(axes, []).append(path)
-    for axes, paths in buckets.items():
+    return buckets
+
+
+def _sum_grads_over_data(grads: dict, layout, mesh) -> None:
+    """Sum each gradient over ``grad_sum_axes``, one all-reduce of a flat
+    buffer per axis set."""
+    from ..comms.collectives import allreduce_sum
+    for axes, paths in grad_sum_axes(layout, mesh).items():
         flat = torch.cat([grads[p].reshape(-1) for p in paths])
         flat = allreduce_sum(flat, axes, mesh)
         for p, part in zip(paths, flat.split([grads[p].numel()
@@ -318,23 +336,24 @@ def _zero_update(state, grads, layout, mesh, opt_cfg, schedule,
                                             mesh=mesh))
 
 
-def make_sharded_train_step(model_cfg, opt_cfg, par_cfg, mesh, layout,
-                            attn_impl: str = "xla"):
-    """Build (train_step, schedule) for one rank of ``mesh``.
-
-    ``train_step(state, batch) -> (state, metrics)`` takes this rank's
-    rows (its dp x fsdp index), whole sequences: ``batch["tokens"]`` is
-    [accum * mb_local, S]. The loss is the global token-weighted mean of
-    each micro-batch and the gradients their average, as the
-    single-device step; the metrics are the global ones on every rank."""
+def make_data_grad_fn(model_cfg, opt_cfg, par_cfg, mesh, layout,
+                      attn_impl: str = "xla"):
+    """``grad_fn(state, batch) -> (loss, aux, grads)`` of the step without
+    a pipeline: this rank's rows (its dp x fsdp index), whole sequences,
+    ``batch["tokens"]`` [accum * mb_local, S]. The objective of each
+    micro-batch is the global token-weighted mean (this rank's sum over
+    the global count) plus, for MoE, the aux over the data ranks that
+    each compute it whole; the gradients are their average, this rank's
+    share before the sums over the data axes. ``loss`` is the global
+    mean and ``aux`` the aux (0 for a dense model)."""
     from ..comms.collectives import allreduce_sum
-    _, schedule = make_optimizer(opt_cfg)
     accum = max(par_cfg.gradient_accumulation_steps, 1)
     remat = par_cfg.activation_checkpoint
     acc_dtype = getattr(torch, opt_cfg.accum_dtype)
     data_seq = tuple(a for a in DATA_AXES if mesh.shape[a] > 1)
+    n_data = mesh.axis_size(data_seq)
 
-    def train_step(state: ShardedTrainState, batch: dict):
+    def grad_fn(state: ShardedTrainState, batch: dict):
         n = batch["tokens"].shape[0]
         if n % accum:
             raise ValueError(f"batch of {n} rows does not split into "
@@ -342,14 +361,19 @@ def make_sharded_train_step(model_cfg, opt_cfg, par_cfg, mesh, layout,
         mb = n // accum
         params = [state.params[p] for p in layout.paths]
         acc = None
-        loss_sum = count_sum = 0.0
+        loss_sum = count_sum = aux_sum = 0.0
         for i in range(accum):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            total, count = _forward_loss(state, layout, part, model_cfg,
-                                         mesh, attn_impl, remat)
+            total, count, aux = _forward_loss(state, layout, part,
+                                              model_cfg, mesh, attn_impl,
+                                              remat)
             g_count = torch.clamp(allreduce_sum(count.detach(), data_seq,
                                                 mesh), min=1.0)
-            grads = torch.autograd.grad(total / g_count, params)
+            objective = total / g_count
+            if aux is not None:
+                objective = objective + aux / n_data
+                aux_sum = aux_sum + aux.detach()
+            grads = torch.autograd.grad(objective, params)
             loss = allreduce_sum(total.detach(), data_seq, mesh) / g_count
             if accum == 1:
                 acc = list(grads)
@@ -365,7 +389,36 @@ def make_sharded_train_step(model_cfg, opt_cfg, par_cfg, mesh, layout,
         grads = dict(zip(layout.paths, (a.float() / accum if accum > 1
                                         else a for a in acc)))
         loss = loss_sum / count_sum if accum > 1 else loss
+        return loss, aux_sum / accum, grads
+
+    return grad_fn
+
+
+def make_sharded_train_step(model_cfg, opt_cfg, par_cfg, mesh, layout,
+                            attn_impl: str = "xla", grad_fn=None):
+    """Build (train_step, schedule, gradients) for one rank of ``mesh``.
+
+    ``train_step(state, batch) -> (state, metrics)`` runs ``grad_fn``
+    (default ``make_data_grad_fn``; a pipeline's from
+    ``parallel/pipeline.py``, which then takes the whole step's
+    microbatches: accumulation is 1, as JAX forces it for a custom
+    function), sums the gradients over the axes their leaves are not cut
+    over, clips by the global norm and updates this rank's ZeRO slices.
+    The metrics are the global ones on every rank. ``gradients(state,
+    batch) -> (loss, aux, grads)`` is the step's summed gradient shards,
+    before the clip, without an update."""
+    _, schedule = make_optimizer(opt_cfg)
+    if grad_fn is None:
+        grad_fn = make_data_grad_fn(model_cfg, opt_cfg, par_cfg, mesh,
+                                    layout, attn_impl)
+
+    def gradients(state: ShardedTrainState, batch: dict):
+        loss, aux, grads = grad_fn(state, batch)
         _sum_grads_over_data(grads, layout, mesh)
+        return loss, aux, grads
+
+    def train_step(state: ShardedTrainState, batch: dict):
+        loss, _, grads = gradients(state, batch)
         gnorm = _global_grad_norm(grads, layout, mesh)
         if opt_cfg.grad_clip > 0:
             clip_scale = torch.clamp(opt_cfg.grad_clip / (gnorm + 1e-9),
@@ -385,7 +438,7 @@ def make_sharded_train_step(model_cfg, opt_cfg, par_cfg, mesh, layout,
         state.step += 1
         return state, metrics
 
-    return train_step, schedule
+    return train_step, schedule, gradients
 
 
 def make_sharded_eval_step(model_cfg, mesh, layout,
@@ -397,8 +450,8 @@ def make_sharded_eval_step(model_cfg, mesh, layout,
 
     @torch.no_grad()
     def eval_step(state: ShardedTrainState, batch: dict):
-        total, count = _forward_loss(state, layout, batch, model_cfg, mesh,
-                                     attn_impl, "none")
+        total, count, _ = _forward_loss(state, layout, batch, model_cfg,
+                                        mesh, attn_impl, "none")
         count = allreduce_sum(count, data_seq, mesh)
         loss = allreduce_sum(total, data_seq, mesh) / torch.clamp(count,
                                                                  min=1.0)

@@ -36,6 +36,21 @@ import torch
 _COMMIT = "COMMIT"
 
 
+def _save(obj: Any, path: Path) -> None:
+    """``torch.save`` without the CRC-32 of each zip record: ``torch.load``
+    never checks it (a flipped byte loads as it is), and computing it is
+    most of the time a large state takes to write."""
+    try:
+        from torch.utils.serialization import config
+    except ImportError:         # PyTorch before 2.6 always computes it
+        config = None
+    if config is None or not hasattr(config.save, "compute_crc32"):
+        torch.save(obj, path)
+        return
+    with config.patch({"save.compute_crc32": False}):
+        torch.save(obj, path)
+
+
 def _to_host(obj: Any) -> Any:
     """A host copy of every tensor in a nested dict/list structure."""
     if isinstance(obj, torch.Tensor):
@@ -203,7 +218,7 @@ class CheckpointManager:
                 if tmp.exists():
                     shutil.rmtree(tmp)
                 tmp.mkdir(parents=True)
-                torch.save(host, tmp / "state.pt")
+                _save(host, tmp / "state.pt")
                 (tmp / "index.json").write_text(json.dumps(index))
                 if final.exists():
                     shutil.rmtree(final)

@@ -552,14 +552,17 @@ def tp_local_config(cfg, tp: int, ffn_must_divide: bool = True):
 
 def _sharded_block_fn(stacked: dict, layer_idx: int, x, cfg_local, mesh,
                       positions, segment_ids, inv_freq, attn_impl: str):
-    """One pre-norm block on one rank. The layer's leaves are taken from
-    the stacked shards, all-gathered over fsdp and cast to the compute
-    dtype; q/k/v and gate/up are column-parallel (this rank's heads and
-    FFN columns) behind ``copy_to``, o and down row-parallel with their
-    partial sums all-reduced over tp by ``reduce_from``."""
+    """One pre-norm block on one rank: (x, the MoE aux loss or None). The
+    layer's leaves are taken from the stacked shards, all-gathered over
+    fsdp and cast to the compute dtype; q/k/v and gate/up are
+    column-parallel (this rank's heads and FFN columns) behind
+    ``copy_to``, o and down row-parallel with their partial sums
+    all-reduced over tp by ``reduce_from``. An MoE layer keeps its
+    experts cut over ep and tp (``layers.moe_block`` on the mesh)."""
     from ..comms.collectives import copy_to, reduce_from
+    from ..parallel.sharding import spec_axes
     layer = SimpleNamespace(**{
-        name: cast(gather_leaf(t[layer_idx], spec, mesh, keep=("tp",)),
+        name: cast(gather_leaf(t[layer_idx], spec, mesh, keep=("tp", "ep")),
                    x.dtype)
         for name, (t, spec) in stacked.items()})
     h = rms_norm(x, layer.attn_norm, cfg_local.norm_eps)
@@ -568,17 +571,26 @@ def _sharded_block_fn(stacked: dict, layer_idx: int, x, cfg_local, mesh,
                               attn_impl=attn_impl, mesh=mesh)
     x = x + reduce_from(attn, "tp", mesh)
     h = rms_norm(x, layer.mlp_norm, cfg_local.norm_eps)
+    if cfg_local.is_moe:
+        cut = tuple(a for a in ("ep", "tp")
+                    if a in spec_axes(stacked["moe_gate"][1]))
+        ffn, aux = moe_block(h, layer, cfg_local, mesh=mesh, cut=cut)
+        return x + ffn, aux
     return x + reduce_from(mlp_block(copy_to(h, "tp", mesh), layer,
-                                     cfg_local), "tp", mesh)
+                                     cfg_local), "tp", mesh), None
 
 
 def forward_sharded(stacked: dict, top: dict, tokens: torch.Tensor, cfg,
                     mesh, *, positions: torch.Tensor,
                     segment_ids: Optional[torch.Tensor] = None,
-                    attn_impl: str = "xla", remat: str = "none"):
-    """The forward of one rank of a mesh, to the final-normed hidden
-    states, and the LM head whole: (hidden [B_local, S_local, H] in the
-    compute dtype, head weight [V, H] when tied else [H, V], fp32).
+                    attn_impl: str = "xla", remat: str = "none",
+                    x: Optional[torch.Tensor] = None, first: bool = True,
+                    last: bool = True):
+    """The forward of one rank of a mesh: (out, head, aux). ``out`` is the
+    final-normed hidden states [B_local, S_local, H] in the compute dtype
+    and ``head`` the LM head whole (weight [V, H] when tied else [H, V],
+    fp32); ``aux`` the MoE aux loss summed over this rank's layers (None
+    for a dense model).
 
     ``stacked``: {block leaf name: (this rank's shard of the [L, ...]
     stacked leaf, its spec without the layer axis)}; ``top``: the same
@@ -586,34 +598,47 @@ def forward_sharded(stacked: dict, top: dict, tokens: torch.Tensor, cfg,
     S_local] are this rank's rows (its data index) and sequence chunk (its
     sp index), ``positions`` their global positions.
 
+    A pipeline stage (``parallel/pipeline.py``) holds the stacked leaves'
+    layers of its pp index: the first stage (``first``) embeds ``tokens``,
+    a later one takes its input activations ``x``; a stage that is not
+    the ``last`` returns its blocks' output as ``out`` and None for
+    ``head`` (the final norm and the head are the last stage's).
+
     Where the JAX forward anchors GSPMD with ``constrain(x,
     "activations")`` (batch over dp+fsdp, sequence over sp), the
     activations here are this rank's rows and chunk by construction: that
     constraint implies no collective. What GSPMD derives from the
     parameter specs is placed by hand: the embedding and LM head gathered
     whole (FSDP and tp), each block's leaves gathered over fsdp, the tp
-    all-reduces of ``_sharded_block_fn``, and the sequence's attention
-    across sp ranks (``attn_impl`` ring or ulysses)."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "sharded training of an MoE model waits for expert parallelism "
-            "(ROADMAP queue 1 item 7b)")
+    all-reduces of ``_sharded_block_fn``, the MoE dispatch over the global
+    tokens, and the sequence's attention across sp ranks (``attn_impl``
+    ring or ulysses)."""
     dt = compute_dtype(cfg)
     cfg_local = tp_local_config(cfg, mesh.axis_size("tp"))
-    embed = gather_leaf(*top["embed"], mesh)
-    x = cast(embed[tokens], dt)
+    embed = None
+    if first:
+        embed = gather_leaf(*top["embed"], mesh)
+        x = cast(embed[tokens], dt)
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope.base,
                                 cfg.rope.scaling, cfg.rope.scaling_factor,
                                 device=tokens.device)
     block = _remat_wrap(_sharded_block_fn, remat)
-    for i in range(cfg.num_layers):
-        x = block(stacked, i, x, cfg_local, mesh, positions, segment_ids,
-                  inv_freq, attn_impl)
+    aux_total = None
+    for i in range(next(iter(stacked.values()))[0].shape[0]):
+        x, aux = block(stacked, i, x, cfg_local, mesh, positions,
+                       segment_ids, inv_freq, attn_impl)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    if not last:
+        return x, None, aux_total
     h = rms_norm(x, cast(gather_leaf(*top["final_norm"], mesh), x.dtype),
                  cfg.norm_eps)
-    head = embed if cfg.tie_word_embeddings else gather_leaf(
-        *top["lm_head"], mesh)
-    return h, head
+    if cfg.tie_word_embeddings:
+        head = embed if embed is not None else gather_leaf(*top["embed"],
+                                                           mesh)
+    else:
+        head = gather_leaf(*top["lm_head"], mesh)
+    return h, head, aux_total
 
 
 def entry(device=None, norm_impl: str = "xla"):

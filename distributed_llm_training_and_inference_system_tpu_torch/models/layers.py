@@ -240,16 +240,20 @@ def moe_capacity(cfg, n_tokens: int) -> int:
                    / m.num_experts), 1)
 
 
-def moe_dispatch(probs: torch.Tensor, cfg) -> SimpleNamespace:
+def moe_dispatch(probs: torch.Tensor, cfg, share=None) -> SimpleNamespace:
     """Token-choice top-K routing with capacity, sort-based, from the
     router's probabilities ``probs`` [N, E] (fp32): each token's K most
     probable experts (the lower expert id first among equal ones, as
     ``jax.lax.top_k``: a stable descending sort's first K), their weights
-    renormalised to sum to 1, placed by ``moe_assign``."""
+    renormalised to sum to 1, placed by ``moe_assign``. ``share(top_w)``
+    (on a mesh: ``copy_to`` over the ranks that split the experts) takes
+    the weights before they are placed."""
     K = cfg.moe.experts_per_token
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_e = top_p[:, :K], top_e[:, :K]
     top_w = top_p / top_p.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    if share is not None:
+        top_w = share(top_w)
     return moe_assign(top_e, top_w, cfg)
 
 
@@ -298,8 +302,8 @@ def moe_assign(top_e: torch.Tensor, top_w: torch.Tensor,
                            capacity=C, tok=tok, valid=valid, w=w, slot=slot)
 
 
-def moe_block(x: torch.Tensor, layer, cfg) -> tuple[torch.Tensor,
-                                                     torch.Tensor]:
+def moe_block(x: torch.Tensor, layer, cfg, mesh=None,
+              cut: tuple = ()) -> tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-K mixture of experts with GShard capacity and
     sort-based dispatch (the JAX ``moe_block``). Returns (out [B, S, H] in
     x's dtype, the Switch load-balancing aux loss, fp32 scalar).
@@ -311,35 +315,82 @@ def moe_block(x: torch.Tensor, layer, cfg) -> tuple[torch.Tensor,
     are one ``torch.bmm`` each over the [E, C, H] buffers, whose padding
     slots are zeroed first. The combine gathers each token's kept rows
     and adds them to zero in ascending buffer position, the order of the
-    JAX scatter-add, with no atomics: the same bits every run."""
+    JAX scatter-add, with no atomics: the same bits every run.
+
+    On a rank of a mesh (``mesh``; ``x`` its rows and sequence chunk) the
+    dispatch is the one JAX's GSPMD computes over the call's global
+    tokens: the router's probabilities are all-gathered over the data and
+    sequence axes (``gather_tokens``), so every rank sorts the same global
+    token-major choices, with the global capacity, keep mask and aux.
+    ``cut`` names the axes among ep and tp that cut this rank's expert
+    leaves (its E/ep experts, its F/tp columns of gate and up and rows of
+    down). The rank fills its experts' buffers with its own tokens alone
+    (the slots of another data or sequence rank's tokens stay zero), and
+    the partial outputs are summed over ``cut``. The experts' inputs
+    (``x`` and the routing weights, after their top-K normalisation) pass
+    ``copy_to`` over ``cut``, so their gradient is every expert's share
+    summed: a weight's gradient comes from the one rank that holds its
+    expert, so under ep alone that sum adds zeros and the rest of the
+    router's backward runs whole on every rank, as on one. The aux takes
+    the probabilities whole on every rank (the step scales it for the
+    data ranks that sum its gradient)."""
     B, S, H = x.shape
     E = cfg.moe.num_experts
     K = cfg.moe.experts_per_token
-    N = B * S
     dt = x.dtype
-    xt = x.reshape(N, H)
-    logits = xt.float() @ layer.moe_router.float()               # [N, E]
+    xt = x.reshape(B * S, H)
+    logits = xt.float() @ layer.moe_router.float()               # [n, E]
     probs = torch.softmax(logits, dim=-1)
-    d = moe_dispatch(probs, cfg)
-    C = d.capacity
+    if mesh is None:
+        probs_g, share, own = probs, None, None
+    else:
+        from ..comms.collectives import copy_to, gather_tokens
+        probs_g = gather_tokens(probs.reshape(B, S, E), mesh).reshape(-1, E)
+        xt = copy_to(xt, cut, mesh)
 
-    xe = xt[d.tok] * d.valid[..., None].to(dt)                    # [E, C, H]
+        def share(top_w):
+            return copy_to(top_w, cut, mesh)
+        # this rank's tokens in the global token-major order b * S_g + s
+        row0 = mesh.axis_index(("dp", "fsdp")) * B
+        col0 = mesh.axis_index("sp") * S
+        S_g = S * mesh.axis_size("sp")
+        dev = x.device
+        own = ((row0 + torch.arange(B, device=dev))[:, None] * S_g
+               + col0 + torch.arange(S, device=dev)[None, :]).reshape(-1)
+    N = probs_g.shape[0]
+    d = moe_dispatch(probs_g, cfg, share)
+    C = d.capacity
+    E_l = layer.moe_gate.shape[0]
+    e0 = mesh.axis_index("ep") * E_l if "ep" in cut else 0
+
+    tok, valid, w = (t[e0:e0 + E_l] for t in (d.tok, d.valid, d.w))
+    if own is not None:         # a global token -> this rank's row
+        b, c = tok // S_g - row0, tok % S_g - col0
+        valid = valid & (b >= 0) & (b < B) & (c >= 0) & (c < S)
+        tok = (b * S + c).clamp(0, B * S - 1)
+    xe = xt[tok] * valid[..., None].to(dt)                        # [E_l, C, H]
     g = torch.bmm(xe, layer.moe_gate)
     u = torch.bmm(xe, layer.moe_up)
     he = torch.bmm(_activate(g, cfg.activation) * u, layer.moe_down)
-    rows = (he * d.w.to(dt)[..., None]).reshape(E * C, H)
+    rows = (he * w.to(dt)[..., None]).reshape(E_l * C, H)
 
     # each token's kept rows in ascending buffer position (its dropped
-    # choices, -1, add zeros first, which changes no sum)
-    slots = torch.sort(d.slot, dim=-1).values                     # [N, K]
-    out = torch.zeros((N, H), dtype=dt, device=x.device)
+    # choices, -1, and choices of another rank's experts add zeros, which
+    # changes no sum)
+    slot = d.slot if own is None else d.slot[own]
+    slots = torch.sort(slot, dim=-1).values - e0 * C              # [n, K]
+    mine = (slots >= 0) & (slots < E_l * C)
+    out = torch.zeros((B * S, H), dtype=dt, device=x.device)
     for k in range(K):
         s = slots[:, k]
-        got = rows[s.clamp(min=0)]
-        out = out + torch.where((s >= 0)[:, None], got,
+        got = rows[s.clamp(0, E_l * C - 1)]
+        out = out + torch.where(mine[:, k, None], got,
                                 torch.zeros((), dtype=dt, device=x.device))
+    if mesh is not None:
+        from ..comms.collectives import reduce_from
+        out = reduce_from(out, cut, mesh)
 
     f = d.counts.float() / N
-    p = probs.mean(dim=0)
+    p = probs_g.mean(dim=0)
     aux = E * (f * p).sum() * cfg.moe.router_aux_loss_weight
     return out.reshape(B, S, H), aux

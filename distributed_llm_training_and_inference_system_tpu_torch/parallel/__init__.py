@@ -1,7 +1,6 @@
-"""Parallelism on ``torch.distributed``: the mesh of ranks, the sharding
-rules, ZeRO, the sp-scheme planner and ``ShardedTrainer`` (the JAX
-package's ``parallel/``; its pipeline and the rest of its planner wait for
-ROADMAP queue 1 item 7b)."""
+"""Parallelism on ``torch.distributed`` (the JAX package's ``parallel/``):
+the mesh of ranks, the sharding rules, ZeRO, the pipeline (GPipe and
+1F1B, one rank a stage), the planner and ``ShardedTrainer``."""
 
 from .mesh import (AXES, Mesh, build_mesh, choose_backend,  # noqa: F401
                    infer_data_parallel, init_distributed)

@@ -16,20 +16,25 @@ by hand:
   all-reduce; the embedding and LM head gathered whole as their
   ``("fsdp", "tp")`` specs cut them;
 - SP: ring or Ulysses attention over the sequence chunks;
+- EP: each rank computes its E/ep experts for the global dispatch JAX
+  computes over the call's tokens (``models/layers.moe_block``);
+- PP: one rank a stage, GPipe or 1F1B as JAX chooses them (1F1B for a
+  dense model when ``pipeline_schedule`` says so, GPipe for MoE;
+  ``parallel/pipeline.py``);
 - data (dp, fsdp, sp): the loss is the global token-weighted mean and
-  every gradient is summed over the data and sequence ranks its leaf is
-  not cut over; ZeRO-1 updates each rank's slice of a param and gathers
-  the slices back.
+  every gradient is summed over the data and sequence ranks (and the
+  stages) its leaf is not cut over; ZeRO-1 updates each rank's slice of a
+  param and gathers the slices back.
 
 The state is kept in the JAX package's layout: leaves by dotted path,
 block leaves stacked on [L, ...]. ``init_state(seed)`` builds the port's
 init (or takes a JAX-layout param tree: ``params=``) whole and keeps this
 rank's shards. ``full_state_dict``/``load_full_state_dict`` speak the
 single-device checkpoint format (``io.checkpoint.state_to_dict``): every
-rank gathers, rank 0 writes; a restore slices.
+rank gathers (over pp and ep too), rank 0 writes; a restore slices.
 
-The pipeline axis (pp > 1), expert parallelism and optimizers other than
-AdamW wait for ROADMAP queue 1 item 7b.
+Optimizers other than AdamW on a mesh wait for ROADMAP queue 1 item 7b,
+step 7.
 """
 
 from __future__ import annotations
@@ -41,7 +46,8 @@ import numpy as np
 import torch
 
 from ..exec.fused_update import kernel_eligible
-from ..exec.train_step import (ShardedTrainState, make_sharded_eval_step,
+from ..exec.train_step import (ShardedTrainState, grad_sum_axes,
+                               make_sharded_eval_step,
                                make_sharded_train_step)
 from ..exec.optimizer import _NO_DECAY
 from .mesh import batch_axes, build_mesh
@@ -134,18 +140,12 @@ class ShardedTrainer:
 
     def __init__(self, model_cfg, opt_cfg, par_cfg, device,
                  attn_impl: str = "xla"):
-        if par_cfg.pipeline_parallel > 1:
-            raise NotImplementedError(
-                f"pipeline parallelism (pp={par_cfg.pipeline_parallel}) is "
-                f"not ported to the PyTorch package yet ({ITEM_7B})")
-        if par_cfg.expert_parallel > 1 or model_cfg.is_moe:
-            raise NotImplementedError(
-                "sharded training of an MoE model (expert parallelism) is "
-                f"not ported to the PyTorch package yet ({ITEM_7B})")
         if opt_cfg.type not in ("adamw", "adam"):
             raise NotImplementedError(
                 f"sharded training with the {opt_cfg.type} optimizer is not "
-                f"ported to the PyTorch package yet ({ITEM_7B}); AdamW is")
+                f"ported to the PyTorch package yet ({ITEM_7B}, step 7); "
+                f"AdamW is")
+        par_cfg.require_supported(model_cfg)
         if par_cfg.sequence_parallel > 1 and attn_impl not in ("ring",
                                                                "ulysses"):
             raise ValueError(
@@ -158,11 +158,37 @@ class ShardedTrainer:
         self.mesh = build_mesh(par_cfg, device)
         self.layout = state_layout(model_cfg, self.mesh.shape,
                                    par_cfg.zero_stage)
-        self.train_step, _ = make_sharded_train_step(
-            model_cfg, opt_cfg, par_cfg, self.mesh, self.layout, attn_impl)
-        self.eval_step = make_sharded_eval_step(model_cfg, self.mesh,
-                                                self.layout, attn_impl)
+        # the gradient sums' groups, made by every rank in one order
+        for axes in grad_sum_axes(self.layout, self.mesh):
+            self.mesh.group(axes)
+        self.mesh.group(("pp", "dp", "fsdp", "sp"))     # a pipeline's loss
+        grad_fn = None
+        self.schedule = None
+        if par_cfg.pipeline_parallel > 1:
+            from . import pipeline
+            self.schedule = ("1f1b" if par_cfg.pipeline_schedule == "1f1b"
+                             and not model_cfg.is_moe else "gpipe")
+            make = (pipeline.make_pipeline_grad_fn if self.schedule == "1f1b"
+                    else pipeline.make_pipeline_loss_fn)
+            grad_fn = make(model_cfg, par_cfg, self.mesh, self.layout,
+                           attn_impl)
+            self.eval_step = pipeline.make_pipeline_eval_fn(
+                model_cfg, par_cfg, self.mesh, self.layout, attn_impl)
+        else:
+            self.eval_step = make_sharded_eval_step(model_cfg, self.mesh,
+                                                    self.layout, attn_impl)
+        self.train_step, _, self._gradients = make_sharded_train_step(
+            model_cfg, opt_cfg, par_cfg, self.mesh, self.layout, attn_impl,
+            grad_fn=grad_fn)
         self.state: Optional[ShardedTrainState] = None
+
+    def describe(self) -> str:
+        """The mesh, and the pipeline's schedule where there is one."""
+        text = self.mesh.describe()
+        if self.schedule is not None:
+            text += (f"; pipeline {self.schedule}, "
+                     f"{self.par_cfg.num_microbatches} microbatches")
+        return text
 
     # -- state ---------------------------------------------------------------
 
@@ -193,6 +219,11 @@ class ShardedTrainer:
                              for k in params) else flatten_tree(params)
         shards = self._shard({p: _fp32(flat[p]) for p in self.layout.paths},
                              self.layout.p_specs, torch.float32)
+        del params, flat
+        if torch.device(self.device).type == "cuda":
+            # the whole model goes back to the card, not this rank's cache:
+            # ranks that share a card would each keep a copy reserved
+            torch.cuda.empty_cache()
         self.state = self._state_from(shards, step=0)
         return self.state
 
@@ -277,12 +308,20 @@ class ShardedTrainer:
     def shard_batch(self, batch: dict) -> dict:
         """This rank's rows of a global batch ([B, ...] arrays cut over
         dp x fsdp, as JAX's ``batch_specs``); the sequence stays whole
-        (the step cuts its sp chunk)."""
+        (the step cuts its sp chunk). Under a pipeline the batch is
+        [M, B/M, ...] first (``reshape_batch_for_pipeline``) and each
+        microbatch's rows are cut, as JAX's ``pipeline_batch_specs``."""
         n, i = self.data_size, self.data_index
+        dim = 0
+        if self.schedule is not None and batch["tokens"].ndim == 2:
+            from .pipeline import reshape_batch_for_pipeline
+            batch = reshape_batch_for_pipeline(
+                batch, self.par_cfg.num_microbatches)
+            dim = 1
         out = {}
         for k, v in batch.items():
-            rows = v.shape[0] // n
-            out[k] = v[i * rows:(i + 1) * rows]
+            rows = v.shape[dim] // n
+            out[k] = v.narrow(dim, i * rows, rows)
         return out
 
     def step(self, batch: dict) -> dict:
@@ -294,6 +333,15 @@ class ShardedTrainer:
     def evaluate(self, batch: dict) -> dict:
         assert self.state is not None, "call init_state() first"
         return self.eval_step(self.state, batch)
+
+    def gradients(self, batch: dict) -> dict:
+        """The step's gradient on this rank's rows without an update:
+        {"loss", "aux" (the MoE aux, 0 dense), "grads" (this rank's shard
+        of each leaf's gradient, summed over the ranks it is not cut over,
+        before the clip)}."""
+        assert self.state is not None, "call init_state() first"
+        loss, aux, grads = self._gradients(self.state, batch)
+        return {"loss": loss, "aux": aux, "grads": grads}
 
     def local_shapes(self) -> dict:
         """{path: (param shard shape, moment shard shape)} of this rank."""

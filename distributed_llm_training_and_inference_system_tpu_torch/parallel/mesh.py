@@ -8,10 +8,10 @@ order, plus one process group per axis:
 
     axis   meaning                              collective traffic
     ----   -----------------------------------  -------------------
-    pp     pipeline stage                       p2p (ROADMAP item 7b)
+    pp     pipeline stage                       p2p (parallel/pipeline.py)
     dp     pure data parallel                   all-reduce of gradients
     fsdp   data parallel + param/opt sharding   all-gather / reduce-scatter
-    ep     expert parallel (MoE experts)        all-to-all (item 7b)
+    ep     expert parallel (MoE experts)        all-reduce of expert outputs
     sp     sequence/context parallel            ring p2p, all-to-all
     tp     tensor (Megatron) parallel           all-reduce per block
 
@@ -139,8 +139,10 @@ class Mesh:
         self.coords = {a: int(i) for a, i in zip(AXES, where)}
         self._groups: dict[frozenset, object] = {}
         # every group the trainer uses, created here by every rank in the
-        # same order: each axis, the data axes together, all of them
-        for axes in [(a,) for a in AXES] + [("dp", "fsdp"), AXES]:
+        # same order: each axis, the data axes together, the axes an MoE
+        # layer's experts are cut over, all of them
+        for axes in [(a,) for a in AXES] + [("dp", "fsdp"), ("ep", "tp"),
+                                            AXES]:
             self._make_group(axes)
 
     # -- sizes and indices ---------------------------------------------------

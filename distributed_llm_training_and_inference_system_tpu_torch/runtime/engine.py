@@ -14,8 +14,8 @@ init_distributed``; NCCL when each rank has its own card, else gloo: the
 backend is logged), fills in data_parallel from the world size as JAX's
 engine does from its device count, and trains through
 ``parallel.api.ShardedTrainer``. The dataset stripes the global batch by
-the data rank (dp x fsdp): the tp and sp ranks of one data index read the
-same rows. A checkpoint is the single-device format: every rank gathers
+the data rank (dp x fsdp): the tp, sp, pp and ep ranks of one data index
+read the same rows (a pipeline cuts them into its microbatches). A checkpoint is the single-device format: every rank gathers
 the state, rank 0 writes it; a restore slices each rank's shards (from the
 port's checkpoints or the JAX package's). Only rank 0 logs, observes and
 writes the manifest. MFU is taken against
@@ -108,7 +108,7 @@ class TrainingEngine:
         world = int(os.environ.get("WORLD_SIZE", "1"))
         sharded = world > 1 or cfg.parallel.total_devices > 1
         self.backend = None
-        cfg.parallel.require_supported()
+        cfg.parallel.require_supported(cfg.model)
         if sharded:
             if world == 1:
                 raise ValueError(
@@ -136,7 +136,7 @@ class TrainingEngine:
         self.rank = self.trainer.rank
         if sharded and self.rank == 0:
             logger.info("rank %d: %s; attn_impl %s", self.rank,
-                        self.trainer.mesh.describe(), attn_impl)
+                        self.trainer.describe(), attn_impl)
         self.observer = observer or (lambda event, payload: None)
         if self.rank != 0:
             self.observer = lambda event, payload: None
@@ -186,7 +186,11 @@ class TrainingEngine:
 
     def initialize(self, resume: bool = True) -> int:
         """Init or restore state; returns the starting step."""
+        t0 = time.perf_counter()
         self.init_state(seed=self.cfg.training.seed)
+        if self.rank == 0:
+            logger.info("state initialised in %.1f s",
+                        time.perf_counter() - t0)
         self._start_step = 0
         if resume and self.ckpt.latest_step() is not None:
             jax_written = self.ckpt.is_jax()

@@ -9,8 +9,9 @@ evals fed to ``metrics.observability.engine_observer()`` (a scrape endpoint
 when ``LLMCTL_METRICS_PORT`` is set). Launched as one rank of a mesh
 (``runtime/launcher.py`` sets ``RANK``/``WORLD_SIZE``...), it trains that
 rank's shards. On a card each process ends by printing its training
-kernels' launches to stderr (``LLMCTL_TRAIN_LAUNCHES {json}``). Multi-host
-training waits for ROADMAP queue 1 item 7b.
+kernels' launches and its peak ``torch.cuda.max_memory_allocated`` to
+stderr (``LLMCTL_TRAIN_LAUNCHES {json}``). Multi-host training waits for
+ROADMAP queue 1 item 7b, step 6.
 """
 
 from __future__ import annotations
@@ -64,9 +65,13 @@ def main(argv: list[str] | None = None) -> int:
     try:
         final = engine.train(resume=not args.no_resume)
         if engine.device.type == "cuda":
-            print("LLMCTL_TRAIN_LAUNCHES " + json.dumps(
-                dict(kernel_launches(), rank=engine.rank)),
-                file=sys.stderr, flush=True)
+            import torch
+            # one write of the whole line: the ranks share the stream
+            sys.stderr.write("LLMCTL_TRAIN_LAUNCHES " + json.dumps(dict(
+                kernel_launches(), rank=engine.rank,
+                max_memory_allocated=torch.cuda.max_memory_allocated(
+                    engine.device))) + "\n")
+            sys.stderr.flush()
     finally:
         engine.close()
     if engine.rank == 0:

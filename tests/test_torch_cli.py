@@ -553,55 +553,46 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(argv):
             tmain.main(argv)
 
 
-# the unported commands, and the unported subcommand of a ported one;
-# `fleet store`, refused until the store tier was ported, now serves, and
-# `plan`, `bench comms` and `tune comms`, refused until multi-GPU serving
-# and the planner were ported, now run
-UNPORTED = {**{cmd: [cmd, "anything"] for cmd in tmain.NOT_PORTED},
-            "admin": ["admin", "lint"], "bench": ["bench", "comms"],
-            "tune": ["tune", "comms"], "fleet": ["fleet", "store"],
-            "plan": ["plan", "compute", "--model", "gpt-test",
-                     "--hardware", "cpu-8"]}
+# `fleet store`, `admin lint`, `plan`, `bench comms` and `tune comms` were
+# refused until their slices were ported: each now runs from the command
+# line
+
+def test_fleet_store_serves_health_and_stops_at_sigterm(tmp_path):
+    # `python -m ...cli --device cpu fleet store` answers /health and
+    # stops at SIGTERM with exit code 0
+    import sys
+    import time
+
+    from torch_fleet_harness import Proc
+    p = Proc([sys.executable, "-m", PORT_CLI, "--device", "cpu", "fleet",
+              "store", "--port", "0"], tmp_path / "store.log",
+             "LLMCTL_STORE_READY")
+    try:
+        p.wait_ready(time.monotonic() + 60)
+        status, body = _get(f"{p.endpoint}/health")
+        assert status == 200 and json.loads(body)["epoch"] == 0
+    finally:
+        assert p.stop() == 0
 
 
-@pytest.mark.parametrize("cmd", sorted(UNPORTED))
-def test_unported_commands_exit_naming_their_item(cmd, capsys, tmp_path):
-    if cmd == "fleet":
-        # `python -m ...cli --device cpu fleet store` answers /health and
-        # stops at SIGTERM with exit code 0
-        import sys
-        import time
+def test_admin_lint_exits_0_on_the_clean_tree(capsys):
+    assert tmain.main(["admin", "lint"]) == 0
+    assert "0 unsuppressed" in capsys.readouterr().out
 
-        from torch_fleet_harness import Proc
-        p = Proc([sys.executable, "-m", PORT_CLI, "--device", "cpu"]
-                 + UNPORTED[cmd] + ["--port", "0"], tmp_path / "store.log",
-                 "LLMCTL_STORE_READY")
-        try:
-            p.wait_ready(time.monotonic() + 60)
-            status, body = _get(f"{p.endpoint}/health")
-            assert status == 200 and json.loads(body)["epoch"] == 0
-        finally:
-            assert p.stop() == 0
-        return
-    if cmd == "admin":
-        # `admin lint` is ported: it exits 0 on the port's clean tree
-        assert tmain.main(UNPORTED[cmd]) == 0
-        assert "0 unsuppressed" in capsys.readouterr().out
-        return
-    if cmd == "plan":
-        assert tmain.main(["--device", "cpu"] + UNPORTED[cmd]) == 0
-        assert "Parallelism plans: gpt-test on cpu-fakex8" in \
-            capsys.readouterr().out
-        return
-    if cmd in ("bench", "tune"):
-        # ported: on one CPU rank they ask for the ranks a collective
-        # needs (tests/test_torch_comms_bench.py runs them on two)
-        assert tmain.main(["--device", "cpu"] + UNPORTED[cmd]) == 1
-        assert "need >=2 ranks" in capsys.readouterr().err
-        return
-    assert tmain.main(UNPORTED[cmd]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP queue 1 item" in err
+
+def test_plan_compute_prints_the_plans(capsys):
+    assert tmain.main(["--device", "cpu", "plan", "compute", "--model",
+                       "gpt-test", "--hardware", "cpu-8"]) == 0
+    assert "Parallelism plans: gpt-test on cpu-fakex8" in \
+        capsys.readouterr().out
+
+
+@pytest.mark.parametrize("cmd", ["bench", "tune"])
+def test_comms_commands_on_one_rank_ask_for_ranks(cmd, capsys):
+    # on one CPU rank they ask for the ranks a collective needs
+    # (tests/test_torch_comms_bench.py runs them on two)
+    assert tmain.main(["--device", "cpu", cmd, "comms"]) == 1
+    assert "need >=2 ranks" in capsys.readouterr().err
 
 
 def _blocked(argv: list[str]) -> subprocess.CompletedProcess:

@@ -1918,3 +1918,27 @@ def test_trace_capture_names_the_flash_and_adamw_kernels(tmp_path, capsys):
     for name in ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
                  "flash_bwd_dkv_bf16_kernel", "adamw_kernel"):
         assert name in kernels, name
+
+
+@pytest.mark.gpu
+def test_pipeline_schedules_over_nccl_one_card_a_stage():
+    """pp 2 over NCCL, each stage on a card of its own: gpt-1b's width at
+    4 layers, 4 microbatches of 1 x 2048, so each hop moves an 8 MB bf16
+    activation, past NCCL's buffer (a send ends only once its receiver
+    has posted). Both schedules end (a rank gives up on a collective after
+    120 s), on NCCL, with the same loss and the same gradient up to bf16's
+    rounding of 1F1B's sum-loss backward (the sum of squares within 2e-3,
+    the grad norm within phase 24's 1e-3)."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (NCCL takes one a rank)")
+    import torch_dist_ranks as R
+    got = R.Spawned(R.schedules_rank, 2, {"name": "gpt-1b", "num_layers": 4},
+                    dict(pipeline_parallel=2, num_microbatches=4,
+                         activation_checkpoint="none"), 2048,
+                    device="cuda").results()
+    for res in got:
+        assert res["backend"] == "nccl"
+        a, b = res["gpipe"], res["1f1b"]
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-5)
+        assert a["sq"] > 0 and a["sq"] == pytest.approx(b["sq"], rel=2e-3)

@@ -284,7 +284,9 @@ def test_moe_trains_through_train_entry_and_refuses_expert_parallel(
               "--set", f"checkpoint.path={ck}"]
     assert train_entry.main(common + ["--max-steps", "2"]) == 0
     assert CheckpointManager(ck).latest_step() == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    # expert parallelism trains on a mesh of ranks (tests/test_torch_ep.py);
+    # one process alone refuses it and names the launcher that starts them
+    with pytest.raises(ValueError, match="needs 2 ranks.*train launch"):
         train_entry.main(common + ["--max-steps", "1", "--set",
                                    "parallel.expert_parallel=2"])
 

@@ -85,14 +85,33 @@ def test_hardware_is_an_h100_and_run_config_loads():
 
 
 def test_parallel_degrees_above_one_are_refused():
-    # dp, fsdp, tp, sp and ZeRO train on a mesh of ranks; pipeline and
-    # expert parallelism still wait for their item
+    # dp, fsdp, tp, sp, pp, ep and ZeRO train on a mesh of ranks
     torch_schema.ParallelConfig(data_parallel=2, fsdp=2, tensor_parallel=2,
                                 sequence_parallel=2,
                                 zero_stage=1).require_supported()
+    four = dataclasses.replace(torch_cfg("gpt-test"), num_layers=4)
     for degree in ("pipeline_parallel", "expert_parallel"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
-            torch_schema.ParallelConfig(**{degree: 2}).require_supported()
+        torch_schema.ParallelConfig(**{degree: 2}).require_supported(four)
+    # JAX's checks: layers the stages divide, microbatches enough to fill
+    # the pipeline, a known schedule; pp with sp waits for its item
+    with pytest.raises(torch_schema.ConfigError, match="not divisible"):
+        torch_schema.ParallelConfig(pipeline_parallel=3).require_supported(
+            four)
+    with pytest.raises(torch_schema.ConfigError, match="num_microbatches"):
+        torch_schema.ParallelConfig(pipeline_parallel=2).validate()
+    with pytest.raises(torch_schema.ConfigError, match="gpipe|1f1b"):
+        torch_schema.ParallelConfig(pipeline_schedule="zb").validate()
+    with pytest.raises(NotImplementedError, match="queue 1 item 7b, step 9"):
+        torch_schema.ParallelConfig(
+            pipeline_parallel=2, sequence_parallel=2).require_supported(four)
+    # a mesh still trains with AdamW alone (item 7b, step 7)
+    from distributed_llm_training_and_inference_system_tpu_torch.parallel \
+        .api import ShardedTrainer
+    with pytest.raises(NotImplementedError, match="item 7b, step 7"):
+        ShardedTrainer(four, torch_schema.OptimizerConfig(type="lion"),
+                       torch_schema.ParallelConfig(pipeline_parallel=2,
+                                                   num_microbatches=2),
+                       torch.device("cpu"))
     # every optimizer of the JAX package is ported (lion among them)
     init, _ = topt.make_optimizer(torch_schema.OptimizerConfig(type="lion"))
     model = tgpt.GPT(torch_cfg("gpt-test"), device="cpu")

@@ -27,7 +27,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, world, port, fn, args, out_dir):
+def _rank_main(rank, world, port, fn, args, out_dir, device="cpu"):
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
@@ -39,7 +39,7 @@ def _rank_main(rank, world, port, fn, args, out_dir):
     try:
         from distributed_llm_training_and_inference_system_tpu_torch.\
             parallel.mesh import init_distributed
-        init_distributed(torch.device("cpu"), timeout_s=120)
+        init_distributed(torch.device(device), timeout_s=120)
         result = ("ok", fn(*args))
     except BaseException:           # noqa: BLE001  (reported to the test)
         result = ("error", traceback.format_exc())
@@ -50,30 +50,51 @@ def _rank_main(rank, world, port, fn, args, out_dir):
 
 # the ranks fork from one server process that has imported these once
 # (multiprocessing's forkserver), not from the test process, which holds
-# JAX's threads
+# JAX's threads; the last two are what a rank's first autograd backward
+# and first p2p receive import (~3.5 s a rank otherwise)
 _PRELOAD = ["torch", "torch.distributed",
             "distributed_llm_training_and_inference_system_tpu_torch.parallel"
-            ".api", "torch_dist_ranks"]
+            ".api", "torch_dist_ranks", "torch.fx.experimental.symbolic_shapes",
+            "torch.distributed.tensor"]
+
+
+class Spawned:
+    """``world`` gloo ranks running ``fn(*args)`` (``spawn``), started and
+    not yet joined: the test process may work meanwhile. With ``device``
+    "cuda" each rank joins as the port's launcher makes it (NCCL, card
+    ``RANK``, where every rank has a card)."""
+
+    def __init__(self, fn, world: int, *args, device: str = "cpu"):
+        import multiprocessing
+
+        import torch.multiprocessing as mp
+        multiprocessing.set_forkserver_preload(_PRELOAD)
+        self._dir = tempfile.TemporaryDirectory()
+        self.world = world
+        self._ctx = mp.start_processes(
+            _rank_main, args=(world, free_port(), fn, args, self._dir.name,
+                              device),
+            nprocs=world, join=False, start_method="forkserver")
+
+    def results(self) -> list:
+        """Each rank's result, in rank order (waits for the ranks)."""
+        try:
+            while not self._ctx.join():
+                pass
+            results = [pickle.loads((Path(self._dir.name) / f"{r}.pkl")
+                                    .read_bytes()) for r in range(self.world)]
+        finally:
+            self._dir.cleanup()
+        errors = [(r, res[1]) for r, res in enumerate(results)
+                  if res[0] != "ok"]
+        if errors:
+            raise AssertionError("\n".join(f"rank {r}:\n{tb}"
+                                           for r, tb in errors))
+        return [res[1] for res in results]
 
 
 def spawn(fn, world: int, *args) -> list:
-    import multiprocessing
-
-    import torch.multiprocessing as mp
-    multiprocessing.set_forkserver_preload(_PRELOAD)
-    with tempfile.TemporaryDirectory() as out_dir:
-        mp.start_processes(_rank_main,
-                           args=(world, free_port(), fn, args, out_dir),
-                           nprocs=world, join=True,
-                           start_method="forkserver")
-        results = [pickle.loads((Path(out_dir) / f"{r}.pkl").read_bytes())
-                   for r in range(world)]
-    errors = [(r, res[1]) for r, res in enumerate(results)
-              if res[0] != "ok"]
-    if errors:
-        raise AssertionError("\n".join(f"rank {r}:\n{tb}"
-                                       for r, tb in errors))
-    return [res[1] for res in results]
+    return Spawned(fn, world, *args).results()
 
 
 def _np(t):
@@ -205,25 +226,44 @@ def attention_rank(jobs: list, inputs: dict):
 
 # -- sharded training --------------------------------------------------------------
 
-def train_rank(model: str, par: dict, params: dict, batches: list,
+def model_config(model):
+    """The port's config of ``model``: a preset's name, or a dict of its
+    name and fields to replace (``{"name": "gpt-test", "num_layers": 4}``)."""
+    import dataclasses
+
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import get_model_config
+    if isinstance(model, str):
+        return get_model_config(model)
+    over = dict(model)
+    cfg = get_model_config(over.pop("name"))
+    moe = over.pop("moe", None)
+    if moe:
+        over["moe"] = dataclasses.replace(cfg.moe, **moe)
+    return dataclasses.replace(cfg, **over)
+
+
+def train_rank(model, par: dict, params: dict, batches: list,
                attn_impl: str = "xla", opt: dict = None,
-               ckpt_dir: str = None):
-    """``ShardedTrainer`` of ``model`` on the mesh of ``par``
-    (ParallelConfig fields) from ``params`` (a JAX-layout tree by dotted
-    path, numpy): a step on this rank's rows of each global batch. Returns
-    the first batch's eval loss, the losses and grad norms, this rank's
-    shard shapes and specs, its param shards at init and moment shards at
-    the end, and on rank 0 the whole final params (JAX layout). With ``ckpt_dir`` rank 0
-    saves the final state there in the single-device format."""
+               ckpt_dir: str = None, grads: bool = False):
+    """``ShardedTrainer`` of ``model`` (``model_config``) on the mesh of
+    ``par`` (ParallelConfig fields) from ``params`` (a JAX-layout tree by
+    dotted path, numpy): a step on this rank's rows of each global batch.
+    Returns the first batch's eval loss, the losses and grad norms, this
+    rank's shard shapes and specs, its param shards at init and moment
+    shards at the end, and on rank 0 the whole final params (JAX layout).
+    With ``ckpt_dir`` rank 0 saves the final state there in the
+    single-device format; with ``grads`` the first batch's loss, aux and
+    gradient shards (``ShardedTrainer.gradients``) before its step."""
     import torch
 
     from distributed_llm_training_and_inference_system_tpu_torch.config \
-        import OptimizerConfig, ParallelConfig, get_model_config
+        import OptimizerConfig, ParallelConfig
     from distributed_llm_training_and_inference_system_tpu_torch.parallel\
         .api import ShardedTrainer, flatten_tree
     from distributed_llm_training_and_inference_system_tpu_torch.weights \
         import tree_from_named
-    cfg = get_model_config(model)
+    cfg = model_config(model)
     trainer = ShardedTrainer(cfg, OptimizerConfig(**(opt or {"lr": 1e-2})),
                              ParallelConfig(**par), torch.device("cpu"),
                              attn_impl=attn_impl)
@@ -240,6 +280,11 @@ def train_rank(model: str, par: dict, params: dict, batches: list,
         local["tokens"] = local["tokens"].long()
         if i == 0:      # the forward alone, before the first update
             out["eval_loss"] = float(trainer.evaluate(local)["loss"])
+            if grads:
+                g = trainer.gradients(local)
+                out["grads"] = {p: _np(t) for p, t in g["grads"].items()}
+                out["grad_loss"] = float(g["loss"])
+                out["aux"] = float(g["aux"])
         m = trainer.step(local)
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
@@ -254,6 +299,81 @@ def train_rank(model: str, par: dict, params: dict, batches: list,
             CheckpointManager(ckpt_dir, async_save=False).save(
                 full["step"], full, extra={"step": full["step"]})
     return out
+
+
+def saved_bytes_rank(model, par: dict, seq: int):
+    """The most bytes that autograd holds saved for backward at once on
+    this rank (``saved_tensors_hooks``) over one step's gradient of a
+    pipelined ``ShardedTrainer``, fed ``num_microbatches`` rows of
+    ``seq`` ones a data rank."""
+    import torch
+
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import OptimizerConfig, ParallelConfig
+    from distributed_llm_training_and_inference_system_tpu_torch.parallel\
+        .api import ShardedTrainer
+    par = ParallelConfig(**par)
+    trainer = ShardedTrainer(model_config(model), OptimizerConfig(), par,
+                             torch.device("cpu"))
+    trainer.init_state(seed=0)
+    live = [0, 0]               # bytes held now, the most held
+
+    class Held:
+        def __init__(self, t):
+            self.t, self.n = t, t.numel() * t.element_size()
+            live[0] += self.n
+            live[1] = max(live[1], live[0])
+
+        def __del__(self):
+            live[0] -= self.n
+
+    rows = par.num_microbatches * trainer.data_size
+    batch = trainer.shard_batch(
+        {"tokens": torch.ones((rows, seq), dtype=torch.long)})
+    with torch.autograd.graph.saved_tensors_hooks(Held, lambda h: h.t):
+        trainer.gradients(batch)
+    return live[1]
+
+
+def schedules_rank(model, par: dict, seq: int):
+    """The backend and, under each pipeline schedule (GPipe, then 1F1B),
+    the first step's loss and this rank's gradients' sum of squares of a
+    ``ShardedTrainer`` of ``model`` on the mesh of ``par`` on this rank's
+    device (the card it joined with, else the CPU), fed seeded tokens of
+    ``seq``: ``num_microbatches`` rows a data rank."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_llm_training_and_inference_system_tpu_torch.config \
+        import OptimizerConfig, ParallelConfig
+    from distributed_llm_training_and_inference_system_tpu_torch.parallel\
+        .api import ShardedTrainer
+    cfg = model_config(model)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    out = {"backend": dist.get_backend()}
+    for schedule in ("gpipe", "1f1b"):
+        p = ParallelConfig(**par, pipeline_schedule=schedule)
+        trainer = ShardedTrainer(cfg, OptimizerConfig(), p, dev)
+        trainer.init_state(seed=0)
+        rows = p.num_microbatches * trainer.data_size
+        g = torch.Generator().manual_seed(0)
+        tokens = torch.randint(1, cfg.vocab_size, (rows, seq),
+                               generator=g).to(dev)
+        got = trainer.gradients(trainer.shard_batch({"tokens": tokens}))
+        out[schedule] = {
+            "loss": float(got["loss"]),
+            "sq": float(sum(t.double().square().sum()
+                            for t in got["grads"].values()))}
+        del trainer, got
+    return out
+
+
+def jobs_rank(jobs: list):
+    """Each job (a function of this module by name, its arguments) in
+    turn on every rank: the configurations of one world size in one
+    spawn."""
+    return [globals()[fn](*args) for fn, args in jobs]
 
 
 # -- tensor-parallel serving ---------------------------------------------------------
